@@ -1,0 +1,143 @@
+"""Serving API of the port: super-resolve LR batches, quantify uncertainty.
+
+    model = CondSRVAE(CondSRVAEConfig(), device="cuda").init_weights(0)
+    sr = SuperResolver(model)                      # device="cuda" by default
+    x_hat = sr.super_resolve(lr_batch)             # (B, ps, ps, C) in [0, 1]
+    maps = sr.uncertainty(lr_image, samples=1000)  # mean/std/variance maps
+
+Every endpoint takes ``seed=None``: an unseeded call draws its noise from the
+resolver's rolling generator (fresh draws each call), ``seed=N`` from a
+generator of its own seeded with N, so the same input, seed and options
+reproduce the output on the same device, and seeded calls never perturb the
+rolling stream. Inputs are NHWC numpy arrays or tensors; outputs are float32
+tensors on the resolver's device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
+from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
+from simple_vae_rs_tpu_torch.utils.image import normalize_image
+
+Tensor = torch.Tensor
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but no CUDA card is available; "
+            "pass device='cpu' to run the plain CPU path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class SuperResolver:
+    """2x super-resolution and uncertainty service for one CondSRVAE."""
+
+    def __init__(self, model: CondSRVAE, device="cuda", seed: int = 0,
+                 normalize: bool = True) -> None:
+        if not isinstance(model, CondSRVAE):
+            raise TypeError("SuperResolver serves CondSRVAE models")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.normalize = normalize
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(int(seed))
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        if seed is None:
+            return self._rng
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
+    def _input(self, y, normalize: bool) -> Tensor:
+        y = y if isinstance(y, Tensor) else torch.as_tensor(np.asarray(y))
+        y = y.to(self.device, torch.float32)
+        if y.dim() == 3:
+            y = y[None]
+        if y.dim() != 4 or y.shape[-1] != self.model.config.channels:
+            raise ValueError(
+                f"expected (B, h, w, {self.model.config.channels}) LR input, "
+                f"got {tuple(y.shape)}"
+            )
+        if y.shape[1] % 8 or y.shape[2] % 8:
+            raise ValueError(
+                f"LR height and width must be multiples of 8, got {tuple(y.shape)}"
+            )
+        if normalize:
+            y = normalize_image(y)
+        return y.contiguous()
+
+    def _noise(self, batch: int, lr_hw: Tuple[int, int],
+               gen: torch.Generator) -> Tuple[Tensor, Tensor]:
+        shape_u, shape_z = self.model.generation_noise_shapes(batch, lr_hw)
+        eps_u = torch.randn(shape_u, generator=gen, device=self.device)
+        eps_z = torch.randn(shape_z, generator=gen, device=self.device)
+        return eps_u, eps_z
+
+    @torch.no_grad()
+    def super_resolve(self, y, normalize: Optional[bool] = None,
+                      seed: Optional[int] = None) -> Tensor:
+        """LR batch (B, ps/2, ps/2, C) -> one posterior draw (B, ps, ps, C)."""
+        y = self._input(y, self.normalize if normalize is None else normalize)
+        eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), self._generator(seed))
+        return self.model.conditional_generation_eps(y, eps_u, eps_z)
+
+    @torch.no_grad()
+    def super_resolve_moments(self, y, samples: int, normalize: bool = False,
+                              seed: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+        """Per-pixel sum and sum of squares over ``samples`` fresh draws of
+        each LR window: ``(s1, s2)``, each (B, ps, ps, C)."""
+        if samples < 1:
+            raise ValueError(f"samples must be >= 1 (got {samples})")
+        y = self._input(y, normalize)
+        gen = self._generator(seed)
+        s1 = s2 = None
+        for _ in range(samples):
+            eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), gen)
+            out = self.model.conditional_generation_eps(y, eps_u, eps_z)
+            s1 = out if s1 is None else s1 + out
+            s2 = out * out if s2 is None else s2 + out * out
+        return s1, s2
+
+    @torch.no_grad()
+    def uncertainty(self, y, samples: int = 32, chunk: Optional[int] = None,
+                    seed: Optional[int] = None) -> Dict[str, Tensor]:
+        """Posterior SR statistics of one LR image: mean/std/variance maps
+        over ``samples`` draws, decoded in chunks (``tasks.auto_chunk`` when
+        ``chunk`` is None)."""
+        y = self._input(y, self.normalize)[:1]
+        if chunk is None:
+            chunk = auto_chunk(samples, int(y.shape[1]) * 2)
+        draws = sample_chunked(self.model, y, self._generator(seed),
+                               samples=samples, chunk=chunk)
+        return {
+            "mean": draws.mean(dim=0),
+            "std": draws.std(dim=0, correction=0),
+            "variance": draws.var(dim=0, correction=0),
+        }
+
+    def mmse_estimate(self, y, samples: int = 32, chunk: Optional[int] = None,
+                      seed: Optional[int] = None) -> Tensor:
+        """Posterior-mean SR reconstruction (minimum-MSE estimator)."""
+        return self.uncertainty(y, samples=samples, chunk=chunk, seed=seed)["mean"]
+
+
+def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4)) -> None:
+    """Run each endpoint once ahead of traffic (this builds the CUDA kernels
+    on first use)."""
+    y = np.zeros(lr_shape, np.float32)
+    resolver.super_resolve(y, seed=0)
+    resolver.uncertainty(y, samples=2, chunk=2, seed=0)
+    if resolver.device.type == "cuda":
+        torch.cuda.synchronize(resolver.device)

@@ -1,0 +1,60 @@
+"""Weight bridge: the JAX package's flax variables -> a port model, in place.
+
+The flax tree arrives as nested dicts of numpy arrays (what ``jax.device_get``
+returns): ``{"params": {...}, "batch_stats": {...}}``. The port keeps the JAX
+layouts (NHWC activations, HWIO conv kernels, the input-dilated transposed
+conv kernel) and the flax names, so a leaf at path ``a/b/c`` of either
+collection is the port's parameter or buffer ``a.b.c``, with the same shape.
+This is the one place where a layout change would go.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+COLLECTIONS = ("params", "batch_stats")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path + "."))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Copy a flax variables tree into ``model``; every leaf must match a
+    parameter or persistent buffer of the same name and shape, and every
+    parameter and persistent buffer must be given. Raises ``KeyError`` on a
+    missing or extra leaf and ``ValueError`` on a shape mismatch."""
+    extra_cols = set(variables) - set(COLLECTIONS)
+    if extra_cols:
+        raise KeyError(f"unexpected variable collections: {sorted(extra_cols)}")
+    leaves: Dict[str, np.ndarray] = {}
+    for col in COLLECTIONS:
+        for name, arr in _flatten(variables.get(col, {})).items():
+            if name in leaves:
+                raise KeyError(f"leaf {name!r} appears in more than one collection")
+            leaves[name] = arr
+    targets = model.state_dict(keep_vars=True)
+    missing = sorted(set(targets) - set(leaves))
+    extra = sorted(set(leaves) - set(targets))
+    if missing or extra:
+        raise KeyError(f"weight trees differ: missing {missing}, extra {extra}")
+    for name, dst in targets.items():
+        src = leaves[name]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"{name}: shape {tuple(src.shape)} does not match {tuple(dst.shape)}"
+            )
+        with torch.no_grad():
+            dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+    return model
