@@ -1,5 +1,6 @@
-"""Model configuration of the PyTorch port (its own copy of the JAX package's
-``CondSRVAEConfig``, with the same latent-size formula)."""
+"""Configuration of the PyTorch port: its own copies of the JAX package's
+``CondSRVAEConfig`` (the same latent-size formula) and of the fields of
+``TrainConfig`` that a training step reads."""
 
 from __future__ import annotations
 
@@ -71,3 +72,30 @@ class CondSRVAEConfig:
     @property
     def u_spatial(self) -> int:
         return self.patch_size // 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training step's hyper-parameters (JAX ``TrainConfig`` defaults).
+
+    ``use_bfloat16=True`` is not ported yet and raises ``NotImplementedError``;
+    the JAX config's other fields (``remat``, ``bf16_moments``, ``zero1``,
+    ``scan_steps``, ``train_elbo``, the epoch loop's) do not exist here.
+    """
+
+    learning_rate: float = 1e-4
+    grad_clip_norm: float = 1.0
+    seed: int = 0
+    batch_size: int = 16  # tiles per loader batch; a step takes the batch it is given
+    # microbatches per optimizer update: grads and loss terms averaged,
+    # BatchNorm statistics threaded through them in order
+    accum_steps: int = 1
+    use_bfloat16: bool = False
+
+    def __post_init__(self) -> None:
+        if self.use_bfloat16:
+            raise NotImplementedError("use_bfloat16: the port trains in float32 only")
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1 (got {self.accum_steps})")
+        if not self.grad_clip_norm > 0:
+            raise ValueError(f"grad_clip_norm must be > 0 (got {self.grad_clip_norm})")

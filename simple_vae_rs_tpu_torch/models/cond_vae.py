@@ -1,19 +1,22 @@
-"""Conditional super-resolution VAE, eval path (port of the JAX package's
+"""Conditional super-resolution VAE (port of the JAX package's
 ``models/cond_vae.py``).
 
 Six sub-networks, NHWC, with the flax module names:
 
 - ``ey_*``  q(u|y): LR (ps/2) -> 2 DownBlocks + 4 convs -> u grid (mu, logvar);
+- ``dy_*``  p(y|u): u grid -> 2 UpBlocks + 4 convs + sigmoid -> LR;
+- ``ex_*``  q(z|x): HR (ps) -> 3 DownBlocks + 4 convs -> z grid (mu, logvar);
 - ``dx_*``  p(x|z,y): [y-embedding regrouped up, z] -> 3 UpBlocks + 4 convs
   + sigmoid;
 - ``yz_*``  y-embedding: LR -> 3 DownBlocks + 2 convs (ps/16 grid);
 - ``uz_*``, ``pz_*``  conditional prior p(z|u, y), logvar clamped to [-7, 7];
-- ``ex_*``, ``dy_*``  q(z|x) and p(y|u): carried for the weight tree, used by
-  training, which is not ported yet;
 - ``gammax``, ``gammay``: the decoders' learnable stds.
 
-Only serving runs here: :meth:`CondSRVAE.conditional_generation_eps` and the
-pieces :mod:`simple_vae_rs_tpu_torch.tasks` chains for the N-draw decode.
+Training runs :meth:`CondSRVAE.forward` (the reference 8-tuple) in
+``train()`` mode, where BatchNorm uses batch statistics; serving runs
+:meth:`CondSRVAE.conditional_generation_eps` and the pieces
+:mod:`simple_vae_rs_tpu_torch.tasks` chains for the N-draw decode, in
+``eval()`` mode. Noise is always passed in.
 """
 
 from __future__ import annotations
@@ -31,20 +34,24 @@ from simple_vae_rs_tpu_torch.ops.conv_blocks import (
     Conv3x3,
     ConvWeights,
     DownBlock,
+    Routed,
     UpBlock,
 )
 from simple_vae_rs_tpu_torch.ops.reshape import (
     cmajor_regroup_down,
     cmajor_regroup_up,
     depth_to_space,
+    flatten_map,
     space_to_depth,
 )
 
 Tensor = torch.Tensor
 
 
-class CondSRVAE(nn.Module):
-    """Conditional SR-VAE; parameters and buffers carry the flax tree's names."""
+class CondSRVAE(Routed):
+    """Conditional SR-VAE; parameters and buffers carry the flax tree's names.
+    ``plain`` (set by ``use_plain_path``) also routes the training loss's
+    row reductions to their plain versions."""
 
     def __init__(self, config: CondSRVAEConfig, device=None) -> None:
         super().__init__()
@@ -145,6 +152,18 @@ class CondSRVAE(nn.Module):
         c = self.config.u_channels
         return h[..., :c], h[..., c:]
 
+    def encode_x(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        """HR (B, ps, ps, C) -> (mu_z, logvar_z) on the z grid."""
+        h = self.ex_down1(x)
+        h = self.ex_down2(h)
+        h = self.ex_down3(h)
+        h = self.ex_conv1(h)
+        h = self.ex_conv2(h)
+        h = self.ex_conv3(h)
+        h = self.ex_head(h)
+        c = self.config.z_channels
+        return h[..., :c], h[..., c:]
+
     def y_embedding(self, y: Tensor) -> Tensor:
         """Shared conditioning features (B, ps/16, ps/16, latent//16)."""
         h = self.yz_down1(y)
@@ -173,6 +192,39 @@ class CondSRVAE(nn.Module):
         h = self.dx_conv3(h)
         h = self.dx_conv4(h)
         return torch.sigmoid(h)
+
+    def decode_y(self, u_map: Tensor) -> Tensor:
+        """u grid -> LR reconstruction (B, ps/2, ps/2, C) in [0, 1]."""
+        h = self.dy_up1(u_map)
+        h = self.dy_up2(h)
+        h = self.dy_conv1(h)
+        h = self.dy_conv2(h)
+        h = self.dy_conv3(h)
+        h = self.dy_conv4(h)
+        return torch.sigmoid(h)
+
+    def decode_x(self, z_map: Tensor, y: Tensor) -> Tensor:
+        """Parity API: recomputes the y embedding (reference ``cond_vae.py:270``)."""
+        return self.decode_x_from_features(z_map, self.y_embedding(y))
+
+    # ------------------------------------------------------------ training
+    def forward(self, x: Tensor, y: Tensor, eps_u: Tensor, eps_z: Tensor
+                ) -> Tuple[Tensor, ...]:
+        """The reference 8-tuple ``(x_hat, y_hat, mu_z, logvar_z, mu_u,
+        logvar_u, mu_z_uy, logvar_z_uy)``, the mu/logvar entries flattened to
+        (B, dim); ``eps_u``/``eps_z`` are shaped like the u and z grids
+        (:meth:`generation_noise_shapes`)."""
+        mu_u, logvar_u = self.encode_y(y)
+        u = reparameterize(mu_u, logvar_u, eps_u)
+        mu_z, logvar_z = self.encode_x(x)
+        z = reparameterize(mu_z, logvar_z, eps_z)
+        y_feat = self.y_embedding(y)
+        mu_z_uy, logvar_z_uy = self.z_cond(y_feat, u)
+        x_hat = self.decode_x_from_features(z, y_feat)
+        y_hat = self.decode_y(u)
+        return (x_hat, y_hat, flatten_map(mu_z), flatten_map(logvar_z),
+                flatten_map(mu_u), flatten_map(logvar_u),
+                flatten_map(mu_z_uy), flatten_map(logvar_z_uy))
 
     # ------------------------------------------------------------ serving
     def generation_noise_shapes(self, batch: int, lr_hw: Tuple[int, int]):

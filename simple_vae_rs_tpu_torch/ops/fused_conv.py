@@ -13,7 +13,14 @@ NHWC float32 and ``kernel`` in the JAX HWIO layout ``(kh, kw, C, O)``:
 A wrapper given CPU tensors computes its plain version (``*_plain``, plain
 PyTorch on permuted tensors); given CUDA tensors it launches the hand-written
 kernel in ``csrc/fused_conv.cu`` on the current stream or raises. There is no
-fallback between the two. :data:`launches` counts kernel launches per wrapper.
+fallback between the two. :data:`launches` counts kernel launches per wrapper,
+and :data:`role_launches` splits them into forward calls and input gradients.
+
+:func:`fused_conv` is the differentiable form (port of the JAX ``_make_grad``
+VJPs): its backward computes every input gradient with one of the three
+kernels on the flipped, in/out-swapped weight (:func:`input_grad`) and the
+weight gradient with one library call (:func:`weight_grad`; JAX leaves it to
+XLA too).
 
 The CUDA source's header says what bounds each kernel on the card and what
 its implicit-GEMM design does about it; :func:`plan` is the launch geometry
@@ -22,6 +29,7 @@ its implicit-GEMM design does about it; :func:`plan` is the launch geometry
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -38,15 +46,18 @@ _KERNELS = {
     "fused_conv4x4s2_bn_relu": ("svrs_conv4x4s2", 16, 2, 1),
     "fused_convT4x4s2_bn_relu": ("svrs_convT4x4s2", 4, 1, 4),
 }
+ROLES = ("forward", "dx")
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
-# where it launches its kernel and nowhere else.
+# where it launches its kernel and nowhere else, under the role it ran for.
 launches: Dict[str, int] = {name: 0 for name in _KERNELS}
+role_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for name in _KERNELS}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        role_launches[name] = dict.fromkeys(ROLES, 0)
 
 
 # Tile configurations of the CUDA launcher: (BM, BN) per index.
@@ -118,7 +129,7 @@ def _check(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor) -
 
 
 def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
-            relu: bool) -> Tensor:
+            relu: bool, role: str = "forward") -> Tensor:
     _check(name, x, kernel, scale, shift)
     dev = x.device
     for t in (x, kernel, scale, shift):
@@ -147,6 +158,7 @@ def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     launches[name] += 1
+    role_launches[name][role] += 1
     return out
 
 
@@ -168,12 +180,12 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _dispatch(name: str, x, kernel, scale, shift, relu):
+def _dispatch(name: str, x, kernel, scale, shift, relu, role: str = "forward"):
     if x.device.type == "cpu":
         return PLAIN[name](x, kernel, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA card, not {x.device}")
-    return _launch(name, x, kernel, scale, shift, relu)
+    return _launch(name, x, kernel, scale, shift, relu, role)
 
 
 # ------------------------------------------------------------ plain versions
@@ -235,6 +247,117 @@ def fused_convT4x4s2_bn_relu(x: Tensor, kernel: Tensor, scale: Tensor, shift: Te
     """``act(convT4x4/s2/p1(x) * scale + shift)`` with ``kernel`` in the
     input-dilated form (spatially flipped, ``(4, 4, C, O)``); (B, 2H, 2W, O)."""
     return _dispatch("fused_convT4x4s2_bn_relu", x, kernel, scale, shift, relu)
+
+
+WRAPPERS = {
+    "fused_conv3x3_bn_relu": fused_conv3x3_bn_relu,
+    "fused_conv4x4s2_bn_relu": fused_conv4x4s2_bn_relu,
+    "fused_convT4x4s2_bn_relu": fused_convT4x4s2_bn_relu,
+}
+
+
+# ------------------------------------------------------------------ gradients
+# The kernel that computes each conv's input gradient: the 3x3 conv is its
+# own adjoint, and the strided conv and the input-dilated convT are each
+# other's (JAX ``conv4x4s2_dx`` and ``jax.linear_transpose``).
+DX_KERNEL = {
+    "fused_conv3x3_bn_relu": "fused_conv3x3_bn_relu",
+    "fused_conv4x4s2_bn_relu": "fused_convT4x4s2_bn_relu",
+    "fused_convT4x4s2_bn_relu": "fused_conv4x4s2_bn_relu",
+}
+
+
+def flip_swap(kernel: Tensor) -> Tensor:
+    """(k, k, C, O) -> the adjoint's weight ``k'[i, j, o, c] = k[k-1-i, k-1-j, c, o]``
+    (JAX ``_flip_swap``)."""
+    return kernel.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def input_grad(name: str, g_conv: Tensor, kernel: Tensor, in_shape,
+               plain: bool = False) -> Tensor:
+    """Gradient of conv ``name`` with respect to its input ``(B, H, W, C)``,
+    given the gradient ``g_conv`` of its pre-affine output: the
+    :data:`DX_KERNEL` kernel on the flip-swapped weight, scale 1, shift 0,
+    no ReLU (the plain version of that kernel with ``plain``)."""
+    b, h, w, c = in_shape
+    if name == "fused_conv4x4s2_bn_relu" and (h, w) != (2 * g_conv.shape[1], 2 * g_conv.shape[2]):
+        raise ValueError(f"{name}: the input gradient needs an even input, got {tuple(in_shape)}")
+    dx_name = DX_KERNEL[name]
+    args = (g_conv, flip_swap(kernel), g_conv.new_ones(c), g_conv.new_zeros(c), False)
+    if plain:
+        return PLAIN[dx_name](*args)
+    return _dispatch(dx_name, *args, role="dx")
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def weight_grad(name: str, x: Tensor, g_conv: Tensor, kernel: Tensor) -> Tensor:
+    """Gradient of conv ``name`` with respect to its HWIO ``kernel``: one
+    library call (``aten.convolution_backward``, weight only, TF32 off), as
+    the JAX package leaves it to XLA's ``linear_transpose``."""
+    xn, gn = _nchw(x), _nchw(g_conv)
+    mask = [False, True, False]
+    with _no_tf32():
+        if name == "fused_convT4x4s2_bn_relu":
+            # y = conv_transpose2d(x, w_t, stride 2, pad 1), w_t[c, o, i, j] = k[3-i, 3-j, c, o]
+            w_t = kernel.flip(0, 1).permute(2, 3, 0, 1)
+            dw = torch.ops.aten.convolution_backward(
+                gn, xn, w_t, None, [2, 2], [1, 1], [1, 1], True, [0, 0], 1, mask)[1]
+            return dw.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+        stride = 2 if name == "fused_conv4x4s2_bn_relu" else 1
+        dw = torch.ops.aten.convolution_backward(
+            gn, xn, _oihw(kernel), None, [stride, stride], [1, 1], [1, 1], False, [0, 0], 1,
+            mask)[1]
+        return dw.permute(2, 3, 1, 0).contiguous()
+
+
+class _FusedConv(torch.autograd.Function):
+    """``act(conv(x, kernel) * scale + shift)`` with the backward of JAX's
+    ``_make_grad``: the ReLU mask and the pre-affine conv result come from
+    the saved output, so the forward conv is not run again."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, scale, shift, name, relu, plain):
+        fn = PLAIN[name] if plain else WRAPPERS[name]
+        out = fn(x, kernel, scale, shift, relu)
+        ctx.save_for_backward(x, kernel, scale, shift, out)
+        ctx.name, ctx.relu, ctx.plain = name, relu, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, scale, shift, out = ctx.saved_tensors
+        need_x, need_k, need_scale, need_shift = ctx.needs_input_grad[:4]
+        if ctx.relu:
+            g = torch.where(out > 0.0, g, 0.0)
+        dx = dk = dscale = dshift = None
+        if need_scale:
+            inv = torch.where(scale == 0.0, 0.0, 1.0 / scale)
+            dscale = torch.sum(g * ((out - shift) * inv), dim=(0, 1, 2))
+        if need_shift:
+            dshift = torch.sum(g, dim=(0, 1, 2))
+        # the kernels take contiguous tensors; autograd may hand back views
+        g_conv = (g * scale).contiguous()
+        if need_x:
+            dx = input_grad(ctx.name, g_conv, kernel, x.shape, ctx.plain)
+        if need_k:
+            dk = weight_grad(ctx.name, x, g_conv, kernel)
+        return dx, dk, dscale, dshift, None, None, None
+
+
+def fused_conv(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
+               relu: bool, plain: bool = False) -> Tensor:
+    """Differentiable ``act(conv(x, kernel) * scale + shift)`` through kernel
+    ``name`` (its plain version with ``plain``), forward and backward."""
+    return _FusedConv.apply(x, kernel, scale, shift, name, relu, plain)
 
 
 def fold_conv_bn(kernel: Tensor, bias: Optional[Tensor], bn_scale: Tensor, bn_bias: Tensor,

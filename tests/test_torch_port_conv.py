@@ -232,9 +232,26 @@ def test_blocks_eval_match_jax(pallas_on, block, cin, cout, hw):
 
 
 def test_block_training_mode_is_not_ported():
-    blk = tblocks.DownBlock(4, 8)
-    with pytest.raises(NotImplementedError):
-        blk(torch.zeros(1, 4, 4, 4))
+    """Training mode does not take the eval path: a block in ``train()``
+    normalises with its batch statistics and updates its running ones, as
+    the JAX block with ``train=True`` does, where the eval fold reads them."""
+    x = np.random.default_rng(21).standard_normal((3, 8, 8, 4)).astype(np.float32)
+    for block in ("DownBlock", "UpBlock"):
+        jmod = getattr(jblocks, block)(4, 8)
+        variables = _random_bn(
+            jmod.init(jax.random.PRNGKey(2), jnp.zeros_like(x), train=False), seed=22)
+        want, new = jmod.apply(variables, x, train=True, mutable=["batch_stats"])
+        tmod = getattr(tblocks, block)(4, 8).train()
+        load_jax_variables(tmod, variables)
+        got = tmod(torch.from_numpy(x))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(getattr(tmod.bn, key).numpy(),
+                                       np.asarray(new["batch_stats"]["bn"][key]),
+                                       rtol=RTOL, atol=ATOL)
+        with torch.no_grad():
+            assert not torch.allclose(tmod.eval()(torch.from_numpy(x)), got)
 
 
 @pytest.mark.parametrize("fn", [
