@@ -41,9 +41,41 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
    nothing): loss terms, every gradient leaf, BatchNorm statistics and the
    parameters after the step must agree; then one val step each.
 
+Between phases 5 and 6, the int8 serving modes (the model of phase 4):
+
+I1. Hold each int8 conv kernel (activation absmax pass + W8A8 conv) against
+    its exact plain version on ragged shapes: odd H/W, C=3, O=5, a K split,
+    ``act_group`` smaller than the batch.
+I2. The stochastic-round quantizer on the 18 canonical decoder kernels:
+    the same bytes as its plain version, ``|q - w/scale| < 1`` everywhere,
+    the mean error within 4 standard errors of 0 per leaf, the same bytes
+    on a second run, other bytes for another leaf's seed; timed.
+I3. ``SuperResolver(model, int8=True)``: every counter is set to 0, the
+    resolver is built (which quantizes: 18 launches), then ``super_resolve``
+    B=16 and ``uncertainty`` N=1000 run; the counters must equal the calls
+    the hooks recorded and the expected numbers (per request: int8 3x3 x7,
+    int8 convT x2, the absmax pass x9, float 3x3 x17, 4x4/s2 x5, convT x1).
+    The same requests run through the plain path on the card and must
+    agree; PSNR against the float32 resolver of phase 4 on the same seeds
+    (so the same noise) must exceed 30 dB. Median latencies, peak memory.
+I4. The int8 4x4/s2 kernel through the block path: six ``DownBlock``s at the
+    canonical shapes (B=16), each given a ``quant`` tree, against the plain
+    path; counters set to 0 before and read after.
+I5. Each int8 kernel against its plain version at every distinct shape I3
+    and I4 launched, timed, with the float32 kernel's time at the same shape
+    and the bound (bytes over 3.35 TB/s or integer operations over the 1,979
+    TOP/s int8 tensor-core peak). No single PyTorch call computes a W8A8
+    conv with in-call quantization, so these have no library time; the
+    absmax pass has one (``torch.linalg.vector_norm`` with ord=inf).
+I6. ``SuperResolver(model, int8_weights=True)``: the same two requests, the
+    float kernels' launch counts of phase 4, PSNR against float32 above
+    30 dB, and no packed leaf held in float32 between requests.
+
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
-one val step), then the last line
+one val step; for the int8 kernels over the int8 serving run and the block
+path; an int8 conv's time includes its absmax pass, which is also listed on
+its own), then the last line
 ``{"ok": true, "device": {...}}``. A per-shape report is written to
 ``chiprun_out/chip_smoke_report.json``. Exits non-zero without a CUDA card.
 
@@ -60,7 +92,12 @@ a long sum that cancels, and the permuted batch alone moves it by up to
 0.6% of the leaf's largest value; the bias of such a conv has a true
 gradient of 0. Parameters after the step within 2 * lr (Adam's first step
 moves a weight by about lr * sign(g)), and 99% of all elements within
-1e-2 * lr.
+1e-2 * lr. Int8: kernel vs plain max|diff| <= 1e-5 * max|plain| (the same
+integers summed exactly on both sides, the same float32 epilogue); the
+quantizer byte for byte; the int8 resolver vs its plain path 2e-3 absolute
+(the float32 layers above the decoder differ in the last bits, so a few
+activations on a rounding boundary quantize one step apart), with the share
+of elements beyond 1e-5 printed.
 """
 
 from __future__ import annotations
@@ -91,6 +128,12 @@ GRAD_TOL = 1e-4  # of the largest |plain gradient| in the leaf's block, beside
 NOISE_FACTOR = 8.0  # times float32's own noise: the plain path on the permuted batch
 SOURCE = "simple_vae_rs_tpu_torch/csrc/fused_conv.cu"
 ROW_SOURCE = "simple_vae_rs_tpu_torch/csrc/elbo_rows.cu"
+INT8_SOURCE = "simple_vae_rs_tpu_torch/csrc/int8_conv.cu"
+QUANT_SOURCE = "simple_vae_rs_tpu_torch/csrc/quantize.cu"
+PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
+INT8_TOL = 1e-5  # of max|plain|
+INT8_SERVE_TOL = 2e-3  # absolute, on outputs in [0, 1]
+MIN_PSNR_DB = 30.0
 REPLACES = {
     "fused_conv3x3_bn_relu": "simple_vae_rs_tpu/ops/pallas_conv.py:128",
     "fused_conv4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_conv.py:682",
@@ -99,6 +142,30 @@ REPLACES = {
     "sq_rows": "simple_vae_rs_tpu/ops/pallas_elbo.py:167",
     "kl_std_rows": "simple_vae_rs_tpu/ops/pallas_elbo.py:200",
     "kl_gen_rows": "simple_vae_rs_tpu/ops/pallas_elbo.py:239",
+    "quantize_stochastic": "simple_vae_rs_tpu/ops/quantize.py:92",
+    # the absmax half of _quant_act (:67), which the TPU kernels run in-kernel
+    "act_absmax": "simple_vae_rs_tpu/ops/pallas_int8.py:67",
+    # with its row-strip variant _int8_conv3x3_strips (:169)
+    "int8_conv3x3_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:216",
+    "int8_conv4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:328",
+    "int8_convT4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:441",
+}
+# (name, x shape, O, relu, act_group)
+RAGGED_INT8 = [
+    ("int8_conv3x3_bn_relu", (3, 5, 7, 3), 5, True, None),
+    ("int8_conv3x3_bn_relu", (5, 9, 11, 6), 13, False, 2),
+    ("int8_conv3x3_bn_relu", (1, 4, 4, 300), 200, False, None),
+    ("int8_conv4x4s2_bn_relu", (3, 6, 10, 5), 7, True, 1),
+    ("int8_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, False, None),
+    ("int8_convT4x4s2_bn_relu", (2, 3, 5, 7), 9, True, None),
+    ("int8_convT4x4s2_bn_relu", (4, 4, 4, 130), 70, False, 3),
+]
+# (in, out, H = W) of the canonical model's DownBlocks: LR 32 px and HR 64 px
+DOWN_BLOCKS = [(4, 16, 32), (16, 64, 16), (64, 128, 8), (4, 16, 64), (16, 64, 32), (64, 128, 16)]
+INT8_EXPECTED = {  # launches of one super_resolve or one uncertainty of the int8 resolver
+    "int8_conv3x3_bn_relu": 7, "int8_convT4x4s2_bn_relu": 2, "int8_conv4x4s2_bn_relu": 0,
+    "act_absmax": 9, "fused_conv3x3_bn_relu": 17, "fused_conv4x4s2_bn_relu": 5,
+    "fused_convT4x4s2_bn_relu": 1,
 }
 ROW_OPS = {"sq_rows": 3, "kl_std_rows": 5, "kl_gen_rows": 11}  # float ops per element
 LR = 1e-4
@@ -634,6 +701,413 @@ def train_phase(report):
         raise AssertionError("kernels vs plain path: " + "; ".join(cmp["failures"]))
     return totals, launches_by
 
+def bound_row(row, ops, nbytes, peak_ops):
+    row["ops"], row["bytes"] = ops, nbytes
+    row["bound_ms"] = 1e3 * max(ops / peak_ops, nbytes / PEAK_BYTES)
+    row["bound_by"] = "operations" if ops / peak_ops > nbytes / PEAK_BYTES else "bytes"
+
+
+def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group=None):
+    """Int8 kernel (absmax pass + W8A8 conv) vs its exact plain version at one
+    shape; with ``timing``, also the times, the float32 kernel's time at the
+    same shape and the absmax pass alone."""
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = 3 if name == "int8_conv3x3_bn_relu" else 4
+    c = shape[-1]
+    # images of different ranges, so that the grouping of the scale matters
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x = x * (0.25 + 2 * torch.rand((shape[0], 1, 1, 1), generator=gen, device="cuda"))
+    kernel = torch.randn((k, k, c, o), generator=gen, device="cuda") / math.sqrt(k * k * c)
+    kq, ks = qz.quantize_rtn(kernel)
+    scale = torch.rand((o,), generator=gen, device="cuda") + 0.5
+    shift = torch.randn((o,), generator=gen, device="cuda")
+    packed = f8.pack_kernel_q(kq)
+
+    def run():
+        return f8.WRAPPERS[name](x, kq, ks, scale, shift, relu=relu, act_group=act_group,
+                                 packed=packed)
+
+    got = run()
+    want = f8.PLAIN[name](x, kq, ks, scale, shift, relu, act_group)
+    amax = f8.act_absmax(x, act_group)
+    amax_want = f8.act_absmax_plain(x, act_group)
+    torch.cuda.synchronize()
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    if not (err <= INT8_TOL * ref) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {shape}->{o} group {act_group}: max|diff| {err} > "
+                             f"{INT8_TOL} * {ref}")
+    if not torch.equal(amax, amax_want):
+        raise AssertionError(f"act_absmax {shape} group {act_group}: {amax} != {amax_want}")
+    if not torch.equal(run(), got):
+        raise AssertionError(f"{name} {shape}->{o}: two runs differ")
+    row = {"name": name, "x": list(shape), "o": o, "relu": relu, "act_group": act_group,
+           "max_abs_err": err, "max_abs_ref": ref,
+           "equal_share": float((got == want).float().mean())}
+    if timing:
+        first = cuda_ms(run, 1)
+        reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
+        row["ms"] = cuda_ms(run, reps)
+        row["plain_ms"] = cuda_ms(
+            lambda: f8.PLAIN[name](x, kq, ks, scale, shift, relu, act_group), 2)
+        row["library_ms"] = None
+        deq = qz.dequantize(kq, ks)
+        row["f32_kernel_ms"] = cuda_ms(
+            lambda: fc.WRAPPERS[f8.float_name(name)](x, deq, scale, shift, relu=relu), reps)
+        m, n, _, phases = f8.geometry(name, shape, o)
+        taps = fc._KERNELS[f8.float_name(name)][1]
+        bound_row(row, 2.0 * phases * m * n * taps * c,
+                  4.0 * x.numel() + kq.numel() + 4.0 * 3 * o + 4.0 * got.numel(), PEAK_INT8_OPS)
+        groups = amax.numel()
+        absmax = {"name": "act_absmax", "x": list(shape), "groups": groups,
+                  "ms": cuda_ms(lambda: f8.act_absmax(x, act_group), reps),
+                  "plain_ms": cuda_ms(lambda: f8.act_absmax_plain(x, act_group), reps),
+                  "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(
+                      x.view(groups, -1), float("inf"), dim=1), reps)}
+        bound_row(absmax, float(x.numel()), 4.0 * (x.numel() + groups), PEAK_F32_FLOPS)
+        row["absmax"] = absmax
+    return row
+
+
+def check_quantizer(model, report):
+    """Phase I2: the stochastic-round quantizer on the canonical decoder leaves."""
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    rows = []
+    prev = None
+    for path, mod in qz._conv_modules(model):
+        leaf = path + ("kernel",)
+        if not any(comp.startswith(p) for comp in leaf for p in qz.DECODER_PREFIXES):
+            continue
+        w = mod.kernel.detach()
+        seed = qz.leaf_seed(0, leaf)
+        q, scale = qz.quantize_stochastic(w, seed)
+        q_plain, scale_plain = qz.quantize_stochastic_plain(w, seed)
+        torch.cuda.synchronize()
+        name = "/".join(leaf)
+        if not (torch.equal(q, q_plain) and torch.equal(scale, scale_plain)):
+            raise AssertionError(f"quantizer {name}: kernel and plain version differ in "
+                                 f"{int((q != q_plain).sum())} bytes")
+        if not torch.equal(qz.quantize_stochastic(w, seed)[0], q):
+            raise AssertionError(f"quantizer {name}: two runs differ")
+        x = (w / scale).double()
+        err = q.double() - x
+        frac = x - torch.floor(x)
+        se = float(torch.sqrt((frac * (1 - frac)).sum())) / x.numel()
+        if not float(err.abs().max()) < 1.0:
+            raise AssertionError(f"quantizer {name}: |q - w/scale| reaches "
+                                 f"{float(err.abs().max())}")
+        if not abs(float(err.mean())) <= 4 * se:
+            raise AssertionError(f"quantizer {name}: mean error {float(err.mean())} beyond "
+                                 f"4 standard errors ({se})")
+        if prev is not None and torch.equal(qz.quantize_stochastic(w, prev)[0], q):
+            raise AssertionError(f"quantizer {name}: another leaf's seed gave the same bytes")
+        prev = seed
+        row = {"name": "quantize_stochastic", "leaf": name, "shape": list(w.shape),
+               "max_abs_err": float((q.float() - q_plain.float()).abs().max()),
+               "max_abs_round_err": float(err.abs().max()), "mean_err": float(err.mean()),
+               "mean_err_se": se,
+               "ms": cuda_ms(lambda: qz.quantize_stochastic(w, seed), 20),
+               "plain_ms": cuda_ms(lambda: qz.quantize_stochastic_plain(w, seed), 20),
+               "library_ms": None}
+        # per element: a division, floor, subtract, compare, add and two clamps
+        bound_row(row, 7.0 * w.numel(), 5.0 * w.numel() + 4.0 * w.shape[-1], PEAK_F32_FLOPS)
+        rows.append(row)
+        log(f"quantizer {name} {tuple(w.shape)}: bytes equal to the plain version, max|q - w/s| "
+            f"{row['max_abs_round_err']:.4f}, mean error {row['mean_err']:+.2e} (se {se:.2e}), "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    if len(rows) != 18:
+        raise AssertionError(f"expected 18 decoder kernels, quantized {len(rows)}")
+    report["quantizer"] = rows
+    return rows
+
+
+def record_routed_calls(model, calls):
+    """Hooks recording ``(kernel, x shape, O, relu)`` of every conv the
+    model's next eval passes launch, float32 or int8 as the module routes it."""
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+
+    def conv_pre(m, args):
+        name = "int8_conv3x3_bn_relu" if m.kernel_q is not None else "fused_conv3x3_bn_relu"
+        calls.append((name, tuple(args[0].shape), m.kernel.shape[-1], False))
+
+    def block_pre(m, args):
+        tail = getattr(m, m._tail_name)
+        int8 = tail.kernel_q is not None and args[0].shape[-1] >= m._int8_min_channels
+        calls.append((m._int8_kernel if int8 else m._kernel, tuple(args[0].shape),
+                      tail.kernel_q.shape[-1] if int8 else tail.kernel.shape[-1], True))
+
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, blocks.Conv3x3):
+            hooks.append(mod.register_forward_pre_hook(conv_pre))
+        if isinstance(mod, (blocks.DownBlock, blocks.UpBlock)):
+            hooks.append(mod.register_forward_pre_hook(block_pre))
+    return hooks
+
+
+def psnr_db(a, b) -> float:
+    return float(10 * torch.log10(1.0 / torch.clamp_min(((a - b) ** 2).mean(), 1e-12)))
+
+
+def all_counts():
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    return {**fc.launches, **f8.launches, **qz.launches}
+
+
+def reset_all_counts():
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    fc.reset_launches()
+    f8.reset_launches()
+    qz.reset_launches()
+
+
+def serve_requests(sr, y, calls=()):
+    """The two requests of the serving run: outputs, first-call times, the
+    launch counts after the first and how many of ``calls`` it recorded."""
+    out, sr_ms = timed(lambda: sr.super_resolve(y, seed=11))
+    after_sr, n_sr_calls = all_counts(), len(calls)
+    uq, uq_ms = timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))
+    if tuple(out.shape) != (16, 64, 64, 4) or not torch.isfinite(out).all():
+        raise AssertionError(f"super_resolve output {tuple(out.shape)} is wrong")
+    if float(out.min()) < 0 or float(out.max()) > 1:
+        raise AssertionError("super_resolve output leaves [0, 1]")
+    for key in ("mean", "std", "variance"):
+        if tuple(uq[key].shape) != (64, 64, 4) or not torch.isfinite(uq[key]).all():
+            raise AssertionError(f"uncertainty[{key}] is wrong")
+    if not float(uq["std"].max()) > 0:
+        raise AssertionError("uncertainty draws do not differ")
+    return out, uq, sr_ms, uq_ms, after_sr, n_sr_calls
+
+
+def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
+    """Phases I1-I6; returns per-kernel totals over the int8 serving run and
+    the block path, and each kernel's launches by path."""
+    from simple_vae_rs_tpu_torch import SuperResolver
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    int8_report = report["int8"] = {"ragged": [], "shapes": []}
+    # I1. ragged shapes
+    for i, (name, shape, o, relu, group) in enumerate(RAGGED_INT8):
+        row = check_int8_shape(f8, fc, name, shape, o, relu, seed=600 + i, timing=False,
+                               act_group=group)
+        int8_report["ragged"].append(row)
+        log(f"ragged {name} x{shape} O={o} relu={relu} act_group={group}: max|diff| "
+            f"{row['max_abs_err']:.3e} ({100 * row['equal_share']:.2f}% equal to the last bit)")
+    # I2. the quantizer
+    quant_rows = check_quantizer(model, report)
+
+    # I3. the W8A8 resolver: build, super_resolve B=16, uncertainty N=1000
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    sr8 = SuperResolver(model, device="cuda", seed=0, int8=True)
+    if qz.has_quant(model) or not qz.has_quant(sr8.model):
+        raise AssertionError("int8=True must quantize its own copy of the model")
+    hooks = record_routed_calls(sr8.model, calls)
+    out8, uq8, sr_ms, uq_ms, after_sr, n_sr_calls = serve_requests(sr8, y, calls)
+    counts = all_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for h in hooks:
+        h.remove()
+    if counts["quantize_stochastic"] != 18:
+        raise AssertionError(f"the quantizer launched {counts['quantize_stochastic']} times")
+    for name, want in INT8_EXPECTED.items():
+        per_uq = counts[name] - after_sr[name]
+        recorded = sum(1 for c in calls if c[0] == name)
+        if name != "act_absmax" and recorded != counts[name]:
+            raise AssertionError(f"int8 serving {name}: {counts[name]} launches, {recorded} calls")
+        if after_sr[name] != want or per_uq != want:
+            raise AssertionError(f"int8 serving {name}: {after_sr[name]} launches per "
+                                 f"super_resolve and {per_uq} per uncertainty, expected {want}")
+    log("int8 serving launches (build + super_resolve + uncertainty): "
+        + " ".join(f"{k}={v}" for k, v in counts.items()))
+    rep_sr = [timed(lambda: sr8.super_resolve(y, seed=11))[1] for _ in range(5)]
+    rep_uq = [timed(lambda: sr8.uncertainty(y[0], samples=1000, seed=12))[1] for _ in range(3)]
+
+    blocks.use_plain_path(sr8.model)
+    before = all_counts()
+    plain_sr = sr8.super_resolve(y, seed=11)
+    plain_uq = sr8.uncertainty(y[0], samples=1000, seed=12)
+    torch.cuda.synchronize()
+    if all_counts() != before:
+        raise AssertionError("the int8 plain path launched a kernel")
+    blocks.use_plain_path(sr8.model, False)
+    serve_err, beyond = {}, {}
+    for key, a, b in (("super_resolve", out8, plain_sr),
+                      ("uncertainty.mean", uq8["mean"], plain_uq["mean"]),
+                      ("uncertainty.std", uq8["std"], plain_uq["std"])):
+        diff = (a - b).abs()
+        serve_err[key], beyond[key] = float(diff.max()), float((diff > 1e-5).float().mean())
+        if not serve_err[key] <= INT8_SERVE_TOL:
+            raise AssertionError(f"int8 {key}: kernels vs plain path max|diff| "
+                                 f"{serve_err[key]} > {INT8_SERVE_TOL}")
+    psnr = {"super_resolve": psnr_db(out8, f32_out), "uncertainty.mean": psnr_db(uq8["mean"],
+                                                                                 f32_uq["mean"])}
+    for key, db in psnr.items():
+        if not db > MIN_PSNR_DB:
+            raise AssertionError(f"int8 {key}: {db:.1f} dB against float32")
+    log(f"int8 super_resolve B=16: {sr_ms:.2f} ms first call, repeats median "
+        f"{statistics.median(rep_sr):.2f} ms; uncertainty N=1000: {uq_ms:.2f} ms first call, "
+        f"repeats median {statistics.median(rep_uq):.2f} ms; peak memory {peak_gib:.2f} GiB")
+    log(f"int8 kernels vs plain path max|diff| {serve_err}, share beyond 1e-5 {beyond}; "
+        f"PSNR against float32 {psnr}")
+    int8_report["serving"] = {
+        "super_resolve_b16_ms": sr_ms, "super_resolve_b16_ms_repeats": rep_sr,
+        "uncertainty_n1000_ms": uq_ms, "uncertainty_n1000_ms_repeats": rep_uq,
+        "peak_memory_gib": peak_gib, "max_abs_err_vs_plain": serve_err,
+        "share_beyond_1e-5_vs_plain": beyond, "psnr_db_vs_f32": psnr, "launches": counts,
+        "launches_super_resolve_b16": after_sr,
+    }
+    del sr8, plain_sr, plain_uq
+
+    # I4. kernel #11 through the block path
+    block_calls = []
+    rng = np.random.default_rng(5)
+    reset_all_counts()
+    worst_block = 0.0
+    for i, (cin, cout, hw) in enumerate(DOWN_BLOCKS):
+        block = blocks.DownBlock(cin, cout, device="cuda").eval()
+        for mod in block.modules():
+            if hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(rng)
+        randomize_bn(block, seed=20 + i)
+        qz.attach_quant(block, qz.quantize_params_tree(block, seed=i, prefixes=("",)))
+        hooks = record_routed_calls(block, block_calls)
+        x = torch.randn((16, hw, hw, cin), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(700 + i))
+        with torch.no_grad():
+            got = block(x)
+            for h in hooks:
+                h.remove()
+            blocks.use_plain_path(block)
+            want = block(x)
+        torch.cuda.synchronize()
+        err, ref = float((got - want).abs().max()), float(want.abs().max())
+        worst_block = max(worst_block, err / ref)
+        if not err <= INT8_TOL * ref or tuple(got.shape) != (16, hw // 2, hw // 2, cout):
+            raise AssertionError(f"int8 DownBlock {cin}->{cout} at {hw}: max|diff| {err} > "
+                                 f"{INT8_TOL} * {ref}")
+    block_counts = all_counts()
+    want_counts = {"int8_conv3x3_bn_relu": 6, "int8_conv4x4s2_bn_relu": 6, "act_absmax": 12,
+                   "quantize_stochastic": 12}
+    for name, count in block_counts.items():
+        if count != want_counts.get(name, 0):
+            raise AssertionError(f"block path {name}: {count} launches, expected "
+                                 f"{want_counts.get(name, 0)}")
+    log(f"int8 DownBlocks at the canonical shapes (B=16): int8 4x4/s2 launched "
+        f"{block_counts['int8_conv4x4s2_bn_relu']} times, worst max|diff| vs the plain path "
+        f"{worst_block:.2e} of max|plain|")
+    int8_report["block_path"] = {"launches": block_counts, "worst_rel_err": worst_block}
+
+    # I5. every distinct int8 shape of I3 and I4: check and time
+    paths = (("serving_int8", [c for c in calls if c[0] in f8.PLAIN]),
+             ("block_path", [c for c in block_calls if c[0] in f8.PLAIN]))
+    per_key = {}
+    fields = ("ms", "plain_ms", "bound_ms", "ops", "bytes", "f32_kernel_ms")
+    totals, by_path = {}, {}
+    for path, path_calls in paths:
+        for call in path_calls:
+            if call not in per_key:
+                name, shape, o, relu = call
+                row = per_key[call] = check_int8_shape(f8, fc, name, shape, o, relu,
+                                                       seed=800 + len(per_key), timing=True)
+                int8_report["shapes"].append(row)
+                log(f"int8 shape {name} x{shape} O={o}: kernel {row['ms']:.4f} ms (absmax pass "
+                    f"{row['absmax']['ms']:.4f} ms of it; absmax plain "
+                    f"{row['absmax']['plain_ms']:.4f}, library {row['absmax']['library_ms']:.4f}, "
+                    f"bound {row['absmax']['bound_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+                    f"float32 kernel {row['f32_kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']}), max|diff| {row['max_abs_err']:.2e}")
+            row = per_key[call]
+            for kname, src in ((call[0], row), ("act_absmax", row["absmax"])):
+                tot = totals.setdefault(kname, dict.fromkeys(
+                    fields + ("library_ms", "max_abs_err"), 0.0))
+                for k in fields + ("library_ms",):
+                    if src.get(k) is not None:
+                        tot[k] += src[k]
+                tot["max_abs_err"] = max(tot["max_abs_err"], src.get("max_abs_err", 0.0))
+                by_path.setdefault(kname, {}).setdefault(path, 0)
+                by_path[kname][path] += 1
+    for row in int8_report["ragged"]:
+        totals[row["name"]]["max_abs_err"] = max(totals[row["name"]]["max_abs_err"],
+                                                 row["max_abs_err"])
+    for name in f8.PLAIN:
+        totals[name]["library_ms"] = None
+    tot = totals["quantize_stochastic"] = dict.fromkeys(fields + ("max_abs_err",), 0.0)
+    for row in quant_rows:
+        for k in ("ms", "plain_ms", "bound_ms", "ops", "bytes"):
+            tot[k] += row[k]
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+    tot["library_ms"] = None
+    by_path["quantize_stochastic"] = {"serving_int8": counts["quantize_stochastic"]}
+    for name, tot in totals.items():
+        log(f"int8 paths {name}: launches {by_path[name]}, kernel {tot['ms']:.3f} ms, bound "
+            f"{tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms"
+            + (f", float32 kernel {tot['f32_kernel_ms']:.3f} ms" if tot["f32_kernel_ms"] else ""))
+    kernel_ms = {c: r["ms"] for c, r in per_key.items()}
+    for req, part, wall in (("super_resolve_b16", calls[:n_sr_calls], rep_sr),
+                            ("uncertainty_n1000", calls[n_sr_calls:], rep_uq)):
+        part = [c for c in part if c[0] in f8.PLAIN]
+        busy = sum(kernel_ms[c] for c in part)
+        f32_busy = sum(per_key[c]["f32_kernel_ms"] for c in part)
+        wall_ms = statistics.median(wall)
+        int8_report["serving"][f"{req}_int8_kernel_ms"] = busy
+        int8_report["serving"][f"{req}_same_convs_f32_kernel_ms"] = f32_busy
+        log(f"int8 {req}: the {len(part)} int8 convs take {busy:.3f} ms of {wall_ms:.3f} ms "
+            f"median wall ({100 * busy / wall_ms:.1f}%); the float32 kernels take "
+            f"{f32_busy:.3f} ms for the same convs")
+
+    # I6. weights-only int8
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    srw = SuperResolver(model, device="cuda", seed=0, int8_weights=True)
+    outw, uqw, w_sr_ms, w_uq_ms, _, _ = serve_requests(srw, y)
+    w_counts = {k: v for k, v in all_counts().items() if v}
+    w_peak = torch.cuda.max_memory_allocated() / 2**30
+    if w_counts != f32_launches:
+        raise AssertionError(f"weights-only serving launched {w_counts}, float32 serving "
+                             f"{f32_launches}")
+    params = dict(srw.model.named_parameters())
+    held = [n for n in srw._packed if params[n].numel() != 0]
+    if held or len(srw._packed) < 30:
+        raise AssertionError(f"packed leaves held in float32 between requests: {held} "
+                             f"({len(srw._packed)} packed)")
+    packed_bytes = sum(q.numel() + 4 * s.numel() for q, s in srw._packed.values())
+    dense_bytes = sum(4 * q.numel() for q, _ in srw._packed.values())
+    w_psnr = {"super_resolve": psnr_db(outw, f32_out),
+              "uncertainty.mean": psnr_db(uqw["mean"], f32_uq["mean"])}
+    for key, db in w_psnr.items():
+        if not db > MIN_PSNR_DB:
+            raise AssertionError(f"int8_weights {key}: {db:.1f} dB against float32")
+    w_rep_sr = [timed(lambda: srw.super_resolve(y, seed=11))[1] for _ in range(5)]
+    w_rep_uq = [timed(lambda: srw.uncertainty(y[0], samples=1000, seed=12))[1] for _ in range(3)]
+    log(f"int8_weights: {len(srw._packed)} leaves packed to {packed_bytes / 2**20:.1f} MiB "
+        f"(float32 {dense_bytes / 2**20:.1f} MiB), none held in float32 between requests; "
+        f"super_resolve B=16 median {statistics.median(w_rep_sr):.2f} ms, uncertainty N=1000 "
+        f"median {statistics.median(w_rep_uq):.2f} ms, peak memory {w_peak:.2f} GiB; PSNR "
+        f"against float32 {w_psnr}; launches {w_counts}")
+    int8_report["weights_only"] = {
+        "packed_leaves": len(srw._packed), "packed_bytes": packed_bytes,
+        "dense_bytes": dense_bytes, "super_resolve_b16_ms": w_sr_ms,
+        "super_resolve_b16_ms_repeats": w_rep_sr, "uncertainty_n1000_ms": w_uq_ms,
+        "uncertainty_n1000_ms_repeats": w_rep_uq, "peak_memory_gib": w_peak,
+        "psnr_db_vs_f32": w_psnr, "launches": w_counts,
+    }
+    f32_by_path = {name: {"serving_int8": counts[name]} for name in fc.launches}
+    return totals, by_path, f32_by_path
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -792,6 +1266,12 @@ def main() -> int:
         log(f"{req}: conv kernels {busy:.3f} ms of {wall_ms:.3f} ms median wall "
             f"({100 * busy / wall_ms:.1f}%; the rest is other ops, launches and host time)")
 
+    # I1-I6. the int8 serving modes
+    int8_totals, int8_launches, f32_in_int8 = int8_phase(report, model, y, sr_out, uq,
+                                                         {k: v for k, v in launches.items() if v})
+    del sr, model
+    torch.cuda.empty_cache()
+
     # 6-8. training at full width
     train_totals, train_launches = train_phase(report)
 
@@ -812,12 +1292,25 @@ def main() -> int:
             "name": name, "route": "cuda", "source": ROW_SOURCE if is_row else SOURCE,
             "replaces": REPLACES[name],
             "launches": launches.get(name, 0) + sum(train_launches[name].values()),
-            "launches_by_path": {"serving": launches.get(name, 0), **train_launches[name]},
+            "launches_by_path": {"serving": launches.get(name, 0), **train_launches[name],
+                                 **f32_in_int8.get(name, {})},
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": ("operations" if tot["flops"] / PEAK_F32_FLOPS
                          > tot["bytes"] / PEAK_BYTES else "bytes"),
             "library_ms": None if is_row else tot["library_ms"],
+        })
+    for name, tot in int8_totals.items():
+        peak = PEAK_INT8_OPS if name.startswith("int8_") else PEAK_F32_FLOPS
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": QUANT_SOURCE if name == "quantize_stochastic" else INT8_SOURCE,
+            "replaces": REPLACES[name], "launches": sum(int8_launches[name].values()),
+            "launches_by_path": int8_launches[name], "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations" if tot["ops"] / peak > tot["bytes"] / PEAK_BYTES else "bytes",
+            "library_ms": tot["library_ms"],
+            "f32_kernel_ms": tot["f32_kernel_ms"] or None,
         })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -827,7 +1320,10 @@ def main() -> int:
         json.dump(report, f, indent=1)
     log(f"total {report['seconds']:.1f} s; times per kernel are sums over its launches in "
         f"the serving run (super_resolve B=16 + uncertainty N=1000), one train step and "
-        f"one val step (B=512)")
+        f"one val step (B=512); for the int8 kernels over the int8 serving run and the "
+        f"DownBlock path, an int8 conv's time including its absmax pass; "
+        f"launches_by_path.serving_int8 of a float32 kernel counts its launches in the int8 "
+        f"serving run, whose times its sums leave out")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

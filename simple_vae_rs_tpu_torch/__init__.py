@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of simple_vae_rs_tpu (Cond_SRVAE serving and training step).
+"""PyTorch/CUDA port of simple_vae_rs_tpu (Cond_SRVAE serving, float32 and
+int8, and its training step).
 
 Imports torch and numpy only; the JAX package is its reference, held against
 it by the tests. Entry points run on a CUDA card unless given device="cpu".

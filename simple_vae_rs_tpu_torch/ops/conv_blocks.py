@@ -15,9 +15,15 @@ gradient, in both modes:
 - eval: the strided tail of a block folds BatchNorm's running statistics
   into ``(scale, shift)`` and runs as one fused kernel with the ReLU.
 
-:func:`use_plain_path` switches a model's convs (and its ELBO reductions) to
-the kernels' plain versions: the reference that the kernels are held
-against on the card.
+A conv that carries int8 weights (``kernel_q`` / ``kernel_s``, attached by
+``ops/quantize.attach_quant``) runs in eval through the W8A8 kernels of
+``ops/fused_int8.py`` with the same ``(scale, shift)``; their presence on the
+module is the only switch, so int8 and float32 models coexist in a process.
+Training never takes that path.
+
+:func:`use_plain_path` switches a model's convs, float32 and int8, (and its
+ELBO reductions) to the kernels' plain versions: the reference that the
+kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +36,14 @@ import torch
 from torch import nn
 
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+
+# The reference quantizes an UpBlock's transposed conv only from this many
+# input channels up; below it the tail runs in float32 on the float weights
+# even when int8 weights are attached. This defines which layers of the model
+# are W8A8 (the canonical decoder's 128-channel ``dx_up3`` tail is not); it is
+# no speed threshold of this port.
+INT8_CONVT_MIN_CHANNELS = 192
 
 
 def _uniform_(param: torch.Tensor, rng: np.random.Generator, bound: float) -> None:
@@ -57,11 +71,33 @@ class ConvWeights(nn.Module):
         # the fused kernels' scale when the conv runs with its bias alone
         self.register_buffer("unit_scale", torch.ones(features, device=device),
                              persistent=False)
+        # int8 weights (flax collection ``quant``): absent on a float32 conv
+        self.register_buffer("kernel_q", None)
+        self.register_buffer("kernel_s", None)
+        # kernel_q repacked for the int8 kernels: a cache, rebuilt by set_quant
+        self.register_buffer("kernel_p", None, persistent=False)
 
     def reset_parameters(self, rng: np.random.Generator) -> None:
         bound = 1.0 / math.sqrt(self.fan)
         _uniform_(self.kernel, rng, bound)
         _uniform_(self.bias, rng, bound)
+
+    def set_quant(self, kernel_q, kernel_s) -> None:
+        """Attach int8 weights (``kernel_q`` shaped like ``kernel``,
+        ``kernel_s`` ``(O,)``; tensors or arrays), or remove them with None."""
+        if kernel_q is None or kernel_s is None:
+            self.kernel_q = self.kernel_s = self.kernel_p = None
+            return
+
+        def own(leaf, dtype):  # np.array copies: the buffer must not alias an array
+            t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+            return t.to(device=self.kernel.device, dtype=dtype).contiguous()
+
+        q, s = own(kernel_q, torch.int8), own(kernel_s, torch.float32)
+        if q.shape != self.kernel.shape or tuple(s.shape) != (self.kernel.shape[-1],):
+            raise ValueError(f"int8 weights {tuple(q.shape)} / {tuple(s.shape)} do not match "
+                             f"a kernel of {tuple(self.kernel.shape)}")
+        self.kernel_q, self.kernel_s, self.kernel_p = q, s, f8.pack_kernel_q(q)
 
 
 class Conv3x3(ConvWeights, Routed):
@@ -71,6 +107,10 @@ class Conv3x3(ConvWeights, Routed):
         super().__init__(3, in_features, features, in_features * 9, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel_q is not None and not self.training:
+            return f8.int8_conv("int8_conv3x3_bn_relu", x, self.kernel_q, self.kernel_s,
+                                self.unit_scale, self.bias, False, self.plain,
+                                packed=self.kernel_p)
         return fc.fused_conv("fused_conv3x3_bn_relu", x, self.kernel, self.unit_scale,
                              self.bias, False, self.plain)
 
@@ -125,6 +165,8 @@ class _Block(Routed):
     """conv3x3 -> strided tail conv -> BN -> ReLU; subclasses name the tail."""
 
     _kernel = ""  # fused_conv kernel of the tail
+    _int8_kernel = ""  # fused_int8 kernel of the tail
+    _int8_min_channels = 0  # the tail is W8A8 from this many input channels up
     _tail_name = ""  # flax name of the tail conv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +177,9 @@ class _Block(Routed):
                               False, self.plain)
             return torch.relu(self.bn(h))
         kernel, s, t = self.bn.fold(tail)
+        if tail.kernel_q is not None and x.shape[3] >= self._int8_min_channels:
+            return f8.int8_conv(self._int8_kernel, x, tail.kernel_q, tail.kernel_s, s, t, True,
+                                self.plain, packed=tail.kernel_p)
         return fc.fused_conv(self._kernel, x, kernel, s, t, True, self.plain)
 
 
@@ -143,6 +188,7 @@ class DownBlock(_Block):
     ``models/layers.py:217-256``); in eval the tail is one fused 4x4/s2 kernel."""
 
     _kernel = "fused_conv4x4s2_bn_relu"
+    _int8_kernel = "int8_conv4x4s2_bn_relu"
     _tail_name = "downsample"
 
     def __init__(self, in_features: int, features: int, device=None) -> None:
@@ -158,6 +204,8 @@ class UpBlock(_Block):
     ``models/layers.py:259-297``); in eval the tail is one fused convT kernel."""
 
     _kernel = "fused_convT4x4s2_bn_relu"
+    _int8_kernel = "int8_convT4x4s2_bn_relu"
+    _int8_min_channels = INT8_CONVT_MIN_CHANNELS
     _tail_name = "upsample"
 
     def __init__(self, in_features: int, features: int, device=None) -> None:
@@ -170,8 +218,9 @@ class UpBlock(_Block):
 
 
 def use_plain_path(model: nn.Module, plain: bool = True) -> None:
-    """Route every conv of ``model`` (forward and input gradient) and its
-    ELBO reductions through the plain versions (``True``) or the kernels
+    """Route every conv of ``model`` (forward and input gradient; float32
+    and int8) and its ELBO reductions through the plain versions (``True``)
+    or the kernels
     (``False``, the default)."""
     for mod in model.modules():
         if isinstance(mod, Routed):

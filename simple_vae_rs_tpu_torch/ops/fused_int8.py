@@ -1,0 +1,325 @@
+"""W8A8 int8 fused convs: CUDA kernels and exact plain versions.
+
+The port of ``simple_vae_rs_tpu/ops/pallas_int8.py``, eval only (no
+gradient, as there). Weights arrive quantized (``kernel_q`` int8 in the JAX
+HWIO layout, ``kernel_s`` one float32 scale per output channel, from
+``ops/quantize.py``); activations are quantized inside the call:
+
+    a   = max(absmax(x over the image's group) / 127, 1e-12)
+    qx  = clip(round(x / a), -127, 127)          (half to even)
+    acc = conv(qx, kernel_q)                      (int32, exact)
+    out = act(float(acc) * ((a * kernel_s) * scale) + shift)
+
+- :func:`int8_conv3x3_bn_relu`: 3x3, stride 1, SAME;
+- :func:`int8_conv4x4s2_bn_relu`: 4x4, stride 2, pad 1 (DownBlock tail);
+- :func:`int8_convT4x4s2_bn_relu`: transposed 4x4, stride 2, pad 1, kernel in
+  the input-dilated form (UpBlock tail).
+
+``act_group`` is the number of consecutive images that share one activation
+scale. The default, the whole batch, is what the JAX package's
+``int8_reference*`` and its strip kernel compute, and what it runs
+everywhere off a TPU; ``act_group = bt`` reproduces a Pallas launch of
+``B / bt`` programs, each with the absmax of its own batch tile. With one
+scale per call an image's output depends on the other images of its batch:
+that is the reference's behaviour.
+
+A wrapper given CPU tensors computes its plain version; given CUDA tensors
+it launches the absmax pass and the conv kernel of ``csrc/int8_conv.cu`` on
+the current stream (no host sync between them) or raises. :data:`launches`
+counts the launches of each. The plain versions accumulate exactly (a
+float64 conv of integer-valued tensors, every partial sum below 2**53), as
+the kernels' int32 does; the reference's float32 conv rounds once sums pass
+2**24, which K = 9 * 424 reaches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+from simple_vae_rs_tpu_torch.ops.quantize import QMAX, true_div
+
+Tensor = torch.Tensor
+
+SOURCE = "int8_conv.cu"
+
+# int8 kernel -> (C entry point, the float kernel with the same geometry)
+_KERNELS = {
+    "int8_conv3x3_bn_relu": ("svrs_int8_conv3x3", "fused_conv3x3_bn_relu"),
+    "int8_conv4x4s2_bn_relu": ("svrs_int8_conv4x4s2", "fused_conv4x4s2_bn_relu"),
+    "int8_convT4x4s2_bn_relu": ("svrs_int8_convT4x4s2", "fused_convT4x4s2_bn_relu"),
+}
+ABSMAX = "act_absmax"
+
+# Launches since the last reset_launches(): a wrapper adds one per kernel it
+# launches (the absmax pass and the conv), and nowhere else.
+launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, ABSMAX: 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def float_name(name: str) -> str:
+    """The float32 kernel of ``ops/fused_conv.py`` with the same geometry."""
+    return _KERNELS[name][1]
+
+
+def output_shape(name: str, x_shape, o: int) -> Tuple[int, int, int, int]:
+    return fc.output_shape(float_name(name), x_shape, o)
+
+
+def geometry(name: str, x_shape, o: int) -> Tuple[int, int, int, int]:
+    """GEMM shape ``(M per phase, N, K4, phases)`` of a kernel call, K4 in
+    packs of four channels: live taps * ceil(C / 4)."""
+    _, taps, stride, phases = fc._KERNELS[float_name(name)]
+    b, h, w, c = x_shape
+    ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
+    return b * ho * wo, o, taps * _cdiv(c, 4), phases
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _group(b: int, act_group: Optional[int]) -> int:
+    group = b if act_group is None else int(act_group)
+    if group < 1:
+        raise ValueError(f"act_group must be >= 1, got {act_group}")
+    return max(1, min(group, b))
+
+
+def pack_kernel_q(kernel_q: Tensor) -> Tensor:
+    """``(kh, kw, C, O)`` int8 -> ``(kh * kw * ceil(C / 4), O)`` int32: four
+    consecutive input channels of one output channel in one word (channel
+    ``4 j + i`` in byte ``i``, zero past ``C``), the operand layout of the
+    kernels' 4-way int8 dot."""
+    kh, kw, c, o = kernel_q.shape
+    c4 = _cdiv(c, 4)
+    q = F.pad(kernel_q, (0, 0, 0, 4 * c4 - c))
+    q = q.reshape(kh * kw, c4, 4, o).permute(0, 1, 3, 2).contiguous()
+    return q.view(torch.int32).reshape(kh * kw * c4, o)
+
+
+def _check(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
+           shift: Tensor) -> None:
+    fc._check(float_name(name), x, kernel_q, scale, shift)
+    if kernel_q.dtype != torch.int8:
+        raise TypeError(f"{name}: kernel_q must be int8, got {kernel_q.dtype}")
+    if tuple(kernel_s.shape) != (kernel_q.shape[-1],):
+        raise ValueError(f"{name}: kernel_s must be ({kernel_q.shape[-1]},), "
+                         f"got {tuple(kernel_s.shape)}")
+
+
+# ------------------------------------------------------------ plain versions
+def act_absmax_plain(x: Tensor, act_group: Optional[int] = None) -> Tensor:
+    """``max |x|`` over each group of ``act_group`` consecutive images
+    (the last group may be short): ``(ceil(B / act_group),)``."""
+    b = x.shape[0]
+    group = _group(b, act_group)
+    per_image = x.abs().amax(dim=(1, 2, 3))
+    per_image = F.pad(per_image, (0, (-b) % group))
+    return per_image.view(-1, group).amax(dim=1)
+
+
+def quantize_act(x: Tensor, act_group: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """The in-kernel activation quantization (JAX ``_quant_act``):
+    integer-valued float32 ``qx`` and the per-image scale ``(B, 1, 1, 1)``."""
+    b = x.shape[0]
+    a = torch.clamp_min(true_div(act_absmax_plain(x, act_group), QMAX), 1e-12)
+    a = a.repeat_interleave(_group(b, act_group))[:b].view(b, 1, 1, 1)
+    return torch.clamp(torch.round(x / a), -QMAX, QMAX), a
+
+
+def _plain(name: str, x, kernel_q, kernel_s, scale, shift, relu, act_group) -> Tensor:
+    _check(name, x, kernel_q, kernel_s, scale, shift)
+    o = kernel_q.shape[-1]
+    if x.shape[0] == 0:
+        return x.new_empty(output_shape(name, x.shape, o))
+    qx, a = quantize_act(x, act_group)
+    one = torch.ones(o, dtype=torch.float64, device=x.device)
+    acc = fc.PLAIN[float_name(name)](qx.double(), kernel_q.double(), one, torch.zeros_like(one),
+                                     False)
+    # every partial sum is an integer below 2**53: the round only removes
+    # what a transform-based library algorithm might add
+    out = torch.round(acc).to(torch.float32) * ((a * kernel_s) * scale) + shift
+    return out.clamp_min(0.0) if relu else out
+
+
+def int8_conv3x3_plain(x, kernel_q, kernel_s, scale, shift, relu=True, act_group=None):
+    """Plain version of :func:`int8_conv3x3_bn_relu` (JAX ``int8_reference3``,
+    accumulated exactly)."""
+    return _plain("int8_conv3x3_bn_relu", x, kernel_q, kernel_s, scale, shift, relu, act_group)
+
+
+def int8_conv4x4s2_plain(x, kernel_q, kernel_s, scale, shift, relu=True, act_group=None):
+    """Plain version of :func:`int8_conv4x4s2_bn_relu` (JAX ``int8_reference4``)."""
+    return _plain("int8_conv4x4s2_bn_relu", x, kernel_q, kernel_s, scale, shift, relu,
+                  act_group)
+
+
+def int8_convT4x4s2_plain(x, kernel_q, kernel_s, scale, shift, relu=True, act_group=None):
+    """Plain version of :func:`int8_convT4x4s2_bn_relu` (JAX ``int8_referenceT``)."""
+    return _plain("int8_convT4x4s2_bn_relu", x, kernel_q, kernel_s, scale, shift, relu,
+                  act_group)
+
+
+PLAIN = {
+    "int8_conv3x3_bn_relu": int8_conv3x3_plain,
+    "int8_conv4x4s2_bn_relu": int8_conv4x4s2_plain,
+    "int8_convT4x4s2_bn_relu": int8_convT4x4s2_plain,
+}
+
+
+# ------------------------------------------------------------------ launches
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from simple_vae_rs_tpu_torch.ops import _build
+
+        lib = _build.load(SOURCE)
+        for sym, _ in _KERNELS.values():
+            fn = getattr(lib, sym)
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        lib.svrs_act_absmax.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+        lib.svrs_act_absmax.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _cuda_input(name: str, x: Tensor) -> Tensor:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 activations only, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous NHWC tensor")
+    if x.numel() >= 2**31:
+        raise ValueError(f"{name}: tensor too large for 32-bit pixel indices")
+    # the kernels read four channels as one 16-byte word
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def act_absmax(x: Tensor, act_group: Optional[int] = None) -> Tensor:
+    """Per-group ``max |x|`` (see :func:`act_absmax_plain`): the absmax pass
+    of the int8 convs, on the card one kernel launch and no host sync."""
+    if x.device.type == "cpu":
+        return act_absmax_plain(x, act_group)
+    if x.device.type != "cuda":
+        raise ValueError(f"{ABSMAX}: tensors must be on the CPU or a CUDA card, not {x.device}")
+    x = _cuda_input(ABSMAX, x)
+    b = x.shape[0]
+    group = _group(b, act_group)
+    groups = _cdiv(max(b, 1), group)
+    amax = torch.zeros(groups, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return amax
+    per_group = group * (x.numel() // b)
+    blocks = max(1, min(_cdiv(per_group, 4096), _cdiv(8 * fc._SMS, groups)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().svrs_act_absmax(x.data_ptr(), amax.data_ptr(), per_group, x.numel(),
+                                         groups, blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"{ABSMAX}: CUDA launch failed with cudaError {err}")
+    launches[ABSMAX] += 1
+    return amax
+
+
+def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
+            shift: Tensor, relu: bool, act_group: Optional[int],
+            packed: Optional[Tensor]) -> Tensor:
+    _check(name, x, kernel_q, kernel_s, scale, shift)
+    dev = x.device
+    x = _cuda_input(name, x)
+    for t in (kernel_s, scale, shift):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name}: kernel_s, scale and shift must be contiguous float32")
+    b, h, w, c = x.shape
+    m, n, k4, phases = geometry(name, x.shape, kernel_q.shape[-1])
+    if packed is None:
+        packed = pack_kernel_q(kernel_q)
+    want = (kernel_q.shape[0] * kernel_q.shape[1] * _cdiv(c, 4), n)
+    if packed.dtype != torch.int32 or tuple(packed.shape) != want or not packed.is_contiguous():
+        raise ValueError(f"{name}: packed weight must be contiguous int32 {want}, "
+                         f"got {packed.dtype} {tuple(packed.shape)}")
+    for t in (kernel_q, kernel_s, scale, shift, packed):
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, one is on {t.device}")
+    if phases * m * n >= 2**31:
+        raise ValueError(f"{name}: tensor too large for 32-bit pixel indices")
+    out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=torch.float32)
+    if m == 0 or n == 0:
+        return out
+    group = _group(b, act_group)
+    amax = act_absmax(x, group)
+    cfg, splits, kchunk = fc.plan(m, n, k4, phases)
+    ws = (torch.empty((splits * phases * m * n,), device=dev, dtype=torch.int32)
+          if splits > 1 else None)
+    fn = getattr(_library(), _KERNELS[name][0])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), amax.data_ptr(), out.data_ptr(),
+                 ws.data_ptr() if ws is not None else None,
+                 b, h, w, c, n, group, int(relu), splits, kchunk, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    launches[name] += 1
+    return out
+
+
+def int8_conv(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
+              shift: Tensor, relu: bool, plain: bool = False,
+              act_group: Optional[int] = None, packed: Optional[Tensor] = None) -> Tensor:
+    """W8A8 conv ``name``: its plain version with ``plain`` or on CPU
+    tensors, else the kernel. ``packed`` is ``pack_kernel_q(kernel_q)`` when
+    the caller keeps it (the conv modules do), else it is built per call."""
+    if plain or x.device.type == "cpu":
+        return PLAIN[name](x, kernel_q, kernel_s, scale, shift, relu, act_group)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA card, not {x.device}")
+    return _launch(name, x, kernel_q, kernel_s, scale, shift, relu, act_group, packed)
+
+
+# ------------------------------------------------------------------ wrappers
+def int8_conv3x3_bn_relu(x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
+                         shift: Tensor, relu: bool = True, act_group: Optional[int] = None,
+                         packed: Optional[Tensor] = None) -> Tensor:
+    """``act(conv3x3_int8(x) * scale + shift)``; (B, H, W, O) float32."""
+    return int8_conv("int8_conv3x3_bn_relu", x, kernel_q, kernel_s, scale, shift, relu,
+                     act_group=act_group, packed=packed)
+
+
+def int8_conv4x4s2_bn_relu(x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
+                           shift: Tensor, relu: bool = True, act_group: Optional[int] = None,
+                           packed: Optional[Tensor] = None) -> Tensor:
+    """``act(conv4x4/s2/p1_int8(x) * scale + shift)``; (B, H/2, W/2, O)."""
+    return int8_conv("int8_conv4x4s2_bn_relu", x, kernel_q, kernel_s, scale, shift, relu,
+                     act_group=act_group, packed=packed)
+
+
+def int8_convT4x4s2_bn_relu(x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
+                            shift: Tensor, relu: bool = True, act_group: Optional[int] = None,
+                            packed: Optional[Tensor] = None) -> Tensor:
+    """``act(convT4x4/s2/p1_int8(x) * scale + shift)`` with ``kernel_q`` in
+    the input-dilated form; (B, 2H, 2W, O)."""
+    return int8_conv("int8_convT4x4s2_bn_relu", x, kernel_q, kernel_s, scale, shift, relu,
+                     act_group=act_group, packed=packed)
+
+
+WRAPPERS = {
+    "int8_conv3x3_bn_relu": int8_conv3x3_bn_relu,
+    "int8_conv4x4s2_bn_relu": int8_conv4x4s2_bn_relu,
+    "int8_convT4x4s2_bn_relu": int8_convT4x4s2_bn_relu,
+}

@@ -5,6 +5,21 @@
     x_hat = sr.super_resolve(lr_batch)             # (B, ps, ps, C) in [0, 1]
     maps = sr.uncertainty(lr_image, samples=1000)  # mean/std/variance maps
 
+Two quantized modes, one at most:
+
+- ``SuperResolver(model, int8=True)``: W8A8. The decoder's conv kernels
+  (``dx_*`` / ``dy_*``) are stochastic-round quantized once at construction
+  from ``seed`` (``ops/quantize.quantize_params_tree``), and the decoder's
+  convs run through the int8 kernels of ``ops/fused_int8.py``, activations
+  quantized in the call. The resolver works on a copy of the model, so a
+  float32 resolver of the same model is untouched; a model that already
+  carries int8 weights is served as it is.
+- ``SuperResolver(model, int8_weights=True)``: weights only. Every large
+  conv kernel is round-to-nearest quantized at construction
+  (``ops/quantize.pack_int8_weights``) and held as int8 plus scales; each
+  request dequantizes them, runs the float32 graph and releases them, so
+  between requests the resolver holds a quarter of the weight bytes.
+
 Every endpoint takes ``seed=None``: an unseeded call draws its noise from the
 resolver's rolling generator (fresh draws each call), ``seed=N`` from a
 generator of its own seeded with N, so the same input, seed and options
@@ -15,12 +30,14 @@ tensors on the resolver's device.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
+from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
 from simple_vae_rs_tpu_torch.utils.image import normalize_image
 
@@ -44,11 +61,25 @@ class SuperResolver:
     """2x super-resolution and uncertainty service for one CondSRVAE."""
 
     def __init__(self, model: CondSRVAE, device="cuda", seed: int = 0,
-                 normalize: bool = True) -> None:
+                 normalize: bool = True, int8: bool = False,
+                 int8_weights: bool = False) -> None:
         if not isinstance(model, CondSRVAE):
             raise TypeError("SuperResolver serves CondSRVAE models")
+        if int8 and int8_weights:
+            raise ValueError(
+                "int8 (W8A8 decoder kernels) and int8_weights (weights only, "
+                "dequantized per request) are different quantization modes: pick one"
+            )
         self.device = resolve_device(device)
+        self.int8, self.int8_weights = int8, int8_weights
+        self._packed = None
+        if int8_weights or (int8 and not qz.has_quant(model)):
+            model = copy.deepcopy(model)  # the caller's model stays float32
         self.model = model.to(self.device).eval()
+        if int8 and not qz.has_quant(self.model):
+            qz.attach_quant(self.model, qz.quantize_params_tree(self.model, seed))
+        if int8_weights:
+            self._packed = qz.pack_int8_weights(self.model)
         self.normalize = normalize
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(int(seed))
@@ -91,7 +122,8 @@ class SuperResolver:
         """LR batch (B, ps/2, ps/2, C) -> one posterior draw (B, ps, ps, C)."""
         y = self._input(y, self.normalize if normalize is None else normalize)
         eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), self._generator(seed))
-        return self.model.conditional_generation_eps(y, eps_u, eps_z)
+        with qz.unpack_weights(self.model, self._packed):
+            return self.model.conditional_generation_eps(y, eps_u, eps_z)
 
     @torch.no_grad()
     def super_resolve_moments(self, y, samples: int, normalize: bool = False,
@@ -103,11 +135,12 @@ class SuperResolver:
         y = self._input(y, normalize)
         gen = self._generator(seed)
         s1 = s2 = None
-        for _ in range(samples):
-            eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), gen)
-            out = self.model.conditional_generation_eps(y, eps_u, eps_z)
-            s1 = out if s1 is None else s1 + out
-            s2 = out * out if s2 is None else s2 + out * out
+        with qz.unpack_weights(self.model, self._packed):
+            for _ in range(samples):
+                eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), gen)
+                out = self.model.conditional_generation_eps(y, eps_u, eps_z)
+                s1 = out if s1 is None else s1 + out
+                s2 = out * out if s2 is None else s2 + out * out
         return s1, s2
 
     @torch.no_grad()
@@ -120,7 +153,7 @@ class SuperResolver:
         if chunk is None:
             chunk = auto_chunk(samples, int(y.shape[1]) * 2)
         draws = sample_chunked(self.model, y, self._generator(seed),
-                               samples=samples, chunk=chunk)
+                               samples=samples, chunk=chunk, packed=self._packed)
         return {
             "mean": draws.mean(dim=0),
             "std": draws.std(dim=0, correction=0),

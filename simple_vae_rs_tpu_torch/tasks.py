@@ -9,6 +9,7 @@ import torch
 
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.vae import reparameterize
+from simple_vae_rs_tpu_torch.ops.quantize import unpack_weights
 
 
 def auto_chunk(samples: int, patch_size: int, budget_bytes: int = 1 << 30) -> int:
@@ -25,7 +26,8 @@ def sample_chunked(model: CondSRVAE, y: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    samples: int = 1000, chunk: int = 100,
                    eps_u: Optional[torch.Tensor] = None,
-                   eps_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   eps_z: Optional[torch.Tensor] = None,
+                   packed=None) -> torch.Tensor:
     """``samples`` posterior draws of one LR image ``y`` (1, ps/2, ps/2, C),
     decoded in chunks: (samples, ps, ps, C).
 
@@ -33,9 +35,17 @@ def sample_chunked(model: CondSRVAE, y: torch.Tensor,
     with one ``u`` draw shared by all samples (reference ``cond_vae.py:299-318``);
     only the decoder runs per chunk. Noise comes from ``generator`` unless
     injected: ``eps_u`` shaped like the u grid, ``eps_z`` (samples, z grid).
+    ``packed`` is the payload of a model in the weights-only int8 mode
+    (``ops/quantize.pack_int8_weights``): its weights are dequantized for
+    the length of this call.
     """
     if samples < 1:
         raise ValueError(f"samples must be >= 1 (got {samples})")
+    with unpack_weights(model, packed):
+        return _sample_chunked(model, y, generator, samples, chunk, eps_u, eps_z)
+
+
+def _sample_chunked(model, y, generator, samples, chunk, eps_u, eps_z):
     mu_u, logvar_u = model.encode_y(y)
     u = reparameterize(mu_u, logvar_u, eps_u, generator)
     y_feat = model.y_embedding(y)

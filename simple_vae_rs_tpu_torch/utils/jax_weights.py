@@ -1,11 +1,13 @@
 """Weight bridge: the JAX package's flax variables -> a port model, in place.
 
 The flax tree arrives as nested dicts of numpy arrays (what ``jax.device_get``
-returns): ``{"params": {...}, "batch_stats": {...}}``. The port keeps the JAX
+returns): ``{"params": {...}, "batch_stats": {...}}`` and, for a W8A8 model,
+``"quant": {...}`` (``ops/quantize.quantize_params_tree``). The port keeps the JAX
 layouts (NHWC activations, HWIO conv kernels, the input-dilated transposed
 conv kernel) and the flax names, so a leaf at path ``a/b/c`` of either
-collection is the port's parameter or buffer ``a.b.c``, with the same shape.
-This is the one place where a layout change would go.
+collection is the port's parameter or buffer ``a.b.c``, with the same shape;
+a ``quant`` node ``a/b/{kernel_q, kernel_s}`` is the int8 weight of the conv
+module ``a.b``. This is the one place where a layout change would go.
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from simple_vae_rs_tpu_torch.ops.quantize import attach_quant
+
 COLLECTIONS = ("params", "batch_stats")
+QUANT = "quant"
+_QUANT_LEAVES = ("kernel_q", "kernel_s")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -33,9 +39,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Copy a flax variables tree into ``model``; every leaf must match a
     parameter or persistent buffer of the same name and shape, and every
-    parameter and persistent buffer must be given. Raises ``KeyError`` on a
-    missing or extra leaf and ``ValueError`` on a shape mismatch."""
-    extra_cols = set(variables) - set(COLLECTIONS)
+    parameter and persistent buffer must be given. The convs named in a
+    ``quant`` collection get its int8 weights and every other conv loses any
+    it had, so the model is W8A8 exactly where the JAX model is. Raises
+    ``KeyError`` on a missing or extra leaf and ``ValueError`` on a shape
+    mismatch."""
+    extra_cols = set(variables) - set(COLLECTIONS) - {QUANT}
     if extra_cols:
         raise KeyError(f"unexpected variable collections: {sorted(extra_cols)}")
     leaves: Dict[str, np.ndarray] = {}
@@ -44,7 +53,9 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
             if name in leaves:
                 raise KeyError(f"leaf {name!r} appears in more than one collection")
             leaves[name] = arr
-    targets = model.state_dict(keep_vars=True)
+    attach_quant(model, variables.get(QUANT, {}))
+    targets = {name: t for name, t in model.state_dict(keep_vars=True).items()
+               if name.rsplit(".", 1)[-1] not in _QUANT_LEAVES}
     missing = sorted(set(targets) - set(leaves))
     extra = sorted(set(leaves) - set(targets))
     if missing or extra:

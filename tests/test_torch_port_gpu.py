@@ -6,7 +6,11 @@ is not installed: ``pytest --noconftest -m gpu tests/test_torch_port_gpu.py``.
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (float32 both, TF32 off,
 sums in another order); the row reductions 1e-5 (every element term >= 0);
 a training step as ``chip_smoke.py`` holds it (loss terms rtol 1e-4, each
-gradient leaf 1e-3 of the largest gradient in its block).
+gradient leaf 1e-3 of the largest gradient in its block). The int8 convs
+1e-5 * max|plain| (the same integers summed exactly on both sides), the
+stochastic quantizer byte for byte, the int8 resolver against its plain path
+2e-3 absolute (a float32 layer above an int8 conv may move an activation
+across a rounding boundary).
 """
 
 import copy
@@ -21,6 +25,8 @@ from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.serve import SuperResolver
 from simple_vae_rs_tpu_torch.train.engine import Trainer
 
@@ -201,3 +207,99 @@ def test_cuda_train_and_val_step_match_plain_path(cuda):
     assert fe.launches["kl_gen_rows"] == 2
     for key in val:
         assert abs(float(val[key] - val_p[key])) <= 1e-4 * abs(float(val_p[key])) + 1e-6
+
+
+# (name, x shape, O, relu, act_group): ragged packs (C=3, C=6), odd H/W, O=5,
+# a K split (few pixels, many channels), groups smaller than the batch with a
+# ragged last group, and the canonical deep decoder shapes
+INT8_CASES = [
+    ("int8_conv3x3_bn_relu", (2, 8, 8, 4), 8, True, None),
+    ("int8_conv3x3_bn_relu", (3, 5, 7, 3), 5, False, None),
+    ("int8_conv3x3_bn_relu", (5, 9, 11, 6), 13, True, 2),
+    ("int8_conv3x3_bn_relu", (1, 4, 4, 300), 200, False, None),
+    ("int8_conv3x3_bn_relu", (16, 8, 8, 424), 424, False, None),
+    ("int8_conv3x3_bn_relu", (4, 64, 64, 16), 4, False, 1),
+    ("int8_conv4x4s2_bn_relu", (3, 10, 6, 5), 7, False, 1),
+    ("int8_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, True, None),
+    ("int8_conv4x4s2_bn_relu", (16, 16, 16, 64), 128, True, None),
+    ("int8_convT4x4s2_bn_relu", (3, 5, 7, 4), 9, False, 2),
+    ("int8_convT4x4s2_bn_relu", (16, 8, 8, 424), 256, True, None),
+    ("int8_convT4x4s2_bn_relu", (4, 4, 4, 130), 70, False, 3),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", INT8_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_int8_cuda_kernel_matches_plain(cuda, case):
+    name, shape, o, relu, group = case
+    x, kern, s, t = _inputs(f8.float_name(name), shape, o, seed=sum(shape) + o, device=cuda)
+    x = x * torch.linspace(0.3, 2.0, shape[0], device=cuda).view(-1, 1, 1, 1)
+    kq, ks = qz.quantize_rtn(kern)
+    before = dict(f8.launches)
+    got = f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group)
+    torch.cuda.synchronize()
+    assert f8.launches[name] == before[name] + 1
+    assert f8.launches["act_absmax"] == before["act_absmax"] + 1
+    want = f8.PLAIN[name](x, kq, ks, s, t, relu, group)
+    assert got.shape == want.shape == f8.output_shape(name, shape, o)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(f8.act_absmax(x, group), f8.act_absmax_plain(x, group))
+    # a cached repack gives the same result, and the same result every run
+    again = f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group,
+                              packed=f8.pack_kernel_q(kq))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_int8_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, kern, s, t = _inputs("fused_conv3x3_bn_relu", (1, 4, 4, 3), 2, 0, cuda)
+    kq, ks = qz.quantize_rtn(kern)
+    with pytest.raises(TypeError):
+        f8.int8_conv3x3_bn_relu(x.double(), kq, ks, s, t)
+    with pytest.raises(ValueError):
+        f8.int8_conv3x3_bn_relu(x.transpose(1, 2), kq, ks, s, t)
+    with pytest.raises(ValueError):
+        f8.int8_conv3x3_bn_relu(x, kq.cpu(), ks, s, t)
+    with pytest.raises(ValueError):
+        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_kernel_q(kq)[:, :1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 3, 5, 7), (4, 4, 424, 256), (1000, 3)])
+def test_quantizer_cuda_kernel_gives_the_plain_versions_bytes(cuda, shape):
+    w = torch.tensor(np.random.default_rng(sum(shape)).standard_normal(shape) * 0.3,
+                     dtype=torch.float32, device=cuda)
+    before = qz.launches["quantize_stochastic"]
+    q, s = qz.quantize_stochastic(w, seed=(9 << 32) | 1234)
+    torch.cuda.synchronize()
+    assert qz.launches["quantize_stochastic"] == before + 1
+    q_plain, s_plain = qz.quantize_stochastic_plain(w, seed=(9 << 32) | 1234)
+    assert torch.equal(q, q_plain) and torch.equal(s, s_plain)
+    # the same bytes as on the CPU, and other bytes for another seed
+    q_cpu, s_cpu = qz.quantize_stochastic(w.cpu(), seed=(9 << 32) | 1234)
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    assert not torch.equal(qz.quantize_stochastic(w, seed=5)[0], q)
+    assert float((q.float() - w / s).abs().max()) < 1.0
+
+
+@pytest.mark.gpu
+def test_int8_cuda_serving_matches_plain_path(cuda):
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16)).init_weights(1)
+    y = np.random.default_rng(12).random((3, 8, 8, 4)).astype(np.float32)
+    f32 = SuperResolver(model, device="cuda", seed=0).super_resolve(y, seed=1)
+    for mode in ("int8", "int8_weights"):
+        sr = SuperResolver(model, device="cuda", seed=0, **{mode: True})
+        f8.reset_launches()
+        got = sr.super_resolve(y, seed=1)
+        maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
+        int8_ran = (f8.launches["int8_conv3x3_bn_relu"] > 0
+                    and f8.launches["int8_convT4x4s2_bn_relu"] > 0)
+        assert int8_ran == (mode == "int8")
+        blocks.use_plain_path(sr.model)
+        want = sr.super_resolve(y, seed=1)
+        want_maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
+        assert float((got - want).abs().max()) <= 2e-3
+        assert float((maps["std"] - want_maps["std"]).abs().max()) <= 2e-3
+        mse = float(((got - f32) ** 2).mean())
+        assert 10 * math.log10(1.0 / max(mse, 1e-12)) > 30.0
+    assert not qz.has_quant(model)

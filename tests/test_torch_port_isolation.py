@@ -18,7 +18,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "simple_vae_rs_tpu_torch.ops.fused_conv" in mods and len(mods) >= 13
+    assert len(mods) >= 15
+    for mod in ("fused_conv", "fused_elbo", "fused_int8", "quantize"):
+        assert f"simple_vae_rs_tpu_torch.ops.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

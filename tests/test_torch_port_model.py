@@ -150,7 +150,9 @@ def test_load_jax_variables_rejects_mismatched_trees(pair):
     with pytest.raises(ValueError, match="dx_conv4"):
         load_jax_variables(fresh, wrong)
     with pytest.raises(KeyError, match="quant"):
-        load_jax_variables(fresh, {**variables, "quant": {}})
+        load_jax_variables(fresh, {**variables, "quant": {"stray": np.zeros(1)}})
+    with pytest.raises(KeyError, match="cache"):
+        load_jax_variables(fresh, {**variables, "cache": {}})
 
 
 def test_canonical_param_count():
