@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (H100): the quickest proof
-that the port builds, is right, serves and trains at full width.
+that the port builds, is right, serves and trains at full width (Cond_SRVAE
+in float32, int8 and with chained tails; VAE; SRVAE).
 
     python3 chip_smoke.py
 
@@ -71,11 +72,45 @@ I6. ``SuperResolver(model, int8_weights=True)``: the same two requests, the
     float kernels' launch counts of phase 4, PSNR against float32 above
     30 dB, and no packed leaf held in float32 between requests.
 
+After the int8 phases, the chain kernel and chained serving (the model of
+phase 4), and after phase 8 the chained val step and the other two families:
+
+C1. Hold the chain kernel (n 3x3 convs in one launch) against its plain
+    version on ragged shapes (one, two and four layers, odd H, W and widths,
+    images wider than a tile, a 40-channel input) and at every chain the
+    canonical models launch, at the batch sizes of their paths (1, 16, 512,
+    1000).
+C2. ``SuperResolver(model, chain=True)``: counters set to 0, ``super_resolve``
+    B=16 and ``uncertainty`` N=1000; launches asserted against hooks and the
+    expected numbers (3x3 16 and chain 2 per request in place of 3x3 24: for
+    ``uncertainty`` 13 + 1 in the prior pass and 3 + 1 in the decode);
+    outputs within 1e-4 of the unchained resolver of phase 4 on the same
+    noise and of the plain path. ``SuperResolver(model, int8=True,
+    chain=True)``: the int8 counts of I3 unchanged, the chain once per
+    request (the float32 ``ey`` tail), outputs within 2e-3 of the unchained
+    W8A8 resolver.
+C3. One val step of the canonical Cond_SRVAE at B=512, unchained (3x3 37)
+    and chained (3x3 21, chain 4); loss terms within 1e-4 relative.
+C4. The canonical VAE (cr=1.5, ps=32): ``sample_chunked`` with 1000 draws of
+    one 32x32 window, unchained, chained (chain 1 for the encoder and 1 per
+    decode chunk) and on the plain path, on the same injected noise; one
+    train step and one chained val step at B=512 with the launch counts
+    asserted against hooks; then phase 8's comparison with the plain path.
+    The canonical SRVAE: ``super_resolve`` B=16 chained from HR-sized input
+    and from the LR view of the same input (equal outputs, the launch counts
+    of C2), one train step and chained val step, and phase 8's comparison.
+C5. Timing by CUDA events per chain shape: the chain, the per-layer kernel
+    launches it replaces, the plain version, and one cuDNN call per layer
+    (TF32 off; no single PyTorch call computes a chain, so the kernel's
+    ``library_ms`` is null); the bound (bytes of input, output and weights
+    over 3.35 TB/s, or float32 operations over 67 TFLOP/s). Request
+    latencies chained beside unchained, in turns, float32 and W8A8.
+
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
 one val step; for the int8 kernels over the int8 serving run and the block
 path; an int8 conv's time includes its absmax pass, which is also listed on
-its own), then the last line
+its own; for the chain over the chained runs of C2-C4), then the last line
 ``{"ok": true, "device": {...}}``. A per-shape report is written to
 ``chiprun_out/chip_smoke_report.json``. Exits non-zero without a CUDA card.
 
@@ -350,6 +385,15 @@ def record_conv_calls(model, calls):
     return hooks
 
 
+def conv_counts(fc):
+    """Launches of the three per-layer conv kernels on a path that runs with
+    the chain off, where the chain kernel must not have launched."""
+    counts = dict(fc.launches)
+    if counts.pop(fc.CHAIN) != 0:
+        raise AssertionError("the chain kernel launched on a path with the chain off")
+    return counts
+
+
 def counts_by_role(calls):
     out = {}
     for c in calls:
@@ -433,28 +477,36 @@ def time_weight_grad(fc, site, shape, o, seed):
             "bound_ms": 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
 
 
-def kernels_vs_plain(cfg, init_state, batch):
+def block_of(name: str) -> str:
+    """The block (top-level module; below ``core`` for an SRVAE) of a parameter."""
+    parts = name.split(".")
+    return parts[1] if parts[0] == "core" and len(parts) > 1 else parts[0]
+
+
+def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=False):
     """Phase 8: one train step and one val step from the same state, batch and
     noise, through the kernels and through the plain path; a third copy takes
     the plain step on the batch permuted (the same function, summed in
-    another order), which measures float32's own noise in each gradient."""
-    from simple_vae_rs_tpu_torch import CondSRVAE, TrainConfig, Trainer
+    another order), which measures float32's own noise in each gradient.
+    ``make_model()`` builds the model on the card; with ``chain`` both
+    copies' val steps run their conv tails through the chain."""
+    from simple_vae_rs_tpu_torch import TrainConfig, Trainer
     from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
     from simple_vae_rs_tpu_torch.ops import fused_conv as fc
     from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
 
-    y, x = batch
-    n = y.shape[0]
+    n = batch[0].shape[0]
 
     def copy_trainer(plain):
-        m = CondSRVAE(cfg, device="cuda")
+        m = make_model()
         m.load_state_dict(init_state)
         blocks.use_plain_path(m, plain)
+        blocks.use_chain(m, chain)
         return Trainer(m, TrainConfig(learning_rate=LR), device="cuda")
 
     tk, tp = copy_trainer(False), copy_trainer(True)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    eps = tk.noise(n, y.shape[1:3], gen)
+    eps = tk.noise(n, tk._batch(batch)[0].shape[1:3], gen)
     grads_k, terms_k = tk.grads_and_terms(batch, eps)
     tk.apply_grads(grads_k, LR)
     torch.cuda.synchronize()
@@ -462,8 +514,8 @@ def kernels_vs_plain(cfg, init_state, batch):
     grads_p, terms_p = tp.grads_and_terms(batch, eps)
     tp.apply_grads(grads_p, LR)
     perm = torch.randperm(n, generator=gen, device="cuda")
-    grads_q, _ = copy_trainer(True).grads_and_terms((y[perm], x[perm]),
-                                                    (eps[0][perm], eps[1][perm]))
+    grads_q, _ = copy_trainer(True).grads_and_terms(tuple(t[perm] for t in batch),
+                                                    tuple(e[perm] for e in eps))
     torch.cuda.synchronize()
     if (dict(fc.launches), dict(fe.launches)) != before:
         raise AssertionError("the plain training path launched a kernel")
@@ -476,17 +528,17 @@ def kernels_vs_plain(cfg, init_state, batch):
             failures.append(f"train step {key}: relative diff {rel} > {TERMS_TOL}")
     block_max = {}
     for name, g in grads_p.items():
-        blk = name.split(".")[0]
+        blk = block_of(name)
         block_max[blk] = max(block_max.get(blk, 0.0), float(g.abs().max()))
     for name, g in grads_p.items():
         err = float((grads_k[name] - g).abs().max())
         noise = float((grads_q[name] - g).abs().max())
         cmp["grads"][name] = {
             "max_abs_err": err, "perm_noise": noise, "leaf_max": float(g.abs().max()),
-            "of_block_max": err / max(block_max[name.split(".")[0]], 1e-30),
+            "of_block_max": err / max(block_max[block_of(name)], 1e-30),
             "of_leaf_max": err / max(float(g.abs().max()), 1e-30)}
         cmp["grads"][name]["of_noise"] = err / max(noise, 1e-30)
-        limit = NOISE_FACTOR * noise + GRAD_TOL * block_max[name.split(".")[0]]
+        limit = NOISE_FACTOR * noise + GRAD_TOL * block_max[block_of(name)]
         if not err <= limit:
             failures.append(f"grad {name}: max|diff| {err} > {NOISE_FACTOR} * {noise} "
                             f"(permuted-batch noise) + {GRAD_TOL} of its block's max")
@@ -494,7 +546,7 @@ def kernels_vs_plain(cfg, init_state, batch):
         "permuted-plain-vs-plain max|diff|, leaf max, block max")
     for name, c in sorted(cmp["grads"].items(), key=lambda kv: -kv[1]["of_block_max"])[:15]:
         log(f"  {name}: {c['max_abs_err']:.3e} {c['perm_noise']:.3e} {c['leaf_max']:.3e} "
-            f"{block_max[name.split('.')[0]]:.3e}")
+            f"{block_max[block_of(name)]:.3e}")
     worst_stat = 0.0
     for (name, buf), buf_p in zip(tk.model.named_buffers(), tp.model.buffers()):
         rel = float((buf - buf_p).abs().max()) / max(float(buf_p.abs().max()), 1e-30)
@@ -508,7 +560,12 @@ def kernels_vs_plain(cfg, init_state, batch):
     if not (max_dp <= 2 * LR * (1 + 1e-3) and share_close >= 0.99):
         failures.append(f"parameters after the step: max|diff| {max_dp}, "
                         f"{share_close:.4f} within 1e-2 * lr")
-    vk, vp = tk.val_step(batch), tp.val_step(batch)
+    chain_before = fc.launches[fc.CHAIN]
+    vk = tk.val_step(batch)
+    cmp["val_chain_launches"] = fc.launches[fc.CHAIN] - chain_before
+    vp = tp.val_step(batch)
+    if fc.launches[fc.CHAIN] - chain_before != cmp["val_chain_launches"]:
+        raise AssertionError("the plain val step launched the chain kernel")
     cmp["val_terms"] = {}
     for key, v in vp.items():
         rel = abs(float(vk[key] - v)) / max(abs(float(v)), 1e-30)
@@ -521,19 +578,33 @@ def kernels_vs_plain(cfg, init_state, batch):
                 "worst_stat_rel": worst_stat,
                 "param_max_abs_diff": max_dp, "param_share_within_1e-2_lr": share_close,
                 "failures": failures})
-    log(f"train step kernels vs plain path: terms rel {max(cmp['terms'].values()):.2e}, "
+    log(f"{label} kernels vs plain path: terms rel {max(cmp['terms'].values()):.2e}, "
         f"grads worst {worst[0]:.2e} of block max ({worst[1]}), worst {worst_noise[0]:.2f}x "
         f"the permuted-batch noise ({worst_noise[1]}), BN stats rel "
         f"{worst_stat:.2e}, params max|diff| {max_dp:.3e} ({share_close:.4f} within 1e-2 lr), "
-        f"val terms rel {max(cmp['val_terms'].values()):.2e}")
+        f"val terms rel {max(cmp['val_terms'].values()):.2e} (chain launches in the val step: "
+        f"{cmp['val_chain_launches']})")
     return cmp
+
+
+def training_batch():
+    """512 (LR 32x32x4, HR 64x64x4) pairs cut on the card by the port's
+    ``grid_sr_batch`` from 32 synthetic tiles (values x1000, numpy seed 0)."""
+    from simple_vae_rs_tpu_torch import grid_sr_batch
+
+    rng = np.random.default_rng(0)
+    lr_tiles = torch.from_numpy(rng.random((32, 128, 128, 4), dtype=np.float32) * 1000).cuda()
+    hr_tiles = torch.from_numpy(rng.random((32, 256, 256, 4), dtype=np.float32) * 1000).cuda()
+    y, x = grid_sr_batch(lr_tiles, hr_tiles, 64)
+    if tuple(y.shape) != (512, 32, 32, 4) or tuple(x.shape) != (512, 64, 64, 4):
+        raise AssertionError(f"grid_sr_batch gave {tuple(y.shape)}, {tuple(x.shape)}")
+    return y, x
 
 
 def train_phase(report):
     """Phases 6-8; returns per-kernel totals over one train step and one val
     step, and each kernel's launches by path and role."""
     from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, TrainConfig, Trainer
-    from simple_vae_rs_tpu_torch import grid_sr_batch
     from simple_vae_rs_tpu_torch.ops import fused_conv as fc
     from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
 
@@ -545,13 +616,8 @@ def train_phase(report):
     cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
     model = CondSRVAE(cfg, device="cuda").init_weights(seed=0)
     init_state = copy.deepcopy(model.state_dict())
-    rng = np.random.default_rng(0)
-    lr_tiles = torch.from_numpy(rng.random((32, 128, 128, 4), dtype=np.float32) * 1000).cuda()
-    hr_tiles = torch.from_numpy(rng.random((32, 256, 256, 4), dtype=np.float32) * 1000).cuda()
-    batch = grid_sr_batch(lr_tiles, hr_tiles, cfg.patch_size)
+    batch = training_batch()
     y, x = batch
-    if tuple(y.shape) != (512, 32, 32, 4) or tuple(x.shape) != (512, 64, 64, 4):
-        raise AssertionError(f"grid_sr_batch gave {tuple(y.shape)}, {tuple(x.shape)}")
     n = y.shape[0]
     trainer = Trainer(model, TrainConfig(learning_rate=LR), device="cuda")
 
@@ -568,7 +634,7 @@ def train_phase(report):
     reset()
     val0 = trainer.val_step(batch)
     torch.cuda.synchronize()
-    val_convs, val_rows = dict(fc.launches), dict(fe.launches)
+    val_convs, val_rows = conv_counts(fc), dict(fe.launches)
     for h in hooks:
         h.remove()
     for what, terms in (("train", terms0), ("val", val0)):
@@ -680,7 +746,7 @@ def train_phase(report):
         f"row kernels {rows_ms:.3f} ms ({100 * rows_ms / med:.2f}%); the rest is BatchNorm, "
         f"elementwise ops, the optimizer, launches and host time")
     # 8. kernels vs the plain path
-    cmp = kernels_vs_plain(cfg, init_state, batch)
+    cmp = kernels_vs_plain(lambda: CondSRVAE(cfg, device="cuda"), init_state, batch)
     report["training"] = {
         "batch": n, "step_ms": step_ms, "step_ms_median": med,
         "patches_per_s": n / (med / 1e3), "peak_memory_gib": peak_gib, "val_step_ms": val_ms,
@@ -876,10 +942,7 @@ def serve_requests(sr, y, calls=()):
     out, sr_ms = timed(lambda: sr.super_resolve(y, seed=11))
     after_sr, n_sr_calls = all_counts(), len(calls)
     uq, uq_ms = timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))
-    if tuple(out.shape) != (16, 64, 64, 4) or not torch.isfinite(out).all():
-        raise AssertionError(f"super_resolve output {tuple(out.shape)} is wrong")
-    if float(out.min()) < 0 or float(out.max()) > 1:
-        raise AssertionError("super_resolve output leaves [0, 1]")
+    served_ok("super_resolve", out, (16, 64, 64, 4))
     for key in ("mean", "std", "variance"):
         if tuple(uq[key].shape) != (64, 64, 4) or not torch.isfinite(uq[key]).all():
             raise AssertionError(f"uncertainty[{key}] is wrong")
@@ -1109,6 +1172,556 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     return totals, by_path, f32_by_path
 
 
+# ------------------------------------------------------------------ the chain
+CHAIN_SOURCE = "simple_vae_rs_tpu_torch/csrc/conv_chain.cu"
+TAIL = (64, 16, 16, 4)  # later widths of a decoder tail, after its 64 input channels
+# (x shape, later channel widths): one, two and four layers, odd H, W and
+# channel widths, images wider than a tile so that halos and ragged last
+# tiles run, and a 40-channel input (two weight slices)
+RAGGED_CHAIN = [
+    ((2, 5, 7, 3), (6,)),
+    ((3, 9, 11, 5), (7, 3)),
+    ((2, 19, 23, 64), TAIL),
+    ((1, 37, 21, 13), (18, 5, 9, 2)),
+    ((1, 4, 4, 40), (24, 9)),
+]
+# every chain the canonical models launch: Cond_SRVAE (cr=1.2, ps=64:
+# u_channels 53, z_channels 212) and VAE (cr=1.5, ps=32: latent_channels 42)
+CHAIN_SHAPES = [
+    ("Cond dx tail", (16, 64, 64, 64), TAIL), ("Cond dx tail", (1000, 64, 64, 64), TAIL),
+    ("Cond dx tail", (512, 64, 64, 64), TAIL),
+    ("Cond dy / VAE dec tail", (512, 32, 32, 64), TAIL),
+    ("VAE dec tail", (1000, 32, 32, 64), TAIL),
+    ("Cond ey tail", (1, 8, 8, 64), (64, 128, 128, 106)),
+    ("Cond ey tail", (16, 8, 8, 64), (64, 128, 128, 106)),
+    ("Cond ey tail", (512, 8, 8, 64), (64, 128, 128, 106)),
+    ("Cond ex tail", (512, 8, 8, 128), (128, 128, 128, 424)),
+    ("VAE enc tail", (1, 8, 8, 64), (64, 128, 128, 84)),
+    ("VAE enc tail", (512, 8, 8, 64), (64, 128, 128, 84)),
+]
+
+
+class ChainCalls:
+    """Records ``(x shape, later widths)`` of every chain the models route
+    while it is open, by standing in for the wrapper that ``tail_chain``
+    calls; calls routed to the plain version are recorded apart."""
+
+    def __enter__(self):
+        from simple_vae_rs_tpu_torch.ops import fused_chain as fch
+
+        self.fch, self.orig = fch, fch.fused_conv3x3_chain
+        self.calls, self.plain_calls = [], []
+
+        def recording(x, kernels, biases, plain=False):
+            key = (tuple(x.shape), tuple(k.shape[-1] for k in kernels))
+            (self.plain_calls if plain else self.calls).append(key)
+            return self.orig(x, kernels, biases, plain=plain)
+
+        fch.fused_conv3x3_chain = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.fch.fused_conv3x3_chain = self.orig
+
+
+def check_chain(shape, widths, seed, timing: bool):
+    """The chain kernel vs its plain version at one shape; with ``timing``
+    also the times of the chain, of the per-layer kernel launches it
+    replaces, of the plain version and of one cuDNN call per layer."""
+    from simple_vae_rs_tpu_torch.ops import fused_chain as fch
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    chans = (shape[-1],) + tuple(widths)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    ks = [torch.randn((3, 3, chans[i], chans[i + 1]), generator=gen, device="cuda")
+          / math.sqrt(9 * chans[i]) for i in range(len(widths))]
+    bs = [torch.randn((c,), generator=gen, device="cuda") for c in widths]
+    got = fch.fused_conv3x3_chain(x, ks, bs)
+    want = fch.conv3x3_chain_plain(x, ks, bs)
+    torch.cuda.synchronize()
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    if not (err <= KERNEL_TOL * ref) or not torch.isfinite(got).all():
+        raise AssertionError(f"chain {shape}->{widths}: max|diff| {err} > {KERNEL_TOL} * {ref}")
+    if tuple(got.shape) != tuple(shape[:3]) + (widths[-1],):
+        raise AssertionError(f"chain {shape}->{widths}: output shape {tuple(got.shape)}")
+    th, tw, buf0, buf1 = fch.plan_chain(shape[1], shape[2], chans)
+    row = {"name": fc.CHAIN, "x": list(shape), "widths": list(widths), "max_abs_err": err,
+           "max_abs_ref": ref, "tile": [th, tw],
+           "shared_memory_bytes": 4 * (buf0 + buf1 + fch.WS_FLOATS)}
+    if not timing:
+        return row
+    ones = [torch.ones(c, device="cuda") for c in widths]
+
+    def per_layer():
+        h = x
+        for k, one, b in zip(ks, ones, bs):
+            h = fc.fused_conv3x3_bn_relu(h, k, one, b, relu=False)
+        return h
+
+    xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels_last)
+    wts = [k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for k in ks]
+
+    def library():
+        h = xn
+        for wt, b in zip(wts, bs):
+            h = F.conv2d(h, wt, b, padding=1)
+        return h
+
+    for what, other in (("per-layer kernels", per_layer()),
+                        ("library calls", library().permute(0, 2, 3, 1))):
+        other_err = float((other - want).abs().max())
+        if not other_err <= KERNEL_TOL * ref:
+            raise AssertionError(f"chain {shape}: the {what} disagree by {other_err}")
+    before = dict(fc.launches)
+    first = cuda_ms(lambda: fch.fused_conv3x3_chain(x, ks, bs), 1)
+    reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
+    row["ms"] = cuda_ms(lambda: fch.fused_conv3x3_chain(x, ks, bs), reps)
+    row["per_layer_ms"] = cuda_ms(per_layer, reps)
+    row["plain_ms"] = cuda_ms(lambda: fch.conv3x3_chain_plain(x, ks, bs), reps)
+    row["library4_ms"] = cuda_ms(library, reps)
+    row["library_ms"] = None  # no single PyTorch call computes the chain
+    for name, count in before.items():  # timing launches are not a path's launches
+        fc.launches[name] = count
+    pixels = shape[0] * shape[1] * shape[2]
+    flops = 2.0 * 9 * pixels * sum(chans[i] * chans[i + 1] for i in range(len(widths)))
+    nbytes = 4.0 * (x.numel() + got.numel() + sum(k.numel() for k in ks) + sum(widths))
+    bound_row(row, flops, nbytes, PEAK_F32_FLOPS)
+    return row
+
+
+class ChainRows:
+    """Per-shape rows of the chain kernel (checked and timed once each)."""
+
+    def __init__(self, report):
+        self.rows, self.report = {}, report
+
+    def row(self, shape, widths, site=""):
+        key = (tuple(shape), tuple(widths))
+        if key not in self.rows:
+            row = self.rows[key] = check_chain(shape, widths, seed=900 + len(self.rows), timing=True)
+            row["site"] = site
+            self.report.append(row)
+            log(f"chain shape {site} x{tuple(shape)}->{tuple(widths)} tile {row['tile']}: chain "
+                f"{row['ms']:.4f} ms, the {len(widths)} per-layer kernel launches "
+                f"{row['per_layer_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"{len(widths)} library calls {row['library4_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max|diff| {row['max_abs_err']:.2e}")
+        return self.rows[key]
+
+
+def expect_counts(what, got, want):
+    got = {k: v for k, v in got.items() if v or k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def served_ok(what, out, shape):
+    if tuple(out.shape) != shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: output {tuple(out.shape)} is wrong")
+    if float(out.min()) < 0 or float(out.max()) > 1:
+        raise AssertionError(f"{what}: output leaves [0, 1]")
+
+
+def chain_phase(report, model, sr, y, f32_out, f32_uq):
+    """Phases C1, C2 and C5; returns the per-shape rows and the chains each
+    path launched, as ``(x shape, later widths)``."""
+    from simple_vae_rs_tpu_torch import SuperResolver
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+
+    chain_report = report["chain"] = {"ragged": [], "shapes": []}
+    # C1. ragged shapes, then every chain of the canonical models (timed: C5)
+    for i, (shape, widths) in enumerate(RAGGED_CHAIN):
+        row = check_chain(shape, widths, seed=850 + i, timing=False)
+        chain_report["ragged"].append(row)
+        log(f"ragged chain x{shape}->{widths} tile {row['tile']}: max|diff| "
+            f"{row['max_abs_err']:.3e}")
+    rows = ChainRows(chain_report["shapes"])
+    for site, shape, widths in CHAIN_SHAPES:
+        rows.row(shape, widths, site)
+
+    # C2. chained serving of the canonical Cond_SRVAE, float32
+    by_path = {}
+    src = SuperResolver(model, device="cuda", seed=0, chain=True)
+    if model.chain or not src.model.chain:
+        raise AssertionError("chain=True must switch the chain on in its own copy of the model")
+    calls = []
+    hooks = record_routed_calls(src.model, calls)
+    with ChainCalls() as chained:
+        reset_all_counts()
+        out, uq, sr_ms, uq_ms, after_sr, n_sr_calls = serve_requests(src, y, calls)
+        counts = all_counts()
+    for h in hooks:
+        h.remove()
+    per_request = {"fused_conv3x3_bn_relu": 16, fc.CHAIN: 2, "fused_conv4x4s2_bn_relu": 5,
+                   "fused_convT4x4s2_bn_relu": 3}
+    expect_counts("chained super_resolve", after_sr, per_request)
+    expect_counts("chained uncertainty", {k: counts[k] - after_sr[k] for k in counts},
+                  per_request)
+    u, z = model.config.u_channels, model.config.z_channels
+    ey = (64, 128, 128, 2 * u)
+    if chained.calls != [((16, 8, 8, 64), ey), ((16, 64, 64, 64), TAIL), ((1, 8, 8, 64), ey),
+                         ((1000, 64, 64, 64), TAIL)] or chained.plain_calls:
+        raise AssertionError(f"chained serving routed the chains {chained.calls}")
+    for name in per_request:
+        recorded = (len(chained.calls) if name == fc.CHAIN
+                    else sum(1 for c in calls if c[0] == name))
+        if recorded != counts[name]:
+            raise AssertionError(f"chained serving {name}: {counts[name]} launches, {recorded} calls")
+    prior = [c for c in calls[n_sr_calls:] if c[1][0] == 1]
+    decode = [c for c in calls[n_sr_calls:] if c[1][0] == 1000]
+    split = {"prior": {k: sum(1 for c in prior if c[0] == k) for k in per_request},
+             "decode": {k: sum(1 for c in decode if c[0] == k) for k in per_request}}
+    split["prior"][fc.CHAIN] = split["decode"][fc.CHAIN] = 1
+    want_split = {"prior": {"fused_conv3x3_bn_relu": 13, fc.CHAIN: 1, "fused_conv4x4s2_bn_relu": 5,
+                            "fused_convT4x4s2_bn_relu": 0},
+                  "decode": {"fused_conv3x3_bn_relu": 3, fc.CHAIN: 1, "fused_conv4x4s2_bn_relu": 0,
+                             "fused_convT4x4s2_bn_relu": 3}}
+    if split != want_split:
+        raise AssertionError(f"chained uncertainty launched {split}, expected {want_split}")
+    by_path["serving_chained"] = chained.calls
+    log("chained serving launches: super_resolve(16) "
+        + " ".join(f"{k}={v}" for k, v in after_sr.items() if v) + " | uncertainty(1000) prior "
+        + " ".join(f"{k}={v}" for k, v in split["prior"].items() if v) + ", decode "
+        + " ".join(f"{k}={v}" for k, v in split["decode"].items() if v))
+
+    blocks.use_plain_path(src.model)
+    with ChainCalls() as plain_chained:
+        before = all_counts()
+        plain_sr = src.super_resolve(y, seed=11)
+        plain_uq = src.uncertainty(y[0], samples=1000, seed=12)
+        torch.cuda.synchronize()
+    if all_counts() != before or plain_chained.calls or len(plain_chained.plain_calls) != 4:
+        raise AssertionError("the chained plain path launched a kernel")
+    blocks.use_plain_path(src.model, False)
+    serve_err = {}
+    for other, o_sr, o_uq in (("unchained", f32_out, f32_uq), ("plain", plain_sr, plain_uq)):
+        serve_err[other] = {"super_resolve": float((out - o_sr).abs().max()),
+                            "uncertainty.mean": float((uq["mean"] - o_uq["mean"]).abs().max()),
+                            "uncertainty.std": float((uq["std"] - o_uq["std"]).abs().max())}
+        for key, err in serve_err[other].items():
+            if not err <= SERVE_TOL:
+                raise AssertionError(f"chained {key} vs the {other} path: max|diff| {err} > "
+                                     f"{SERVE_TOL}")
+    log(f"chained serving max|diff| vs the unchained resolver {serve_err['unchained']}, vs the "
+        f"plain path {serve_err['plain']}")
+    del plain_sr, plain_uq
+
+    # C2. W8A8 with the chain: the decoder keeps its int8 kernels, the ey tail chains
+    sr8 = SuperResolver(model, device="cuda", seed=0, int8=True)
+    sr8c = SuperResolver(model, device="cuda", seed=0, int8=True, chain=True)
+    calls8 = []
+    hooks = record_routed_calls(sr8c.model, calls8)
+    with ChainCalls() as chained8:
+        reset_all_counts()
+        out8, uq8, _, _, after_sr8, _ = serve_requests(sr8c, y, calls8)
+        counts8 = all_counts()
+    for h in hooks:
+        h.remove()
+    want8 = dict(INT8_EXPECTED, fused_conv3x3_bn_relu=13, **{fc.CHAIN: 1})
+    expect_counts("W8A8 chained super_resolve", after_sr8, want8)
+    expect_counts("W8A8 chained uncertainty", {k: counts8[k] - after_sr8[k] for k in counts8}, want8)
+    if chained8.calls != [((16, 8, 8, 64), ey), ((1, 8, 8, 64), ey)]:
+        raise AssertionError(f"W8A8 chained serving routed the chains {chained8.calls}")
+    ref8 = sr8.super_resolve(y, seed=11)
+    ref8_uq = sr8.uncertainty(y[0], samples=1000, seed=12)
+    err8 = {"super_resolve": float((out8 - ref8).abs().max()),
+            "uncertainty.mean": float((uq8["mean"] - ref8_uq["mean"]).abs().max())}
+    for key, err in err8.items():
+        if not err <= INT8_SERVE_TOL:
+            raise AssertionError(f"W8A8 chained {key} vs W8A8 unchained: max|diff| {err}")
+    by_path["serving_int8_chained"] = chained8.calls
+    log("W8A8 chained serving launches per request: "
+        + " ".join(f"{k}={v}" for k, v in after_sr8.items() if v)
+        + f"; max|diff| vs the unchained W8A8 resolver {err8}")
+
+    # C5. latencies, chained beside unchained, in turns
+    lat = {}
+    for mode, plain_r, chain_r in (("f32", sr, src), ("w8a8", sr8, sr8c)):
+        t = {k: [] for k in ("sr", "sr_chain", "uq", "uq_chain")}
+        for _ in range(5):
+            t["sr"].append(timed(lambda: plain_r.super_resolve(y, seed=11))[1])
+            t["sr_chain"].append(timed(lambda: chain_r.super_resolve(y, seed=11))[1])
+        for _ in range(3):
+            t["uq"].append(timed(lambda: plain_r.uncertainty(y[0], samples=1000, seed=12))[1])
+            t["uq_chain"].append(timed(lambda: chain_r.uncertainty(y[0], samples=1000,
+                                                                   seed=12))[1])
+        lat[mode] = t
+        log(f"{mode} super_resolve B=16: unchained median {statistics.median(t['sr']):.2f} ms, "
+            f"chained {statistics.median(t['sr_chain']):.2f} ms; uncertainty N=1000: unchained "
+            f"{statistics.median(t['uq']):.2f} ms, chained {statistics.median(t['uq_chain']):.2f} ms")
+    chain_report["serving"] = {
+        "super_resolve_b16_ms": sr_ms, "uncertainty_n1000_ms": uq_ms, "latency_ms": lat,
+        "launches": counts, "launches_super_resolve_b16": after_sr, "uncertainty_split": split,
+        "max_abs_err": serve_err, "w8a8_launches_per_request": after_sr8,
+        "w8a8_max_abs_err_vs_unchained": err8,
+    }
+    return rows, by_path
+
+
+def count_step(trainer, step, batch):
+    """One counted step: conv and row launches by kernel and role, the chains
+    it routed and the calls hooks recorded."""
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+
+    calls = []
+    hooks = record_conv_calls(trainer.model, calls)
+    with ChainCalls() as chained:
+        fc.reset_launches()
+        fe.reset_launches()
+        terms = getattr(trainer, step)(batch)
+        torch.cuda.synchronize()
+        roles = {k: dict(v) for k, v in fc.role_launches.items()}
+        rows = {k: v for k, v in fe.launches.items() if v}
+        chain_count = fc.launches[fc.CHAIN]
+    for h in hooks:
+        h.remove()
+    recorded = counts_by_role(calls)
+    for name, by_role in roles.items():
+        for role, count in by_role.items():
+            if recorded.get((name, role), 0) != count:
+                raise AssertionError(f"{step}: {name} {role} launched {count} times, hooks "
+                                     f"recorded {recorded.get((name, role), 0)}")
+    if chain_count != len(chained.calls) or chained.plain_calls:
+        raise AssertionError(f"{step}: {chain_count} chain launches, {chained.calls} routed")
+    if not all(torch.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"{step}: non-finite loss terms {terms}")
+    return terms, roles, rows, chained.calls
+
+
+def flat_roles(roles):
+    return {f"{name} {role}": n for name, by_role in roles.items() for role, n in by_role.items()
+            if n}
+
+
+def families_phase(report):
+    """Phases C3 and C4: the chained val step of the canonical Cond_SRVAE, and
+    the canonical VAE and SRVAE, served and trained. Returns the chains each
+    path launched, as ``(x shape, later widths)``, and the other kernels'
+    launches on the new paths."""
+    from simple_vae_rs_tpu_torch import (SRVAE, VAE, CondSRVAE, CondSRVAEConfig, SuperResolver,
+                                         TrainConfig, Trainer, VAEConfig)
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
+    from simple_vae_rs_tpu_torch.models.srvae import box_downsample_2x
+    from simple_vae_rs_tpu_torch.utils.image import normalize_image
+
+    fam = report["families"] = {}
+    by_path, others = {}, {}
+    batch = training_batch()
+    y, x = batch
+    n = y.shape[0]
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    ey, ex = (64, 128, 128, 2 * cfg.u_channels), (128, 128, 128, 2 * cfg.z_channels)
+    cond_chains = sorted([((n, 8, 8, 64), ey), ((n, 8, 8, 128), ex), ((n, 64, 64, 64), TAIL),
+                          ((n, 32, 32, 64), TAIL)])
+
+    # C3. Cond_SRVAE val step at B=512, unchained then chained
+    model = CondSRVAE(cfg, device="cuda").init_weights(seed=0)
+    randomize_bn(model, seed=1)
+    trainer = Trainer(model, TrainConfig(learning_rate=LR), device="cuda")
+    terms_u, roles_u, _, chains_u = count_step(trainer, "val_step", batch)
+    blocks.use_chain(model)
+    terms_c, roles_c, rows_c, chains_c = count_step(trainer, "val_step", batch)
+    expect_counts("Cond val step", flat_roles(roles_u), {
+        "fused_conv3x3_bn_relu forward": 37, "fused_conv4x4s2_bn_relu forward": 8,
+        "fused_convT4x4s2_bn_relu forward": 5})
+    expect_counts("Cond chained val step", flat_roles(roles_c), {
+        "fused_conv3x3_bn_relu forward": 21, "fused_conv4x4s2_bn_relu forward": 8,
+        "fused_convT4x4s2_bn_relu forward": 5})
+    if chains_u or sorted(chains_c) != cond_chains:
+        raise AssertionError(f"Cond val step routed the chains {chains_u} and {chains_c}")
+    rel = {k: abs(float(terms_c[k] - v)) / max(abs(float(v)), 1e-30) for k, v in terms_u.items()}
+    if not max(rel.values()) <= TERMS_TOL:
+        raise AssertionError(f"Cond chained val step terms differ: {rel}")
+    val_ms = {"unchained": [], "chained": []}
+    for _ in range(3):
+        blocks.use_chain(model, False)
+        val_ms["unchained"].append(timed(lambda: trainer.val_step(batch))[1])
+        blocks.use_chain(model)
+        val_ms["chained"].append(timed(lambda: trainer.val_step(batch))[1])
+    by_path["cond_val_step_chained"] = chains_c
+    log(f"Cond val step B={n}: launches {flat_roles(roles_u)} unchained; chained "
+        f"{flat_roles(roles_c)} {fc.CHAIN}={len(chains_c)} rows {rows_c}; terms rel "
+        f"{max(rel.values()):.2e}; median {statistics.median(val_ms['unchained']):.2f} ms "
+        f"unchained, {statistics.median(val_ms['chained']):.2f} ms chained")
+    fam["cond_val_step"] = {"launches_unchained": roles_u, "launches_chained": roles_c,
+                            "chain_launches": len(chains_c), "terms_rel": rel, "ms": val_ms}
+    del trainer, model
+
+    # C4. the canonical VAE: the N-draw decode of one window
+    vcfg = VAEConfig(cr=1.5, patch_size=32)
+    vae = VAE(vcfg, device="cuda").init_weights(seed=0)
+    randomize_bn(vae, seed=2)
+    n_params = sum(p.numel() for name, p in vae.named_parameters() if name != "gamma")
+    if n_params != 805_562:
+        raise AssertionError(f"canonical VAE has {n_params} parameters")
+    log(f"model: VAE cr={vcfg.cr} ps={vcfg.patch_size} latent_channels={vcfg.latent_channels} "
+        f"params={n_params} (+1 gamma)")
+    vae.eval()
+    window = y[:1]
+    samples = 1000
+    chunk = auto_chunk(samples, vcfg.patch_size)
+    eps = torch.randn((samples, vcfg.latent_dim), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(21))
+    enc, dec = (64, 128, 128, 2 * vcfg.latent_channels), TAIL
+    draws = {}
+    for mode in ("unchained", "chained", "plain"):
+        blocks.use_chain(vae, mode != "unchained")
+        blocks.use_plain_path(vae, mode == "plain")
+        calls = []
+        hooks = record_routed_calls(vae, calls)
+        with ChainCalls() as chained:
+            reset_all_counts()
+            draws[mode], ms = timed(lambda: sample_chunked(vae, window, samples=samples,
+                                                           chunk=chunk, eps_z=eps))
+            counts = {k: v for k, v in all_counts().items() if v}
+        for h in hooks:
+            h.remove()
+        want = {"unchained": {"fused_conv3x3_bn_relu": 12, "fused_conv4x4s2_bn_relu": 2,
+                              "fused_convT4x4s2_bn_relu": 2},
+                "chained": {"fused_conv3x3_bn_relu": 4, fc.CHAIN: 1 + -(-samples // chunk),
+                            "fused_conv4x4s2_bn_relu": 2, "fused_convT4x4s2_bn_relu": 2},
+                "plain": {}}[mode]
+        expect_counts(f"VAE sample_chunked {mode}", counts, want)
+        if mode == "chained" and chained.calls != [((1, 8, 8, 64), enc)] + [
+                ((min(chunk, samples), 32, 32, 64), dec)] * -(-samples // chunk):
+            raise AssertionError(f"VAE sample_chunked routed the chains {chained.calls}")
+        if mode != "plain" and sum(counts.values()) - counts.get(fc.CHAIN, 0) != len(calls):
+            raise AssertionError(f"VAE sample_chunked {mode}: {counts} launches, "
+                                 f"{len(calls)} conv calls")
+        served_ok(f"VAE sample_chunked {mode}", draws[mode], (samples, 32, 32, 4))
+        fam[f"vae_sample_chunked_{mode}"] = {"launches": counts, "first_ms": ms}
+        if mode == "chained":
+            by_path["vae_sample_chunked"] = chained.calls
+            others["vae_sample_chunked"] = {k: v for k, v in counts.items() if k != fc.CHAIN}
+    blocks.use_plain_path(vae, False)
+    if not float(draws["chained"].std(dim=0).max()) > 0:
+        raise AssertionError("VAE draws do not differ")
+    vae_err = {k: float((draws["chained"] - draws[k]).abs().max()) for k in ("unchained", "plain")}
+    if not max(vae_err.values()) <= SERVE_TOL:
+        raise AssertionError(f"VAE sample_chunked chained vs {vae_err}")
+    vae_ms = {"unchained": [], "chained": []}
+    for _ in range(3):
+        for mode in vae_ms:
+            blocks.use_chain(vae, mode == "chained")
+            vae_ms[mode].append(timed(lambda: sample_chunked(vae, window, samples=samples,
+                                                             chunk=chunk, eps_z=eps))[1])
+    log(f"VAE sample_chunked N={samples} (chunk {chunk}): chained max|diff| vs unchained and "
+        f"plain {vae_err}; median {statistics.median(vae_ms['unchained']):.2f} ms unchained, "
+        f"{statistics.median(vae_ms['chained']):.2f} ms chained")
+    fam["vae_sample_chunked"] = {"max_abs_err": vae_err, "ms": vae_ms}
+    del draws
+
+    # C4. the VAE's train and val step at B=512 (it trains on the LR stream)
+    vae_state = copy.deepcopy(VAE(vcfg, device="cuda").init_weights(seed=0).state_dict())
+    vae = VAE(vcfg, device="cuda")
+    vae.load_state_dict(vae_state)
+    blocks.use_chain(vae)
+    trainer = Trainer(vae, TrainConfig(learning_rate=LR), device="cuda")
+    _, roles_t, rows_t, chains_t = count_step(trainer, "train_step", batch)
+    _, roles_v, rows_v, chains_v = count_step(trainer, "val_step", batch)
+    expect_counts("VAE train step", {**flat_roles(roles_t), **rows_t}, {
+        "fused_conv3x3_bn_relu forward": 12, "fused_conv3x3_bn_relu dx": 11,
+        "fused_conv4x4s2_bn_relu forward": 2, "fused_conv4x4s2_bn_relu dx": 2,
+        "fused_convT4x4s2_bn_relu forward": 2, "fused_convT4x4s2_bn_relu dx": 2,
+        "sq_rows": 1, "kl_std_rows": 1})
+    expect_counts("VAE chained val step", {**flat_roles(roles_v), **rows_v}, {
+        "fused_conv3x3_bn_relu forward": 4, "fused_conv4x4s2_bn_relu forward": 2,
+        "fused_convT4x4s2_bn_relu forward": 2, "sq_rows": 1, "kl_std_rows": 1})
+    if chains_t or chains_v != [((n, 8, 8, 64), enc), ((n, 32, 32, 64), dec)]:
+        raise AssertionError(f"VAE steps routed the chains {chains_t} and {chains_v}")
+    timed(lambda: trainer.train_step(batch))
+    step_ms = [timed(lambda: trainer.train_step(batch))[1] for _ in range(5)]
+    by_path["vae_val_step"] = chains_v
+    others["vae_train_step"] = {**flat_roles(roles_t), **rows_t}
+    others["vae_val_step"] = {**flat_roles(roles_v), **rows_v}
+    log(f"VAE train step B={n} launches: {others['vae_train_step']}; val step: "
+        f"{others['vae_val_step']} {fc.CHAIN}={len(chains_v)}; train step median "
+        f"{statistics.median(step_ms):.2f} ms, {n / (statistics.median(step_ms) / 1e3):.1f} "
+        f"patches/s")
+    del trainer, vae
+    cmp = kernels_vs_plain(lambda: VAE(vcfg, device="cuda"), vae_state, batch,
+                           label="VAE train step", chain=True)
+    if cmp["failures"] or cmp["val_chain_launches"] != 2:
+        raise AssertionError("VAE kernels vs plain path: " + "; ".join(cmp["failures"]))
+    fam["vae_training"] = {"step_ms": step_ms, "launches_train_step": others["vae_train_step"],
+                           "launches_val_step": others["vae_val_step"], "kernels_vs_plain": cmp}
+
+    # C4. the canonical SRVAE: served from HR-sized and LR-sized input, one train step
+    srvae = SRVAE(cfg, device="cuda").init_weights(seed=0)
+    srvae_state = copy.deepcopy(srvae.state_dict())
+    randomize_bn(srvae, seed=1)
+    srs = SuperResolver(srvae, device="cuda", seed=0, chain=True)
+    hr = x[:16] * 1000.0  # unnormalised, as a request's tiles arrive
+    lr_of_hr = box_downsample_2x(normalize_image(hr)).contiguous()
+    per_request = {"fused_conv3x3_bn_relu": 16, fc.CHAIN: 2, "fused_conv4x4s2_bn_relu": 5,
+                   "fused_convT4x4s2_bn_relu": 3}
+    outs = {}
+    for what, inp, kw in (("hr", hr, {}), ("lr", lr_of_hr, {"normalize": False})):
+        with ChainCalls() as chained:
+            reset_all_counts()
+            outs[what], ms = timed(lambda: srs.super_resolve(inp, seed=31, **kw))
+            counts = {k: v for k, v in all_counts().items() if v}
+        expect_counts(f"SRVAE super_resolve from {what.upper()} input", counts, per_request)
+        if chained.calls != [((16, 8, 8, 64), ey), ((16, 64, 64, 64), TAIL)]:
+            raise AssertionError(f"SRVAE super_resolve routed the chains {chained.calls}")
+        served_ok(f"SRVAE super_resolve from {what.upper()} input", outs[what], (16, 64, 64, 4))
+        fam[f"srvae_super_resolve_{what}"] = {"launches": counts, "first_ms": ms}
+        by_path[f"srvae_super_resolve_{what}"] = chained.calls
+    blocks.use_plain_path(srs.model)
+    plain = srs.super_resolve(hr, seed=31)
+    blocks.use_plain_path(srs.model, False)
+    srvae_err = {"hr_vs_its_lr_view": float((outs["hr"] - outs["lr"]).abs().max()),
+                 "vs_plain_path": float((outs["hr"] - plain).abs().max())}
+    if not max(srvae_err.values()) <= SERVE_TOL:
+        raise AssertionError(f"SRVAE super_resolve: {srvae_err}")
+    rep = {k: [timed(lambda: srs.super_resolve(inp, seed=31, **kw))[1] for _ in range(5)]
+           for k, inp, kw in (("hr", hr, {}), ("lr", lr_of_hr, {"normalize": False}))}
+    log(f"SRVAE super_resolve B=16 chained: launches {counts}; from HR input median "
+        f"{statistics.median(rep['hr']):.2f} ms, from LR input {statistics.median(rep['lr']):.2f} "
+        f"ms; max|diff| {srvae_err}")
+    fam["srvae_super_resolve"] = {"max_abs_err": srvae_err, "ms": rep}
+    del srs, srvae, outs, plain
+
+    srvae = SRVAE(cfg, device="cuda")
+    srvae.load_state_dict(srvae_state)
+    blocks.use_chain(srvae)
+    trainer = Trainer(srvae, TrainConfig(learning_rate=LR), device="cuda")
+    _, roles_t, rows_t, chains_t = count_step(trainer, "train_step", batch)
+    _, roles_v, rows_v, chains_v = count_step(trainer, "val_step", batch)
+    expect_counts("SRVAE train step", {**flat_roles(roles_t), **rows_t}, {
+        "fused_conv3x3_bn_relu forward": 37, "fused_conv3x3_bn_relu dx": 34,
+        "fused_conv4x4s2_bn_relu forward": 8, "fused_conv4x4s2_bn_relu dx": 5,
+        "fused_convT4x4s2_bn_relu forward": 5, "fused_convT4x4s2_bn_relu dx": 8,
+        "sq_rows": 2, "kl_std_rows": 1, "kl_gen_rows": 1})
+    expect_counts("SRVAE chained val step", {**flat_roles(roles_v), **rows_v}, {
+        "fused_conv3x3_bn_relu forward": 21, "fused_conv4x4s2_bn_relu forward": 8,
+        "fused_convT4x4s2_bn_relu forward": 5, "sq_rows": 2, "kl_std_rows": 1, "kl_gen_rows": 1})
+    if chains_t or sorted(chains_v) != cond_chains:
+        raise AssertionError(f"SRVAE steps routed the chains {chains_t} and {chains_v}")
+    timed(lambda: trainer.train_step(batch))
+    step_ms = [timed(lambda: trainer.train_step(batch))[1] for _ in range(3)]
+    by_path["srvae_val_step"] = chains_v
+    others["srvae_train_step"] = {**flat_roles(roles_t), **rows_t}
+    others["srvae_val_step"] = {**flat_roles(roles_v), **rows_v}
+    log(f"SRVAE train step B={n} launches: {others['srvae_train_step']}; val step: "
+        f"{others['srvae_val_step']} {fc.CHAIN}={len(chains_v)}; train step median "
+        f"{statistics.median(step_ms):.2f} ms")
+    del trainer, srvae
+    cmp = kernels_vs_plain(lambda: SRVAE(cfg, device="cuda"), srvae_state, batch,
+                           label="SRVAE train step", chain=True)
+    if cmp["failures"] or cmp["val_chain_launches"] != 4:
+        raise AssertionError("SRVAE kernels vs plain path: " + "; ".join(cmp["failures"]))
+    fam["srvae_training"] = {"step_ms": step_ms, "launches_train_step": others["srvae_train_step"],
+                             "launches_val_step": others["srvae_val_step"],
+                             "kernels_vs_plain": cmp}
+    return by_path, others
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1172,10 +1785,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     fc.reset_launches()
     sr_out, sr_ms = timed(lambda: sr.super_resolve(y, seed=11))
-    sr_counts = dict(fc.launches)
+    sr_counts = conv_counts(fc)
     n_sr_calls = len(calls)
     uq, uq_ms = timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))
-    launches = dict(fc.launches)
+    launches = conv_counts(fc)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for h in hooks:
         h.remove()
@@ -1189,10 +1802,7 @@ def main() -> int:
             raise AssertionError(f"{name}: {count} launches but {recorded} calls")
 
     # served outputs are right: shapes, range, and the plain path on the card
-    if tuple(sr_out.shape) != (16, 64, 64, 4) or not torch.isfinite(sr_out).all():
-        raise AssertionError(f"super_resolve output {tuple(sr_out.shape)} is wrong")
-    if float(sr_out.min()) < 0 or float(sr_out.max()) > 1:
-        raise AssertionError("super_resolve output leaves [0, 1]")
+    served_ok("super_resolve", sr_out, (16, 64, 64, 4))
     for key in ("mean", "std", "variance"):
         if tuple(uq[key].shape) != (64, 64, 4) or not torch.isfinite(uq[key]).all():
             raise AssertionError(f"uncertainty[{key}] is wrong")
@@ -1269,11 +1879,18 @@ def main() -> int:
     # I1-I6. the int8 serving modes
     int8_totals, int8_launches, f32_in_int8 = int8_phase(report, model, y, sr_out, uq,
                                                          {k: v for k, v in launches.items() if v})
+    # C1, C2, C5. the chain kernel and chained serving
+    chain_rows, chain_paths = chain_phase(report, model, sr, y, sr_out, uq)
     del sr, model
     torch.cuda.empty_cache()
 
     # 6-8. training at full width
     train_totals, train_launches = train_phase(report)
+    torch.cuda.empty_cache()
+
+    # C3, C4. the chained val step, the VAE and the SRVAE
+    family_chains, family_launches = families_phase(report)
+    chain_paths.update(family_chains)
 
     kernels = []
     for name in dict.fromkeys(list(totals) + list(train_totals)):
@@ -1312,6 +1929,36 @@ def main() -> int:
             "library_ms": tot["library_ms"],
             "f32_kernel_ms": tot["f32_kernel_ms"] or None,
         })
+    tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms", "ops",
+                         "bytes"), 0.0)
+    for path_calls in chain_paths.values():
+        for shape, widths in path_calls:
+            row = chain_rows.row(shape, widths)
+            for key in tot:
+                tot[key] += row[key]
+    chain_err = max(r["max_abs_err"] for r in report["chain"]["ragged"] + report["chain"]["shapes"])
+    kernels.append({
+        "name": fc.CHAIN, "route": "cuda", "source": CHAIN_SOURCE,
+        # fused_conv3x3_chain; the same function as fused_conv3x3_chain_wl (:502)
+        "replaces": "simple_vae_rs_tpu/ops/pallas_conv.py:581",
+        "also_replaces": "simple_vae_rs_tpu/ops/pallas_conv.py:502",
+        "launches": sum(len(v) for v in chain_paths.values()),
+        "launches_by_path": {k: len(v) for k, v in chain_paths.items()},
+        "max_abs_err": chain_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if tot["ops"] / PEAK_F32_FLOPS > tot["bytes"] / PEAK_BYTES
+                     else "bytes"),
+        "library_ms": None,  # no single PyTorch call computes the chain
+        "per_layer_kernels_ms": tot["per_layer_ms"], "library_calls_per_layer_ms": tot["library4_ms"],
+    })
+    for k in kernels:
+        k["launches_on_new_paths"] = {path: {key: v for key, v in counts.items()
+                                             if key.split(" ")[0] == k["name"]}
+                                      for path, counts in family_launches.items()}
+        k["launches_on_new_paths"] = {p: c for p, c in k["launches_on_new_paths"].items() if c}
+    if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError("a kernel of the main paths was launched no time: "
+                             + str({k["name"]: k["launches"] for k in kernels}))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -1323,7 +1970,10 @@ def main() -> int:
         f"one val step (B=512); for the int8 kernels over the int8 serving run and the "
         f"DownBlock path, an int8 conv's time including its absmax pass; "
         f"launches_by_path.serving_int8 of a float32 kernel counts its launches in the int8 "
-        f"serving run, whose times its sums leave out")
+        f"serving run, whose times its sums leave out, as they leave out launches_on_new_paths "
+        f"(the VAE and SRVAE runs); for {fc.CHAIN} over the chained runs: serving in float32 "
+        f"and W8A8, the Cond_SRVAE val step, the VAE's 1000 draws and val step, the SRVAE's "
+        f"two requests and val step")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,18 @@
 """Configuration of the PyTorch port: its own copies of the JAX package's
-``CondSRVAEConfig`` (the same latent-size formula) and of the fields of
-``TrainConfig`` that a training step reads."""
+``VAEConfig`` and ``CondSRVAEConfig`` (the same latent-size formulas) and of
+the fields of ``TrainConfig`` that a training step reads."""
 
 from __future__ import annotations
 
 import dataclasses
+
+
+def _vae_latent_size(patch_size: int, cr: float) -> int:
+    """Latent size of the plain VAE (reference ``models/vae.py:29-31``): note
+    the floor division by ``cr`` before the one by 16, which
+    :func:`_cond_latent_size` does not have. The literal ``4`` is the
+    reference's band count, as there."""
+    return int((patch_size * patch_size * 4 // cr) // 16) * 16
 
 
 def _cond_latent_size(patch_size: int, cr: float) -> int:
@@ -14,6 +22,48 @@ def _cond_latent_size(patch_size: int, cr: float) -> int:
     it stays 4 for other ``channels`` so ``cr`` keeps the reference's meaning.
     """
     return int((patch_size * patch_size * 4 / cr) // 256) * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """Plain Gaussian VAE. ``latent_size`` reproduces the reference's
+    attribute; the flattened latent dimension the encoder really has is
+    ``latent_dim``, which equals it only at canonical configurations."""
+
+    cr: float = 1.5
+    patch_size: int = 32
+    channels: int = 4
+    # Fixed latent budget overriding the cr formula when > 0; a positive
+    # multiple of 64 so the (ps/4)-grid channel count stays integral.
+    latent_size_override: int = 0
+
+    def __post_init__(self) -> None:
+        if self.latent_size_override and (
+            self.latent_size_override < 0 or self.latent_size_override % 64
+        ):
+            raise ValueError(
+                "latent_size_override must be a positive multiple of 64 "
+                f"(got {self.latent_size_override})"
+            )
+
+    @property
+    def latent_size(self) -> int:
+        if self.latent_size_override > 0:
+            return self.latent_size_override
+        return _vae_latent_size(self.patch_size, self.cr)
+
+    @property
+    def latent_channels(self) -> int:
+        return self.latent_size // 64
+
+    @property
+    def latent_spatial(self) -> int:
+        return self.patch_size // 4
+
+    @property
+    def latent_dim(self) -> int:
+        """Flattened latent dimension of the encoder graph."""
+        return self.latent_channels * self.latent_spatial**2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,28 +14,33 @@ Six sub-networks, NHWC, with the flax module names:
 
 Training runs :meth:`CondSRVAE.forward` (the reference 8-tuple) in
 ``train()`` mode, where BatchNorm uses batch statistics; serving runs
-:meth:`CondSRVAE.conditional_generation_eps` and the pieces
-:mod:`simple_vae_rs_tpu_torch.tasks` chains for the N-draw decode, in
-``eval()`` mode. Noise is always passed in.
+:meth:`CondSRVAE.conditional_generation_eps` and :meth:`CondSRVAE.sample`
+(the N-draw decode) in ``eval()`` mode. Noise is passed in, or drawn from a
+``torch.Generator`` the caller passes.
+
+The four convs that end ``ey``, ``ex``, ``dy`` and ``dx`` have nothing
+between them; in ``eval()`` mode, on a model whose chain is switched on
+(``ops/conv_blocks.use_chain``), each of these tails is one launch of the
+chain kernel (``ops/conv_blocks.conv_tail``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from simple_vae_rs_tpu_torch.config import CondSRVAEConfig
-from simple_vae_rs_tpu_torch.models.vae import reparameterize
+from simple_vae_rs_tpu_torch.models.vae import decode_draws, reparameterize
 from simple_vae_rs_tpu_torch.ops.conv_blocks import (
-    BatchNorm,
     Conv3x3,
-    ConvWeights,
     DownBlock,
     Routed,
     UpBlock,
+    conv_tail,
+    reset_parameters,
 )
 from simple_vae_rs_tpu_torch.ops.reshape import (
     cmajor_regroup_down,
@@ -120,13 +125,10 @@ class CondSRVAE(Routed):
     def init_weights(self, seed: int) -> "CondSRVAE":
         """Random weights from a numpy seed with torch's default init bounds
         (the flax package's initializers); BatchNorm and gammas at identity."""
-        rng = np.random.default_rng(seed)
         with torch.no_grad():
             self.gammax.fill_(1.0)
             self.gammay.fill_(1.0)
-        for mod in self.modules():
-            if isinstance(mod, (ConvWeights, BatchNorm)):
-                mod.reset_parameters(rng)
+        reset_parameters(self, np.random.default_rng(seed))
         return self
 
     # ------------------------------------------------------------ regroups
@@ -145,10 +147,7 @@ class CondSRVAE(Routed):
         """LR (B, ps/2, ps/2, C) -> (mu_u, logvar_u) on the u grid."""
         h = self.ey_down1(y)
         h = self.ey_down2(h)
-        h = self.ey_conv1(h)
-        h = self.ey_conv2(h)
-        h = self.ey_conv3(h)
-        h = self.ey_head(h)
+        h = conv_tail(self, (self.ey_conv1, self.ey_conv2, self.ey_conv3, self.ey_head), h)
         c = self.config.u_channels
         return h[..., :c], h[..., c:]
 
@@ -157,10 +156,7 @@ class CondSRVAE(Routed):
         h = self.ex_down1(x)
         h = self.ex_down2(h)
         h = self.ex_down3(h)
-        h = self.ex_conv1(h)
-        h = self.ex_conv2(h)
-        h = self.ex_conv3(h)
-        h = self.ex_head(h)
+        h = conv_tail(self, (self.ex_conv1, self.ex_conv2, self.ex_conv3, self.ex_head), h)
         c = self.config.z_channels
         return h[..., :c], h[..., c:]
 
@@ -187,20 +183,14 @@ class CondSRVAE(Routed):
         h = self.dx_up1(h)
         h = self.dx_up2(h)
         h = self.dx_up3(h)
-        h = self.dx_conv1(h)
-        h = self.dx_conv2(h)
-        h = self.dx_conv3(h)
-        h = self.dx_conv4(h)
+        h = conv_tail(self, (self.dx_conv1, self.dx_conv2, self.dx_conv3, self.dx_conv4), h)
         return torch.sigmoid(h)
 
     def decode_y(self, u_map: Tensor) -> Tensor:
         """u grid -> LR reconstruction (B, ps/2, ps/2, C) in [0, 1]."""
         h = self.dy_up1(u_map)
         h = self.dy_up2(h)
-        h = self.dy_conv1(h)
-        h = self.dy_conv2(h)
-        h = self.dy_conv3(h)
-        h = self.dy_conv4(h)
+        h = conv_tail(self, (self.dy_conv1, self.dy_conv2, self.dy_conv3, self.dy_conv4), h)
         return torch.sigmoid(h)
 
     def decode_x(self, z_map: Tensor, y: Tensor) -> Tensor:
@@ -234,12 +224,55 @@ class CondSRVAE(Routed):
         cfg = self.config
         return (batch, gh, gw, cfg.u_channels), (batch, gh, gw, cfg.z_channels)
 
-    def conditional_generation_eps(self, y: Tensor, eps_u: Tensor, eps_z: Tensor) -> Tensor:
+    def conditional_generation_eps(self, y: Tensor, eps_u: Optional[Tensor],
+                                   eps_z: Optional[Tensor],
+                                   generator: Optional[torch.Generator] = None) -> Tensor:
         """y -> u ~ q(u|y) -> z ~ p(z|u, y) -> x_hat, with the noise passed in
-        (reference ``cond_vae.py:288-297``)."""
+        (reference ``cond_vae.py:288-297``); a noise given as None is drawn
+        from ``generator``."""
         mu_u, logvar_u = self.encode_y(y)
-        u = reparameterize(mu_u, logvar_u, eps_u)
+        u = reparameterize(mu_u, logvar_u, eps_u, generator)
         y_feat = self.y_embedding(y)
         mu_z, logvar_z = self.z_cond(y_feat, u)
-        z = reparameterize(mu_z, logvar_z, eps_z)
+        z = reparameterize(mu_z, logvar_z, eps_z, generator)
         return self.decode_x_from_features(z, y_feat)
+
+    def conditional_generation(self, y: Tensor,
+                               generator: Optional[torch.Generator] = None) -> Tensor:
+        """Single-draw 2x super-resolution with the noise drawn from
+        ``generator`` (``eps_u`` first, then ``eps_z``)."""
+        return self.conditional_generation_eps(y, None, None, generator)
+
+    @torch.no_grad()
+    def sample(self, y: Tensor, generator: Optional[torch.Generator] = None,
+               samples: int = 1000, chunk: int = 128, eps_u: Optional[Tensor] = None,
+               eps_z: Optional[Tensor] = None) -> Tensor:
+        """``samples`` posterior-prior draws of one LR image ``y``
+        (1, ps/2, ps/2, C), decoded in chunks: (samples, ps, ps, C)
+        (reference ``cond_vae.py:299-318``). The conditioning pass (q(u|y),
+        the y-embedding and the prior) runs once, with one ``u`` draw shared
+        by all samples; only the decoder runs per chunk. Noise comes from
+        ``generator`` unless injected: ``eps_u`` shaped like the u grid,
+        ``eps_z`` (samples, z grid)."""
+        mu_u, logvar_u = self.encode_y(y)
+        u = reparameterize(mu_u, logvar_u, eps_u, generator)
+        y_feat = self.y_embedding(y)
+        mu_p, logvar_p = self.z_cond(y_feat, u)
+
+        def decode(z: Tensor) -> Tensor:
+            yf = y_feat.expand((z.shape[0],) + tuple(y_feat.shape[1:]))
+            return self.decode_x_from_features(z, yf)
+
+        return decode_draws(decode, mu_p, torch.exp(0.5 * logvar_p), samples, chunk, eps_z,
+                            generator)
+
+    @torch.no_grad()
+    def generation(self, generator: Optional[torch.Generator] = None
+                   ) -> Tuple[Tensor, Tensor]:
+        """Unconditional generation ``(y_hat, x_hat)``: u ~ N(0, I) -> y_hat
+        = p(y|u) -> x_hat = SR(y_hat) (reference ``cond_vae.py:320-324``)."""
+        cfg = self.config
+        u = torch.randn((1, cfg.u_spatial, cfg.u_spatial, cfg.u_channels),
+                        generator=generator, device=self.gammax.device)
+        y_hat = self.decode_y(u)
+        return y_hat, self.conditional_generation(y_hat, generator)

@@ -24,17 +24,23 @@ Training never takes that path.
 :func:`use_plain_path` switches a model's convs, float32 and int8, (and its
 ELBO reductions) to the kernels' plain versions: the reference that the
 kernels are held against on the card.
+
+:func:`tail_chain` runs an eval-mode tail of 3x3 convs (the four convs that
+end each decoder and encoder) as one launch of the chain kernel of
+``ops/fused_chain.py`` on a model whose chain is switched on
+(:func:`use_chain`; off by default, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from simple_vae_rs_tpu_torch.ops import fused_chain
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
 
@@ -54,9 +60,12 @@ def _uniform_(param: torch.Tensor, rng: np.random.Generator, bound: float) -> No
 
 class Routed(nn.Module):
     """A module whose convs run through the fused kernels, or through their
-    plain versions when ``plain`` is set (:func:`use_plain_path`)."""
+    plain versions when ``plain`` is set (:func:`use_plain_path`); a model
+    whose ``chain`` is set (:func:`use_chain`) runs its eval-mode conv tails
+    through the chain kernel (:func:`tail_chain`)."""
 
     plain = False
+    chain = False
 
 
 class ConvWeights(nn.Module):
@@ -217,6 +226,13 @@ class UpBlock(_Block):
         self.bn = BatchNorm(features, device=device)
 
 
+def reset_parameters(model: nn.Module, rng: np.random.Generator) -> None:
+    """Fill every conv and BatchNorm of ``model`` from ``rng``, in module order."""
+    for mod in model.modules():
+        if isinstance(mod, (ConvWeights, BatchNorm)):
+            mod.reset_parameters(rng)
+
+
 def use_plain_path(model: nn.Module, plain: bool = True) -> None:
     """Route every conv of ``model`` (forward and input gradient; float32
     and int8) and its ELBO reductions through the plain versions (``True``)
@@ -225,3 +241,45 @@ def use_plain_path(model: nn.Module, plain: bool = True) -> None:
     for mod in model.modules():
         if isinstance(mod, Routed):
             mod.plain = plain
+
+
+def use_chain(model: nn.Module, chain: bool = True) -> None:
+    """Switch ``model``'s eval-mode conv tails to the fused chain kernel
+    (``True``) or back to one launch per conv (``False``, the default of a
+    new model)."""
+    for mod in model.modules():
+        if isinstance(mod, Routed):
+            mod.chain = chain
+
+
+def tail_chain(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor
+               ) -> Optional[torch.Tensor]:
+    """The linear tail ``convs`` (3x3/s1 + bias each, nothing between) of
+    ``owner`` applied to ``h`` in one launch of the chain kernel (its plain
+    version on the plain path), or ``None`` when the caller is to run the
+    convs one by one: when the chain is not switched on, in training mode
+    and wherever a gradient is being recorded (the chain has no backward;
+    the per-layer kernels have theirs), and when any of ``convs`` carries
+    int8 weights, so that W8A8 serving keeps its int8 kernels. (The JAX
+    package steps aside whenever its model holds any int8 weight; a chain of
+    float32 convs computes the same function either way.)"""
+    if not owner.chain or owner.training:
+        return None
+    if any(conv.kernel_q is not None for conv in convs):
+        return None
+    if torch.is_grad_enabled() and (h.requires_grad
+                                    or any(conv.kernel.requires_grad for conv in convs)):
+        return None
+    return fused_chain.fused_conv3x3_chain(h, [conv.kernel for conv in convs],
+                                           [conv.bias for conv in convs], plain=owner.plain)
+
+
+def conv_tail(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor) -> torch.Tensor:
+    """``convs`` applied to ``h`` in order: one chain launch where
+    :func:`tail_chain` takes it, else conv by conv."""
+    chained = tail_chain(owner, convs, h)
+    if chained is not None:
+        return chained
+    for conv in convs:
+        h = conv(h)
+    return h

@@ -50,13 +50,16 @@ ROLES = ("forward", "dx")
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else, under the role it ran for.
-launches: Dict[str, int] = {name: 0 for name in _KERNELS}
+# The chain kernel of ``ops/fused_chain.py`` (forward only) counts here too.
+CHAIN = "fused_conv3x3_chain"
+launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, CHAIN: 0}
 role_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for name in _KERNELS}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for name in role_launches:
         role_launches[name] = dict.fromkeys(ROLES, 0)
 
 

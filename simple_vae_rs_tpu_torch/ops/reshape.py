@@ -47,3 +47,8 @@ def cmajor_regroup_up(x: Tensor, block: int = 2) -> Tensor:
 def flatten_map(x: Tensor) -> Tensor:
     """(B, H, W, C) -> (B, H*W*C), the canonical latent order."""
     return x.reshape(x.shape[0], -1)
+
+
+def unflatten_map(v: Tensor, h: int, w: int, c: int) -> Tensor:
+    """(B, H*W*C) -> (B, H, W, C); inverse of :func:`flatten_map`."""
+    return v.reshape(v.shape[0], h, w, c)

@@ -20,6 +20,12 @@ Two quantized modes, one at most:
   request dequantizes them, runs the float32 graph and releases them, so
   between requests the resolver holds a quarter of the weight bytes.
 
+``SuperResolver(model, chain=True)`` serves a copy of the model whose
+eval-mode conv tails each run as one launch of the chain kernel
+(``ops/conv_blocks.use_chain``; off by default). It combines with either
+int8 mode: a tail whose convs carry int8 weights keeps the int8 kernels, and
+with ``int8_weights`` the chain runs on the weights unpacked for the request.
+
 Every endpoint takes ``seed=None``: an unseeded call draws its noise from the
 resolver's rolling generator (fresh draws each call), ``seed=N`` from a
 generator of its own seeded with N, so the same input, seed and options
@@ -37,7 +43,9 @@ import numpy as np
 import torch
 
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
+from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.ops import quantize as qz
+from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
 from simple_vae_rs_tpu_torch.utils.image import normalize_image
 
@@ -58,13 +66,14 @@ def resolve_device(device) -> torch.device:
 
 
 class SuperResolver:
-    """2x super-resolution and uncertainty service for one CondSRVAE."""
+    """2x super-resolution and uncertainty service for one CondSRVAE or
+    SRVAE (which also takes HR-sized inputs and downsamples them first)."""
 
-    def __init__(self, model: CondSRVAE, device="cuda", seed: int = 0,
+    def __init__(self, model, device="cuda", seed: int = 0,
                  normalize: bool = True, int8: bool = False,
-                 int8_weights: bool = False) -> None:
-        if not isinstance(model, CondSRVAE):
-            raise TypeError("SuperResolver serves CondSRVAE models")
+                 int8_weights: bool = False, chain: bool = False) -> None:
+        if not isinstance(model, (CondSRVAE, SRVAE)):
+            raise TypeError("SuperResolver serves CondSRVAE/SRVAE models")
         if int8 and int8_weights:
             raise ValueError(
                 "int8 (W8A8 decoder kernels) and int8_weights (weights only, "
@@ -73,9 +82,11 @@ class SuperResolver:
         self.device = resolve_device(device)
         self.int8, self.int8_weights = int8, int8_weights
         self._packed = None
-        if int8_weights or (int8 and not qz.has_quant(model)):
-            model = copy.deepcopy(model)  # the caller's model stays float32
+        if int8_weights or (int8 and not qz.has_quant(model)) or (chain and not model.chain):
+            model = copy.deepcopy(model)  # the caller's model stays as it is
         self.model = model.to(self.device).eval()
+        if chain:
+            use_chain(self.model)
         if int8 and not qz.has_quant(self.model):
             qz.attach_quant(self.model, qz.quantize_params_tree(self.model, seed))
         if int8_weights:

@@ -10,7 +10,8 @@ gradient leaf 1e-3 of the largest gradient in its block). The int8 convs
 1e-5 * max|plain| (the same integers summed exactly on both sides), the
 stochastic quantizer byte for byte, the int8 resolver against its plain path
 2e-3 absolute (a float32 layer above an int8 conv may move an activation
-across a rounding boundary).
+across a rounding boundary). The chain kernel 1e-4 * max|plain| as the other
+float32 kernels; chained against unchained served outputs 1e-4 absolute.
 """
 
 import copy
@@ -20,14 +21,18 @@ import numpy as np
 import pytest
 import torch
 
-from simple_vae_rs_tpu_torch.config import CondSRVAEConfig, TrainConfig
+from simple_vae_rs_tpu_torch.config import CondSRVAEConfig, TrainConfig, VAEConfig
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
+from simple_vae_rs_tpu_torch.models.srvae import SRVAE
+from simple_vae_rs_tpu_torch.models.vae import VAE
 from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+from simple_vae_rs_tpu_torch.ops import fused_chain as fch
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
 from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
 from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.serve import SuperResolver
+from simple_vae_rs_tpu_torch.tasks import sample_chunked
 from simple_vae_rs_tpu_torch.train.engine import Trainer
 
 TOL = 1e-4
@@ -96,7 +101,8 @@ def test_cuda_serving_matches_plain_path(cuda):
     fc.reset_launches()
     got = sr.super_resolve(y, seed=1)
     maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
-    assert all(v > 0 for v in fc.launches.values())
+    assert all(v > 0 for k, v in fc.launches.items() if k != fc.CHAIN)
+    assert fc.launches[fc.CHAIN] == 0  # the chain is off unless asked for
     blocks.use_plain_path(sr.model)
     want = sr.super_resolve(y, seed=1)
     want_maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
@@ -303,3 +309,126 @@ def test_int8_cuda_serving_matches_plain_path(cuda):
         mse = float(((got - f32) ** 2).mean())
         assert 10 * math.log10(1.0 / max(mse, 1e-12)) > 30.0
     assert not qz.has_quant(model)
+
+
+# (x shape, later channel widths): one, two and four layers; odd H, W and
+# channel widths; images larger than a tile in both directions, so that
+# halos and ragged last tiles run; a 40-channel input (two weight slices);
+# and the models' tails at a small batch
+CHAIN_CASES = [
+    ((2, 5, 7, 3), (6,)),
+    ((3, 9, 11, 5), (7, 3)),
+    ((2, 19, 23, 64), (64, 16, 16, 4)),
+    ((1, 37, 21, 13), (18, 5, 9, 2)),
+    ((1, 4, 4, 40), (24, 9)),
+    ((2, 64, 64, 64), (64, 16, 16, 4)),
+    ((3, 32, 32, 64), (64, 16, 16, 4)),
+    ((5, 8, 8, 64), (64, 128, 128, 106)),
+    ((3, 8, 8, 128), (128, 128, 128, 424)),
+    ((1, 8, 8, 64), (64, 128, 128, 84)),
+]
+
+
+def _chain_inputs(shape, widths, seed, device):
+    rng = np.random.default_rng(seed)
+    chans = (shape[-1],) + tuple(widths)
+    x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
+    ks = [torch.tensor(rng.standard_normal((3, 3, chans[i], chans[i + 1]))
+                       / math.sqrt(9 * chans[i]), dtype=torch.float32, device=device)
+          for i in range(len(widths))]
+    bs = [torch.tensor(rng.standard_normal(c), dtype=torch.float32, device=device)
+          for c in widths]
+    return x, ks, bs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_chain_cuda_kernel_matches_plain(cuda, case):
+    shape, widths = case
+    x, ks, bs = _chain_inputs(shape, widths, seed=sum(shape) + len(widths), device=cuda)
+    before = dict(fc.launches)
+    got = fch.fused_conv3x3_chain(x, ks, bs)
+    torch.cuda.synchronize()
+    after = dict(fc.launches)
+    assert after.pop(fc.CHAIN) == before.pop(fc.CHAIN) + 1 and after == before  # one launch
+    want = fch.conv3x3_chain_plain(x, ks, bs)
+    assert got.shape == want.shape == shape[:3] + (widths[-1],)
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    assert torch.equal(fch.fused_conv3x3_chain(x, ks, bs), got)  # the same sums every run
+    assert torch.equal(fch.fused_conv3x3_chain(x, ks, bs, plain=True), want)
+
+
+@pytest.mark.gpu
+def test_chain_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, ks, bs = _chain_inputs((1, 4, 4, 3), (5, 2), 0, cuda)
+    with pytest.raises(TypeError):
+        fch.fused_conv3x3_chain(x.double(), ks, bs)
+    with pytest.raises(ValueError):
+        fch.fused_conv3x3_chain(x.transpose(1, 2), ks, bs)
+    with pytest.raises(ValueError):
+        fch.fused_conv3x3_chain(x, [ks[0].cpu(), ks[1]], bs)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fch.fused_conv3x3_chain(x, [ks[0].requires_grad_(), ks[1]], bs)
+
+
+@pytest.mark.gpu
+def test_chained_cuda_serving_matches_unchained_and_plain_path(cuda):
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16)).init_weights(1)
+    y = np.random.default_rng(12).random((3, 8, 8, 4)).astype(np.float32)
+    base = SuperResolver(model, device="cuda", seed=0)
+    want = base.super_resolve(y, seed=1)
+    want_maps = base.uncertainty(y[0], samples=20, chunk=8, seed=2)
+    for mode in ({}, {"int8_weights": True}, {"int8": True}):
+        sr = SuperResolver(model, device="cuda", seed=0, chain=True, **mode)
+        fc.reset_launches()
+        got = sr.super_resolve(y, seed=1)
+        # ey and dx tails; with W8A8 the decoder tail keeps its int8 kernels
+        assert fc.launches[fc.CHAIN] == (1 if mode.get("int8") else 2)
+        maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
+        assert fc.launches[fc.CHAIN] == (2 if mode.get("int8") else 2 + 1 + 3)
+        if not mode:
+            assert float((got - want).abs().max()) <= 1e-4
+            assert float((maps["std"] - want_maps["std"]).abs().max()) <= 1e-4
+        blocks.use_plain_path(sr.model)
+        count = fc.launches[fc.CHAIN]
+        plain = sr.super_resolve(y, seed=1)
+        assert fc.launches[fc.CHAIN] == count
+        assert float((got - plain).abs().max()) <= (2e-3 if mode.get("int8") else 1e-4)
+    assert not model.chain and fc.launches[fc.CHAIN] > 0
+
+
+@pytest.mark.gpu
+def test_vae_and_srvae_cuda_paths_match_plain_path(cuda):
+    rng = np.random.default_rng(21)
+    vae = VAE(VAEConfig(cr=2.0, patch_size=16), device=cuda).init_weights(2)
+    blocks.use_chain(vae)
+    y = torch.tensor(rng.random((1, 16, 16, 4)), dtype=torch.float32, device=cuda)
+    eps = torch.randn((10, vae.config.latent_dim), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(3))
+    fc.reset_launches()
+    got = sample_chunked(vae.eval(), y, samples=10, chunk=4, eps_z=eps)
+    assert fc.launches[fc.CHAIN] == 1 + 3  # the encoder once, the decoder per chunk
+    blocks.use_plain_path(vae)
+    want = sample_chunked(vae, y, samples=10, chunk=4, eps_z=eps)
+    blocks.use_plain_path(vae, False)
+    assert got.shape == (10, 16, 16, 4) and float((got - want).abs().max()) <= 1e-4
+    batch = (torch.tensor(rng.random((6, 16, 16, 4)), dtype=torch.float32, device=cuda),
+             torch.tensor(rng.random((6, 32, 32, 4)), dtype=torch.float32, device=cuda))
+    for model in (vae, SRVAE(CondSRVAEConfig(cr=2.0, patch_size=32), device=cuda).init_weights(4)):
+        blocks.use_chain(model)
+        plain = copy.deepcopy(model)
+        blocks.use_plain_path(plain)
+        tk, tp = Trainer(model, device=cuda), Trainer(plain, device=cuda)
+        noise = tk.noise(6, tk._batch(batch)[0].shape[1:3],
+                         torch.Generator(device=cuda).manual_seed(5))
+        fc.reset_launches()
+        grads, terms = tk.grads_and_terms(batch, noise)
+        assert fc.launches[fc.CHAIN] == 0  # training runs conv by conv
+        grads_p, terms_p = tp.grads_and_terms(batch, noise)
+        for key in terms:
+            assert abs(float(terms[key] - terms_p[key])) <= 1e-4 * abs(float(terms_p[key])) + 1e-6
+        _assert_grads_close(grads, grads_p, 1e-3)
+        val, val_p = tk.val_step(batch), tp.val_step(batch)
+        assert fc.launches[fc.CHAIN] == (2 if model is vae else 4)
+        for key in val:
+            assert abs(float(val[key] - val_p[key])) <= 1e-4 * abs(float(val_p[key])) + 1e-6
