@@ -10,8 +10,11 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 1. Print torch's version and the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from ``simple_vae_rs_tpu_torch/csrc`` (nvcc, one
    process per source, all started together) and print ptxas's registers and
-   spills per kernel.
-3. Hold each kernel against its plain PyTorch version on ragged shapes.
+   spills per kernel; a spill in the tensor-core conv kernel fails.
+3. Hold each kernel against its plain PyTorch version on ragged shapes (for
+   the tensor-core 3x3 and 4x4/s2 kernel: C = 53 and 106, N = 4 and 53,
+   M <= 64 with a K split, K not a multiple of 32, C % 4 != 0), and a second
+   launch must give the same bits.
 4. Build the canonical Cond_SRVAE (cr=1.2, ps=64; random weights from a numpy
    seed) and serve through ``SuperResolver``: ``super_resolve`` on a
    (16, 32, 32, 4) batch, then ``uncertainty`` with 1000 draws. Every launch
@@ -21,7 +24,12 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 5. Hold each kernel against its plain version at every distinct shape the
    serving run launched, and time kernel, plain version and one library call
    (cuDNN conv + bias, TF32 off) with CUDA events; compute each shape's bound
-   (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, H100 SXM).
+   (bytes over 3.35 TB/s or float32 operations over the peak of the units
+   the kernel runs on, H100 SXM): for the 3x3 and 4x4/s2 kernels the tensor
+   cores at float32 accuracy (495/3 TFLOP/s: three TF32 products per
+   float32 one), for the transposed conv the CUDA cores (67 TFLOP/s). Both
+   figures are also reported on their own (``bound_tc_ms``,
+   ``bound_cuda_core_ms``).
 6. Train: the canonical model from ``init_weights(0)``, 32 synthetic tiles
    (LR 128x128x4, HR 256x256x4, values x1000, numpy seed 0) cut by the
    port's ``grid_sr_batch`` on the card into 512 pairs, and
@@ -154,6 +162,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# H100 SXM TF32 tensor cores (495 TFLOP/s dense) at float32 accuracy: three
+# TF32 products per float32 product (3xTF32, the 3x3 and 4x4/s2 kernels)
+PEAK_F32_TC_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 1e-4  # of max|plain|
 ROW_TOL = 1e-5  # of max|plain|
@@ -208,6 +219,15 @@ RAGGED = [
     ("fused_conv3x3_bn_relu", (3, 5, 7, 5), 13, True),
     ("fused_conv3x3_bn_relu", (2, 9, 11, 4), 3, False),
     ("fused_conv3x3_bn_relu", (1, 4, 4, 300), 200, False),
+    # the tensor-core kernel's edge paths: C = 53 and 106 (4-byte copies),
+    # N = 4 and 53, M <= 64 with a K split and K = 1908 (not a multiple of 32),
+    # the 4x4/s2 kernel with C % 4 != 0
+    ("fused_conv3x3_bn_relu", (2, 8, 8, 53), 53, True),
+    ("fused_conv3x3_bn_relu", (3, 8, 8, 106), 128, False),
+    ("fused_conv3x3_bn_relu", (4, 16, 16, 16), 4, True),
+    ("fused_conv3x3_bn_relu", (1, 4, 4, 212), 848, False),
+    ("fused_conv4x4s2_bn_relu", (2, 16, 16, 128), 53, False),
+    ("fused_conv4x4s2_bn_relu", (1, 8, 8, 53), 424, True),
     ("fused_conv4x4s2_bn_relu", (3, 6, 10, 5), 7, True),
     ("fused_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, False),
     ("fused_convT4x4s2_bn_relu", (2, 3, 5, 7), 9, True),
@@ -217,6 +237,26 @@ RAGGED = [
 
 def log(*args):
     print(*args, flush=True)
+
+
+def tensor_core_ptxas(report: str) -> str:
+    """Registers of the tensor-core conv kernels from ptxas's ``-v`` report
+    (their shared memory is dynamic); fails if one of them spills."""
+    current, regs, entries = "", [], 0
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif "conv_tc" in current and "spill stores" in line:
+            entries += 1
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            if len(nums) < 3 or nums[1] or nums[2]:
+                raise AssertionError(f"ptxas: {current} spills: {line.strip()}")
+        elif "conv_tc" in current and "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split()[0]))
+    if not entries or len(regs) != entries:
+        raise AssertionError("ptxas: no report for the tensor-core conv kernels")
+    return (f"{entries} instances, {min(regs)}-{max(regs)} registers, no spills "
+            "(dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes)")
 
 
 def card_line() -> str:
@@ -305,6 +345,8 @@ def check_shape(fc, name, shape, o, relu, seed, timing: bool, site=None):
     ref = float(want.abs().max())
     if not (err <= KERNEL_TOL * ref) or not torch.isfinite(got).all():
         raise AssertionError(f"{name} {shape}->{o}: max|diff| {err} > {KERNEL_TOL} * {ref}")
+    if not timing and not torch.equal(getattr(fc, name)(x, kernel, scale, shift, relu=relu), got):
+        raise AssertionError(f"{name} {shape}->{o}: a second launch gave other bits")
     row = {"name": name, "role": "forward" if site is None else "dx", "x": list(shape),
            "o": o, "relu": relu, "max_abs_err": err, "max_abs_ref": ref}
     if timing:
@@ -324,9 +366,34 @@ def check_shape(fc, name, shape, o, relu, seed, timing: bool, site=None):
         flops = 2.0 * phases * m * n * kk
         nbytes = 4.0 * (x.numel() + kernel.numel() + 2 * o + got.numel())
         row["flops"], row["bytes"] = flops, nbytes
-        row["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
-        row["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        peak = conv_peak(fc, name)
+        row["bound_ms"] = 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
+        row["bound_by"] = "operations" if flops / peak > nbytes / PEAK_BYTES else "bytes"
+        row["bound_cuda_core_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        row["bound_tc_ms"] = tc_bound_ms(flops, nbytes)
     return row
+
+
+def conv_peak(fc, name):
+    """The peak rate of the units a float32 conv kernel runs on: the 3xTF32
+    tensor cores for the 3x3 and 4x4/s2 kernels, the CUDA cores for the
+    others. ``bound_ms`` and ``bound_by`` use it."""
+    return PEAK_F32_TC_FLOPS if name in fc.TC_KERNELS else PEAK_F32_FLOPS
+
+
+def tc_bound_ms(flops, nbytes):
+    """The 3xTF32 bound of a float32 conv: its operations over the
+    tensor-core peak at float32 accuracy, or its bytes, whichever takes longer."""
+    return 1e3 * max(flops / PEAK_F32_TC_FLOPS, nbytes / PEAK_BYTES)
+
+
+def tc_columns(tot):
+    """A float32 conv kernel's 3xTF32 bound (165 TFLOP/s) and its share of
+    it, beside ``bound_ms``: for a kernel on the CUDA cores (the transposed
+    conv, the chain) a tensor-core design could beat its ``bound_ms`` (67
+    TFLOP/s) but not this one; for the 3x3 and 4x4/s2 kernels the two are
+    the same, and ``bound_cuda_core_ms`` is the CUDA-core figure."""
+    return {"bound_tc_ms": tot["bound_tc_ms"], "share_of_bound_tc": tot["bound_tc_ms"] / tot["ms"]}
 
 
 def randomize_bn(model, seed: int) -> None:
@@ -689,8 +756,10 @@ def train_phase(report):
         log(f"train shape {name} {role} x{shape} O={o} relu={relu}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), max|diff| {row['max_abs_err']:.2e}")
-    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")
+            f"({row['bound_by']}), 3xTF32 bound {row['bound_tc_ms']:.4f} ms, CUDA-core bound "
+            f"{row['bound_cuda_core_ms']:.4f} ms, max|diff| {row['max_abs_err']:.2e}")
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "bound_cuda_core_ms",
+              "flops", "bytes")
     by_role = {}
     for path, path_calls in (("train_step", train_calls), ("val_step", val_calls)):
         for call in path_calls:
@@ -703,7 +772,8 @@ def train_phase(report):
     totals = {}
     for (path, name, role), d in by_role.items():
         log(f"{path} {name} {role}: launches {int(d['launches'])}, kernel {d['ms']:.3f} ms, "
-            f"bound {d['bound_ms']:.3f} ms, plain {d['plain_ms']:.3f} ms, library "
+            f"bound {d['bound_ms']:.3f} ms, 3xTF32 bound {d['bound_tc_ms']:.3f} ms, CUDA-core "
+            f"bound {d['bound_cuda_core_ms']:.3f} ms, plain {d['plain_ms']:.3f} ms, library "
             f"{d['library_ms']:.3f} ms")
         tot = totals.setdefault(name, dict.fromkeys(fields + ("max_abs_err",), 0.0))
         for k in fields:
@@ -1287,6 +1357,7 @@ def check_chain(shape, widths, seed, timing: bool):
     flops = 2.0 * 9 * pixels * sum(chans[i] * chans[i + 1] for i in range(len(widths)))
     nbytes = 4.0 * (x.numel() + got.numel() + sum(k.numel() for k in ks) + sum(widths))
     bound_row(row, flops, nbytes, PEAK_F32_FLOPS)
+    row["bound_tc_ms"] = tc_bound_ms(flops, nbytes)
     return row
 
 
@@ -1306,7 +1377,8 @@ class ChainRows:
                 f"{row['ms']:.4f} ms, the {len(widths)} per-layer kernel launches "
                 f"{row['per_layer_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"{len(widths)} library calls {row['library4_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max|diff| {row['max_abs_err']:.2e}")
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), 3xTF32 bound "
+                f"{row['bound_tc_ms']:.4f} ms, max|diff| {row['max_abs_err']:.2e}")
         return self.rows[key]
 
 
@@ -1748,6 +1820,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {src}: {line.strip()}")
+    log("ptxas conv_tc: " + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"]))
 
     # 3. ragged shapes
     report = {"card": card, "torch": torch.__version__, "ragged": [], "shapes": []}
@@ -1846,27 +1919,30 @@ def main() -> int:
     weight = {}
     for c in calls:
         weight[c] = weight.get(c, 0) + 1
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                     "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0} for name in launches}
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "bound_cuda_core_ms",
+              "flops", "bytes")
+    totals = {name: dict.fromkeys(fields + ("max_abs_err",), 0.0) for name in launches}
     for i, ((name, shape, o, relu), count) in enumerate(sorted(weight.items())):
         row = check_shape(fc, name, shape, o, relu, seed=200 + i, timing=True)
         row["launches"] = count
         report["shapes"].append(row)
         tot = totals[name]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes"):
+        for key in fields:
             tot[key] += count * row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
         log(f"shape {name} x{shape} O={o} x{count}: kernel {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), 3xTF32 bound "
+            f"{row['bound_tc_ms']:.4f} ms, CUDA-core bound {row['bound_cuda_core_ms']:.4f} ms, "
             f"max|diff| {row['max_abs_err']:.2e}")
     for row in report["ragged"]:
         tot = totals[row["name"]]
         tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
     for name, tot in totals.items():
         log(f"serving {name}: launches {launches[name]}, kernel {tot['ms']:.3f} ms, bound "
-            f"{tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
-            f"{tot['library_ms']:.3f} ms")
+            f"{tot['bound_ms']:.3f} ms, 3xTF32 bound {tot['bound_tc_ms']:.3f} ms, CUDA-core "
+            f"bound {tot['bound_cuda_core_ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms")
     kernel_ms = {(r["name"], tuple(r["x"]), r["o"], r["relu"]): r["ms"] for r in report["shapes"]}
     for req, part, wall in (("super_resolve_b16", calls[:n_sr_calls], rep_sr),
                             ("uncertainty_n1000", calls[n_sr_calls:], rep_uq)):
@@ -1894,8 +1970,7 @@ def main() -> int:
 
     kernels = []
     for name in dict.fromkeys(list(totals) + list(train_totals)):
-        tot = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
-                                    "bytes", "max_abs_err")}
+        tot = dict.fromkeys(fields + ("max_abs_err",), 0.0)
         for part in (totals.get(name), train_totals.get(name)):
             if part is None:
                 continue
@@ -1905,6 +1980,7 @@ def main() -> int:
                 elif part.get(key) is not None:
                     tot[key] += part[key]
         is_row = name in ROW_OPS
+        peak = PEAK_F32_FLOPS if is_row else conv_peak(fc, name)
         kernels.append({
             "name": name, "route": "cuda", "source": ROW_SOURCE if is_row else SOURCE,
             "replaces": REPLACES[name],
@@ -1913,9 +1989,10 @@ def main() -> int:
                                  **f32_in_int8.get(name, {})},
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": ("operations" if tot["flops"] / PEAK_F32_FLOPS
-                         > tot["bytes"] / PEAK_BYTES else "bytes"),
+            "bound_by": "operations" if tot["flops"] / peak > tot["bytes"] / PEAK_BYTES else "bytes",
             "library_ms": None if is_row else tot["library_ms"],
+            **({} if is_row else {**tc_columns(tot),
+                                  "bound_cuda_core_ms": tot["bound_cuda_core_ms"]}),
         })
     for name, tot in int8_totals.items():
         peak = PEAK_INT8_OPS if name.startswith("int8_") else PEAK_F32_FLOPS
@@ -1929,8 +2006,8 @@ def main() -> int:
             "library_ms": tot["library_ms"],
             "f32_kernel_ms": tot["f32_kernel_ms"] or None,
         })
-    tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms", "ops",
-                         "bytes"), 0.0)
+    tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms",
+                         "bound_tc_ms", "ops", "bytes"), 0.0)
     for path_calls in chain_paths.values():
         for shape, widths in path_calls:
             row = chain_rows.row(shape, widths)
@@ -1950,6 +2027,7 @@ def main() -> int:
                      else "bytes"),
         "library_ms": None,  # no single PyTorch call computes the chain
         "per_layer_kernels_ms": tot["per_layer_ms"], "library_calls_per_layer_ms": tot["library4_ms"],
+        **tc_columns(tot),
     })
     for k in kernels:
         k["launches_on_new_paths"] = {path: {key: v for key, v in counts.items()

@@ -7,38 +7,84 @@
 //   svrs_convT4x4s2     <- fused_convT4x4s2_bn_relu  (transposed 4x4, stride 2,
 //                                                      pad 1, input-dilated form)
 // Each computes out = act(conv(x, W) * scale + shift) in float32, with x and
-// out NHWC and W in HWIO layout (kh, kw, C, O), row-major.
+// out NHWC and W in HWIO layout (kh, kw, C, O), row-major. The same kernels
+// compute every conv's input gradient (the adjoint's kernel on the
+// flip-swapped weight, scale 1, shift 0).
 //
-// Design: an implicit GEMM. M = output pixels (per output phase for the
-// transposed conv), N = O, K = live taps * C. A block owns a BM x BN output
-// tile; each step stages a BK-deep slice of the gathered input (the im2col
-// row, built on the fly with the kernel's own padded and strided input
-// coordinates, masked at every edge) and of the weight rows in shared
-// memory, and every thread accumulates a TM x TN micro-tile in f32
-// registers. The next slice is fetched into registers while the current one
-// is multiplied. The affine and the ReLU run in the epilogue, so the output
-// makes one trip to device memory.
+// Both designs are implicit GEMMs: M = output pixels (per output phase for
+// the transposed conv), N = O, K = live taps * C in the order k = tap * C + c
+// (the HWIO weight's own row order). A block owns a BM x BN output tile and
+// walks K; the A operand is the im2col row, gathered on the fly with the
+// kernel's padded and strided input coordinates and masked at every edge.
+// The affine and the ReLU run in the epilogue, so the output makes one trip
+// to device memory. When the output tiles alone leave most SMs idle (the
+// 4x4-spatial prior heads: C=1696, O=848, K=15,264 at one image, bound by
+// the 52 MB weight read), K is split over blocks that stream disjoint weight
+// slices, and a second pass sums the partials in split order and applies the
+// epilogue: deterministic, no atomics, the same bits every run.
 //
-// What bounds it on this card: at the 64x64 decoder tail and the chunked
-// 1000-draw decode the work is operations-bound (float32 FMA on the CUDA
-// cores, no tensor cores yet); the micro-tiles give 16-64 FMAs per shared
-// memory load. The 4x4-spatial prior heads (C=1696, O=848, K=15,264 at one
-// or a few images) are bound by the 52 MB weight read: there the launcher is
-// given a thin tile (BM=32) and a K split, so a few hundred blocks stream
-// disjoint weight slices; a second pass sums the partials in a fixed order
-// and applies the epilogue (deterministic, no atomics).
+// conv_tc (svrs_conv3x3, svrs_conv4x4s2): tensor cores at float32 accuracy.
+//   What bounds it: at the 64x64 decoder tail, the training batch and the
+//   1000-draw decode the work is operations-bound; float32 FMA on the CUDA
+//   cores tops out at 67 TFLOP/s, the TF32 tensor cores at 495. TF32 alone
+//   keeps 10 mantissa bits (about 1e-3 relative), too coarse for the port's
+//   1e-4 tolerances, so every operand is split as a = hi + lo with
+//   hi = rna.tf32(a), lo = rna.tf32(a - hi) (split_tf32), and each product
+//   is lo*b_hi + hi*b_lo + hi*b_hi on mma.sync.m16n8k8 (3xTF32; the dropped
+//   lo*lo term is about 2^-22 of |a*b|): at most 495/3 = 165 TFLOP/s of
+//   float32 work. The tensor core's float32 accumulate truncates, which over
+//   K = 15,264 loses 1e-4 of the sum; so the three products of each 8-deep
+//   step are summed there and added to the running sum in registers with a
+//   rounded add (float32 plain-version accuracy, 4 FADDs per 3 MMAs).
+//   mma.sync and not wgmma: wgmma takes TF32 only with K contiguous in both
+//   operands, and B here keeps the HWIO weight's N-contiguous rows (no
+//   transposed copy). Measured on the H100 the 128x128 and 128x64 tiles
+//   reach 32-39 TFLOP/s of float32 work, a fifth of that bound: per MMA a
+//   warp also issues the operand splits, the fragment loads and the rounded
+//   adds, and the three MMAs of one tile depend on each other, with 8-16
+//   warps an SM (167 and 142 registers a thread) to hide that.
+//   Layout: A staged as [BM][BK+4] (K contiguous: the channel run of one
+//   tap) and B as [BK][BN+8] (the weight rows as stored); the padding makes
+//   both fragment reads hit 32 distinct banks. BK = 32.
+//   Staging: a ring of STAGES cp.async slots in dynamic shared memory with
+//   one barrier per 32-deep step, so global latency hides behind the MMAs
+//   of the slots in flight. When C % 4 == 0, four consecutive k lie in one
+//   tap and are four contiguous channels, so A moves 16 bytes per cp.async
+//   and each thread resolves its (tap, channel) with tap_geometry once per
+//   step for all the rows it stages, not once per element; a tap outside the
+//   image is a 16-byte zero fill (src-size 0 from a valid dummy address),
+//   which is the SAME padding. C % 4 != 0 (C = 53, 106 in the canonical
+//   model) takes 4-byte copies with per-element masks; O % 4 != 0 does the
+//   same for B. K is padded to BK with zero fill only at the end of the K
+//   range, so a narrow C (4 or 16) wastes no tensor-core work on zeros.
+//   Tiles (ops/fused_conv.plan_tc): 128x128 (N > 64), 128x64 (N <= 64),
+//   64x16 with all four warps along M (N <= 16: N = 4 and 16 at millions of
+//   pixels, where the n8 tile past N = 4 multiplies zeros: a skip's
+//   predicates cost more than its MMAs), and 32x128 for M <= 64 (the
+//   weight-bound prior heads, with a K split).
 //
-// The transposed conv computes each of the four output phases (u, v) from
-// its four live taps only (the Pallas kernel's _T_TAPS table): output row
-// 2i+u reads input rows i+u-1 and i+u against kernel rows u and u+2, and
-// the same for columns. No dilation zeros are stored or multiplied.
+// conv_igemm (svrs_convT4x4s2 only): the float32 CUDA-core design, kept for
+//   the transposed conv (#6) until it moves onto conv_tc. Each step stages a
+//   BK = 8 slice of A and B in shared memory and every thread accumulates a
+//   TM x TN micro-tile with fmaf (16-64 FMAs per shared-memory load); the
+//   next slice is fetched into registers while the current one is
+//   multiplied. The transposed conv computes each of the four output phases
+//   (u, v) from its four live taps only (the Pallas kernel's _T_TAPS table):
+//   output row 2i+u reads input rows i+u-1 and i+u against kernel rows u and
+//   u+2, and the same for columns. No dilation zeros are stored or
+//   multiplied. conv_tc's loaders go through the same tap_geometry and
+//   weight_row, so the four phases can move onto it.
 //
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue for a tile
+// configuration it does not know). Each conv_tc instance gets its dynamic
+// shared memory limit raised once per device, on its first launch there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -67,6 +113,19 @@ __device__ __forceinline__ void tap_geometry(int t, int p, int& dy, int& dx, int
     const int ta = t >> 1, tb = t & 1, u = p >> 1, v = p & 1;
     dy = ta + u - 1; dx = tb + v - 1;
     wtap = (2 * ta + u) * 4 + (2 * tb + v);
+  }
+}
+
+// Row of the (taps * C, O) weight matrix that GEMM index k of phase p reads.
+template <int MODE>
+__device__ __forceinline__ int weight_row(int k, int C, int p) {
+  if constexpr (MODE != kConvT) {
+    return k;  // every tap is live, in the weight's own order
+  } else {
+    const int t = k / C;
+    int dy, dx, wtap;
+    tap_geometry<MODE>(t, p, dy, dx, wtap);
+    return wtap * C + (k - t * C);
   }
 }
 
@@ -147,14 +206,7 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
       const int k = k0 + kk, n = n0 + nn;
       float v = 0.f;
       if (e < BK * BN && k < kend && n < g.O) {
-        int row = k;
-        if constexpr (MODE == kConvT) {
-          const int t = k / g.C;
-          int dy, dx, wtap;
-          tap_geometry<MODE>(t, p, dy, dx, wtap);
-          row = wtap * g.C + (k - t * g.C);
-        }
-        v = __ldg(w + (int64_t)row * g.O + n);
+        v = __ldg(w + (int64_t)weight_row<MODE>(k, g.C, p) * g.O + n);
       }
       b_reg[j] = v;
     }
@@ -219,6 +271,263 @@ conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------- conv_tc
+constexpr int TC_BK = 32;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// a = hi + lo, both TF32 rounded to nearest, ties away from zero: for a
+// finite a the bits cvt.rna.tf32.f32 gives, in two integer operations where
+// the instruction takes four (it also tests for inf and NaN). The tensor
+// core reads only the top 19 bits of a TF32 operand, so lo's rounding is the
+// added half unit alone; its low 13 bits need no clearing.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d += a * b on one m16n8k8 tile (A row-major 16x8, B column-major 8x8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BM, int BN, int STAGES>
+constexpr int tc_smem_bytes() {
+  return STAGES * (BM * (TC_BK + 4) + TC_BK * (BN + 8)) * (int)sizeof(float);
+}
+
+// Warps tile the block as WARPS_M x WARPS_N, each owning a WM x WN output
+// tile of (WM/16) x (WN/8) mma tiles. Fragment maps (PTX m16n8k8 .tf32,
+// lane = 4 * gq + tq): A a0 (gq, tq), a1 (gq+8, tq), a2 (gq, tq+4),
+// a3 (gq+8, tq+4); B b0 (k=tq, n=gq), b1 (k=tq+4, n=gq); C c0/c1
+// (gq, 2tq / 2tq+1), c2/c3 (gq+8, 2tq / 2tq+1).
+template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
+conv_tc(const float* __restrict__ x, const float* __restrict__ w,
+        const float* __restrict__ scale, const float* __restrict__ shift,
+        float* __restrict__ out, float* __restrict__ ws, Geo g, int relu,
+        int splits, int kchunk, int vec_a, int vec_b) {
+  constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
+  constexpr int NT = WARPS_M * WARPS_N * 32;
+  constexpr int MI = WM / 16, NI = WN / 8;
+  constexpr int A_LD = TC_BK + 4, B_LD = BN + 8;
+  constexpr int A_TILE = BM * A_LD, B_TILE = TC_BK * B_LD;
+  constexpr int KQ = TC_BK / 4;           // 16-byte groups in a row of A
+  constexpr int A_ROWS = BM * KQ / NT;    // rows of A a thread stages per step
+  constexpr int NQ = BN / 4;              // 16-byte groups in a row of B
+  constexpr int B_VECS = (TC_BK * NQ + NT - 1) / NT;  // groups of B a thread stages per step
+  constexpr int STRIDE = MODE == kConv4 ? 2 : 1;
+  static_assert(WM % 16 == 0 && WN % 8 == 0 && STAGES >= 2, "warp tile");
+  static_assert(NT % KQ == 0 && (BM * KQ) % NT == 0, "tile shape");
+
+  extern __shared__ __align__(16) float smem[];
+  float* const As = smem;
+  float* const Bs = smem + STAGES * A_TILE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int p = blockIdx.z / splits;
+  const int s = blockIdx.z - p * splits;
+  const int kbeg = s * kchunk;
+  const int kend = min(g.K, kbeg + kchunk);
+  const int nsteps = kend > kbeg ? (kend - kbeg + TC_BK - 1) / TC_BK : 0;
+
+  // The A rows a thread stages keep their pixels for every step: row
+  // tid / KQ + i * (NT / KQ), K group tid % KQ. A row past M gets a y far
+  // outside the image, so every tap of it is masked.
+  const int kq = tid % KQ;
+  int a_pix[A_ROWS], a_y[A_ROWS], a_x[A_ROWS];
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) {
+    const int m = m0 + tid / KQ + i * (NT / KQ);
+    if (m < g.M) {
+      const int hw = g.Ho * g.Wo;
+      const int b = m / hw, r = m - b * hw;
+      const int oy = r / g.Wo, ox = r - oy * g.Wo;
+      a_y[i] = oy * STRIDE;
+      a_x[i] = ox * STRIDE;
+      a_pix[i] = (b * g.H + a_y[i]) * g.W + a_x[i];
+    } else {
+      a_y[i] = -(1 << 24); a_x[i] = 0; a_pix[i] = 0;
+    }
+  }
+
+  auto load_stage = [&](int slot, int k0) {
+    float* const as = As + slot * A_TILE + (tid / KQ) * A_LD + 4 * kq;
+    float* const bs = Bs + slot * B_TILE;
+    const int k = k0 + 4 * kq;  // the first of this thread's four K indices
+    if (vec_a) {
+      // C % 4 == 0: k .. k+3 are channels c .. c+3 of one tap
+      const bool kv = k < kend;
+      const int t = kv ? k / g.C : 0;
+      const int c = k - t * g.C;
+      int dy, dx, wtap;
+      tap_geometry<MODE>(t, p, dy, dx, wtap);
+      const int off = dy * g.W + dx;
+#pragma unroll
+      for (int i = 0; i < A_ROWS; ++i) {
+        const int iy = a_y[i] + dy, ix = a_x[i] + dx;
+        const bool v = kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+        cp_async16(as + i * (NT / KQ) * A_LD, v ? x + (a_pix[i] + off) * g.C + c : x, v);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool kv = k + j < kend;
+        const int t = kv ? (k + j) / g.C : 0;
+        const int c = k + j - t * g.C;
+        int dy, dx, wtap;
+        tap_geometry<MODE>(t, p, dy, dx, wtap);
+        const int off = dy * g.W + dx;
+#pragma unroll
+        for (int i = 0; i < A_ROWS; ++i) {
+          const int iy = a_y[i] + dy, ix = a_x[i] + dx;
+          const bool v = kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+          cp_async4(as + i * (NT / KQ) * A_LD + j, v ? x + (a_pix[i] + off) * g.C + c : x, v);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B_VECS; ++j) {
+      const int e = tid + j * NT;
+      const int kk = e / NQ, nq = e - kk * NQ;
+      const int kr = k0 + kk, n = n0 + 4 * nq;
+      float* const dst = bs + kk * B_LD + 4 * nq;
+      if ((TC_BK * NQ) % NT != 0 && e >= TC_BK * NQ) continue;  // fewer groups than threads
+      const bool kv = kr < kend;
+      const float* const row = w + (int64_t)(kv ? weight_row<MODE>(kr, g.C, p) : 0) * g.O;
+      if (vec_b) {
+        const bool v = kv && n < g.O;
+        cp_async16(dst, v ? row + n : w, v);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool v = kv && n + q < g.O;
+          cp_async4(dst + q, v ? row + n + q : w, v);
+        }
+      }
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load_stage(st, kbeg + st * TC_BK);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    // slot step has landed for every thread, and every warp is done with
+    // slot step - 1, which the next load refills
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = step + STAGES - 1;
+    if (next < nsteps) load_stage(next % STAGES, kbeg + next * TC_BK);
+    cp_async_commit();
+
+    const float* const as = As + (step % STAGES) * A_TILE + (wm * WM + gq) * A_LD + tq;
+    const float* const bs = Bs + (step % STAGES) * B_TILE + tq * B_LD + wn * WN + gq;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 8) {
+      uint32_t bh[NI][2], bl[NI][2];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const float* const bp = bs + kk * B_LD + ni * 8;
+        split_tf32(bp[0], bh[ni][0], bl[ni][0]);
+        split_tf32(bp[4 * B_LD], bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const float* const ap = as + mi * 16 * A_LD + kk;
+        uint32_t ah[4], al[4];
+        split_tf32(ap[0], ah[0], al[0]);
+        split_tf32(ap[8 * A_LD], ah[1], al[1]);
+        split_tf32(ap[4], ah[2], al[2]);
+        split_tf32(ap[8 * A_LD + 4], ah[3], al[3]);
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          // The tensor core's float32 accumulate truncates, so a sum carried
+          // in it over K would lose about K * 2^-24 of itself: each 8-deep
+          // product is formed there (small terms first) and added to the
+          // running sum with a rounded add.
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, al, bh[ni]);
+          mma_tf32(part, ah, bl[ni]);
+          mma_tf32(part, ah, bh[ni]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[r];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left; leave none in flight
+
+  const bool pairs = (g.O & 1) == 0;  // n is even, so n, n+1 is one 8-byte store
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = n0 + wn * WN + ni * 8 + 2 * tq;
+      if (n >= g.O) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
+        if (m >= g.M) continue;
+        float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        float* dst;
+        if (splits == 1) {
+          v0 = fmaf(v0, scale[n], shift[n]);
+          if (relu) v0 = fmaxf(v0, 0.f);
+          if (n + 1 < g.O) {
+            v1 = fmaf(v1, scale[n + 1], shift[n + 1]);
+            if (relu) v1 = fmaxf(v1, 0.f);
+          }
+          dst = out + out_offset<MODE>(g, p, m, n);
+        } else {
+          dst = ws + (((int64_t)s * g.phases + p) * g.M + m) * g.O + n;
+        }
+        if (pairs) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (n + 1 < g.O) dst[1] = v1;
+        }
+      }
+    }
+  }
+}
+
 // Sums the K-split partials in split order and applies the epilogue.
 template <int MODE>
 __global__ void splitk_reduce(const float* __restrict__ ws, const float* __restrict__ scale,
@@ -238,7 +547,19 @@ __global__ void splitk_reduce(const float* __restrict__ ws, const float* __restr
   }
 }
 
-// Tile configurations; the Python launcher picks one by (M, N).
+template <int MODE>
+cudaError_t reduce_splits(const float* scale, const float* shift, float* out, float* ws,
+                          const Geo& g, int relu, int splits, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t total = (int64_t)g.phases * g.M * g.O;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, scale, shift, out, g, relu, splits);
+  return cudaGetLastError();
+}
+
+// SIMT tile configurations (the transposed conv); the Python launcher picks
+// one by (M, N) with ops/fused_conv.plan.
 //   0 wide:  BM=128 BN=128 TM=8 TN=8   (N > 64)
 //   1 mid:   BM=128 BN=64  TM=8 TN=4   (32 < N <= 64)
 //   2 narrow:BM=256 BN=16  TM=8 TN=2   (N <= 32)
@@ -251,12 +572,40 @@ cudaError_t launch_cfg(const float* x, const float* w, const float* scale,
   dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
   conv_igemm<MODE, BM, BN, TM, TN><<<grid, NT, 0, st>>>(x, w, scale, shift, out, ws, g,
                                                         relu, splits, kchunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int64_t total = (int64_t)g.phases * g.M * g.O;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, scale, shift, out, g, relu, splits);
-  return cudaGetLastError();
+  return reduce_splits<MODE>(scale, shift, out, ws, g, relu, splits, st);
+}
+
+// Tensor-core tile configurations (3x3 and 4x4/s2), picked by
+// ops/fused_conv.plan_tc.
+//   0 wide:   BM=128 BN=128 warps 2x4 of 64x32, 3 stages  (N > 64)
+//   1 mid:    BM=128 BN=64  warps 4x2 of 32x32, 3 stages  (16 < N <= 64)
+//   2 narrow: BM=64  BN=16  warps 4x1 of 16x16, 4 stages  (N <= 16)
+//   3 thin:   BM=32  BN=128 warps 1x4 of 32x32, 4 stages  (M <= 64)
+template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+cudaError_t launch_tc(const float* x, const float* w, const float* scale, const float* shift,
+                      float* out, float* ws, const Geo& g, int relu, int splits, int kchunk,
+                      cudaStream_t st) {
+  constexpr int NT = (BM / WM) * (BN / WN) * 32;
+  constexpr int SMEM = tc_smem_bytes<BM, BN, STAGES>();
+  // The attribute holds per device; set it on this instance's first launch
+  // on each device (a repeat from two threads at once is harmless).
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(conv_tc<MODE, BM, BN, WM, WN, STAGES>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
+  }
+  const int vec_a = g.C % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int vec_b = g.O % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
+  conv_tc<MODE, BM, BN, WM, WN, STAGES><<<grid, NT, SMEM, st>>>(
+      x, w, scale, shift, out, ws, g, relu, splits, kchunk, vec_a, vec_b);
+  return reduce_splits<MODE>(scale, shift, out, ws, g, relu, splits, st);
 }
 
 template <int MODE>
@@ -269,12 +618,22 @@ int launch(int cfg, const void* x, const void* w, const void* scale, const void*
   float* of = static_cast<float*>(out);
   float* wsf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cfg) {
-    case 0: return launch_cfg<MODE, 128, 128, 8, 8>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    case 1: return launch_cfg<MODE, 128, 64, 8, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    case 2: return launch_cfg<MODE, 256, 16, 8, 2>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    case 3: return launch_cfg<MODE, 32, 128, 4, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (MODE == kConvT) {
+    switch (cfg) {
+      case 0: return launch_cfg<MODE, 128, 128, 8, 8>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      case 1: return launch_cfg<MODE, 128, 64, 8, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      case 2: return launch_cfg<MODE, 256, 16, 8, 2>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      case 3: return launch_cfg<MODE, 32, 128, 4, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (cfg) {
+      case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      case 2: return launch_tc<MODE, 64, 16, 16, 16, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

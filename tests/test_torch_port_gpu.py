@@ -82,6 +82,48 @@ def test_cuda_kernel_matches_plain(cuda, case):
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
 
 
+# the tensor-core kernel (3x3 and 4x4/s2) at its edge paths: C % 4 != 0
+# (4-byte copies: C = 53, 106, 7), N = 4 (a skipped n8 tile) and 53 (ragged
+# weight slices and stores), M <= 64 with a K split and K not a multiple of
+# 32, the strided kernel with C % 4 != 0, and the canonical prior head
+TC_CASES = [
+    ("fused_conv3x3_bn_relu", (2, 8, 8, 53), 53, True),
+    ("fused_conv3x3_bn_relu", (3, 8, 8, 106), 128, False),
+    ("fused_conv3x3_bn_relu", (4, 16, 16, 16), 4, True),
+    ("fused_conv3x3_bn_relu", (1, 4, 4, 212), 848, False),
+    ("fused_conv3x3_bn_relu", (1, 4, 4, 1696), 848, False),
+    ("fused_conv4x4s2_bn_relu", (2, 16, 16, 128), 53, False),
+    ("fused_conv4x4s2_bn_relu", (3, 10, 12, 7), 9, True),
+    ("fused_conv4x4s2_bn_relu", (1, 8, 8, 53), 424, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_tensor_core_kernel_matches_plain_in_both_roles(cuda, case):
+    name, shape, o, relu = case
+    x, kern, s, t = _inputs(name, shape, o, seed=sum(shape) + 2 * o, device=cuda)
+    before = fc.role_launches[name]["forward"]
+    got = getattr(fc, name)(x, kern, s, t, relu=relu)
+    torch.cuda.synchronize()
+    assert fc.role_launches[name]["forward"] == before + 1
+    want = fc.PLAIN[name](x, kern, s, t, relu)
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    assert torch.equal(getattr(fc, name)(x, kern, s, t, relu=relu), got)  # the same bits
+    # the same kernel as the input gradient of the conv it is the adjoint of,
+    # with x as that conv's output gradient
+    site = name if name == "fused_conv3x3_bn_relu" else "fused_convT4x4s2_bn_relu"
+    in_shape = fc.output_shape(name, shape, o)
+    before = fc.role_launches[name]["dx"]
+    got = fc.input_grad(site, x, fc.flip_swap(kern), in_shape)
+    torch.cuda.synchronize()
+    assert fc.role_launches[name]["dx"] == before + 1
+    want = fc.input_grad(site, x, fc.flip_swap(kern), in_shape, plain=True)
+    assert got.shape == want.shape == in_shape
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    assert torch.equal(fc.input_grad(site, x, fc.flip_swap(kern), in_shape), got)
+
+
 @pytest.mark.gpu
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x, kern, s, t = _inputs("fused_conv3x3_bn_relu", (1, 4, 4, 3), 2, 0, cuda)
