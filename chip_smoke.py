@@ -12,9 +12,10 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
    process per source, all started together) and print ptxas's registers and
    spills per kernel; a spill in the tensor-core conv kernel fails.
 3. Hold each kernel against its plain PyTorch version on ragged shapes (for
-   the tensor-core 3x3 and 4x4/s2 kernel: C = 53 and 106, N = 4 and 53,
-   M <= 64 with a K split, K not a multiple of 32, C % 4 != 0), and a second
-   launch must give the same bits.
+   the tensor-core kernel, in all three convs: C = 53 and 106, N = 4 and 53,
+   odd O, M <= 64 (per phase for the transposed conv) with a K split, K not
+   a multiple of 32, C % 4 != 0), and a second launch must give the same
+   bits.
 4. Build the canonical Cond_SRVAE (cr=1.2, ps=64; random weights from a numpy
    seed) and serve through ``SuperResolver``: ``super_resolve`` on a
    (16, 32, 32, 4) batch, then ``uncertainty`` with 1000 draws. Every launch
@@ -25,11 +26,10 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
    serving run launched, and time kernel, plain version and one library call
    (cuDNN conv + bias, TF32 off) with CUDA events; compute each shape's bound
    (bytes over 3.35 TB/s or float32 operations over the peak of the units
-   the kernel runs on, H100 SXM): for the 3x3 and 4x4/s2 kernels the tensor
+   the kernel runs on, H100 SXM): for the three conv kernels the tensor
    cores at float32 accuracy (495/3 TFLOP/s: three TF32 products per
-   float32 one), for the transposed conv the CUDA cores (67 TFLOP/s). Both
-   figures are also reported on their own (``bound_tc_ms``,
-   ``bound_cuda_core_ms``).
+   float32 one). The CUDA-core figure (67 TFLOP/s) is also reported
+   (``bound_cuda_core_ms``), beside ``bound_tc_ms``.
 6. Train: the canonical model from ``init_weights(0)``, 32 synthetic tiles
    (LR 128x128x4, HR 256x256x4, values x1000, numpy seed 0) cut by the
    port's ``grid_sr_batch`` on the card into 512 pairs, and
@@ -75,7 +75,10 @@ I5. Each int8 kernel against its plain version at every distinct shape I3
     and the bound (bytes over 3.35 TB/s or integer operations over the 1,979
     TOP/s int8 tensor-core peak). No single PyTorch call computes a W8A8
     conv with in-call quantization, so these have no library time; the
-    absmax pass has one (``torch.linalg.vector_norm`` with ord=inf).
+    absmax pass has one (``torch.linalg.vector_norm`` with ord=inf). The
+    absmax pass is also timed by ``torch.profiler`` (device time of its
+    kernel and its result's memset: CUDA events around one call of a few
+    microseconds measure the wrapper), with its share of the bytes bound.
 I6. ``SuperResolver(model, int8_weights=True)``: the same two requests, the
     float kernels' launch counts of phase 4, PSNR against float32 above
     30 dB, and no packed leaf held in float32 between requests.
@@ -163,7 +166,7 @@ import torch.nn.functional as F  # noqa: E402
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 # H100 SXM TF32 tensor cores (495 TFLOP/s dense) at float32 accuracy: three
-# TF32 products per float32 product (3xTF32, the 3x3 and 4x4/s2 kernels)
+# TF32 products per float32 product (3xTF32, the three conv kernels)
 PEAK_F32_TC_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 1e-4  # of max|plain|
@@ -221,7 +224,8 @@ RAGGED = [
     ("fused_conv3x3_bn_relu", (1, 4, 4, 300), 200, False),
     # the tensor-core kernel's edge paths: C = 53 and 106 (4-byte copies),
     # N = 4 and 53, M <= 64 with a K split and K = 1908 (not a multiple of 32),
-    # the 4x4/s2 kernel with C % 4 != 0
+    # the 4x4/s2 kernel with C % 4 != 0; for the transposed conv the same, with
+    # M <= 64 per phase (K splits at K = 1696 and 424, odd O = 13)
     ("fused_conv3x3_bn_relu", (2, 8, 8, 53), 53, True),
     ("fused_conv3x3_bn_relu", (3, 8, 8, 106), 128, False),
     ("fused_conv3x3_bn_relu", (4, 16, 16, 16), 4, True),
@@ -232,6 +236,11 @@ RAGGED = [
     ("fused_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, False),
     ("fused_convT4x4s2_bn_relu", (2, 3, 5, 7), 9, True),
     ("fused_convT4x4s2_bn_relu", (1, 4, 4, 130), 70, False),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 53), 128, True),
+    ("fused_convT4x4s2_bn_relu", (4, 16, 16, 16), 4, False),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 128), 53, True),
+    ("fused_convT4x4s2_bn_relu", (1, 4, 4, 424), 256, False),
+    ("fused_convT4x4s2_bn_relu", (1, 3, 4, 106), 13, True),
 ]
 
 
@@ -376,8 +385,8 @@ def check_shape(fc, name, shape, o, relu, seed, timing: bool, site=None):
 
 def conv_peak(fc, name):
     """The peak rate of the units a float32 conv kernel runs on: the 3xTF32
-    tensor cores for the 3x3 and 4x4/s2 kernels, the CUDA cores for the
-    others. ``bound_ms`` and ``bound_by`` use it."""
+    tensor cores for the kernels of ``fc.TC_KERNELS`` (all three convs), the
+    CUDA cores for any other. ``bound_ms`` and ``bound_by`` use it."""
     return PEAK_F32_TC_FLOPS if name in fc.TC_KERNELS else PEAK_F32_FLOPS
 
 
@@ -389,10 +398,10 @@ def tc_bound_ms(flops, nbytes):
 
 def tc_columns(tot):
     """A float32 conv kernel's 3xTF32 bound (165 TFLOP/s) and its share of
-    it, beside ``bound_ms``: for a kernel on the CUDA cores (the transposed
-    conv, the chain) a tensor-core design could beat its ``bound_ms`` (67
-    TFLOP/s) but not this one; for the 3x3 and 4x4/s2 kernels the two are
-    the same, and ``bound_cuda_core_ms`` is the CUDA-core figure."""
+    it, beside ``bound_ms``: for a kernel on the CUDA cores (the chain) a
+    tensor-core design could beat its ``bound_ms`` (67 TFLOP/s) but not this
+    one; for the three conv kernels the two are the same, and
+    ``bound_cuda_core_ms`` is the CUDA-core figure."""
     return {"bound_tc_ms": tot["bound_tc_ms"], "share_of_bound_tc": tot["bound_tc_ms"] / tot["ms"]}
 
 
@@ -477,11 +486,12 @@ def row_shapes(cfg, batch):
             ("kl_gen_rows", batch, g * g * cfg.z_channels)]
 
 
-def profiled_device_ms(fn, reps: int, match: str):
-    """Device time per call of the kernels whose name holds ``match``, from
-    ``torch.profiler`` (for kernels shorter than their wrapper's host time,
-    which CUDA events around a loop of calls measure instead); None when the
-    profiler records no device time."""
+def profiled_device_ms(fn, reps: int, match):
+    """Device time per call of the kernels (and memsets) whose name holds
+    ``match`` (a string, or a tuple of them), from ``torch.profiler`` (for
+    kernels shorter than their wrapper's host time, which CUDA events around
+    a loop of calls measure instead); None when the profiler records no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -490,8 +500,9 @@ def profiled_device_ms(fn, reps: int, match: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    match = (match,) if isinstance(match, str) else match
     us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
-             if match in e.key)
+             if any(m in e.key for m in match))
     return us / reps / 1e3 if us else None
 
 
@@ -896,12 +907,19 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
         bound_row(row, 2.0 * phases * m * n * taps * c,
                   4.0 * x.numel() + kq.numel() + 4.0 * 3 * o + 4.0 * got.numel(), PEAK_INT8_OPS)
         groups = amax.numel()
+        # 50 calls a timing (at most 0.4 ms each): the first call's host time
+        # stays out of the big shapes' numbers, as it does for the library's
         absmax = {"name": "act_absmax", "x": list(shape), "groups": groups,
-                  "ms": cuda_ms(lambda: f8.act_absmax(x, act_group), reps),
-                  "plain_ms": cuda_ms(lambda: f8.act_absmax_plain(x, act_group), reps),
+                  "ms": cuda_ms(lambda: f8.act_absmax(x, act_group), 50),
+                  "plain_ms": cuda_ms(lambda: f8.act_absmax_plain(x, act_group), 50),
                   "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(
-                      x.view(groups, -1), float("inf"), dim=1), reps)}
+                      x.view(groups, -1), float("inf"), dim=1), 50)}
         bound_row(absmax, float(x.numel()), 4.0 * (x.numel() + groups), PEAK_F32_FLOPS)
+        # the pass's device work: its result's memset and its kernel
+        absmax["device_ms"] = profiled_device_ms(lambda: f8.act_absmax(x, act_group), 20,
+                                                 ("act_absmax", "emset"))
+        if absmax["device_ms"]:
+            absmax["share_of_bound_device"] = absmax["bound_ms"] / absmax["device_ms"]
         row["absmax"] = absmax
     return row
 
@@ -1148,7 +1166,7 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     paths = (("serving_int8", [c for c in calls if c[0] in f8.PLAIN]),
              ("block_path", [c for c in block_calls if c[0] in f8.PLAIN]))
     per_key = {}
-    fields = ("ms", "plain_ms", "bound_ms", "ops", "bytes", "f32_kernel_ms")
+    fields = ("ms", "plain_ms", "bound_ms", "ops", "bytes", "f32_kernel_ms", "device_ms")
     totals, by_path = {}, {}
     for path, path_calls in paths:
         for call in path_calls:
@@ -1157,10 +1175,12 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
                 row = per_key[call] = check_int8_shape(f8, fc, name, shape, o, relu,
                                                        seed=800 + len(per_key), timing=True)
                 int8_report["shapes"].append(row)
+                am = row["absmax"]
                 log(f"int8 shape {name} x{shape} O={o}: kernel {row['ms']:.4f} ms (absmax pass "
-                    f"{row['absmax']['ms']:.4f} ms of it; absmax plain "
-                    f"{row['absmax']['plain_ms']:.4f}, library {row['absmax']['library_ms']:.4f}, "
-                    f"bound {row['absmax']['bound_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+                    f"{am['ms']:.4f} ms of it, device {am['device_ms']} ms = "
+                    f"{am.get('share_of_bound_device')} of its bound, {am['bytes'] / 1e6:.1f} MB; "
+                    f"absmax plain {am['plain_ms']:.4f}, library {am['library_ms']:.4f}, "
+                    f"bound {am['bound_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
                     f"float32 kernel {row['f32_kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                     f"({row['bound_by']}), max|diff| {row['max_abs_err']:.2e}")
             row = per_key[call]
@@ -1189,6 +1209,17 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
         log(f"int8 paths {name}: launches {by_path[name]}, kernel {tot['ms']:.3f} ms, bound "
             f"{tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms"
             + (f", float32 kernel {tot['f32_kernel_ms']:.3f} ms" if tot["f32_kernel_ms"] else ""))
+    am = totals["act_absmax"]
+    big = [r["absmax"] for r in per_key.values() if r["absmax"]["bytes"] >= 64e6]
+    am_share = am["bound_ms"] / am["device_ms"] if am["device_ms"] else None
+    log(f"int8 paths act_absmax: events {am['ms']:.3f} ms against torch.linalg.vector_norm "
+        f"{am['library_ms']:.3f} ms; profiler device time {am['device_ms'] or 'not measured'} "
+        f"ms, {am_share} of the bytes bound; at the shapes of 64 MB or more: "
+        + ", ".join(f"{r['x']} {r.get('share_of_bound_device')}" for r in big))
+    int8_report["absmax"] = {"ms": am["ms"], "library_ms": am["library_ms"],
+                             "device_ms": am["device_ms"], "bound_ms": am["bound_ms"],
+                             "share_of_bound_device_64mb_and_up":
+                                 {str(r["x"]): r.get("share_of_bound_device") for r in big}}
     kernel_ms = {c: r["ms"] for c, r in per_key.items()}
     for req, part, wall in (("super_resolve_b16", calls[:n_sr_calls], rep_sr),
                             ("uncertainty_n1000", calls[n_sr_calls:], rep_uq)):
@@ -2005,6 +2036,10 @@ def main() -> int:
             "bound_by": "operations" if tot["ops"] / peak > tot["bytes"] / PEAK_BYTES else "bytes",
             "library_ms": tot["library_ms"],
             "f32_kernel_ms": tot["f32_kernel_ms"] or None,
+            **({"device_ms": tot["device_ms"] or None,
+                "share_of_bound_device": (tot["bound_ms"] / tot["device_ms"]
+                                          if tot["device_ms"] else None)}
+               if name == "act_absmax" else {}),
         })
     tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms",
                          "bound_tc_ms", "ops", "bytes"), 0.0)

@@ -11,69 +11,71 @@
 // compute every conv's input gradient (the adjoint's kernel on the
 // flip-swapped weight, scale 1, shift 0).
 //
-// Both designs are implicit GEMMs: M = output pixels (per output phase for
-// the transposed conv), N = O, K = live taps * C in the order k = tap * C + c
-// (the HWIO weight's own row order). A block owns a BM x BN output tile and
-// walks K; the A operand is the im2col row, gathered on the fly with the
-// kernel's padded and strided input coordinates and masked at every edge.
-// The affine and the ReLU run in the epilogue, so the output makes one trip
-// to device memory. When the output tiles alone leave most SMs idle (the
-// 4x4-spatial prior heads: C=1696, O=848, K=15,264 at one image, bound by
-// the 52 MB weight read), K is split over blocks that stream disjoint weight
-// slices, and a second pass sums the partials in split order and applies the
-// epilogue: deterministic, no atomics, the same bits every run.
+// One design, conv_tc, runs all three: an implicit GEMM with M = output
+// pixels (per output phase for the transposed conv), N = O, K = live taps * C
+// in the order k = tap * C + c (the HWIO weight's own row order). A block
+// owns a BM x BN output tile of one phase (blockIdx.z) and walks K; the A
+// operand is the im2col row, gathered on the fly with the kernel's padded and
+// strided input coordinates and masked at every edge. The affine and the
+// ReLU run in the epilogue, so the output makes one trip to device memory.
+// When the output tiles alone leave most SMs idle (the 4x4-spatial prior
+// heads: C=1696, O=848, K=15,264 at one image, bound by the 52 MB weight
+// read), K is split over blocks that stream disjoint weight slices, and a
+// second pass sums the partials (laid out [split][phase][M][O]) in split
+// order and applies the epilogue: deterministic, no atomics, the same bits
+// every run.
 //
-// conv_tc (svrs_conv3x3, svrs_conv4x4s2): tensor cores at float32 accuracy.
-//   What bounds it: at the 64x64 decoder tail, the training batch and the
-//   1000-draw decode the work is operations-bound; float32 FMA on the CUDA
-//   cores tops out at 67 TFLOP/s, the TF32 tensor cores at 495. TF32 alone
-//   keeps 10 mantissa bits (about 1e-3 relative), too coarse for the port's
-//   1e-4 tolerances, so every operand is split as a = hi + lo with
-//   hi = rna.tf32(a), lo = rna.tf32(a - hi) (split_tf32), and each product
-//   is lo*b_hi + hi*b_lo + hi*b_hi on mma.sync.m16n8k8 (3xTF32; the dropped
-//   lo*lo term is about 2^-22 of |a*b|): at most 495/3 = 165 TFLOP/s of
-//   float32 work. The tensor core's float32 accumulate truncates, which over
-//   K = 15,264 loses 1e-4 of the sum; so the three products of each 8-deep
-//   step are summed there and added to the running sum in registers with a
-//   rounded add (float32 plain-version accuracy, 4 FADDs per 3 MMAs).
-//   mma.sync and not wgmma: wgmma takes TF32 only with K contiguous in both
-//   operands, and B here keeps the HWIO weight's N-contiguous rows (no
-//   transposed copy). Measured on the H100 the 128x128 and 128x64 tiles
-//   reach 32-39 TFLOP/s of float32 work, a fifth of that bound: per MMA a
-//   warp also issues the operand splits, the fragment loads and the rounded
-//   adds, and the three MMAs of one tile depend on each other, with 8-16
-//   warps an SM (167 and 142 registers a thread) to hide that.
-//   Layout: A staged as [BM][BK+4] (K contiguous: the channel run of one
-//   tap) and B as [BK][BN+8] (the weight rows as stored); the padding makes
-//   both fragment reads hit 32 distinct banks. BK = 32.
-//   Staging: a ring of STAGES cp.async slots in dynamic shared memory with
-//   one barrier per 32-deep step, so global latency hides behind the MMAs
-//   of the slots in flight. When C % 4 == 0, four consecutive k lie in one
-//   tap and are four contiguous channels, so A moves 16 bytes per cp.async
-//   and each thread resolves its (tap, channel) with tap_geometry once per
-//   step for all the rows it stages, not once per element; a tap outside the
-//   image is a 16-byte zero fill (src-size 0 from a valid dummy address),
-//   which is the SAME padding. C % 4 != 0 (C = 53, 106 in the canonical
-//   model) takes 4-byte copies with per-element masks; O % 4 != 0 does the
-//   same for B. K is padded to BK with zero fill only at the end of the K
-//   range, so a narrow C (4 or 16) wastes no tensor-core work on zeros.
-//   Tiles (ops/fused_conv.plan_tc): 128x128 (N > 64), 128x64 (N <= 64),
-//   64x16 with all four warps along M (N <= 16: N = 4 and 16 at millions of
-//   pixels, where the n8 tile past N = 4 multiplies zeros: a skip's
-//   predicates cost more than its MMAs), and 32x128 for M <= 64 (the
-//   weight-bound prior heads, with a K split).
+// The transposed conv computes each of the four output phases (u, v) from
+// its four live taps only (the Pallas kernel's _T_TAPS table): output row
+// 2i+u reads input rows i+u-1 and i+u against kernel rows u and u+2, and the
+// same for columns (tap_geometry), so K = 4 * C and no dilation zeros are
+// stored or multiplied. GEMM row k of phase p reads weight row
+// wtap(k / C, p) * C + k % C (weight_row), and the epilogue writes pixel
+// (2i+u, 2j+v) (out_offset).
 //
-// conv_igemm (svrs_convT4x4s2 only): the float32 CUDA-core design, kept for
-//   the transposed conv (#6) until it moves onto conv_tc. Each step stages a
-//   BK = 8 slice of A and B in shared memory and every thread accumulates a
-//   TM x TN micro-tile with fmaf (16-64 FMAs per shared-memory load); the
-//   next slice is fetched into registers while the current one is
-//   multiplied. The transposed conv computes each of the four output phases
-//   (u, v) from its four live taps only (the Pallas kernel's _T_TAPS table):
-//   output row 2i+u reads input rows i+u-1 and i+u against kernel rows u and
-//   u+2, and the same for columns. No dilation zeros are stored or
-//   multiplied. conv_tc's loaders go through the same tap_geometry and
-//   weight_row, so the four phases can move onto it.
+// What bounds it: at the 64x64 decoder tail, the training batch and the
+// 1000-draw decode the work is operations-bound; float32 FMA on the CUDA
+// cores tops out at 67 TFLOP/s, the TF32 tensor cores at 495. TF32 alone
+// keeps 10 mantissa bits (about 1e-3 relative), too coarse for the port's
+// 1e-4 tolerances, so every operand is split as a = hi + lo with
+// hi = rna.tf32(a), lo = rna.tf32(a - hi) (split_tf32), and each product is
+// lo*b_hi + hi*b_lo + hi*b_hi on mma.sync.m16n8k8 (3xTF32; the dropped
+// lo*lo term is about 2^-22 of |a*b|): at most 495/3 = 165 TFLOP/s of float32
+// work. The tensor core's float32 accumulate truncates, which over
+// K = 15,264 loses 1e-4 of the sum; so the three products of each 8-deep
+// step are summed there and added to the running sum in registers with a
+// rounded add (float32 plain-version accuracy, 4 FADDs per 3 MMAs).
+// mma.sync and not wgmma: wgmma takes TF32 only with K contiguous in both
+// operands, and B here keeps the HWIO weight's N-contiguous rows (no
+// transposed copy). Measured on the H100 the 128x128 and 128x64 tiles reach
+// 32-40 TFLOP/s of float32 work, a fifth of that bound: per MMA a warp also
+// issues the operand splits, the fragment loads and the rounded adds, and
+// the three MMAs of one tile depend on each other, with 8-16 warps an SM
+// (167 and 142 registers a thread) to hide that.
+//
+// Layout: A staged as [BM][BK+4] (K contiguous: the channel run of one tap)
+// and B as [BK][BN+8] (the weight rows as stored); the padding makes both
+// fragment reads hit 32 distinct banks. BK = 32.
+// Staging: a ring of STAGES cp.async slots in dynamic shared memory with one
+// barrier per 32-deep step, so global latency hides behind the MMAs of the
+// slots in flight. When C % 4 == 0, four consecutive k lie in one tap and
+// are four contiguous channels, so A moves 16 bytes per cp.async and each
+// thread resolves its (tap, channel) with tap_geometry once per step for all
+// the rows it stages, not once per element; a tap outside the image is a
+// 16-byte zero fill (src-size 0 from a valid dummy address), which is the
+// SAME padding. C % 4 != 0 (C = 53, 106 in the canonical model) takes 4-byte
+// copies with per-element masks; O % 4 != 0 does the same for B. Every
+// k / C in the loaders (the A tap, and the transposed conv's weight row for
+// each staged B row) is a multiply-high by a constant the host computes once
+// per launch (div_c), not an integer division, so the B loader of the
+// transposed conv costs a few integer operations a 16-byte copy. K is padded
+// to BK with zero fill only at the end of the K range, so a narrow C (4 or
+// 16) wastes no tensor-core work on zeros.
+// Tiles (ops/fused_conv.plan_tc, which counts the phases' blocks): 128x128
+// (N > 64), 128x64 (N <= 64), 64x16 with all four warps along M (N <= 16:
+// N = 4 and 16 at millions of pixels, where the n8 tile past N = 4
+// multiplies zeros: a skip's predicates cost more than its MMAs), and 32x128
+// for M <= 64 per phase (the weight-bound prior heads, with a K split).
 //
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -96,9 +98,15 @@ struct Geo {
   int M;              // B * Ho * Wo
   int K;              // live taps * C
   int phases;         // 1, or 4 for the transposed conv
+  unsigned c_mul;     // k / C == umulhi(k, c_mul) >> c_shr for 0 <= k < 2^31, C > 1
+  int c_shr;
 };
 
-constexpr int BK = 8;
+// k / C without a division instruction (the round-up method of Granlund and
+// Montgomery, as CUTLASS's FastDivmod): exact for 0 <= k < 2^31.
+__device__ __forceinline__ int div_c(const Geo& g, int k) {
+  return g.C == 1 ? k : (int)(__umulhi((unsigned)k, g.c_mul) >> g.c_shr);
+}
 
 // Input offsets (relative to oy*stride, ox*stride) and weight row of tap t.
 template <int MODE>
@@ -118,17 +126,18 @@ __device__ __forceinline__ void tap_geometry(int t, int p, int& dy, int& dx, int
 
 // Row of the (taps * C, O) weight matrix that GEMM index k of phase p reads.
 template <int MODE>
-__device__ __forceinline__ int weight_row(int k, int C, int p) {
+__device__ __forceinline__ int weight_row(const Geo& g, int k, int p) {
   if constexpr (MODE != kConvT) {
     return k;  // every tap is live, in the weight's own order
   } else {
-    const int t = k / C;
+    const int t = div_c(g, k);
     int dy, dx, wtap;
     tap_geometry<MODE>(t, p, dy, dx, wtap);
-    return wtap * C + (k - t * C);
+    return k + (wtap - t) * g.C;  // wtap * C + k % C
   }
 }
 
+// Offset of output element (pixel m of phase p, channel n).
 template <int MODE>
 __device__ __forceinline__ int64_t out_offset(const Geo& g, int p, int m, int n) {
   if constexpr (MODE != kConvT) return (int64_t)m * g.O + n;
@@ -137,138 +146,6 @@ __device__ __forceinline__ int64_t out_offset(const Geo& g, int p, int m, int n)
   const int i = r / g.Wo, j = r - i * g.Wo;
   const int oh = 2 * i + (p >> 1), ow = 2 * j + (p & 1);
   return (((int64_t)b * (2 * g.Ho) + oh) * (2 * g.Wo) + ow) * g.O + n;
-}
-
-template <int MODE, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-conv_igemm(const float* __restrict__ x, const float* __restrict__ w,
-           const float* __restrict__ scale, const float* __restrict__ shift,
-           float* __restrict__ out, float* __restrict__ ws, Geo g, int relu,
-           int splits, int kchunk) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int A_LD = BM * BK / NT;
-  constexpr int B_LD = (BK * BN + NT - 1) / NT;
-  constexpr int STRIDE = MODE == kConv4 ? 2 : 1;
-  static_assert(NT % BK == 0 && (BM * BK) % NT == 0, "tile shape");
-  static_assert(TM % 4 == 0, "micro-tile rows are read as float4");
-
-  // +4 pads the rows so the transposed stores below hit distinct banks.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int p = blockIdx.z / splits;
-  const int s = blockIdx.z - p * splits;
-  const int kbeg = s * kchunk;
-  const int kend = min(g.K, kbeg + kchunk);
-
-  // The A (gathered input) elements a thread stages keep the same pixels
-  // for every K step: resolve them once.
-  const int ak = tid % BK;
-  int a_b[A_LD], a_y[A_LD], a_x[A_LD];
-#pragma unroll
-  for (int i = 0; i < A_LD; ++i) {
-    const int m = m0 + tid / BK + i * (NT / BK);
-    if (m < g.M) {
-      const int hw = g.Ho * g.Wo;
-      const int b = m / hw, r = m - b * hw;
-      const int oy = r / g.Wo;
-      a_b[i] = b;
-      a_y[i] = oy * STRIDE;
-      a_x[i] = (r - oy * g.Wo) * STRIDE;
-    } else {
-      a_b[i] = -1; a_y[i] = 0; a_x[i] = 0;
-    }
-  }
-
-  float a_reg[A_LD], b_reg[B_LD];
-  auto load = [&](int k0) {
-    {
-      const int k = k0 + ak;
-      const bool kv = k < kend;
-      const int t = kv ? k / g.C : 0;
-      const int c = k - t * g.C;
-      int dy, dx, wtap;
-      tap_geometry<MODE>(t, p, dy, dx, wtap);
-#pragma unroll
-      for (int i = 0; i < A_LD; ++i) {
-        const int iy = a_y[i] + dy, ix = a_x[i] + dx;
-        const bool v = kv && a_b[i] >= 0 && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-        a_reg[i] = v ? __ldg(x + (((int64_t)a_b[i] * g.H + iy) * g.W + ix) * g.C + c) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < B_LD; ++j) {
-      const int e = tid + j * NT;
-      const int kk = e / BN, nn = e - kk * BN;
-      const int k = k0 + kk, n = n0 + nn;
-      float v = 0.f;
-      if (e < BK * BN && k < kend && n < g.O) {
-        v = __ldg(w + (int64_t)weight_row<MODE>(k, g.C, p) * g.O + n);
-      }
-      b_reg[j] = v;
-    }
-  };
-
-  // Thread (tx, ty) owns rows ty*TM .. ty*TM+TM-1 (contiguous: one vector
-  // shared-memory read, broadcast across the warp) and columns
-  // tx, tx + BN/TN, ... (strided: conflict-free reads, coalesced writes).
-  constexpr int TX = BN / TN;
-  const int tx = tid % TX, ty = tid / TX;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  if (kbeg < kend) load(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_LD; ++i) As[ak][tid / BK + i * (NT / BK)] = a_reg[i];
-#pragma unroll
-    for (int j = 0; j < B_LD; ++j) {
-      const int e = tid + j * NT;
-      if (e < BK * BN) Bs[e / BN][e % BN] = b_reg[j];
-    }
-    __syncthreads();
-    if (k0 + BK < kend) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&As[kk][ty * TM + i]);
-        a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= g.O) continue;
-      if (splits == 1) {
-        float v = fmaf(acc[i][j], scale[n], shift[n]);
-        if (relu) v = fmaxf(v, 0.f);
-        out[out_offset<MODE>(g, p, m, n)] = v;
-      } else {
-        ws[(((int64_t)s * g.phases + p) * g.M + m) * g.O + n] = acc[i][j];
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- conv_tc
@@ -384,7 +261,7 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
     if (vec_a) {
       // C % 4 == 0: k .. k+3 are channels c .. c+3 of one tap
       const bool kv = k < kend;
-      const int t = kv ? k / g.C : 0;
+      const int t = kv ? div_c(g, k) : 0;
       const int c = k - t * g.C;
       int dy, dx, wtap;
       tap_geometry<MODE>(t, p, dy, dx, wtap);
@@ -399,7 +276,7 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool kv = k + j < kend;
-        const int t = kv ? (k + j) / g.C : 0;
+        const int t = kv ? div_c(g, k + j) : 0;
         const int c = k + j - t * g.C;
         int dy, dx, wtap;
         tap_geometry<MODE>(t, p, dy, dx, wtap);
@@ -412,7 +289,11 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
     }
-#pragma unroll
+    // Each of the transposed conv's weight rows resolves its tap (weight_row);
+    // eight of them unrolled together (the thin tile) spilled in ptxas, so
+    // that loop goes two rows at a time.
+    constexpr int B_UNROLL = MODE == kConvT && B_VECS > 4 ? 2 : B_VECS;
+#pragma unroll (B_UNROLL)
     for (int j = 0; j < B_VECS; ++j) {
       const int e = tid + j * NT;
       const int kk = e / NQ, nq = e - kk * NQ;
@@ -420,7 +301,7 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
       float* const dst = bs + kk * B_LD + 4 * nq;
       if ((TC_BK * NQ) % NT != 0 && e >= TC_BK * NQ) continue;  // fewer groups than threads
       const bool kv = kr < kend;
-      const float* const row = w + (int64_t)(kv ? weight_row<MODE>(kr, g.C, p) : 0) * g.O;
+      const float* const row = w + (int64_t)(kv ? weight_row<MODE>(g, kr, p) : 0) * g.O;
       if (vec_b) {
         const bool v = kv && n < g.O;
         cp_async16(dst, v ? row + n : w, v);
@@ -497,15 +378,18 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int n = n0 + wn * WN + ni * 8 + 2 * tq;
-      if (n >= g.O) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
+      if (m >= g.M) continue;
+      // the output row of pixel m (its phase's pixel for the transposed
+      // conv), or its row of this split's partials
+      float* const row = splits == 1 ? out + out_offset<MODE>(g, p, m, 0)
+                                     : ws + (((int64_t)s * g.phases + p) * g.M + m) * g.O;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
-        if (m >= g.M) continue;
+      for (int ni = 0; ni < NI; ++ni) {
+        const int n = n0 + wn * WN + ni * 8 + 2 * tq;
+        if (n >= g.O) continue;
         float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        float* dst;
         if (splits == 1) {
           v0 = fmaf(v0, scale[n], shift[n]);
           if (relu) v0 = fmaxf(v0, 0.f);
@@ -513,15 +397,12 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
             v1 = fmaf(v1, scale[n + 1], shift[n + 1]);
             if (relu) v1 = fmaxf(v1, 0.f);
           }
-          dst = out + out_offset<MODE>(g, p, m, n);
-        } else {
-          dst = ws + (((int64_t)s * g.phases + p) * g.M + m) * g.O + n;
         }
         if (pairs) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
         } else {
-          dst[0] = v0;
-          if (n + 1 < g.O) dst[1] = v1;
+          row[n] = v0;
+          if (n + 1 < g.O) row[n + 1] = v1;
         }
       }
     }
@@ -558,29 +439,11 @@ cudaError_t reduce_splits(const float* scale, const float* shift, float* out, fl
   return cudaGetLastError();
 }
 
-// SIMT tile configurations (the transposed conv); the Python launcher picks
-// one by (M, N) with ops/fused_conv.plan.
-//   0 wide:  BM=128 BN=128 TM=8 TN=8   (N > 64)
-//   1 mid:   BM=128 BN=64  TM=8 TN=4   (32 < N <= 64)
-//   2 narrow:BM=256 BN=16  TM=8 TN=2   (N <= 32)
-//   3 thin:  BM=32  BN=128 TM=4 TN=4   (M <= 64: the weight-bound prior heads)
-template <int MODE, int BM, int BN, int TM, int TN>
-cudaError_t launch_cfg(const float* x, const float* w, const float* scale,
-                       const float* shift, float* out, float* ws, const Geo& g,
-                       int relu, int splits, int kchunk, cudaStream_t st) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
-  conv_igemm<MODE, BM, BN, TM, TN><<<grid, NT, 0, st>>>(x, w, scale, shift, out, ws, g,
-                                                        relu, splits, kchunk);
-  return reduce_splits<MODE>(scale, shift, out, ws, g, relu, splits, st);
-}
-
-// Tensor-core tile configurations (3x3 and 4x4/s2), picked by
-// ops/fused_conv.plan_tc.
+// Tile configurations, picked by ops/fused_conv.plan_tc.
 //   0 wide:   BM=128 BN=128 warps 2x4 of 64x32, 3 stages  (N > 64)
 //   1 mid:    BM=128 BN=64  warps 4x2 of 32x32, 3 stages  (16 < N <= 64)
 //   2 narrow: BM=64  BN=16  warps 4x1 of 16x16, 4 stages  (N <= 16)
-//   3 thin:   BM=32  BN=128 warps 1x4 of 32x32, 4 stages  (M <= 64)
+//   3 thin:   BM=32  BN=128 warps 1x4 of 32x32, 4 stages  (M <= 64 per phase)
 template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
 cudaError_t launch_tc(const float* x, const float* w, const float* scale, const float* shift,
                       float* out, float* ws, const Geo& g, int relu, int splits, int kchunk,
@@ -618,22 +481,12 @@ int launch(int cfg, const void* x, const void* w, const void* scale, const void*
   float* of = static_cast<float*>(out);
   float* wsf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (MODE == kConvT) {
-    switch (cfg) {
-      case 0: return launch_cfg<MODE, 128, 128, 8, 8>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      case 1: return launch_cfg<MODE, 128, 64, 8, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      case 2: return launch_cfg<MODE, 256, 16, 8, 2>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      case 3: return launch_cfg<MODE, 32, 128, 4, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    switch (cfg) {
-      case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      case 2: return launch_tc<MODE, 64, 16, 16, 16, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
+  switch (cfg) {
+    case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+    case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+    case 2: return launch_tc<MODE, 64, 16, 16, 16, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+    case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -644,6 +497,11 @@ Geo make_geo(int B, int H, int W, int C, int O, int mode) {
   else if (mode == kConv4) { g.Ho = H / 2; g.Wo = W / 2; g.K = 16 * C; g.phases = 1; }
   else { g.Ho = H; g.Wo = W; g.K = 4 * C; g.phases = 4; }
   g.M = B * g.Ho * g.Wo;
+  // div_c's constants: c_shr = 31 + ceil(log2 C) - 32, c_mul = ceil(2^(c_shr + 32) / C)
+  int l = 0;
+  while ((1u << l) < (unsigned)C) ++l;
+  g.c_shr = C > 1 ? l - 1 : 0;
+  g.c_mul = C > 1 ? (unsigned)(((1ull << (31 + l)) + C - 1) / C) : 0u;
   return g;
 }
 

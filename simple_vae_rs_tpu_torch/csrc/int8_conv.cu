@@ -20,10 +20,8 @@
 // Design. The TPU kernel holds a whole padded batch tile in VMEM, takes its
 // absmax there and quantizes it once. A block here owns one output tile and
 // no block sees the whole group, so the absmax is a pass of its own
-// (svrs_act_absmax: one atomicMax per block on the bit pattern of |x|, which
-// orders like the value for non-negative floats, so the result does not
-// depend on the order) and the conv reads the group's absmax from device
-// memory: no host sync. Absmax over the padded tile equals absmax over x
+// (svrs_act_absmax, a read-bound streaming reduction: see its note) and the
+// conv reads the group's absmax from device memory: no host sync. Absmax over the padded tile equals absmax over x
 // (the pad is zeros), so no pad is stored.
 //
 // The conv is the implicit GEMM of fused_conv.cu with K counted in packs of
@@ -360,28 +358,70 @@ int launch(int cfg, const void* x, const void* wq, const void* ks, const void* s
   }
 }
 
-// Per-group absmax of x: per_group = floats in one group. The grid is
-// (blocks per group, groups); amax must be zero on entry.
-__global__ void act_absmax(const float* __restrict__ x, float* __restrict__ amax,
-                           int64_t per_group, int64_t numel) {
-  const int64_t base = (int64_t)blockIdx.y * per_group;
-  const int64_t end = min(numel, base + per_group);
+// Per-group absmax of x (svrs_act_absmax), group g = floats
+// [g * per_group, min(numel, (g + 1) * per_group)).
+//
+// What bounds it: bytes. It reads x once and writes one float per group, so
+// its bound is numel * 4 bytes over 3.35 TB/s (78 us for the 262 MB input of
+// a 1000-draw decode layer). To stream at that rate each SM needs tens of KB
+// of reads in flight: a thread here issues AMAX_UNROLL independent 16-byte
+// loads a loop trip (4 KB a warp), and the grid (ops/fused_int8.absmax_plan)
+// gives every group enough blocks that all of them together fill the SMs,
+// each block with at least 32 KB to read. The body of a group is the 16-byte
+// words that lie wholly inside it; the up to 3 floats before its first word
+// (the head) and after its last (the tail) are read as scalars by block 0 of
+// the group, so a group whose float count is not a multiple of 4, or a word
+// that straddles two groups, stays exact. Each element is read once.
+//
+// A block's maximum is combined across blocks with one atomicMax on the bit
+// pattern of |x|, which orders like the value for non-negative floats, so the
+// result is the same in any order and bit-equal to the plain version (for
+// finite x: fmaxf drops a NaN). The atomics need a zeroed result:
+// svrs_act_absmax zeroes it with cudaMemsetAsync on the same stream, in the
+// same call, so a pass is one call from Python and no separate fill launch
+// (per-block partials reduced by the group's last block would need a zeroed
+// counter all the same).
+constexpr int AMAX_THREADS = 256, AMAX_UNROLL = 4;
+
+__global__ void __launch_bounds__(AMAX_THREADS)
+act_absmax(const float* __restrict__ x, float* __restrict__ amax, int64_t per_group,
+           int64_t numel) {
+  const int64_t s = (int64_t)blockIdx.x * per_group;  // blockIdx.x: the group
+  const int64_t e = min(numel, s + per_group);
+  const int64_t a = min((s + 3) & ~(int64_t)3, e);    // start of its first whole word
+  const int64_t z = max(e & ~(int64_t)3, a);          // end of its last whole word
+  const int tid = threadIdx.x;
   float m = 0.0f;
-  for (int64_t i = base + blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < end;
-       i += (int64_t)gridDim.x * blockDim.x)
-    m = fmaxf(m, fabsf(__ldg(x + i)));
+  if (blockIdx.y == 0) {
+    if (tid < a - s) m = fabsf(__ldg(x + s + tid));                    // head
+    else if (tid >= 4 && tid - 4 < e - z) m = fabsf(__ldg(x + z + tid - 4));  // tail
+  }
+  const float4* const v = reinterpret_cast<const float4*>(x + a);
+  const int64_t nv = (z - a) >> 2;
+  const int64_t trip = (int64_t)gridDim.y * AMAX_THREADS * AMAX_UNROLL;
+  for (int64_t i = (int64_t)blockIdx.y * AMAX_THREADS * AMAX_UNROLL + tid; i < nv; i += trip) {
+    float4 r[AMAX_UNROLL];
+#pragma unroll
+    for (int u = 0; u < AMAX_UNROLL; ++u) {
+      const int64_t j = i + u * AMAX_THREADS;
+      r[u] = j < nv ? __ldg(v + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < AMAX_UNROLL; ++u)
+      m = fmaxf(m, fmaxf(fmaxf(fabsf(r[u].x), fabsf(r[u].y)), fmaxf(fabsf(r[u].z), fabsf(r[u].w))));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ float warp_max[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ float warp_max[AMAX_THREADS / 32];
+  const int lane = tid & 31, warp = tid >> 5;
   if (lane == 0) warp_max[warp] = m;
   __syncthreads();
   if (warp == 0) {
-    m = lane < (blockDim.x >> 5) ? warp_max[lane] : 0.0f;
+    m = lane < AMAX_THREADS / 32 ? warp_max[lane] : 0.0f;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     // non-negative floats order like their bit patterns
-    if (lane == 0) atomicMax(reinterpret_cast<unsigned int*>(amax) + blockIdx.y, __float_as_uint(m));
+    if (lane == 0) atomicMax(reinterpret_cast<unsigned int*>(amax) + blockIdx.x, __float_as_uint(m));
   }
 }
 
@@ -389,13 +429,25 @@ __global__ void act_absmax(const float* __restrict__ x, float* __restrict__ amax
 
 extern "C" {
 
-int svrs_act_absmax(const void* x, void* amax, long long per_group, long long numel,
-                    int groups, int blocks_per_group, void* stream) {
-  dim3 grid(blocks_per_group, groups);
-  act_absmax<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(amax), (int64_t)per_group,
-      (int64_t)numel);
-  return (int)cudaGetLastError();
+// x must be 16-byte aligned and numel > 0; amax gets one float per group.
+// Runs on CUDA device `device` (made current for the call, then restored),
+// so the Python wrapper needs no device context.
+int svrs_act_absmax(int device, const void* x, void* amax, long long per_group,
+                    long long numel, int groups, int blocks_per_group, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)groups, st);
+  if (err == cudaSuccess) {
+    act_absmax<<<dim3(groups, blocks_per_group), AMAX_THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(amax), (int64_t)per_group,
+        (int64_t)numel);
+    err = cudaGetLastError();
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return (int)err;
 }
 
 int svrs_int8_conv3x3(int cfg, const void* x, const void* wq, const void* ks,

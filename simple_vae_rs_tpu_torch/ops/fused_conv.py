@@ -22,11 +22,11 @@ kernels on the flipped, in/out-swapped weight (:func:`input_grad`) and the
 weight gradient with one library call (:func:`weight_grad`; JAX leaves it to
 XLA too).
 
-The CUDA source's header says what bounds each kernel on the card and what
-its implicit-GEMM design does about it. The 3x3 and 4x4/s2 kernels
-(:data:`TC_KERNELS`) run on the tensor cores at float32 accuracy (3xTF32)
-with the launch geometry of :func:`plan_tc`; the transposed conv runs on the
-CUDA cores with that of :func:`plan`.
+The CUDA source's header says what bounds the kernels on the card and what
+their implicit-GEMM design does about it. All three (:data:`TC_KERNELS`) run
+on the tensor cores at float32 accuracy (3xTF32) with the launch geometry of
+:func:`plan_tc`; the transposed conv as four output phases of four live taps
+each.
 """
 
 from __future__ import annotations
@@ -65,21 +65,22 @@ def reset_launches() -> None:
         role_launches[name] = dict.fromkeys(ROLES, 0)
 
 
-# Tile configurations of the float32 CUDA-core launcher (``conv_igemm``: the
-# transposed conv, and the int8 kernels' plan): (BM, BN) per index.
+# Tile configurations of the CUDA-core implicit GEMM of the int8 kernels
+# (``csrc/int8_conv.cu``, launched with :func:`plan`): (BM, BN) per index.
 TILES = {0: (128, 128), 1: (128, 64), 2: (256, 16), 3: (32, 128)}
 _BK = 8
 _SMS = 132  # H100 SXM streaming multiprocessors
 _MIN_SPLIT_K = 32  # keep at least 4 BK steps in every K split
 
-# The kernels that run on the tensor cores (``conv_tc``, 3xTF32) and their
-# tile configurations: (BM, BN, warp tile WM, WN, cp.async stages) per index.
-TC_KERNELS = ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu")
+# The kernels that run on the tensor cores (``conv_tc``, 3xTF32: all three)
+# and their tile configurations: (BM, BN, warp tile WM, WN, cp.async stages)
+# per index.
+TC_KERNELS = ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu")
 TC_TILES = {
     0: (128, 128, 64, 32, 3),  # N > 64
     1: (128, 64, 32, 32, 3),   # 16 < N <= 64
     2: (64, 16, 16, 16, 4),    # N <= 16: the warps along M
-    3: (32, 128, 32, 32, 4),   # M <= 64: the weight-bound prior heads
+    3: (32, 128, 32, 32, 4),   # M <= 64 per phase: the weight-bound prior heads
 }
 TC_BK = 32
 _TC_MIN_SPLIT_K = 4 * TC_BK
@@ -87,8 +88,8 @@ _TC_MIN_SPLIT_K = 4 * TC_BK
 
 def plan(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
     """Launch geometry ``(tile config, K splits, K per split)`` of the
-    CUDA-core kernel for a GEMM of ``m`` output pixels (per phase) x ``n``
-    channels x ``k`` reduction.
+    CUDA-core int8 kernels for a GEMM of ``m`` output pixels (per phase) x
+    ``n`` channels x ``k`` reduction.
 
     Thin tiles for few pixels (the weight-bound prior heads), narrow tiles
     for few channels (the 64x64 tail), and a K split when the output tiles
@@ -111,10 +112,12 @@ def plan(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
     return cfg, _cdiv(k, kchunk), kchunk
 
 
-def plan_tc(m: int, n: int, k: int) -> Tuple[int, int, int]:
+def plan_tc(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
     """Launch geometry ``(tile config, K splits, K per split)`` of the
-    tensor-core kernel (:data:`TC_TILES`): the same choices as :func:`plan`,
-    with K per split a multiple of the 32-deep step."""
+    tensor-core kernel (:data:`TC_TILES`) for a GEMM of ``m`` output pixels
+    per phase x ``n`` channels x ``k`` reduction, ``phases`` of them (4 for
+    the transposed conv, each its own blocks): the same choices as
+    :func:`plan`, with K per split a multiple of the 32-deep step."""
     if m <= 64:
         cfg = 3
     elif n <= 16:
@@ -124,7 +127,7 @@ def plan_tc(m: int, n: int, k: int) -> Tuple[int, int, int]:
     else:
         cfg = 0
     bm, bn = TC_TILES[cfg][:2]
-    blocks = _cdiv(m, bm) * _cdiv(n, bn)
+    blocks = _cdiv(m, bm) * _cdiv(n, bn) * phases
     splits = 1
     if blocks < _SMS:
         splits = max(1, min(_cdiv(2 * _SMS, blocks), k // _TC_MIN_SPLIT_K))
@@ -195,7 +198,7 @@ def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
     out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    cfg, splits, kchunk = plan_tc(m, n, k) if name in TC_KERNELS else plan(m, n, k, phases)
+    cfg, splits, kchunk = plan_tc(m, n, k, phases)
     ws = (torch.empty((splits * phases * m * n,), device=dev, dtype=torch.float32)
           if splits > 1 else None)
     fn = getattr(_library(), _KERNELS[name][0])

@@ -191,9 +191,9 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        lib.svrs_act_absmax.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
+        lib.svrs_act_absmax.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
         lib.svrs_act_absmax.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -210,9 +210,23 @@ def _cuda_input(name: str, x: Tensor) -> Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+# The absmax pass's grid: 256-thread blocks (8 resident on an SM), each
+# reading at least 32 KB (``csrc/int8_conv.cu``, ``act_absmax``).
+_ABSMAX_BLOCKS_PER_SM = 8
+_ABSMAX_MIN_FLOATS = 8192
+
+
+def absmax_plan(per_group: int, groups: int) -> int:
+    """Blocks per group of the absmax pass: enough that all groups' blocks
+    together fill every SM, and no more than gives each block 32 KB to read."""
+    return max(1, min(per_group // _ABSMAX_MIN_FLOATS,
+                      _cdiv(_ABSMAX_BLOCKS_PER_SM * fc._SMS, groups)))
+
+
 def act_absmax(x: Tensor, act_group: Optional[int] = None) -> Tensor:
     """Per-group ``max |x|`` (see :func:`act_absmax_plain`): the absmax pass
-    of the int8 convs, on the card one kernel launch and no host sync."""
+    of the int8 convs, on the card one call that zeroes the result and
+    launches the kernel, and no host sync."""
     if x.device.type == "cpu":
         return act_absmax_plain(x, act_group)
     if x.device.type != "cuda":
@@ -221,15 +235,18 @@ def act_absmax(x: Tensor, act_group: Optional[int] = None) -> Tensor:
     b = x.shape[0]
     group = _group(b, act_group)
     groups = _cdiv(max(b, 1), group)
-    amax = torch.zeros(groups, dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
-        return amax
-    per_group = group * (x.numel() // b)
-    blocks = max(1, min(_cdiv(per_group, 4096), _cdiv(8 * fc._SMS, groups)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().svrs_act_absmax(x.data_ptr(), amax.data_ptr(), per_group, x.numel(),
-                                         groups, blocks, stream)
+    numel = x.numel()
+    if numel == 0:
+        return x.new_zeros((groups,))
+    amax = x.new_empty((groups,))
+    per_group = group * (numel // b)
+    # a pass of a few microseconds on the card: the host path stays short
+    # (the C entry point makes the device current itself; the raw stream
+    # handle of the device's current stream, without a Stream object)
+    dev = x.get_device()
+    err = _library().svrs_act_absmax(dev, x.data_ptr(), amax.data_ptr(), per_group, numel,
+                                     groups, absmax_plan(per_group, groups),
+                                     torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{ABSMAX}: CUDA launch failed with cudaError {err}")
     launches[ABSMAX] += 1

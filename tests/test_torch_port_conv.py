@@ -86,7 +86,7 @@ def _implicit_gemm(name, x, kern, scale, shift, relu):
     o = kern.shape[-1]
     m, n, k, _ = fc.geometry(name, torch.from_numpy(x), torch.from_numpy(kern))
     ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
-    _, splits, kchunk = fc.plan(m, n, k, phases)
+    _, splits, kchunk = fc.plan_tc(m, n, k, phases)
     wflat = kern.reshape(-1, o)
     out = np.zeros(fc.output_shape(name, x.shape, o), np.float32)
     for p in range(phases):

@@ -82,10 +82,11 @@ def test_cuda_kernel_matches_plain(cuda, case):
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
 
 
-# the tensor-core kernel (3x3 and 4x4/s2) at its edge paths: C % 4 != 0
-# (4-byte copies: C = 53, 106, 7), N = 4 (a skipped n8 tile) and 53 (ragged
-# weight slices and stores), M <= 64 with a K split and K not a multiple of
-# 32, the strided kernel with C % 4 != 0, and the canonical prior head
+# the tensor-core kernel (3x3, 4x4/s2 and transposed) at its edge paths:
+# C % 4 != 0 (4-byte copies: C = 53, 106, 7), N = 4 (a skipped n8 tile) and
+# 53 (ragged weight slices and stores), M <= 64 (per phase) with a K split
+# and K not a multiple of 32, the strided kernel with C % 4 != 0, and the
+# canonical prior head
 TC_CASES = [
     ("fused_conv3x3_bn_relu", (2, 8, 8, 53), 53, True),
     ("fused_conv3x3_bn_relu", (3, 8, 8, 106), 128, False),
@@ -95,6 +96,11 @@ TC_CASES = [
     ("fused_conv4x4s2_bn_relu", (2, 16, 16, 128), 53, False),
     ("fused_conv4x4s2_bn_relu", (3, 10, 12, 7), 9, True),
     ("fused_conv4x4s2_bn_relu", (1, 8, 8, 53), 424, True),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 53), 128, True),
+    ("fused_convT4x4s2_bn_relu", (4, 16, 16, 16), 4, False),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 128), 53, True),
+    ("fused_convT4x4s2_bn_relu", (1, 4, 4, 424), 256, False),
+    ("fused_convT4x4s2_bn_relu", (1, 3, 4, 106), 13, True),
 ]
 
 
@@ -112,7 +118,7 @@ def test_tensor_core_kernel_matches_plain_in_both_roles(cuda, case):
     assert torch.equal(getattr(fc, name)(x, kern, s, t, relu=relu), got)  # the same bits
     # the same kernel as the input gradient of the conv it is the adjoint of,
     # with x as that conv's output gradient
-    site = name if name == "fused_conv3x3_bn_relu" else "fused_convT4x4s2_bn_relu"
+    site = fc.DX_KERNEL[name]
     in_shape = fc.output_shape(name, shape, o)
     before = fc.role_launches[name]["dx"]
     got = fc.input_grad(site, x, fc.flip_swap(kern), in_shape)
@@ -296,6 +302,32 @@ def test_int8_cuda_kernel_matches_plain(cuda, case):
     again = f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group,
                               packed=f8.pack_kernel_q(kq))
     assert torch.equal(again, got)
+
+
+# the absmax pass at the CPU replay's shapes (odd H*W*C, groups that start
+# inside a 16-byte word, groups shorter than a word, a short last group,
+# several blocks a group) and at a 1000-draw decode layer's (262 MB)
+ABSMAX_CASES = [((5, 3, 5, 7), None), ((5, 3, 5, 7), 2), ((5, 3, 5, 7), 1), ((6, 1, 1, 3), 1),
+                ((5, 1, 1, 1), 2), ((7, 2, 3, 2), 3), ((3, 16, 16, 53), None),
+                ((3, 16, 16, 53), 1), ((4, 16, 16, 16), 3), ((4, 32, 32, 16), 2),
+                ((1000, 16, 16, 256), None), ((1000, 8, 8, 424), 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,act_group", ABSMAX_CASES, ids=str)
+def test_act_absmax_cuda_kernel_equals_plain(cuda, shape, act_group):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x = x * (0.25 + 2 * torch.rand((shape[0], 1, 1, 1), generator=gen, device=cuda))
+    before = f8.launches["act_absmax"]
+    got = f8.act_absmax(x, act_group)
+    torch.cuda.synchronize()
+    assert f8.launches["act_absmax"] == before + 1
+    assert torch.equal(got, f8.act_absmax_plain(x, act_group))
+    # an offset view: the wrapper copies it to 16-byte alignment
+    x2 = x.reshape(-1)[1:1 + x.numel() - x[0].numel()].view((shape[0] - 1,) + shape[1:]) \
+        if shape[0] > 1 else x
+    assert torch.equal(f8.act_absmax(x2, act_group), f8.act_absmax_plain(x2, act_group))
 
 
 @pytest.mark.gpu

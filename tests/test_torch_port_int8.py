@@ -156,6 +156,85 @@ def test_act_absmax_groups():
         f8.act_absmax(x, 0)
 
 
+def absmax_replay(x, act_group):
+    """``act_absmax``'s launch replayed in numpy: the grid of
+    :func:`f8.absmax_plan` (group ``blockIdx.x``, block of the group
+    ``blockIdx.y``), each group's scalar head and tail read by its block 0,
+    its whole 16-byte words by every block in trips of 4 words a thread, and
+    the blocks' maxima combined by atomicMax on the bit patterns. Returns the
+    result and the number of reads of each element."""
+    threads, unroll = 256, 4
+    flat = np.abs(x.reshape(-1))
+    numel, b = flat.size, x.shape[0]
+    group = b if act_group is None else max(1, min(act_group, b))
+    groups, per_group = -(-b // group), group * (numel // b)
+    blocks = f8.absmax_plan(per_group, groups)
+    reads = np.zeros(numel, np.int64)
+    amax = np.zeros(groups, np.uint32)
+    tid = np.arange(threads)
+    for gx in range(groups):
+        s = gx * per_group
+        e = min(numel, s + per_group)
+        a = min((s + 3) & ~3, e)
+        z = max(e & ~3, a)
+        nv = (z - a) >> 2
+        trip = blocks * threads * unroll
+        for by in range(blocks):
+            idx = [np.zeros(0, np.int64)]  # a block past the group's words reads nothing
+            if by == 0:
+                head = tid < a - s
+                tail = ~head & (tid >= 4) & (tid - 4 < e - z)
+                idx += [s + tid[head], z + tid[tail] - 4]
+            for base in range(by * threads * unroll, max(nv, 1), trip):
+                for u in range(unroll):
+                    j = base + tid + u * threads
+                    j = j[j < nv]
+                    idx.append((a + 4 * j[:, None] + np.arange(4)).ravel())
+            idx = np.concatenate(idx).astype(np.int64)
+            assert ((idx >= s) & (idx < e)).all()  # a block reads its own group only
+            np.add.at(reads, idx, 1)
+            m = flat[idx].max() if idx.size else np.float32(0)
+            amax[gx] = max(amax[gx], np.float32(m).view(np.uint32))
+    return amax.view(np.float32), reads
+
+
+# (x shape, act_group): odd H*W*C (105 floats an image), groups that start
+# inside a 16-byte word (210 floats a group), groups shorter than a word
+# (3 and 1 floats: head and tail only), a short last group, several blocks
+# a group (40,704 floats: 4 blocks, the last one's share ragged; 32,768: 4
+# blocks in each of 2 groups)
+ABSMAX_CASES = [((5, 3, 5, 7), None), ((5, 3, 5, 7), 2), ((5, 3, 5, 7), 1), ((6, 1, 1, 3), 1),
+                ((5, 1, 1, 1), 2), ((7, 2, 3, 2), 3), ((3, 16, 16, 53), None),
+                ((3, 16, 16, 53), 1), ((4, 16, 16, 16), 3), ((4, 32, 32, 16), 2)]
+
+
+@pytest.mark.parametrize("shape,act_group", ABSMAX_CASES, ids=str)
+def test_act_absmax_kernel_index_arithmetic_matches_plain(shape, act_group):
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    x *= rng.uniform(0.25, 2.25, (shape[0], 1, 1, 1)).astype(np.float32)
+    got, reads = absmax_replay(x, act_group)
+    assert (reads == 1).all()  # every element once
+    want = f8.act_absmax_plain(torch.from_numpy(x), act_group).numpy()
+    np.testing.assert_array_equal(got, want)  # a max is exact in any order
+    group = shape[0] if act_group is None else act_group
+    jax_max = [np.asarray(jnp.max(jnp.abs(jnp.asarray(x[i:i + group]))))
+               for i in range(0, shape[0], group)]
+    np.testing.assert_array_equal(got, np.array(jax_max, np.float32))
+
+
+def test_absmax_plan_fills_the_card_with_tens_of_kb_a_block():
+    sms = fc._SMS
+    assert f8.absmax_plan(40704, 1) == f8.absmax_plan(32768, 2) == 4
+    for per_group, groups in [(1000 * 16 * 16 * 256, 1), (16 * 8 * 8 * 424, 1),
+                              (16 * 16 * 256, 1000), (105, 5), (40704, 1)]:
+        blocks = f8.absmax_plan(per_group, groups)
+        assert blocks >= 1 and blocks * groups < 8 * sms + groups  # one wave, rounded up
+        assert blocks == 1 or per_group / blocks >= 8192  # >= 32 KB a block
+        if per_group >= 8 * sms * 8192 / groups:
+            assert blocks * groups >= 8 * sms - groups  # every SM full
+
+
 def test_pack_kernel_q_layout():
     """Word (tap, j, o) holds channels 4j..4j+3 of output channel o, channel
     4j+i in byte i, zeros past C."""

@@ -1,5 +1,6 @@
-"""The tensor-core conv kernel (``conv_tc`` in ``csrc/fused_conv.cu``: the 3x3
-and 4x4/s2 kernels, 3xTF32 on ``mma.sync``) replayed on the CPU.
+"""The tensor-core conv kernel (``conv_tc`` in ``csrc/fused_conv.cu``: the 3x3,
+4x4/s2 and transposed 4x4/s2 kernels, 3xTF32 on ``mma.sync``) replayed on the
+CPU.
 
 The kernel itself runs only on the card (``tests/test_torch_port_gpu.py``).
 Here its arithmetic is held against the plain versions: the TF32 split it
@@ -7,9 +8,11 @@ computes with ``cvt.rna.tf32.f32``, emulated bit for bit, keeps sums over K
 up to 15,264 within the kernel tolerance of the float32 plain version
 (1e-4 of max|plain|), where TF32 alone does not; and a numpy replay of its
 index arithmetic (the launch plan, the tiles, K in the order tap * C + c in
-32-deep steps through the cp.async ring, the zero-filled border and K tail,
-the 16-byte and 4-byte staging paths, the m16n8k8 fragment maps, the
-epilogue and the ordered split-K sum) computes every output element once
+32-deep steps through the cp.async ring, k / C by multiply-high, the
+transposed conv's four output phases with their live taps and weight rows,
+the zero-filled border and K tail, the 16-byte and 4-byte staging paths, the
+m16n8k8 fragment maps, the epilogue and the ordered split-K sum over the
+``[split][phase]`` workspace) computes every output element once
 and agrees with the plain version (rtol 1e-4, atol 1e-5: float32 sums in
 another order) at ragged shapes, with C % 4 != 0, at every tile
 configuration. Inputs come from numpy seeds.
@@ -104,23 +107,61 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _tap(stride, t):
-    """tap_geometry of the 3x3 (stride 1) and the 4x4/s2 kernel: input offsets."""
-    if stride == 1:
-        return t // 3 - 1, t % 3 - 1
-    return (t >> 2) - 1, (t & 3) - 1
+def div_c_params(c):
+    """``make_geo``'s constants for ``div_c`` (k / C by a multiply-high)."""
+    l = max(c - 1, 0).bit_length()  # ceil(log2 C)
+    if c <= 1:
+        return 0, 0
+    return ((1 << (31 + l)) + c - 1) // c, l - 1
+
+
+def div_c(k, c):
+    """``div_c``: ``umulhi(k, c_mul) >> c_shr`` in 32-bit unsigned arithmetic."""
+    mul, shr = div_c_params(c)
+    if c == 1:
+        return np.asarray(k)
+    k = np.asarray(k, np.uint64)
+    return ((k * np.uint64(mul)) >> np.uint64(32 + shr)).astype(np.int64)
+
+
+def test_div_c_is_exact_division():
+    """The loaders' k / C for every k the kernels see (k < 16 * C, and more)
+    at every C of the canonical model, odd and power-of-two C, and the
+    largest k below 2**31."""
+    rng = np.random.default_rng(5)
+    cs = [1, 2, 3, 4, 5, 7, 16, 53, 64, 106, 128, 212, 256, 424, 848, 1696, 4096, 65535,
+          2**20 + 3] + rng.integers(2, 1 << 16, 40).tolist()
+    for c in cs:
+        mul, shr = div_c_params(c)
+        assert 0 <= mul < 2**32 and 0 <= shr < 32
+        k = np.concatenate([np.arange(min(16 * c + 64, 1 << 18)),
+                            rng.integers(0, 2**31, 4096), [2**31 - 1, 2**31 - c]])
+        np.testing.assert_array_equal(div_c(k, c), k // c)
+
+
+def _tap(mode, t, p):
+    """tap_geometry: input offsets (relative to oy*stride, ox*stride) and the
+    weight tap of GEMM tap ``t`` in phase ``p``."""
+    if mode == "fused_conv3x3_bn_relu":
+        return t // 3 - 1, t % 3 - 1, t
+    if mode == "fused_conv4x4s2_bn_relu":
+        return (t >> 2) - 1, (t & 3) - 1, t
+    ta, tb, u, v = t >> 1, t & 1, p >> 1, p & 1  # the transposed conv's _T_TAPS
+    return ta + u - 1, tb + v - 1, (2 * ta + u) * 4 + 2 * tb + v
 
 
 def conv_tc_replay(name, x, kern, scale, shift, relu, cfg=None):
-    """The kernel's launch replayed block by block in numpy. Shared memory is
-    NaN before every load, so a read of a cell no copy wrote shows; writes
-    to the output are counted. Returns (output, writes per output element)."""
+    """The kernel's launch replayed block by block in numpy, over
+    ``blockIdx.z = phase * splits + split``. Shared memory is NaN before
+    every load, so a read of a cell no copy wrote shows; writes to the output
+    and to the ``[split][phase][M][O]`` workspace are counted. Returns
+    (output, writes per output element)."""
     b, h, w, c = x.shape
     o = kern.shape[-1]
     stride = 2 if name == "fused_conv4x4s2_bn_relu" else 1
+    m_all, _, k_all, phases = fc.geometry(name, torch.from_numpy(x), torch.from_numpy(kern))
     ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
-    m_all, k_all = b * ho * wo, kern.shape[0] * kern.shape[1] * c
-    plan_cfg, splits, kchunk = fc.plan_tc(m_all, o, k_all)
+    plan_cfg, splits, kchunk = fc.plan_tc(m_all, o, k_all, phases)
     cfg = plan_cfg if cfg is None else cfg
     bm, bn, wm_t, wn_t, stages = fc.TC_TILES[cfg]
     warps_m, warps_n = bm // wm_t, bn // wn_t
@@ -131,34 +172,49 @@ def conv_tc_replay(name, x, kern, scale, shift, relu, cfg=None):
     a_ld, b_ld = bk + 4, bn + 8
     mi_n, ni_n = wm_t // 16, wn_t // 8
     assert fc.tc_smem_bytes(cfg) == 4 * stages * (bm * a_ld + bk * b_ld)
-    xf, wf = x.reshape(-1), kern.reshape(-1)  # HWIO: row k = tap * C + c, column n
+    xf, wf = x.reshape(-1), kern.reshape(-1)  # HWIO: row tap * C + c, column n
     vec_a, vec_b = c % 4 == 0, o % 4 == 0
+    out_shape = fc.output_shape(name, x.shape, o)
+
+    def out_offset(p, m, n):
+        if phases == 1:
+            return m * o + n
+        bb, r = np.divmod(m, ho * wo)
+        i, j = np.divmod(r, wo)
+        return ((bb * 2 * ho + 2 * i + (p >> 1)) * 2 * wo + 2 * j + (p & 1)) * o + n
+
+    def weight_row(kr, p):
+        if phases == 1:
+            return kr
+        t = div_c(kr, c)
+        return kr + (_tap(name, t, p)[2] - t) * c
 
     tid = np.arange(nt)
     kq = tid % kq_n
     rows = tid[:, None] // kq_n + np.arange(a_rows)[None, :] * (nt // kq_n)  # (nt, a_rows)
     lane = np.arange(32)
     gq, tq = lane >> 2, lane & 3
-    out = np.full((m_all, o), np.nan, np.float32)
-    writes = np.zeros((m_all, o), np.int64)
-    ws = np.full((splits, m_all, o), np.nan, np.float32)
-    ws_writes = np.zeros((splits, m_all, o), np.int64)
+    out = np.full(int(np.prod(out_shape)), np.nan, np.float32)
+    writes = np.zeros(out.size, np.int64)
+    ws = np.full((splits, phases, m_all, o), np.nan, np.float32)
+    ws_writes = np.zeros((splits, phases, m_all, o), np.int64)
 
-    for bx in range(_cdiv(m_all, bm)):
-        m0 = bx * bm
-        mm = m0 + rows
-        valid_m = mm < m_all
-        bb, r = np.divmod(mm, ho * wo)
-        oy, ox = np.divmod(r, wo)
-        a_y = np.where(valid_m, oy * stride, -(1 << 24))
-        a_x = np.where(valid_m, ox * stride, 0)
-        a_pix = np.where(valid_m, (bb * h + a_y) * w + a_x, 0)
-        for by in range(_cdiv(o, bn)):
-            n0 = by * bn
-            for s in range(splits):
-                kbeg = s * kchunk
-                kend = min(k_all, kbeg + kchunk)
-                nsteps = _cdiv(kend - kbeg, bk) if kend > kbeg else 0
+    for bz in range(phases * splits):
+        p, s = divmod(bz, splits)
+        kbeg = s * kchunk
+        kend = min(k_all, kbeg + kchunk)
+        nsteps = _cdiv(kend - kbeg, bk) if kend > kbeg else 0
+        for bx in range(_cdiv(m_all, bm)):
+            m0 = bx * bm
+            mm = m0 + rows
+            valid_m = mm < m_all
+            bb, r = np.divmod(mm, ho * wo)
+            oy, ox = np.divmod(r, wo)
+            a_y = np.where(valid_m, oy * stride, -(1 << 24))
+            a_x = np.where(valid_m, ox * stride, 0)
+            a_pix = np.where(valid_m, (bb * h + a_y) * w + a_x, 0)
+            for by in range(_cdiv(o, bn)):
+                n0 = by * bn
                 a_sm = np.full((stages, bm * a_ld), np.nan, np.float32)
                 b_sm = np.full((stages, bk * b_ld), np.nan, np.float32)
 
@@ -172,9 +228,9 @@ def conv_tc_replay(name, x, kern, scale, shift, relu, cfg=None):
                     k = k0 + 4 * kq
                     if vec_a:  # one 16-byte copy: channels c .. c+3 of one tap
                         kv = k < kend
-                        t = np.where(kv, k // c, 0)
+                        t = np.where(kv, div_c(k, c), 0)
                         cc = k - t * c
-                        dy, dx = _tap(stride, t)
+                        dy, dx, _ = _tap(name, t, p)
                         iy, ix = a_y + dy[:, None], a_x + dx[:, None]
                         v = kv[:, None] & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
                         src = (a_pix + (dy * w + dx)[:, None]) * c + cc[:, None]
@@ -183,9 +239,9 @@ def conv_tc_replay(name, x, kern, scale, shift, relu, cfg=None):
                     else:  # four 4-byte copies, each resolved on its own
                         for j in range(4):
                             kv = k + j < kend
-                            t = np.where(kv, (k + j) // c, 0)
+                            t = np.where(kv, div_c(k + j, c), 0)
                             cc = k + j - t * c
-                            dy, dx = _tap(stride, t)
+                            dy, dx, _ = _tap(name, t, p)
                             iy, ix = a_y + dy[:, None], a_x + dx[:, None]
                             v = kv[:, None] & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
                             src = (a_pix + (dy * w + dx)[:, None]) * c + cc[:, None]
@@ -197,7 +253,7 @@ def conv_tc_replay(name, x, kern, scale, shift, relu, cfg=None):
                         kk, nqi = np.divmod(e, nq)
                         kr, n = k0 + kk, n0 + 4 * nqi
                         kv = kr < kend
-                        row = np.where(kv, kr, 0) * o
+                        row = np.where(kv, weight_row(np.where(kv, kr, 0), p), 0) * o
                         for q in range(4):
                             v = kv & ((n < o) if vec_b else (n + q < o))
                             b_sm[slot, kk * b_ld + 4 * nqi + q] = np.where(
@@ -238,41 +294,46 @@ def conv_tc_replay(name, x, kern, scale, shift, relu, cfg=None):
                                 b_hw[:, tq, gq] = b_s[bp]
                                 b_hw[:, tq + 4, gq] = b_s[bp + 4 * b_ld]
                                 (ah, al), (bh, bl) = _np_split(a_hw), _np_split(b_hw)
-                                d = sum(np.einsum("mik,nkj->mnij", p.astype(np.float64),
-                                                  q.astype(np.float64))
-                                        for p, q in ((al, bh), (ah, bl), (ah, bh)))
+                                d = sum(np.einsum("mik,nkj->mnij", p_.astype(np.float64),
+                                                  q_.astype(np.float64))
+                                        for p_, q_ in ((al, bh), (ah, bl), (ah, bh)))
                                 regs = np.stack([d[:, :, gq, 2 * tq], d[:, :, gq, 2 * tq + 1],
                                                  d[:, :, gq + 8, 2 * tq],
                                                  d[:, :, gq + 8, 2 * tq + 1]], -1)
                                 acc[wmi, wni] = (acc[wmi, wni] + regs).astype(np.float32)
-                # epilogue
+                # epilogue: the row of pixel m, then its columns
                 for wmi in range(warps_m):
                     for wni in range(warps_n):
                         for mi in range(mi_n):
-                            for ni in range(ni_n):
-                                n = n0 + wni * wn_t + ni * 8 + 2 * tq
-                                for hh in range(2):
-                                    m = m0 + wmi * wm_t + mi * 16 + gq + 8 * hh
+                            for hh in range(2):
+                                m = m0 + wmi * wm_t + mi * 16 + gq + 8 * hh
+                                for ni in range(ni_n):
+                                    n = n0 + wni * wn_t + ni * 8 + 2 * tq
                                     for col, reg in ((n, 2 * hh), (n + 1, 2 * hh + 1)):
                                         ok = (m < m_all) & (n < o) & (col < o)
                                         val = acc[wmi, wni, mi, ni, :, reg][ok]
                                         mo, co = m[ok], col[ok]
                                         if splits == 1:
                                             y = val * scale[co] + shift[co]
-                                            out[mo, co] = np.maximum(y, 0) if relu else y
-                                            np.add.at(writes, (mo, co), 1)
+                                            dst = out_offset(p, mo, co)
+                                            out[dst] = np.maximum(y, 0) if relu else y
+                                            np.add.at(writes, dst, 1)
                                         else:
-                                            ws[s, mo, co] = val
-                                            np.add.at(ws_writes, (s, mo, co), 1)
+                                            ws[s, p, mo, co] = val
+                                            np.add.at(ws_writes, (s, p, mo, co), 1)
     if splits > 1:  # splitk_reduce: partials in split order, then the epilogue
         assert (ws_writes == 1).all()
-        tot = np.zeros((m_all, o), np.float32)
+        tot = np.zeros((phases, m_all, o), np.float32)
         for s in range(splits):
             tot = (tot + ws[s]).astype(np.float32)
         y = tot * scale + shift
-        out = np.maximum(y, 0) if relu else y
-        writes += 1
-    return out.reshape(b, ho, wo, o), writes
+        y = np.maximum(y, 0) if relu else y
+        pp, mm, nn = np.meshgrid(np.arange(phases), np.arange(m_all), np.arange(o),
+                                 indexing="ij")
+        dst = out_offset(pp, mm, nn).ravel()
+        out[dst] = y.ravel()
+        np.add.at(writes, dst, 1)
+    return out.reshape(out_shape), writes.reshape(out_shape)
 
 
 def _data(shape, o, k, seed):
@@ -286,9 +347,9 @@ def _data(shape, o, k, seed):
 
 
 # (name, x shape, O, relu, tile config the plan picks): C % 4 != 0 (3, 5, 7,
-# 53) on the 4-byte path, N = 4 and 53 (an n8 tile wholly past N, ragged
-# weight slices), odd O, M <= 64 with a K split and K not a multiple of 32,
-# and every tile configuration
+# 53, 106) on the 4-byte path, N = 4 and 53 (an n8 tile wholly past N, ragged
+# weight slices), odd O, M <= 64 (per phase) with a K split and K not a
+# multiple of 32, and every tile configuration, for each of the three convs
 REPLAY_CASES = [
     ("fused_conv3x3_bn_relu", (3, 5, 7, 5), 13, True, 2),
     ("fused_conv3x3_bn_relu", (2, 9, 11, 4), 3, False, 2),
@@ -299,22 +360,31 @@ REPLAY_CASES = [
     ("fused_conv4x4s2_bn_relu", (3, 10, 12, 7), 9, True, 2),
     ("fused_conv4x4s2_bn_relu", (2, 16, 16, 12), 53, False, 1),
     ("fused_conv4x4s2_bn_relu", (1, 8, 8, 53), 40, True, 3),
+    ("fused_convT4x4s2_bn_relu", (2, 6, 5, 53), 9, True, 3),
+    ("fused_convT4x4s2_bn_relu", (2, 6, 6, 53), 24, False, 1),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 16), 4, True, 2),
+    ("fused_convT4x4s2_bn_relu", (2, 6, 7, 12), 53, False, 1),
+    ("fused_convT4x4s2_bn_relu", (1, 9, 9, 8), 72, True, 0),
+    ("fused_convT4x4s2_bn_relu", (1, 4, 4, 64), 24, False, 3),
+    ("fused_convT4x4s2_bn_relu", (1, 3, 4, 106), 13, True, 3),
 ]
+_REFERENCE = {"fused_conv3x3_bn_relu": pc._reference3, "fused_conv4x4s2_bn_relu": pc._reference4,
+              "fused_convT4x4s2_bn_relu": pc._referenceT}
 
 
 @pytest.mark.parametrize("case", REPLAY_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
 def test_conv_tc_index_arithmetic_matches_plain(case):
     name, shape, o, relu, cfg = case
     x, kern, s, t = _data(shape, o, 4 if "4x4" in name else 3, seed=sum(shape) + o)
-    m, n, k, _ = fc.geometry(name, torch.from_numpy(x), torch.from_numpy(kern))
-    assert fc.plan_tc(m, n, k)[0] == cfg
+    m, n, k, phases = fc.geometry(name, torch.from_numpy(x), torch.from_numpy(kern))
+    assert fc.plan_tc(m, n, k, phases)[0] == cfg
     got, writes = conv_tc_replay(name, x, kern, s, t, relu)
     assert (writes == 1).all()  # every output element once
     want = fc.PLAIN[name](*map(torch.from_numpy, (x, kern, s, t)), relu).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     # and the JAX package's reference of the same function
-    ref = pc._reference3 if name == "fused_conv3x3_bn_relu" else pc._reference4
-    np.testing.assert_allclose(got, np.asarray(ref(x, kern, s, t, relu)), rtol=RTOL, atol=ATOL)
+    ref = _REFERENCE[name](x, kern, s, t, relu)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL, atol=ATOL)
 
 
 def test_conv_tc_replay_splits_k_when_few_pixels():
@@ -324,8 +394,17 @@ def test_conv_tc_replay_splits_k_when_few_pixels():
     assert cfg == 3 and splits > 1 and k % fc.TC_BK != 0
 
 
-# the canonical Cond_SRVAE (cr=1.2, ps=64): every conv geometry of #1 and #5
-# per image, forward and input-gradient roles, as (kernel, H, W, C, O) of
+@pytest.mark.parametrize("m,n,k", [(16, 24, 4 * 64), (12, 13, 4 * 106)])
+def test_conv_tc_replay_splits_k_per_phase(m, n, k):
+    # the transposed conv's K-split cases above: M <= 64 pixels per phase,
+    # four phases of blocks, and the C = 106 one with K not a multiple of 32
+    cfg, splits, kchunk = fc.plan_tc(m, n, k, phases=4)
+    assert cfg == 3 and splits > 1 and (splits - 1) * kchunk < k <= splits * kchunk
+    assert fc.plan_tc(m, n, k, phases=4)[1] <= fc.plan_tc(m, n, k)[1]
+
+
+# the canonical Cond_SRVAE (cr=1.2, ps=64): every conv geometry of #1, #5 and
+# #6 per image, forward and input-gradient roles, as (kernel, H, W, C, O) of
 # the kernel's own input
 _CANONICAL = [
     ("fused_conv3x3_bn_relu", hw, hw, c, o) for hw, c, o in [
@@ -342,6 +421,12 @@ _CANONICAL = [
     ("fused_conv4x4s2_bn_relu", hw, hw, c, o) for hw, c, o in [
         (8, 64, 128), (16, 16, 64), (16, 64, 128), (32, 4, 16), (32, 16, 64), (64, 4, 16),
         (16, 128, 53), (16, 256, 424), (32, 64, 128), (32, 128, 256), (64, 64, 128)]
+] + [
+    # #6 forward (the UpBlocks) and as the input gradient of each DownBlock's
+    # 4x4/s2 conv (LR and HR: O = 4, 16, 64)
+    ("fused_convT4x4s2_bn_relu", hw, hw, c, o) for hw, c, o in [
+        (8, 53, 128), (16, 128, 64), (8, 424, 256), (16, 256, 128), (32, 128, 64),
+        (16, 16, 4), (8, 64, 16), (4, 128, 64), (32, 16, 4), (16, 64, 16), (8, 128, 64)]
 ]
 
 
@@ -349,15 +434,16 @@ _CANONICAL = [
 def test_plan_tc_at_every_canonical_shape(batch):
     """Serving (B = 1 and 16), training (B = 512) and the 1000-draw decode:
     the ring fits in shared memory, K is covered by 32-deep steps, and the
-    card is filled unless K is too short to split further."""
+    card is filled (the transposed conv's four phases counted) unless K is
+    too short to split further."""
     for name, h, w, c, o in _CANONICAL:
-        taps, stride = (9, 1) if name == "fused_conv3x3_bn_relu" else (16, 2)
+        _, taps, stride, phases = fc._KERNELS[name]
         m, k = batch * (h // stride) * (w // stride), taps * c
-        cfg, splits, kchunk = fc.plan_tc(m, o, k)
+        cfg, splits, kchunk = fc.plan_tc(m, o, k, phases)
         bm, bn = fc.TC_TILES[cfg][:2]
         assert fc.tc_smem_bytes(cfg) <= SMEM_LIMIT
         assert kchunk % fc.TC_BK == 0 and (splits - 1) * kchunk < k <= splits * kchunk
-        blocks = _cdiv(m, bm) * _cdiv(o, bn)
+        blocks = _cdiv(m, bm) * _cdiv(o, bn) * phases
         if blocks >= SMS:
             assert splits == 1
         else:
@@ -367,9 +453,9 @@ def test_plan_tc_at_every_canonical_shape(batch):
             assert bn >= min(o, 64) or cfg == 2
 
 
-def test_only_the_3x3_and_strided_kernels_take_the_tensor_cores():
-    assert set(fc.TC_KERNELS) == {"fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu"}
-    assert set(fc.TC_KERNELS) | {"fused_convT4x4s2_bn_relu"} == set(fc.WRAPPERS)
+def test_every_float_conv_kernel_takes_the_tensor_cores():
+    assert set(fc.TC_KERNELS) == set(fc.WRAPPERS) == {
+        "fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu"}
     # each tile's cp.async ring leaves room for a second block on the SM
     for cfg, (bm, bn, wm, wn, stages) in fc.TC_TILES.items():
         assert bm % wm == 0 and bn % wn == 0 and wm % 16 == 0 and wn % 8 == 0
