@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 1. Print torch's version and the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from ``simple_vae_rs_tpu_torch/csrc`` (nvcc, one
    process per source, all started together) and print ptxas's registers and
-   spills per kernel; a spill in the tensor-core conv kernel fails.
+   spills per kernel; a spill in the tensor-core conv kernel or in any int8
+   kernel fails.
 3. Hold each kernel against its plain PyTorch version on ragged shapes (for
    the tensor-core kernel, in all three convs: C = 53 and 106, N = 4 and 53,
    odd O, M <= 64 (per phase for the transposed conv) with a K split, K not
@@ -52,9 +53,11 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 
 Between phases 5 and 6, the int8 serving modes (the model of phase 4):
 
-I1. Hold each int8 conv kernel (activation absmax pass + W8A8 conv) against
-    its exact plain version on ragged shapes: odd H/W, C=3, O=5, a K split,
-    ``act_group`` smaller than the batch.
+I1. Hold each int8 conv kernel (activation absmax pass, for the 3x3 and
+    transposed convs the quantize pass, + W8A8 conv) against its exact plain
+    version on ragged shapes: odd H/W, C = 3, 5, 6, 7, 130, 300 and 424,
+    O = 5, 9, 13, 70 and 200, K splits, ``act_group`` smaller than the batch;
+    the tensor-core kernels (#9, #12) and the quantize pass bit for bit.
 I2. The stochastic-round quantizer on the 18 canonical decoder kernels:
     the same bytes as its plain version, ``|q - w/scale| < 1`` everywhere,
     the mean error within 4 standard errors of 0 per leaf, the same bytes
@@ -63,13 +66,15 @@ I3. ``SuperResolver(model, int8=True)``: every counter is set to 0, the
     resolver is built (which quantizes: 18 launches), then ``super_resolve``
     B=16 and ``uncertainty`` N=1000 run; the counters must equal the calls
     the hooks recorded and the expected numbers (per request: int8 3x3 x7,
-    int8 convT x2, the absmax pass x9, float 3x3 x17, 4x4/s2 x5, convT x1).
+    int8 convT x2, the absmax pass x9, the quantize pass x9, float 3x3 x17,
+    4x4/s2 x5, convT x1).
     The same requests run through the plain path on the card and must
     agree; PSNR against the float32 resolver of phase 4 on the same seeds
     (so the same noise) must exceed 30 dB. Median latencies, peak memory.
 I4. The int8 4x4/s2 kernel through the block path: six ``DownBlock``s at the
     canonical shapes (B=16), each given a ``quant`` tree, against the plain
-    path; counters set to 0 before and read after.
+    path; counters set to 0 before and read after (their 3x3 convs run #9
+    and its quantize pass six times).
 I5. Each int8 kernel against its plain version at every distinct shape I3
     and I4 launched, timed, with the float32 kernel's time at the same shape
     and the bound (bytes over 3.35 TB/s or integer operations over the 1,979
@@ -79,6 +84,11 @@ I5. Each int8 kernel against its plain version at every distinct shape I3
     absmax pass is also timed by ``torch.profiler`` (device time of its
     kernel and its result's memset: CUDA events around one call of a few
     microseconds measure the wrapper), with its share of the bytes bound.
+    The quantize pass is timed alone against its bytes bound, and beside
+    each tensor-core int8 conv stands cuBLASLt's int8 GEMM
+    (``torch._int_mm``) at the same (M, N, K) on operands im2col'd outside
+    the timing (``gemm_ms``): a yardstick of the tensor-core rate, not the
+    same function, so ``library_ms`` stays null.
 I6. ``SuperResolver(model, int8_weights=True)``: the same two requests, the
     float kernels' launch counts of phase 4, PSNR against float32 above
     30 dB, and no packed leaf held in float32 between requests.
@@ -120,8 +130,9 @@ C5. Timing by CUDA events per chain shape: the chain, the per-layer kernel
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
 one val step; for the int8 kernels over the int8 serving run and the block
-path; an int8 conv's time includes its absmax pass, which is also listed on
-its own; for the chain over the chained runs of C2-C4), then the last line
+path; an int8 conv's time includes its absmax pass and, for #9 and #12, its
+quantize pass, each also listed on its own; for the chain over the chained
+runs of C2-C4), then the last line
 ``{"ok": true, "device": {...}}``. A per-shape report is written to
 ``chiprun_out/chip_smoke_report.json``. Exits non-zero without a CUDA card.
 
@@ -139,7 +150,8 @@ a long sum that cancels, and the permuted batch alone moves it by up to
 gradient of 0. Parameters after the step within 2 * lr (Adam's first step
 moves a weight by about lr * sign(g)), and 99% of all elements within
 1e-2 * lr. Int8: kernel vs plain max|diff| <= 1e-5 * max|plain| (the same
-integers summed exactly on both sides, the same float32 epilogue); the
+integers summed exactly on both sides, the same float32 epilogue), and the
+tensor-core kernels and the quantize pass equal to the last bit; the
 quantizer byte for byte; the int8 resolver vs its plain path 2e-3 absolute
 (the float32 layers above the decoder differ in the last bits, so a few
 activations on a rounding boundary quantize one step apart), with the share
@@ -178,6 +190,7 @@ NOISE_FACTOR = 8.0  # times float32's own noise: the plain path on the permuted 
 SOURCE = "simple_vae_rs_tpu_torch/csrc/fused_conv.cu"
 ROW_SOURCE = "simple_vae_rs_tpu_torch/csrc/elbo_rows.cu"
 INT8_SOURCE = "simple_vae_rs_tpu_torch/csrc/int8_conv.cu"
+TC_INT8 = ("int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu")  # on the int8 tensor cores
 QUANT_SOURCE = "simple_vae_rs_tpu_torch/csrc/quantize.cu"
 PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
 INT8_TOL = 1e-5  # of max|plain|
@@ -194,26 +207,38 @@ REPLACES = {
     "quantize_stochastic": "simple_vae_rs_tpu/ops/quantize.py:92",
     # the absmax half of _quant_act (:67), which the TPU kernels run in-kernel
     "act_absmax": "simple_vae_rs_tpu/ops/pallas_int8.py:67",
+    # its quantize half, run once per tile in-kernel (called at :98)
+    "act_quant": "simple_vae_rs_tpu/ops/pallas_int8.py:67",
     # with its row-strip variant _int8_conv3x3_strips (:169)
     "int8_conv3x3_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:216",
     "int8_conv4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:328",
     "int8_convT4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:441",
 }
-# (name, x shape, O, relu, act_group)
+# (name, x shape, O, relu, act_group); for the tensor-core kernels C = 3, 5,
+# 6, 7, 130, 300 and 424 (padded to 16, 16, 16, 16, 144, 304, 432), O = 5,
+# 9, 13, 70 and 200 (weight rows not whole 16-byte words), every tile, K
+# splits in both modes, short last groups, odd H and W
 RAGGED_INT8 = [
     ("int8_conv3x3_bn_relu", (3, 5, 7, 3), 5, True, None),
     ("int8_conv3x3_bn_relu", (5, 9, 11, 6), 13, False, 2),
     ("int8_conv3x3_bn_relu", (1, 4, 4, 300), 200, False, None),
+    ("int8_conv3x3_bn_relu", (3, 5, 7, 7), 9, True, 2),
+    ("int8_conv3x3_bn_relu", (2, 9, 9, 130), 70, False, 1),
+    ("int8_conv3x3_bn_relu", (3, 6, 7, 5), 30, True, None),
+    ("int8_conv3x3_bn_relu", (1, 4, 4, 424), 424, False, None),
     ("int8_conv4x4s2_bn_relu", (3, 6, 10, 5), 7, True, 1),
     ("int8_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, False, None),
     ("int8_convT4x4s2_bn_relu", (2, 3, 5, 7), 9, True, None),
     ("int8_convT4x4s2_bn_relu", (4, 4, 4, 130), 70, False, 3),
+    ("int8_convT4x4s2_bn_relu", (3, 5, 6, 5), 13, True, 2),
+    ("int8_convT4x4s2_bn_relu", (1, 9, 9, 64), 200, False, None),
+    ("int8_convT4x4s2_bn_relu", (1, 4, 4, 424), 256, True, None),
 ]
 # (in, out, H = W) of the canonical model's DownBlocks: LR 32 px and HR 64 px
 DOWN_BLOCKS = [(4, 16, 32), (16, 64, 16), (64, 128, 8), (4, 16, 64), (16, 64, 32), (64, 128, 16)]
 INT8_EXPECTED = {  # launches of one super_resolve or one uncertainty of the int8 resolver
     "int8_conv3x3_bn_relu": 7, "int8_convT4x4s2_bn_relu": 2, "int8_conv4x4s2_bn_relu": 0,
-    "act_absmax": 9, "fused_conv3x3_bn_relu": 17, "fused_conv4x4s2_bn_relu": 5,
+    "act_absmax": 9, "act_quant": 9, "fused_conv3x3_bn_relu": 17, "fused_conv4x4s2_bn_relu": 5,
     "fused_convT4x4s2_bn_relu": 1,
 }
 ROW_OPS = {"sq_rows": 3, "kl_std_rows": 5, "kl_gen_rows": 11}  # float ops per element
@@ -248,24 +273,24 @@ def log(*args):
     print(*args, flush=True)
 
 
-def tensor_core_ptxas(report: str) -> str:
-    """Registers of the tensor-core conv kernels from ptxas's ``-v`` report
-    (their shared memory is dynamic); fails if one of them spills."""
+def tensor_core_ptxas(report: str, kernel: str = "conv_tc") -> str:
+    """Registers of the kernels whose name holds ``kernel`` (every kernel of
+    the report for "") from ptxas's ``-v`` report (the tensor-core kernels'
+    shared memory is dynamic); fails if one of them spills."""
     current, regs, entries = "", [], 0
     for line in report.splitlines():
         if "Function properties for" in line:
             current = line.split("Function properties for")[-1].strip()
-        elif "conv_tc" in current and "spill stores" in line:
+        elif kernel in current and "spill stores" in line:
             entries += 1
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             if len(nums) < 3 or nums[1] or nums[2]:
                 raise AssertionError(f"ptxas: {current} spills: {line.strip()}")
-        elif "conv_tc" in current and "Used" in line and "registers" in line:
+        elif kernel in current and "Used" in line and "registers" in line:
             regs.append(int(line.split("Used")[1].split()[0]))
     if not entries or len(regs) != entries:
-        raise AssertionError("ptxas: no report for the tensor-core conv kernels")
-    return (f"{entries} instances, {min(regs)}-{max(regs)} registers, no spills "
-            "(dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes)")
+        raise AssertionError(f"ptxas: no report for the {kernel or 'int8'} kernels")
+    return f"{entries} instances, {min(regs)}-{max(regs)} registers, no spills"
 
 
 def card_line() -> str:
@@ -854,10 +879,42 @@ def bound_row(row, ops, nbytes, peak_ops):
     row["bound_by"] = "operations" if ops / peak_ops > nbytes / PEAK_BYTES else "bytes"
 
 
+def int8_gemm_ms(f8, name, qx, kq, reps):
+    """cuBLASLt's int8 GEMM (``torch._int_mm``, int32 out) at the (M, N, K)
+    of tensor-core int8 conv ``name`` on the quantized input ``qx``: A its
+    im2col (the transposed conv's four phases stacked along M), B the
+    channel-padded weight with N padded to 8, both built outside the timing.
+    Not the same function (no quantize pass, no epilogue): a yardstick of
+    the int8 tensor-core rate. None where ``torch._int_mm`` does not exist or
+    M is too small for it."""
+    if not hasattr(torch, "_int_mm"):
+        return None
+    b, h, w, cp = qx.shape
+    c, o = kq.shape[2], kq.shape[3]
+    xp = F.pad(qx, (0, 0, 1, 1, 1, 1))
+    if name == "int8_conv3x3_bn_relu":
+        groups = [[(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]]
+    else:  # per phase (u, v) its four live taps
+        groups = [[(ta + u - 1, tb + v - 1) for ta in (0, 1) for tb in (0, 1)]
+                  for u in (0, 1) for v in (0, 1)]
+    a = torch.cat([torch.cat([xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w] for dy, dx in taps],
+                             dim=-1).reshape(b * h * w, -1) for taps in groups])
+    o8 = -(-o // 8) * 8
+    # (taps * Cp, N8): all nine taps; for the transposed conv four taps' rows,
+    # one phase's K (the values do not change the time)
+    bw = F.pad(kq, (0, o8 - o, 0, cp - c)).reshape(-1, o8)[:a.shape[1]].contiguous()
+    if a.shape[0] <= 16:
+        return None
+    return cuda_ms(lambda: torch._int_mm(a, bw), reps)
+
+
 def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group=None):
-    """Int8 kernel (absmax pass + W8A8 conv) vs its exact plain version at one
-    shape; with ``timing``, also the times, the float32 kernel's time at the
-    same shape and the absmax pass alone."""
+    """Int8 kernel (absmax pass, the quantize pass for the tensor-core ones,
+    and the W8A8 conv) vs its exact plain version at one shape, and the
+    quantize pass vs its plain version; with ``timing``, also the times, the
+    float32 kernel's time at the same shape, the absmax and quantize passes
+    alone and, for the tensor-core kernels, cuBLASLt's int8 GEMM at the same
+    GEMM shape."""
     from simple_vae_rs_tpu_torch.ops import quantize as qz
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -870,7 +927,8 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
     kq, ks = qz.quantize_rtn(kernel)
     scale = torch.rand((o,), generator=gen, device="cuda") + 0.5
     shift = torch.randn((o,), generator=gen, device="cuda")
-    packed = f8.pack_kernel_q(kq)
+    packed = f8.pack_for(name, kq)
+    tc = name in f8.TC_KERNELS
 
     def run():
         return f8.WRAPPERS[name](x, kq, ks, scale, shift, relu=relu, act_group=act_group,
@@ -892,10 +950,20 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
     row = {"name": name, "x": list(shape), "o": o, "relu": relu, "act_group": act_group,
            "max_abs_err": err, "max_abs_ref": ref,
            "equal_share": float((got == want).float().mean())}
+    if tc:
+        # exact int32 sums and the plain version's epilogue: the same bits
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {shape}->{o} group {act_group}: "
+                                 f"{100 * row['equal_share']:.4f}% equal to the last bit")
+        qx = f8.act_quant(x, amax, act_group)
+        if not torch.equal(qx, f8.act_quant_plain(x, amax_want, act_group)):
+            raise AssertionError(f"act_quant {shape} group {act_group}: bytes differ from the "
+                                 f"plain version")
     if timing:
         first = cuda_ms(run, 1)
         reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
         row["ms"] = cuda_ms(run, reps)
+        row["gemm_ms"] = int8_gemm_ms(f8, name, qx, kq, reps) if tc else None
         row["plain_ms"] = cuda_ms(
             lambda: f8.PLAIN[name](x, kq, ks, scale, shift, relu, act_group), 2)
         row["library_ms"] = None
@@ -921,6 +989,16 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
         if absmax["device_ms"]:
             absmax["share_of_bound_device"] = absmax["bound_ms"] / absmax["device_ms"]
         row["absmax"] = absmax
+        if tc:
+            # 4 bytes read and round_up(C, 16) / C written per element, the
+            # group scales read; a true division per element
+            row["quant"] = {"name": "act_quant", "x": list(shape), "qx_bytes": qx.numel(),
+                            "ms": cuda_ms(lambda: f8.act_quant(x, amax, act_group), 50),
+                            "plain_ms": cuda_ms(
+                                lambda: f8.act_quant_plain(x, amax, act_group), 50),
+                            "library_ms": None}
+            bound_row(row["quant"], float(x.numel()),
+                      4.0 * x.numel() + qx.numel() + 4.0 * groups, PEAK_F32_FLOPS)
     return row
 
 
@@ -1077,7 +1155,7 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     for name, want in INT8_EXPECTED.items():
         per_uq = counts[name] - after_sr[name]
         recorded = sum(1 for c in calls if c[0] == name)
-        if name != "act_absmax" and recorded != counts[name]:
+        if name not in (f8.ABSMAX, f8.QUANT) and recorded != counts[name]:
             raise AssertionError(f"int8 serving {name}: {counts[name]} launches, {recorded} calls")
         if after_sr[name] != want or per_uq != want:
             raise AssertionError(f"int8 serving {name}: {after_sr[name]} launches per "
@@ -1152,7 +1230,7 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
                                  f"{INT8_TOL} * {ref}")
     block_counts = all_counts()
     want_counts = {"int8_conv3x3_bn_relu": 6, "int8_conv4x4s2_bn_relu": 6, "act_absmax": 12,
-                   "quantize_stochastic": 12}
+                   "act_quant": 6, "quantize_stochastic": 12}
     for name, count in block_counts.items():
         if count != want_counts.get(name, 0):
             raise AssertionError(f"block path {name}: {count} launches, expected "
@@ -1166,7 +1244,8 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     paths = (("serving_int8", [c for c in calls if c[0] in f8.PLAIN]),
              ("block_path", [c for c in block_calls if c[0] in f8.PLAIN]))
     per_key = {}
-    fields = ("ms", "plain_ms", "bound_ms", "ops", "bytes", "f32_kernel_ms", "device_ms")
+    fields = ("ms", "plain_ms", "bound_ms", "ops", "bytes", "f32_kernel_ms", "device_ms",
+              "gemm_ms")
     totals, by_path = {}, {}
     for path, path_calls in paths:
         for call in path_calls:
@@ -1175,16 +1254,23 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
                 row = per_key[call] = check_int8_shape(f8, fc, name, shape, o, relu,
                                                        seed=800 + len(per_key), timing=True)
                 int8_report["shapes"].append(row)
-                am = row["absmax"]
+                am, qt = row["absmax"], row.get("quant")
                 log(f"int8 shape {name} x{shape} O={o}: kernel {row['ms']:.4f} ms (absmax pass "
                     f"{am['ms']:.4f} ms of it, device {am['device_ms']} ms = "
                     f"{am.get('share_of_bound_device')} of its bound, {am['bytes'] / 1e6:.1f} MB; "
                     f"absmax plain {am['plain_ms']:.4f}, library {am['library_ms']:.4f}, "
-                    f"bound {am['bound_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
-                    f"float32 kernel {row['f32_kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                    f"({row['bound_by']}), max|diff| {row['max_abs_err']:.2e}")
+                    f"bound {am['bound_ms']:.4f}"
+                    + (f"; quantize pass {qt['ms']:.4f} ms, plain {qt['plain_ms']:.4f}, bound "
+                       f"{qt['bound_ms']:.4f}" if qt else "")
+                    + f"), plain {row['plain_ms']:.3f} ms, float32 kernel "
+                    f"{row['f32_kernel_ms']:.4f} ms, int8 GEMM {row['gemm_ms']} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max|diff| "
+                    f"{row['max_abs_err']:.2e}, equal share {row['equal_share']}")
             row = per_key[call]
-            for kname, src in ((call[0], row), ("act_absmax", row["absmax"])):
+            parts = [(call[0], row), (f8.ABSMAX, row["absmax"])]
+            if "quant" in row:
+                parts.append((f8.QUANT, row["quant"]))
+            for kname, src in parts:
                 tot = totals.setdefault(kname, dict.fromkeys(
                     fields + ("library_ms", "max_abs_err"), 0.0))
                 for k in fields + ("library_ms",):
@@ -1196,7 +1282,7 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     for row in int8_report["ragged"]:
         totals[row["name"]]["max_abs_err"] = max(totals[row["name"]]["max_abs_err"],
                                                  row["max_abs_err"])
-    for name in f8.PLAIN:
+    for name in list(f8.PLAIN) + [f8.QUANT]:
         totals[name]["library_ms"] = None
     tot = totals["quantize_stochastic"] = dict.fromkeys(fields + ("max_abs_err",), 0.0)
     for row in quant_rows:
@@ -1851,7 +1937,12 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {src}: {line.strip()}")
-    log("ptxas conv_tc: " + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"]))
+    log("ptxas conv_tc: " + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"])
+        + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes)")
+    int8_report = _build.ptxas_logs["int8_conv.cu"]
+    log("ptxas int8_tc: " + tensor_core_ptxas(int8_report, "int8_tc")
+        + " (dynamic shared memory per tile: ops/fused_int8.tc_smem_bytes); every kernel of "
+        + "int8_conv.cu: " + tensor_core_ptxas(int8_report, ""))
 
     # 3. ragged shapes
     report = {"card": card, "torch": torch.__version__, "ragged": [], "shapes": []}
@@ -2036,6 +2127,8 @@ def main() -> int:
             "bound_by": "operations" if tot["ops"] / peak > tot["bytes"] / PEAK_BYTES else "bytes",
             "library_ms": tot["library_ms"],
             "f32_kernel_ms": tot["f32_kernel_ms"] or None,
+            **({"gemm_ms": tot["gemm_ms"] or None, "share_of_bound": tot["bound_ms"] / tot["ms"]}
+               if name in TC_INT8 else {}),
             **({"device_ms": tot["device_ms"] or None,
                 "share_of_bound_device": (tot["bound_ms"] / tot["device_ms"]
                                           if tot["device_ms"] else None)}
@@ -2069,7 +2162,7 @@ def main() -> int:
                                              if key.split(" ")[0] == k["name"]}
                                       for path, counts in family_launches.items()}
         k["launches_on_new_paths"] = {p: c for p, c in k["launches_on_new_paths"].items() if c}
-    if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 13 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was launched no time: "
                              + str({k["name"]: k["launches"] for k in kernels}))
     report["kernels"] = kernels

@@ -2,11 +2,14 @@
 //
 // Replaces the Pallas TPU kernels of simple_vae_rs_tpu/ops/pallas_int8.py:
 //   svrs_act_absmax      <- the absmax half of _quant_act / _act_quant_host
-//   svrs_int8_conv3x3    <- int8_conv3x3_bn_relu and its row-strip variant
-//                           _int8_conv3x3_strips (3x3, stride 1, SAME)
-//   svrs_int8_conv4x4s2  <- int8_conv4x4s2_bn_relu   (4x4, stride 2, pad 1)
-//   svrs_int8_convT4x4s2 <- int8_convT4x4s2_bn_relu  (transposed 4x4, stride 2,
-//                           pad 1, kernel in the input-dilated form)
+//   svrs_act_quant       <- the quantize half of _quant_act (:67), which every
+//                           TPU kernel runs once on its tile
+//   svrs_int8_tc         <- int8_conv3x3_bn_relu (:216) and its row-strip
+//                           variant _int8_conv3x3_strips (:169), mode kConv3;
+//                           int8_convT4x4s2_bn_relu (:441), mode kConvT
+//                           (transposed 4x4, stride 2, pad 1, kernel in the
+//                           input-dilated form)
+//   svrs_int8_conv4x4s2  <- int8_conv4x4s2_bn_relu (:328) (4x4, stride 2, pad 1)
 // Each conv computes, with x NHWC float32 and the weight int8 with one
 // float32 scale ks[o] per output channel,
 //   a      = max(absmax(x over the image's group) / 127, 1e-12)
@@ -17,44 +20,80 @@
 // reference int8_reference* and the strip kernel compute, a smaller group
 // reproduces a Pallas launch of several programs.
 //
-// Design. The TPU kernel holds a whole padded batch tile in VMEM, takes its
-// absmax there and quantizes it once. A block here owns one output tile and
-// no block sees the whole group, so the absmax is a pass of its own
-// (svrs_act_absmax, a read-bound streaming reduction: see its note) and the
-// conv reads the group's absmax from device memory: no host sync. Absmax over the padded tile equals absmax over x
-// (the pad is zeros), so no pad is stored.
+// Design of the 3x3 and transposed convs (int8_tc). The TPU kernel holds a
+// whole padded batch tile in VMEM, takes its absmax there, quantizes it once
+// (_quant_act) and runs int8 dots with int32 accumulation. A block here owns
+// one output tile and no block sees the whole group, so the work is three
+// passes on one stream, with no host sync:
+//   1. act_absmax: the group's absmax (a read-bound streaming reduction: see
+//      its note below). Absmax over the padded tile equals absmax over x (the
+//      pad is zeros), so no pad is stored.
+//   2. act_quant: x quantized ONCE into an int8 NHWC buffer qx whose channel
+//      stride is Cp = round_up(C, 16), the pad channels 0. Bound by bytes: 4
+//      read and Cp / C written per element. A thread owns 16 channels of one
+//      pixel: up to four 16-byte loads, one 16-byte store.
+//   3. int8_tc: an implicit GEMM on the int8 tensor cores
+//      (mma.sync.m16n8k32.s8.s8.s32) over qx: M = output pixels (per output
+//      phase for the transposed conv, blockIdx.z = phase * splits + split),
+//      N = O, K = live taps * Cp, counted in 32-bit words of four channels
+//      (Kw = taps * Cp / 4) in the order tap * Cp + c. A 16-byte word of qx
+//      is 16 channels of one pixel and one tap, so A moves by 16-byte
+//      cp.async only (a tap outside the image is a zero fill), with the tap
+//      of each staged word resolved once per step. The weight is packed once
+//      per module (ops/fused_int8.pack_kernel_q with pad 16) to (kh * kw *
+//      Cp / 4, O) words, four consecutive channels of one output channel in
+//      one word: the s8 MMA's B fragment layout as it stands. The epilogue
+//      dequantises with the row's group scale and applies the affine and the
+//      ReLU with separate roundings, as the plain version does.
+// The int8 product sums exactly in int32 (|acc| <= 127^2 * 16 * 432 < 2^31
+// at the canonical widths), in the tensor core and across K splits alike, so
+// the kernel equals its plain version bit for bit; nothing of the float
+// kernels' rounded promotion is needed.
+// What bounds it: at the 64x64 decoder tail (C, O <= 64, millions of pixels)
+// bytes (float32 in, twice, for the two passes; float32 out); at the deep
+// layers (C = 424, 256) operations, against the int8 tensor-core peak of
+// 1,979 TOP/s. With the MMAs nearly free, quantizing per tap and per N tile
+// (the dp4a kernel below did: 9 to 18 true divisions per activation) would be
+// the whole kernel; pass 2 does each division once, and the MMA loop reads
+// int8 words only. mma.sync and not wgmma: the first tensor-core version
+// keeps conv_tc's shape (csrc/fused_conv.cu) and its proven fragment maps.
+// Later work: wgmma with TMA-fed operands, and folding the quantize pass into
+// the kernel that produces x (its epilogue would need the group's absmax
+// before the group is complete, so that is a two-kernel handshake).
+// Layout: A staged [BM][32 + 4] words, B [32][BN + 8] words, a ring of
+// cp.async slots in dynamic shared memory; the padding makes every fragment
+// read hit 32 distinct banks. Fragment maps
+// (PTX m16n8k32 .s8, lane = 4 * gq + tq, in words of four k): A a0 (row gq,
+// word tq), a1 (gq + 8, tq), a2 (gq, tq + 4), a3 (gq + 8, tq + 4); B b0
+// (word tq, column gq), b1 (word tq + 4, column gq); C c0/c1 (gq, 2tq /
+// 2tq+1), c2/c3 (gq + 8, 2tq / 2tq+1): at word granularity the m16n8k8 TF32
+// maps of conv_tc. A step is 32 words (128 channels); its 8-word sub-steps
+// past the end of K are skipped (a block-uniform branch), so a narrow C
+// (Cp = 16: 36 words) multiplies few zeros. Tiles (ops/fused_int8.
+// plan_int8_tc, which counts the phases' blocks and splits K when the tiles
+// leave SMs idle): 128x128 (N > 64), 128x64 (16 < N <= 64), 128x16 (N <= 16:
+// the 64x64 tail's O = 16 and O = 4, columns past O masked) and 32x128 for
+// M <= 64 per phase. The transposed conv's weight row of staged word k is
+// wtap(k / (Cp/4), phase) * Cp/4 + k % (Cp/4), k / (Cp/4) a multiply-high
+// by host-computed constants (div_w), not an integer division. Each int8_tc
+// instance gets its dynamic shared memory limit raised once per device, on
+// its first launch there. svrs_int8_tc runs passes 2 and 3 and the K-split
+// reduce in one C call that makes the device current itself, so the wrapper
+// needs no device context and no Stream object.
 //
-// The conv is the implicit GEMM of fused_conv.cu with K counted in packs of
-// four channels: M = output pixels (per output phase for the transposed
-// conv), N = O, K4 = live taps * ceil(C / 4). The wrapper repacks the weight
-// once to (taps, ceil(C/4), O) int32, four consecutive channels of one output
-// channel in one word (zero for channels past C). A block stages a BK-pack
-// deep slice: activations are read as float32, quantized and packed to one
-// int32 per four channels while they are staged (one float4 load when C is a
-// multiple of 4), weights are read as packed words, and each thread
-// accumulates a TM x TN micro-tile with __dp4a in int32 registers. The
-// dequantisation, the affine and the ReLU run in the epilogue. When the
-// output tiles alone would leave most SMs idle the launcher splits K; int32
-// partials add exactly in any order, and a second pass sums them and applies
-// the epilogue.
-//
-// The transposed conv computes each of the four output phases (u, v) from
-// its four live taps only (the Pallas _T_TAPS table), as fused_conv.cu does.
-//
-// What bounds it on this card: the 64x64 decoder tail (C, O <= 64) is bound
-// by bytes (float32 activations in and out); the deep layers (C = 424, 256)
-// by operations: dp4a on the CUDA cores does 8 integer operations per lane
-// and instruction, four times the float32 FMA rate and well below the int8
-// tensor-core peak the bound is stated against. The division per staged
-// activation (a multiply by the reciprocal would flip values on rounding
-// boundaries) is paid once per N tile and tap.
+// The strided 4x4 conv (#11, the block path only) keeps the first design,
+// int8_igemm: CUDA-core dp4a on packs of four channels (the weight packed
+// to ceil(C / 4) words per tap), quantizing while it stages.
 //
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue for a mode
+// or tile configuration it does not know).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -62,15 +101,24 @@ enum Mode { kConv3 = 0, kConv4 = 1, kConvT = 2 };
 
 struct Geo {
   int B, H, W, C, O;  // input batch/height/width/channels, output channels
-  int C4;             // packs of four channels per tap: ceil(C / 4)
+  int C4;             // words of four channels per tap: ceil(C / 4) for int8_igemm,
+                      // Cp / 4 = round_up(C, 16) / 4 for int8_tc (qx's pixel stride)
   int Ho, Wo;         // GEMM grid per phase (output pixels of one phase)
   int M;              // B * Ho * Wo
   int K4;             // live taps * C4
   int phases;         // 1, or 4 for the transposed conv
   int act_group;      // images per activation scale
+  unsigned c_mul;     // k / C4 == umulhi(k, c_mul) >> c_shr for 0 <= k < 2^31, C4 > 1
+  int c_shr;
 };
 
-constexpr int BK = 8;  // packs per K step: 32 channels
+constexpr int BK = 8;  // int8_igemm: packs per K step, 32 channels
+
+// k / C4 without a division instruction (the round-up method of Granlund and
+// Montgomery, as CUTLASS's FastDivmod): exact for 0 <= k < 2^31.
+__device__ __forceinline__ int div_w(const Geo& g, int k) {
+  return g.C4 == 1 ? k : (int)(__umulhi((unsigned)k, g.c_mul) >> g.c_shr);
+}
 
 __device__ __forceinline__ float act_scale(const float* __restrict__ amax, int group) {
   return fmaxf(__fdiv_rn(amax[group], 127.0f), 1e-12f);
@@ -121,6 +169,7 @@ __device__ __forceinline__ float epilogue(int acc, float a, float ks, float scal
   return relu ? fmaxf(v, 0.0f) : v;
 }
 
+// ------------------------------------------------------------- int8_igemm
 template <int MODE, int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 int8_igemm(const float* __restrict__ x, const int* __restrict__ wq,
@@ -299,8 +348,20 @@ __global__ void splitk_reduce(const int* __restrict__ ws, const float* __restric
   }
 }
 
-// Tile configurations, the same as fused_conv.cu's; the Python launcher
-// picks one by (M, N).
+template <int MODE>
+cudaError_t reduce_splits(const float* ks, const float* scale, const float* shift,
+                          const float* amax, float* out, const int* ws, const Geo& g, int relu,
+                          int splits, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t total = (int64_t)g.phases * g.M * g.O;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, ks, scale, shift, amax, out, g, relu, splits);
+  return cudaGetLastError();
+}
+
+// int8_igemm's tile configurations; the Python launcher picks one by (M, N)
+// (ops/fused_conv.plan).
 //   0 wide:  BM=128 BN=128 TM=8 TN=8   (N > 64)
 //   1 mid:   BM=128 BN=64  TM=8 TN=4   (32 < N <= 64)
 //   2 narrow:BM=256 BN=16  TM=8 TN=2   (N <= 32)
@@ -313,18 +374,342 @@ cudaError_t launch_cfg(const float* x, const int* wq, const float* ks, const flo
   dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
   int8_igemm<MODE, BM, BN, TM, TN><<<grid, NT, 0, st>>>(x, wq, ks, scale, shift, amax, out,
                                                         ws, g, relu, splits, kchunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int64_t total = (int64_t)g.phases * g.M * g.O;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, ks, scale, shift, amax, out, g, relu, splits);
+  return reduce_splits<MODE>(ks, scale, shift, amax, out, ws, g, relu, splits, st);
+}
+
+// ---------------------------------------------------------------- act_quant
+// One thread: channels 16j .. 16j+15 of one pixel, one 16-byte word of qx.
+// vec: C % 4 == 0 and x 16-byte aligned, so a pixel's channels start on a
+// 16-byte boundary and come as whole float4s.
+constexpr int QUANT_THREADS = 256;
+
+__global__ void __launch_bounds__(QUANT_THREADS)
+act_quant(const float* __restrict__ x, const float* __restrict__ amax, int4* __restrict__ qx,
+          int words, int C16, int hw, int C, int act_group, int vec) {
+  const int e = blockIdx.x * QUANT_THREADS + threadIdx.x;
+  if (e >= words) return;
+  const int pix = e / C16, j = e - pix * C16;
+  const float a = act_scale(amax, (pix / hw) / act_group);
+  const float* const src = x + (int64_t)pix * C + 16 * j;
+  const int live = min(16, C - 16 * j);
+  int q[16];
+  if (vec) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if (4 * w < live) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(src) + w);
+        q[4 * w] = quant1(f.x, a); q[4 * w + 1] = quant1(f.y, a);
+        q[4 * w + 2] = quant1(f.z, a); q[4 * w + 3] = quant1(f.w, a);
+      } else {
+        q[4 * w] = q[4 * w + 1] = q[4 * w + 2] = q[4 * w + 3] = 0;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = i < live ? quant1(__ldg(src + i), a) : 0;
+  }
+  qx[e] = make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                    pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+}
+
+cudaError_t launch_act_quant(const float* x, const float* amax, void* qx, const Geo& g,
+                             cudaStream_t st) {
+  const int c16 = g.C4 / 4;
+  const int words = g.B * g.H * g.W * c16;
+  if (words == 0) return cudaSuccess;
+  const int vec = (g.C & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  act_quant<<<(words + QUANT_THREADS - 1) / QUANT_THREADS, QUANT_THREADS, 0, st>>>(
+      x, amax, static_cast<int4*>(qx), words, c16, g.H * g.W, g.C, g.act_group, vec);
   return cudaGetLastError();
 }
 
-Geo make_geo(int B, int H, int W, int C, int O, int act_group, int mode) {
+// ---------------------------------------------------------------- int8_tc
+constexpr int TC_BKW = 32;  // words of K per step: 128 channels
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// d += a * b on one m16n8k32 tile (A row-major 16x32 s8, B column-major
+// 32x8 s8, D 16x8 s32), exact.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BM, int BN, int STAGES>
+constexpr int tc_smem_bytes() {
+  return STAGES * (BM * (TC_BKW + 4) + TC_BKW * (BN + 8)) * (int)sizeof(int);
+}
+
+// Weight row (of the (kh * kw * Cp/4, O) packed words) that staged word k of
+// phase p reads.
+template <int MODE>
+__device__ __forceinline__ int weight_row(const Geo& g, int k, int p) {
+  if constexpr (MODE != kConvT) {
+    return k;  // every tap is live, in the weight's own order
+  } else {
+    const int t = div_w(g, k);
+    int dy, dx, wtap;
+    tap_geometry<MODE>(t, p, dy, dx, wtap);
+    return k + (wtap - t) * g.C4;  // wtap * Cp/4 + k % (Cp/4)
+  }
+}
+
+template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
+int8_tc(const int* __restrict__ qx, const int* __restrict__ wq,
+        const float* __restrict__ ks, const float* __restrict__ scale,
+        const float* __restrict__ shift, const float* __restrict__ amax,
+        float* __restrict__ out, int* __restrict__ ws, Geo g, int relu,
+        int splits, int kchunk, int vec_b) {
+  constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
+  constexpr int NT = WARPS_M * WARPS_N * 32;
+  constexpr int MI = WM / 16, NI = WN / 8;
+  constexpr int A_LD = TC_BKW + 4, B_LD = BN + 8;
+  constexpr int A_TILE = BM * A_LD, B_TILE = TC_BKW * B_LD;
+  constexpr int KQ = TC_BKW / 4;          // 16-byte groups in a row of A
+  constexpr int A_ROWS = BM * KQ / NT;    // rows of A a thread stages per step
+  constexpr int NQ = BN / 4;              // 16-byte groups in a row of B
+  constexpr int B_VECS = (TC_BKW * NQ + NT - 1) / NT;  // groups of B a thread stages per step
+  constexpr int STRIDE = MODE == kConv4 ? 2 : 1;
+  static_assert(WM % 16 == 0 && WN % 8 == 0 && STAGES >= 2 && BN % 16 == 0, "warp tile");
+  static_assert(B_LD % 32 == 8 || B_LD % 32 == 24, "conflict-free B fragment reads");
+  static_assert(NT % KQ == 0 && (BM * KQ) % NT == 0, "tile shape");
+
+  extern __shared__ __align__(16) int smem[];
+  int* const As = smem;
+  int* const Bs = smem + STAGES * A_TILE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int p = blockIdx.z / splits;
+  const int s = blockIdx.z - p * splits;
+  const int kbeg = s * kchunk;
+  const int kend = min(g.K4, kbeg + kchunk);
+  const int nsteps = kend > kbeg ? (kend - kbeg + TC_BKW - 1) / TC_BKW : 0;
+
+  // The A rows a thread stages keep their pixels for every step: row
+  // tid / KQ + i * (NT / KQ), K group tid % KQ. A row past M gets a y far
+  // outside the image, so every tap of it is masked.
+  const int kq = tid % KQ;
+  int a_pix[A_ROWS], a_y[A_ROWS], a_x[A_ROWS];
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) {
+    const int m = m0 + tid / KQ + i * (NT / KQ);
+    if (m < g.M) {
+      const int hw = g.Ho * g.Wo;
+      const int b = m / hw, r = m - b * hw;
+      const int oy = r / g.Wo, ox = r - oy * g.Wo;
+      a_y[i] = oy * STRIDE;
+      a_x[i] = ox * STRIDE;
+      a_pix[i] = (b * g.H + a_y[i]) * g.W + a_x[i];
+    } else {
+      a_y[i] = -(1 << 24); a_x[i] = 0; a_pix[i] = 0;
+    }
+  }
+
+  auto load_stage = [&](int slot, int k0) {
+    int* const as = As + slot * A_TILE + (tid / KQ) * A_LD + 4 * kq;
+    int* const bs = Bs + slot * B_TILE;
+    // words k .. k+3: 16 channels of one tap (Cp / 4 is a multiple of 4)
+    const int k = k0 + 4 * kq;
+    const bool kv = k < kend;
+    const int t = kv ? div_w(g, k) : 0;
+    const int c = k - t * g.C4;
+    int dy, dx, wtap;
+    tap_geometry<MODE>(t, p, dy, dx, wtap);
+    const int off = dy * g.W + dx;
+#pragma unroll
+    for (int i = 0; i < A_ROWS; ++i) {
+      const int iy = a_y[i] + dy, ix = a_x[i] + dx;
+      const bool v = kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+      cp_async16(as + i * (NT / KQ) * A_LD, v ? qx + (a_pix[i] + off) * g.C4 + c : qx, v);
+    }
+    // Each of the transposed conv's weight rows resolves its tap
+    // (weight_row); as in conv_tc, the thin tile's eight go two at a time.
+    constexpr int B_UNROLL = MODE == kConvT && B_VECS > 4 ? 2 : B_VECS;
+#pragma unroll (B_UNROLL)
+    for (int j = 0; j < B_VECS; ++j) {
+      const int e = tid + j * NT;
+      const int kk = e / NQ, nq = e - kk * NQ;
+      const int kr = k0 + kk, n = n0 + 4 * nq;
+      int* const dst = bs + kk * B_LD + 4 * nq;
+      if ((TC_BKW * NQ) % NT != 0 && e >= TC_BKW * NQ) continue;  // fewer groups than threads
+      const bool kv = kr < kend;
+      const int* const row = wq + (int64_t)(kv ? weight_row<MODE>(g, kr, p) : 0) * g.O;
+      if (vec_b) {
+        const bool v = kv && n < g.O;
+        cp_async16(dst, v ? row + n : wq, v);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool v = kv && n + q < g.O;
+          cp_async4(dst + q, v ? row + n + q : wq, v);
+        }
+      }
+    }
+  };
+
+  int acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load_stage(st, kbeg + st * TC_BKW);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    // slot step has landed for every thread, and every warp is done with
+    // slot step - 1, which the next load refills
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = step + STAGES - 1;
+    if (next < nsteps) load_stage(next % STAGES, kbeg + next * TC_BKW);
+    cp_async_commit();
+
+    const int live = kend - (kbeg + step * TC_BKW);  // words of K left, block-uniform
+    const int* const as = As + (step % STAGES) * A_TILE + (wm * WM + gq) * A_LD + tq;
+    const int* const bs = Bs + (step % STAGES) * B_TILE + tq * B_LD + wn * WN + gq;
+#pragma unroll
+    for (int kk = 0; kk < TC_BKW; kk += 8) {
+      if (kk >= live) break;  // a sub-step wholly past the end of K
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int* const bp = bs + kk * B_LD + ni * 8;
+        b[ni][0] = (uint32_t)bp[0];
+        b[ni][1] = (uint32_t)bp[4 * B_LD];
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int* const ap = as + mi * 16 * A_LD + kk;
+        const uint32_t a[4] = {(uint32_t)ap[0], (uint32_t)ap[8 * A_LD], (uint32_t)ap[4],
+                               (uint32_t)ap[8 * A_LD + 4]};
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], a, b[ni]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left; leave none in flight
+
+  const bool pairs = (g.O & 1) == 0;  // n is even, so n, n+1 is one 8-byte store
+  const int hw = g.Ho * g.Wo;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
+      if (m >= g.M) continue;
+      const float a = act_scale(amax, (m / hw) / g.act_group);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int n = n0 + wn * WN + ni * 8 + 2 * tq;
+        if (n >= g.O) continue;
+        const int v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (splits == 1) {
+          float* const row = out + out_offset<MODE>(g, p, m, 0);
+          const float f0 = epilogue(v0, a, ks[n], scale[n], shift[n], relu);
+          if (pairs) {
+            const float f1 = epilogue(v1, a, ks[n + 1], scale[n + 1], shift[n + 1], relu);
+            *reinterpret_cast<float2*>(row + n) = make_float2(f0, f1);
+          } else {
+            row[n] = f0;
+            if (n + 1 < g.O) row[n + 1] = epilogue(v1, a, ks[n + 1], scale[n + 1], shift[n + 1], relu);
+          }
+        } else {
+          int* const row = ws + (((int64_t)s * g.phases + p) * g.M + m) * g.O;
+          if (pairs) {
+            *reinterpret_cast<int2*>(row + n) = make_int2(v0, v1);
+          } else {
+            row[n] = v0;
+            if (n + 1 < g.O) row[n + 1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// int8_tc's tile configurations, picked by ops/fused_int8.plan_int8_tc.
+//   0 wide:   BM=128 BN=128 warps 2x4 of 64x32, 3 stages  (N > 64)
+//   1 mid:    BM=128 BN=64  warps 4x2 of 32x32, 3 stages  (16 < N <= 64)
+//   2 narrow: BM=128 BN=16  warps 8x1 of 16x16, 4 stages  (N <= 16; with four
+//             warps of 32x16, eight A rows a thread, ptxas spilled at 64 registers)
+//   3 thin:   BM=32  BN=128 warps 1x4 of 32x32, 4 stages  (M <= 64 per phase)
+template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+cudaError_t launch_tc(const int* qx, const int* wq, const float* ks, const float* scale,
+                      const float* shift, const float* amax, float* out, int* ws,
+                      const Geo& g, int relu, int splits, int kchunk, cudaStream_t st) {
+  constexpr int NT = (BM / WM) * (BN / WN) * 32;
+  constexpr int SMEM = tc_smem_bytes<BM, BN, STAGES>();
+  // The attribute holds per device; set it on this instance's first launch
+  // on each device (a repeat from two threads at once is harmless).
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(int8_tc<MODE, BM, BN, WM, WN, STAGES>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
+  }
+  const int vec_b = g.O % 4 == 0 && (reinterpret_cast<uintptr_t>(wq) & 15) == 0;
+  dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
+  int8_tc<MODE, BM, BN, WM, WN, STAGES><<<grid, NT, SMEM, st>>>(
+      qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, vec_b);
+  return reduce_splits<MODE>(ks, scale, shift, amax, out, ws, g, relu, splits, st);
+}
+
+template <int MODE>
+cudaError_t launch_tc_cfg(int cfg, const int* qx, const int* wq, const float* ks,
+                          const float* scale, const float* shift, const float* amax,
+                          float* out, int* ws, const Geo& g, int relu, int splits, int kchunk,
+                          cudaStream_t st) {
+  switch (cfg) {
+    case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 2: return launch_tc<MODE, 128, 16, 16, 16, 4>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// word_pad: the channel multiple of a tap's words, 4 for int8_igemm
+// (ceil(C / 4) words), 16 for int8_tc (Cp / 4 words, qx's pixel stride).
+Geo make_geo(int B, int H, int W, int C, int O, int act_group, int mode, int word_pad) {
   Geo g;
   g.B = B; g.H = H; g.W = W; g.C = C; g.O = O;
-  g.C4 = (C + 3) / 4;
+  g.C4 = (C + word_pad - 1) / word_pad * word_pad / 4;
   g.act_group = act_group;
   int taps;
   if (mode == kConv3) { g.Ho = H; g.Wo = W; taps = 9; g.phases = 1; }
@@ -332,31 +717,27 @@ Geo make_geo(int B, int H, int W, int C, int O, int act_group, int mode) {
   else { g.Ho = H; g.Wo = W; taps = 4; g.phases = 4; }
   g.K4 = taps * g.C4;
   g.M = B * g.Ho * g.Wo;
+  // div_w's constants: c_shr = 31 + ceil(log2 C4) - 32, c_mul = ceil(2^(c_shr + 32) / C4)
+  int l = 0;
+  while ((1u << l) < (unsigned)g.C4) ++l;
+  g.c_shr = g.C4 > 1 ? l - 1 : 0;
+  g.c_mul = g.C4 > 1 ? (unsigned)(((1ull << (31 + l)) + g.C4 - 1) / g.C4) : 0u;
   return g;
 }
 
-template <int MODE>
-int launch(int cfg, const void* x, const void* wq, const void* ks, const void* scale,
-           const void* shift, const void* amax, void* out, void* ws, int B, int H, int W,
-           int C, int O, int act_group, int relu, int splits, int kchunk, void* stream) {
-  const Geo g = make_geo(B, H, W, C, O, act_group, MODE);
-  const float* xf = static_cast<const float*>(x);
-  const int* wi = static_cast<const int*>(wq);
-  const float* kf = static_cast<const float*>(ks);
-  const float* sf = static_cast<const float*>(scale);
-  const float* tf = static_cast<const float*>(shift);
-  const float* af = static_cast<const float*>(amax);
-  float* of = static_cast<float*>(out);
-  int* wsi = static_cast<int*>(ws);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cfg) {
-    case 0: return launch_cfg<MODE, 128, 128, 8, 8>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    case 1: return launch_cfg<MODE, 128, 64, 8, 4>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    case 2: return launch_cfg<MODE, 256, 16, 8, 2>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    case 3: return launch_cfg<MODE, 32, 128, 4, 4>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    default: return (int)cudaErrorInvalidValue;
+// Makes `device` current for a call (restored by the destructor), so the
+// Python wrappers need no device context.
+struct OnDevice {
+  int prev = 0, device;
+  cudaError_t err;
+  explicit OnDevice(int d) : device(d) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   }
-}
+  ~OnDevice() {
+    if (err == cudaSuccess && prev != device) cudaSetDevice(prev);
+  }
+};
 
 // Per-group absmax of x (svrs_act_absmax), group g = floats
 // [g * per_group, min(numel, (g + 1) * per_group)).
@@ -430,48 +811,81 @@ act_absmax(const float* __restrict__ x, float* __restrict__ amax, int64_t per_gr
 extern "C" {
 
 // x must be 16-byte aligned and numel > 0; amax gets one float per group.
-// Runs on CUDA device `device` (made current for the call, then restored),
-// so the Python wrapper needs no device context.
 int svrs_act_absmax(int device, const void* x, void* amax, long long per_group,
                     long long numel, int groups, int blocks_per_group, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)groups, st);
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)groups, st);
   if (err == cudaSuccess) {
     act_absmax<<<dim3(groups, blocks_per_group), AMAX_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<float*>(amax), (int64_t)per_group,
         (int64_t)numel);
     err = cudaGetLastError();
   }
-  if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }
 
-int svrs_int8_conv3x3(int cfg, const void* x, const void* wq, const void* ks,
-                      const void* scale, const void* shift, const void* amax, void* out,
-                      void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
-                      int splits, int kchunk, void* stream) {
-  return launch<kConv3>(cfg, x, wq, ks, scale, shift, amax, out, ws, B, H, W, C, O, act_group,
-                        relu, splits, kchunk, stream);
+// qx: B * H * W * round_up(C, 16) bytes, 16-byte aligned, fewer than 2^31.
+int svrs_act_quant(int device, const void* x, const void* amax, void* qx, int B, int H, int W,
+                   int C, int act_group, void* stream) {
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  const Geo g = make_geo(B, H, W, C, 0, act_group, kConv3, 16);
+  return (int)launch_act_quant(static_cast<const float*>(x), static_cast<const float*>(amax),
+                               qx, g, static_cast<cudaStream_t>(stream));
+}
+
+// The 3x3 (mode 0) or transposed (mode 2) W8A8 conv on the tensor cores:
+// act_quant of x into qx, int8_tc over qx, and the K-split reduce when
+// splits > 1, on `stream` of `device`. amax is the group absmax of x
+// (svrs_act_absmax); wq the packed weight, (kh * kw * round_up(C, 16) / 4, O)
+// words; ws splits * phases * M * O ints when splits > 1.
+int svrs_int8_tc(int device, int mode, int cfg, const void* x, const void* wq, const void* ks,
+                 const void* scale, const void* shift, const void* amax, void* qx, void* out,
+                 void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
+                 int splits, int kchunk, void* stream) {
+  if (mode != kConv3 && mode != kConvT) return (int)cudaErrorInvalidValue;
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(B, H, W, C, O, act_group, mode, 16);
+  const float* af = static_cast<const float*>(amax);
+  cudaError_t err = launch_act_quant(static_cast<const float*>(x), af, qx, g, st);
+  if (err != cudaSuccess) return (int)err;
+  const int* q = static_cast<const int*>(qx);
+  const int* w = static_cast<const int*>(wq);
+  const float* kf = static_cast<const float*>(ks);
+  const float* sf = static_cast<const float*>(scale);
+  const float* tf = static_cast<const float*>(shift);
+  float* of = static_cast<float*>(out);
+  int* wsi = static_cast<int*>(ws);
+  if (mode == kConv3)
+    return (int)launch_tc_cfg<kConv3>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+  return (int)launch_tc_cfg<kConvT>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
 }
 
 int svrs_int8_conv4x4s2(int cfg, const void* x, const void* wq, const void* ks,
                         const void* scale, const void* shift, const void* amax, void* out,
                         void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
                         int splits, int kchunk, void* stream) {
-  return launch<kConv4>(cfg, x, wq, ks, scale, shift, amax, out, ws, B, H, W, C, O, act_group,
-                        relu, splits, kchunk, stream);
-}
-
-int svrs_int8_convT4x4s2(int cfg, const void* x, const void* wq, const void* ks,
-                         const void* scale, const void* shift, const void* amax, void* out,
-                         void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
-                         int splits, int kchunk, void* stream) {
-  return launch<kConvT>(cfg, x, wq, ks, scale, shift, amax, out, ws, B, H, W, C, O, act_group,
-                        relu, splits, kchunk, stream);
+  const Geo g = make_geo(B, H, W, C, O, act_group, kConv4, 4);
+  const float* xf = static_cast<const float*>(x);
+  const int* wi = static_cast<const int*>(wq);
+  const float* kf = static_cast<const float*>(ks);
+  const float* sf = static_cast<const float*>(scale);
+  const float* tf = static_cast<const float*>(shift);
+  const float* af = static_cast<const float*>(amax);
+  float* of = static_cast<float*>(out);
+  int* wsi = static_cast<int*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cfg) {
+    case 0: return launch_cfg<kConv4, 128, 128, 8, 8>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+    case 1: return launch_cfg<kConv4, 128, 64, 8, 4>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+    case 2: return launch_cfg<kConv4, 256, 16, 8, 2>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+    case 3: return launch_cfg<kConv4, 32, 128, 4, 4>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -69,12 +69,15 @@ class Routed(nn.Module):
 
 
 class ConvWeights(nn.Module):
-    """Kernel ``(k, k, C, O)`` and bias ``(O,)`` of a conv (flax ``kernel``/``bias``)."""
+    """Kernel ``(k, k, C, O)`` and bias ``(O,)`` of a conv (flax ``kernel``/``bias``);
+    ``int8_kernel`` names the W8A8 kernel that runs it when int8 weights are
+    attached, which fixes how they are packed."""
 
     def __init__(self, k: int, in_features: int, features: int, fan: int,
-                 device=None) -> None:
+                 int8_kernel: str, device=None) -> None:
         super().__init__()
-        self.fan = fan  # torch-default init: U(+-1/sqrt(fan)) for both
+        self.fan = fan
+        self.int8_kernel = int8_kernel  # torch-default init: U(+-1/sqrt(fan)) for both
         self.kernel = nn.Parameter(torch.empty(k, k, in_features, features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         # the fused kernels' scale when the conv runs with its bias alone
@@ -83,7 +86,7 @@ class ConvWeights(nn.Module):
         # int8 weights (flax collection ``quant``): absent on a float32 conv
         self.register_buffer("kernel_q", None)
         self.register_buffer("kernel_s", None)
-        # kernel_q repacked for the int8 kernels: a cache, rebuilt by set_quant
+        # kernel_q packed for its int8 kernel: a cache, rebuilt by set_quant
         self.register_buffer("kernel_p", None, persistent=False)
 
     def reset_parameters(self, rng: np.random.Generator) -> None:
@@ -106,14 +109,16 @@ class ConvWeights(nn.Module):
         if q.shape != self.kernel.shape or tuple(s.shape) != (self.kernel.shape[-1],):
             raise ValueError(f"int8 weights {tuple(q.shape)} / {tuple(s.shape)} do not match "
                              f"a kernel of {tuple(self.kernel.shape)}")
-        self.kernel_q, self.kernel_s, self.kernel_p = q, s, f8.pack_kernel_q(q)
+        self.kernel_q, self.kernel_s = q, s
+        self.kernel_p = f8.pack_for(self.int8_kernel, q)
 
 
 class Conv3x3(ConvWeights, Routed):
     """3x3/s1 SAME conv with bias, through the fused 3x3 kernel."""
 
     def __init__(self, in_features: int, features: int, device=None) -> None:
-        super().__init__(3, in_features, features, in_features * 9, device=device)
+        super().__init__(3, in_features, features, in_features * 9, "int8_conv3x3_bn_relu",
+                         device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_q is not None and not self.training:
@@ -204,7 +209,7 @@ class DownBlock(_Block):
         super().__init__()
         self.conv = Conv3x3(in_features, in_features, device=device)
         self.downsample = ConvWeights(4, in_features, features, in_features * 16,
-                                      device=device)
+                                      self._int8_kernel, device=device)
         self.bn = BatchNorm(features, device=device)
 
 
@@ -222,7 +227,7 @@ class UpBlock(_Block):
         self.conv = Conv3x3(in_features, in_features, device=device)
         # torch's init fan for a transposed conv is out * kh * kw
         self.upsample = ConvWeights(4, in_features, features, features * 16,
-                                    device=device)
+                                    self._int8_kernel, device=device)
         self.bn = BatchNorm(features, device=device)
 
 

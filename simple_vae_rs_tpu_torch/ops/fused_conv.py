@@ -65,8 +65,9 @@ def reset_launches() -> None:
         role_launches[name] = dict.fromkeys(ROLES, 0)
 
 
-# Tile configurations of the CUDA-core implicit GEMM of the int8 kernels
-# (``csrc/int8_conv.cu``, launched with :func:`plan`): (BM, BN) per index.
+# Tile configurations of the CUDA-core implicit GEMM of the int8 strided conv
+# (``int8_igemm`` in ``csrc/int8_conv.cu``, launched with :func:`plan`): (BM, BN)
+# per index.
 TILES = {0: (128, 128), 1: (128, 64), 2: (256, 16), 3: (32, 128)}
 _BK = 8
 _SMS = 132  # H100 SXM streaming multiprocessors
@@ -88,7 +89,7 @@ _TC_MIN_SPLIT_K = 4 * TC_BK
 
 def plan(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
     """Launch geometry ``(tile config, K splits, K per split)`` of the
-    CUDA-core int8 kernels for a GEMM of ``m`` output pixels (per phase) x
+    CUDA-core int8 kernel for a GEMM of ``m`` output pixels (per phase) x
     ``n`` channels x ``k`` reduction.
 
     Thin tiles for few pixels (the weight-bound prior heads), narrow tiles
@@ -112,12 +113,14 @@ def plan(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
     return cfg, _cdiv(k, kchunk), kchunk
 
 
-def plan_tc(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
-    """Launch geometry ``(tile config, K splits, K per split)`` of the
-    tensor-core kernel (:data:`TC_TILES`) for a GEMM of ``m`` output pixels
-    per phase x ``n`` channels x ``k`` reduction, ``phases`` of them (4 for
-    the transposed conv, each its own blocks): the same choices as
-    :func:`plan`, with K per split a multiple of the 32-deep step."""
+def plan_tc(m: int, n: int, k: int, phases: int = 1,
+            tiles: Dict[int, Tuple[int, ...]] = TC_TILES) -> Tuple[int, int, int]:
+    """Launch geometry ``(tile config, K splits, K per split)`` of a
+    tensor-core kernel with tile configurations ``tiles`` (:data:`TC_TILES`;
+    the int8 kernel passes its own) for a GEMM of ``m`` output pixels per
+    phase x ``n`` channels x ``k`` reduction, ``phases`` of them (4 for the
+    transposed conv, each its own blocks): the same choices as :func:`plan`,
+    with K per split a multiple of the 32-deep step."""
     if m <= 64:
         cfg = 3
     elif n <= 16:
@@ -126,7 +129,7 @@ def plan_tc(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
         cfg = 1
     else:
         cfg = 0
-    bm, bn = TC_TILES[cfg][:2]
+    bm, bn = tiles[cfg][:2]
     blocks = _cdiv(m, bm) * _cdiv(n, bn) * phases
     splits = 1
     if blocks < _SMS:
@@ -135,12 +138,12 @@ def plan_tc(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
     return cfg, _cdiv(k, kchunk), kchunk
 
 
-def tc_smem_bytes(cfg: int) -> int:
-    """Dynamic shared memory of tensor-core tile ``cfg``: its cp.async ring of
-    A ``[BM][BK + 4]`` and B ``[BK][BN + 8]`` slots, float32 (the CUDA
-    source's ``tc_smem_bytes``, which sizes the launch; here for the plan's
-    checks)."""
-    bm, bn, _, _, stages = TC_TILES[cfg]
+def tc_smem_bytes(cfg: int, tiles: Dict[int, Tuple[int, ...]] = TC_TILES) -> int:
+    """Dynamic shared memory of tensor-core tile ``cfg`` of ``tiles``: its
+    cp.async ring of A ``[BM][BK + 4]`` and B ``[BK][BN + 8]`` 4-byte slots
+    (float32, or int32 words of the int8 kernel; the CUDA source's
+    ``tc_smem_bytes``, which sizes the launch; here for the plan's checks)."""
+    bm, bn, _, _, stages = tiles[cfg]
     return 4 * stages * (bm * (TC_BK + 4) + TC_BK * (bn + 8))
 
 

@@ -24,12 +24,16 @@ scale per call an image's output depends on the other images of its batch:
 that is the reference's behaviour.
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
-it launches the absmax pass and the conv kernel of ``csrc/int8_conv.cu`` on
-the current stream (no host sync between them) or raises. :data:`launches`
-counts the launches of each. The plain versions accumulate exactly (a
-float64 conv of integer-valued tensors, every partial sum below 2**53), as
-the kernels' int32 does; the reference's float32 conv rounds once sums pass
-2**24, which K = 9 * 424 reaches.
+it launches the kernels of ``csrc/int8_conv.cu`` on the current stream (no
+host sync between them) or raises: the absmax pass, then for the 3x3 and the
+transposed conv (:data:`TC_KERNELS`) the quantize pass (:func:`act_quant`,
+each activation quantized once into an int8 NHWC buffer with 16-channel
+padding) and the conv on the int8 tensor cores, in one C call; for the
+strided 4x4 conv the CUDA-core ``dp4a`` kernel, which quantizes as it
+stages. :data:`launches` counts the launches of each. The plain versions
+accumulate exactly (a float64 conv of integer-valued tensors, every partial
+sum below 2**53), as the kernels' int32 does; the reference's float32 conv
+rounds once sums pass 2**24, which K = 9 * 424 reaches.
 """
 
 from __future__ import annotations
@@ -49,15 +53,32 @@ SOURCE = "int8_conv.cu"
 
 # int8 kernel -> (C entry point, the float kernel with the same geometry)
 _KERNELS = {
-    "int8_conv3x3_bn_relu": ("svrs_int8_conv3x3", "fused_conv3x3_bn_relu"),
+    "int8_conv3x3_bn_relu": ("svrs_int8_tc", "fused_conv3x3_bn_relu"),
     "int8_conv4x4s2_bn_relu": ("svrs_int8_conv4x4s2", "fused_conv4x4s2_bn_relu"),
-    "int8_convT4x4s2_bn_relu": ("svrs_int8_convT4x4s2", "fused_convT4x4s2_bn_relu"),
+    "int8_convT4x4s2_bn_relu": ("svrs_int8_tc", "fused_convT4x4s2_bn_relu"),
 }
 ABSMAX = "act_absmax"
+QUANT = "act_quant"
+
+# The kernels on the int8 tensor cores (``int8_tc``, fed by the quantize
+# pass), with their mode in the C entry point; the strided 4x4 conv keeps the
+# CUDA-core kernel, :func:`fused_conv.plan` and packs of ``ceil(C / 4)``.
+TC_KERNELS = {"int8_conv3x3_bn_relu": 0, "int8_convT4x4s2_bn_relu": 2}
+TC_PAD = 16  # channel multiple of the quantized activations and the packed weight
+# Tile configurations of ``int8_tc``: (BM, BN, warp tile WM, WN, cp.async
+# stages) per index; K runs in steps of 32 words (128 channels), the step of
+# the float kernels' ``fc.TC_BK`` floats, so the two share their plan.
+TC_TILES = {
+    0: (128, 128, 64, 32, 3),  # N > 64
+    1: (128, 64, 32, 32, 3),   # 16 < N <= 64
+    2: (128, 16, 16, 16, 4),   # N <= 16: the 64x64 tail's O = 16 and O = 4
+    3: (32, 128, 32, 32, 4),   # M <= 64 per phase
+}
+TC_BKW = fc.TC_BK
 
 # Launches since the last reset_launches(): a wrapper adds one per kernel it
-# launches (the absmax pass and the conv), and nowhere else.
-launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, ABSMAX: 0}
+# launches (the absmax pass, the quantize pass and the conv), and nowhere else.
+launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, ABSMAX: 0, QUANT: 0}
 
 
 def reset_launches() -> None:
@@ -74,13 +95,41 @@ def output_shape(name: str, x_shape, o: int) -> Tuple[int, int, int, int]:
     return fc.output_shape(float_name(name), x_shape, o)
 
 
+def channel_pad(name: str) -> int:
+    """Channel multiple of kernel ``name``'s packed weight (and, for the
+    tensor-core kernels, of the quantized activations): 16 or 4."""
+    return TC_PAD if name in TC_KERNELS else 4
+
+
+def padded_channels(c: int, pad: int = TC_PAD) -> int:
+    return _cdiv(c, pad) * pad
+
+
 def geometry(name: str, x_shape, o: int) -> Tuple[int, int, int, int]:
-    """GEMM shape ``(M per phase, N, K4, phases)`` of a kernel call, K4 in
-    packs of four channels: live taps * ceil(C / 4)."""
+    """GEMM shape ``(M per phase, N, K in words, phases)`` of a kernel call,
+    a word being four channels of one tap: live taps * ``ceil(C / 4)`` for
+    the CUDA-core kernel, live taps * ``round_up(C, 16) / 4`` for the
+    tensor-core ones."""
     _, taps, stride, phases = fc._KERNELS[float_name(name)]
     b, h, w, c = x_shape
     ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
-    return b * ho * wo, o, taps * _cdiv(c, 4), phases
+    return b * ho * wo, o, taps * padded_channels(c, channel_pad(name)) // 4, phases
+
+
+def plan_int8_tc(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
+    """Launch geometry ``(tile config, K splits, K words per split)`` of
+    ``int8_tc`` for a GEMM of ``m`` output pixels per phase x ``n`` channels
+    x ``k`` words, ``phases`` of them: :func:`fused_conv.plan_tc`'s choices
+    over :data:`TC_TILES` (thin tiles for few pixels, narrow ones for few
+    channels, a K split of whole 32-word steps when the output tiles alone
+    would leave most of the card's SMs idle)."""
+    return fc.plan_tc(m, n, k, phases, TC_TILES)
+
+
+def tc_smem_bytes(cfg: int) -> int:
+    """Dynamic shared memory of ``int8_tc`` tile ``cfg``: its cp.async ring
+    of A ``[BM][32 + 4]`` and B ``[32][BN + 8]`` int32 slots."""
+    return fc.tc_smem_bytes(cfg, TC_TILES)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -94,16 +143,22 @@ def _group(b: int, act_group: Optional[int]) -> int:
     return max(1, min(group, b))
 
 
-def pack_kernel_q(kernel_q: Tensor) -> Tensor:
-    """``(kh, kw, C, O)`` int8 -> ``(kh * kw * ceil(C / 4), O)`` int32: four
-    consecutive input channels of one output channel in one word (channel
-    ``4 j + i`` in byte ``i``, zero past ``C``), the operand layout of the
-    kernels' 4-way int8 dot."""
+def pack_kernel_q(kernel_q: Tensor, pad: int = 4) -> Tensor:
+    """``(kh, kw, C, O)`` int8 -> ``(kh * kw * round_up(C, pad) / 4, O)``
+    int32: four consecutive input channels of one output channel in one word
+    (channel ``4 j + i`` in byte ``i``, zero past ``C``), the operand layout
+    of the CUDA-core kernel's 4-way int8 dot (``pad`` 4) and of the s8 tensor
+    core MMA's B fragment (``pad`` 16, :func:`pack_for`)."""
     kh, kw, c, o = kernel_q.shape
-    c4 = _cdiv(c, 4)
+    c4 = padded_channels(c, pad) // 4
     q = F.pad(kernel_q, (0, 0, 0, 4 * c4 - c))
     q = q.reshape(kh * kw, c4, 4, o).permute(0, 1, 3, 2).contiguous()
     return q.view(torch.int32).reshape(kh * kw * c4, o)
+
+
+def pack_for(name: str, kernel_q: Tensor) -> Tensor:
+    """``kernel_q`` packed as kernel ``name`` takes it (:func:`channel_pad`)."""
+    return pack_kernel_q(kernel_q, channel_pad(name))
 
 
 def _check(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
@@ -127,13 +182,27 @@ def act_absmax_plain(x: Tensor, act_group: Optional[int] = None) -> Tensor:
     return per_image.view(-1, group).amax(dim=1)
 
 
+def _scale_per_image(amax: Tensor, b: int, act_group: Optional[int]) -> Tensor:
+    """The activation scale ``max(amax / 127, 1e-12)`` of each image, ``(B, 1, 1, 1)``."""
+    a = torch.clamp_min(true_div(amax, QMAX), 1e-12)
+    return a.repeat_interleave(_group(b, act_group))[:b].view(b, 1, 1, 1)
+
+
 def quantize_act(x: Tensor, act_group: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """The in-kernel activation quantization (JAX ``_quant_act``):
     integer-valued float32 ``qx`` and the per-image scale ``(B, 1, 1, 1)``."""
-    b = x.shape[0]
-    a = torch.clamp_min(true_div(act_absmax_plain(x, act_group), QMAX), 1e-12)
-    a = a.repeat_interleave(_group(b, act_group))[:b].view(b, 1, 1, 1)
+    a = _scale_per_image(act_absmax_plain(x, act_group), x.shape[0], act_group)
     return torch.clamp(torch.round(x / a), -QMAX, QMAX), a
+
+
+def act_quant_plain(x: Tensor, amax: Tensor, act_group: Optional[int] = None) -> Tensor:
+    """Plain version of :func:`act_quant`: :func:`quantize_act` with the
+    group absmax ``amax`` given, its channels zero-padded to a multiple of
+    16, as int8 ``(B, H, W, round_up(C, 16))``."""
+    c = x.shape[-1]
+    a = _scale_per_image(amax, x.shape[0], act_group)
+    q = torch.clamp(torch.round(x / a), -QMAX, QMAX)
+    return F.pad(q, (0, padded_channels(c) - c)).to(torch.int8)
 
 
 def _plain(name: str, x, kernel_q, kernel_s, scale, shift, relu, act_group) -> Tensor:
@@ -186,15 +255,15 @@ def _library() -> ctypes.CDLL:
         from simple_vae_rs_tpu_torch.ops import _build
 
         lib = _build.load(SOURCE)
-        for sym, _ in _KERNELS.values():
-            fn = getattr(lib, sym)
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                           + [ctypes.c_void_p])
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.svrs_int8_conv4x4s2.argtypes = [i32] + [vp] * 8 + [i32] * 9 + [vp]
+        lib.svrs_int8_tc.argtypes = [i32] * 3 + [vp] * 9 + [i32] * 9 + [vp]
+        lib.svrs_act_quant.argtypes = [i32] + [vp] * 3 + [i32] * 5 + [vp]
+        lib.svrs_act_absmax.argtypes = [i32, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
+                                        i32, i32, vp]
+        for fn in (lib.svrs_int8_conv4x4s2, lib.svrs_int8_tc, lib.svrs_act_quant,
+                   lib.svrs_act_absmax):
             fn.restype = ctypes.c_int
-        lib.svrs_act_absmax.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p]
-        lib.svrs_act_absmax.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -253,6 +322,42 @@ def act_absmax(x: Tensor, act_group: Optional[int] = None) -> Tensor:
     return amax
 
 
+def _qx_buffer(x: Tensor) -> Tensor:
+    b, h, w, c = x.shape
+    if b * h * w * padded_channels(c) >= 2**31:
+        raise ValueError(f"{QUANT}: tensor too large for 32-bit indices")
+    return torch.empty((b, h, w, padded_channels(c)), device=x.device, dtype=torch.int8)
+
+
+def act_quant(x: Tensor, amax: Tensor, act_group: Optional[int] = None) -> Tensor:
+    """``x`` quantized with its group absmax ``amax`` (from :func:`act_absmax`)
+    into int8 ``(B, H, W, round_up(C, 16))``, the pad channels 0 (see
+    :func:`act_quant_plain`): the quantize pass of the tensor-core int8
+    convs, which :func:`int8_conv` launches inside their own call; here
+    alone, for its checks and its time."""
+    if x.device.type == "cpu":
+        return act_quant_plain(x, amax, act_group)
+    if x.device.type != "cuda":
+        raise ValueError(f"{QUANT}: tensors must be on the CPU or a CUDA card, not {x.device}")
+    x = _cuda_input(QUANT, x)
+    b, h, w, c = x.shape
+    group = _group(b, act_group)
+    if (amax.dtype != torch.float32 or amax.device != x.device or not amax.is_contiguous()
+            or tuple(amax.shape) != (_cdiv(max(b, 1), group),)):
+        raise ValueError(f"{QUANT}: amax must be contiguous float32 "
+                         f"({_cdiv(max(b, 1), group)},) on {x.device}")
+    qx = _qx_buffer(x)
+    if qx.numel() == 0:
+        return qx
+    dev = x.get_device()
+    err = _library().svrs_act_quant(dev, x.data_ptr(), amax.data_ptr(), qx.data_ptr(),
+                                    b, h, w, c, group, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"{QUANT}: CUDA launch failed with cudaError {err}")
+    launches[QUANT] += 1
+    return qx
+
+
 def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
             shift: Tensor, relu: bool, act_group: Optional[int],
             packed: Optional[Tensor]) -> Tensor:
@@ -265,8 +370,9 @@ def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Ten
     b, h, w, c = x.shape
     m, n, k4, phases = geometry(name, x.shape, kernel_q.shape[-1])
     if packed is None:
-        packed = pack_kernel_q(kernel_q)
-    want = (kernel_q.shape[0] * kernel_q.shape[1] * _cdiv(c, 4), n)
+        packed = pack_for(name, kernel_q)
+    want = (kernel_q.shape[0] * kernel_q.shape[1] * padded_channels(c, channel_pad(name)) // 4,
+            n)
     if packed.dtype != torch.int32 or tuple(packed.shape) != want or not packed.is_contiguous():
         raise ValueError(f"{name}: packed weight must be contiguous int32 {want}, "
                          f"got {packed.dtype} {tuple(packed.shape)}")
@@ -280,18 +386,32 @@ def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Ten
         return out
     group = _group(b, act_group)
     amax = act_absmax(x, group)
-    cfg, splits, kchunk = fc.plan(m, n, k4, phases)
+    tc = name in TC_KERNELS
+    cfg, splits, kchunk = (plan_int8_tc if tc else fc.plan)(m, n, k4, phases)
     ws = (torch.empty((splits * phases * m * n,), device=dev, dtype=torch.int32)
           if splits > 1 else None)
-    fn = getattr(_library(), _KERNELS[name][0])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(), scale.data_ptr(),
-                 shift.data_ptr(), amax.data_ptr(), out.data_ptr(),
-                 ws.data_ptr() if ws is not None else None,
-                 b, h, w, c, n, group, int(relu), splits, kchunk, stream)
+    ws_ptr = ws.data_ptr() if ws is not None else None
+    if tc:
+        qx = _qx_buffer(x)
+        # quantize pass, conv and K-split reduce in one C call that makes the
+        # device current itself, on the raw handle of its current stream
+        index = x.get_device()
+        err = _library().svrs_int8_tc(
+            index, TC_KERNELS[name], cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), amax.data_ptr(), qx.data_ptr(), out.data_ptr(),
+            ws_ptr, b, h, w, c, n, group, int(relu), splits, kchunk,
+            torch._C._cuda_getCurrentRawStream(index))
+    else:
+        fn = getattr(_library(), _KERNELS[name][0])
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(), scale.data_ptr(),
+                     shift.data_ptr(), amax.data_ptr(), out.data_ptr(), ws_ptr,
+                     b, h, w, c, n, group, int(relu), splits, kchunk, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    if tc:
+        launches[QUANT] += 1
     launches[name] += 1
     return out
 
@@ -300,7 +420,7 @@ def int8_conv(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: T
               shift: Tensor, relu: bool, plain: bool = False,
               act_group: Optional[int] = None, packed: Optional[Tensor] = None) -> Tensor:
     """W8A8 conv ``name``: its plain version with ``plain`` or on CPU
-    tensors, else the kernel. ``packed`` is ``pack_kernel_q(kernel_q)`` when
+    tensors, else the kernels. ``packed`` is ``pack_for(name, kernel_q)`` when
     the caller keeps it (the conv modules do), else it is built per call."""
     if plain or x.device.type == "cpu":
         return PLAIN[name](x, kernel_q, kernel_s, scale, shift, relu, act_group)

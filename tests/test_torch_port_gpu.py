@@ -7,7 +7,8 @@ Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (float32 both, TF32 off,
 sums in another order); the row reductions 1e-5 (every element term >= 0);
 a training step as ``chip_smoke.py`` holds it (loss terms rtol 1e-4, each
 gradient leaf 1e-3 of the largest gradient in its block). The int8 convs
-1e-5 * max|plain| (the same integers summed exactly on both sides), the
+1e-5 * max|plain| (the same integers summed exactly on both sides), and the
+tensor-core ones (#9, #12) and their quantize pass bit for bit; the
 stochastic quantizer byte for byte, the int8 resolver against its plain path
 2e-3 absolute (a float32 layer above an int8 conv may move an activation
 across a rounding boundary). The chain kernel 1e-4 * max|plain| as the other
@@ -265,7 +266,10 @@ def test_cuda_train_and_val_step_match_plain_path(cuda):
 
 # (name, x shape, O, relu, act_group): ragged packs (C=3, C=6), odd H/W, O=5,
 # a K split (few pixels, many channels), groups smaller than the batch with a
-# ragged last group, and the canonical deep decoder shapes
+# ragged last group, and the canonical deep decoder shapes; for the
+# tensor-core kernels (#9, #12) also C = 5, 7, 130, 300 and 424 (padded to
+# 16, 16, 144, 304, 432), O = 9, 13, 70 and 200 (weight rows that are not
+# whole 16-byte words) and every tile
 INT8_CASES = [
     ("int8_conv3x3_bn_relu", (2, 8, 8, 4), 8, True, None),
     ("int8_conv3x3_bn_relu", (3, 5, 7, 3), 5, False, None),
@@ -273,12 +277,20 @@ INT8_CASES = [
     ("int8_conv3x3_bn_relu", (1, 4, 4, 300), 200, False, None),
     ("int8_conv3x3_bn_relu", (16, 8, 8, 424), 424, False, None),
     ("int8_conv3x3_bn_relu", (4, 64, 64, 16), 4, False, 1),
+    ("int8_conv3x3_bn_relu", (3, 5, 7, 7), 9, True, None),
+    ("int8_conv3x3_bn_relu", (2, 9, 9, 130), 70, True, 1),
+    ("int8_conv3x3_bn_relu", (3, 6, 7, 5), 30, False, 2),
+    ("int8_conv3x3_bn_relu", (16, 64, 64, 64), 16, True, None),
     ("int8_conv4x4s2_bn_relu", (3, 10, 6, 5), 7, False, 1),
     ("int8_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, True, None),
     ("int8_conv4x4s2_bn_relu", (16, 16, 16, 64), 128, True, None),
     ("int8_convT4x4s2_bn_relu", (3, 5, 7, 4), 9, False, 2),
     ("int8_convT4x4s2_bn_relu", (16, 8, 8, 424), 256, True, None),
     ("int8_convT4x4s2_bn_relu", (4, 4, 4, 130), 70, False, 3),
+    ("int8_convT4x4s2_bn_relu", (3, 5, 6, 5), 13, True, 2),
+    ("int8_convT4x4s2_bn_relu", (1, 4, 4, 300), 200, False, None),
+    ("int8_convT4x4s2_bn_relu", (2, 7, 5, 6), 24, True, None),
+    ("int8_convT4x4s2_bn_relu", (16, 16, 16, 256), 128, True, None),
 ]
 
 
@@ -294,14 +306,50 @@ def test_int8_cuda_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert f8.launches[name] == before[name] + 1
     assert f8.launches["act_absmax"] == before["act_absmax"] + 1
+    # the tensor-core kernels quantize in a pass of their own, once a call
+    assert f8.launches["act_quant"] == before["act_quant"] + (name in f8.TC_KERNELS)
     want = f8.PLAIN[name](x, kq, ks, s, t, relu, group)
     assert got.shape == want.shape == f8.output_shape(name, shape, o)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    if name in f8.TC_KERNELS:  # exact int32 sums, the plain version's epilogue
+        assert torch.equal(got, want)
     assert torch.equal(f8.act_absmax(x, group), f8.act_absmax_plain(x, group))
-    # a cached repack gives the same result, and the same result every run
+    # a cached packing gives the same result, and the same result every run
     again = f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group,
-                              packed=f8.pack_kernel_q(kq))
+                              packed=f8.pack_for(name, kq))
     assert torch.equal(again, got)
+
+
+# the quantize pass at the CPU replay's shapes (float4 and scalar reads,
+# short last groups), at a 1000-draw decode layer's (262 MB) and with values
+# exactly on a rounding boundary (scales 1/8 and 1/16)
+QUANT_CASES = [((3, 5, 7, 3), None), ((5, 3, 4, 5), 2), ((2, 3, 3, 7), 1), ((3, 4, 4, 16), 2),
+               ((2, 3, 5, 64), None), ((2, 2, 3, 130), 1), ((3, 2, 2, 424), 2),
+               ((1000, 16, 16, 256), None), ((1000, 8, 8, 424), 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,act_group", QUANT_CASES, ids=str)
+def test_act_quant_cuda_kernel_gives_the_plain_versions_bytes(cuda, shape, act_group):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x = x * (0.25 + 2 * torch.rand((shape[0], 1, 1, 1), generator=gen, device=cuda))
+    amax = f8.act_absmax(x, act_group)
+    before = f8.launches["act_quant"]
+    got = f8.act_quant(x, amax, act_group)
+    torch.cuda.synchronize()
+    assert f8.launches["act_quant"] == before + 1
+    assert torch.equal(got, f8.act_quant_plain(x, amax, act_group))
+    assert torch.equal(f8.act_quant(x, amax, act_group), got)
+    # on a rounding boundary: 2.5 and 3.5 steps round to the even 2 and 4
+    xb = torch.zeros((2, 1, 2, 6), device=cuda)
+    xb[0, 0, 0] = torch.tensor([15.875, 0.3125, -0.3125, 0.4375, 0.0625, -15.875])
+    xb[1, 0, 1, :5] = torch.tensor([7.9375, 0.15625, 0.21875, -0.21875, 2.0 ** -24])
+    ab = f8.act_absmax(xb, 1)
+    qb = f8.act_quant(xb, ab, 1)
+    assert torch.equal(qb, f8.act_quant_plain(xb, ab, 1))
+    assert qb[0, 0, 0, :6].tolist() == [127, 2, -2, 4, 0, -127]
+    assert qb[1, 0, 1, :5].tolist() == [127, 2, 4, -4, 0]
 
 
 # the absmax pass at the CPU replay's shapes (odd H*W*C, groups that start
@@ -341,7 +389,12 @@ def test_int8_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         f8.int8_conv3x3_bn_relu(x, kq.cpu(), ks, s, t)
     with pytest.raises(ValueError):
-        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_kernel_q(kq)[:, :1])
+        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_for("int8_conv3x3_bn_relu",
+                                                                    kq)[:, :1])
+    with pytest.raises(ValueError):  # the CUDA-core kernel's packing, not the tensor cores'
+        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_kernel_q(kq))
+    with pytest.raises(ValueError):  # one scale per group
+        f8.act_quant(x, f8.act_absmax(x, 1)[:0], 1)
 
 
 @pytest.mark.gpu

@@ -252,18 +252,23 @@ def test_pack_kernel_q_layout():
 
 def _implicit_gemm_int8(name, x, kq, ks, scale, shift, relu, act_group):
     """The CUDA kernels' index arithmetic replayed in numpy on the packed
-    operands: tap geometry, packs of four channels with the ragged last pack,
-    the repacked weight rows, K splits, output phases and the per-group
-    activation scale, so a wrong tap, row or offset shows on the CPU."""
+    operands: tap geometry, words of four channels with the ragged last word
+    (and, for the tensor-core kernels, the words of the 16-channel padding),
+    the packed weight rows, each kernel's K splits, output phases and the
+    per-group activation scale, so a wrong tap, row or offset shows on the
+    CPU. (``tests/test_torch_port_int8_tc.py`` replays the tensor-core
+    kernel block by block, down to its MMA fragments.)"""
     _, taps, stride, phases = fc._KERNELS[f8.float_name(name)]
     b, h, w, c = x.shape
     o = kq.shape[-1]
-    c4 = -(-c // 4)
+    c4 = f8.padded_channels(c, f8.channel_pad(name)) // 4
     m, n, k4, _ = f8.geometry(name, x.shape, o)
     assert k4 == taps * c4
     ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
-    _, splits, kchunk = fc.plan(m, n, k4, phases)
-    wwords = f8.pack_kernel_q(torch.from_numpy(np.array(kq))).numpy()  # (kh*kw*c4, O) int32
+    plan = f8.plan_int8_tc if name in f8.TC_KERNELS else fc.plan
+    _, splits, kchunk = plan(m, n, k4, phases)
+    # (kh*kw*c4, O) int32
+    wwords = f8.pack_for(name, torch.from_numpy(np.array(kq))).numpy()
     wbytes = wwords.view(np.int8).reshape(wwords.shape[0], o, 4).astype(np.int64)
     group = b if act_group is None else act_group
     amax = f8.act_absmax_plain(torch.from_numpy(x), group).numpy()
@@ -286,8 +291,8 @@ def _implicit_gemm_int8(name, x, kq, ks, scale, shift, relu, act_group):
                 bb, r = divmod(mm, ho * wo)
                 oy, ox = divmod(r, wo)
                 iy, ix = oy * stride + dy, ox * stride + dx
-                if 0 <= iy < h and 0 <= ix < w:
-                    live = min(4, c - 4 * j)
+                live = min(4, c - 4 * j)  # <= 0 in a word of the padding
+                if 0 <= iy < h and 0 <= ix < w and live > 0:
                     vals = x[bb, iy, ix, 4 * j:4 * j + live] / a_scale[bb // group]
                     a[mm, kk, :live] = np.clip(np.rint(vals), -127, 127)
         acc = np.zeros((m, o), np.int64)
