@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 1. Print torch's version and the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from ``simple_vae_rs_tpu_torch/csrc`` (nvcc, one
    process per source, all started together) and print ptxas's registers and
-   spills per kernel; a spill in the tensor-core conv kernel or in any int8
-   kernel fails.
+   spills per kernel; a spill in the tensor-core conv kernel, in the chain
+   kernel or in any int8 kernel fails.
 3. Hold each kernel against its plain PyTorch version on ragged shapes (for
    the tensor-core kernel, in all three convs: C = 53 and 106, N = 4 and 53,
    odd O, M <= 64 (per phase for the transposed conv) with a K split, K not
@@ -98,9 +98,9 @@ phase 4), and after phase 8 the chained val step and the other two families:
 
 C1. Hold the chain kernel (n 3x3 convs in one launch) against its plain
     version on ragged shapes (one, two and four layers, odd H, W and widths,
-    images wider than a tile, a 40-channel input) and at every chain the
-    canonical models launch, at the batch sizes of their paths (1, 16, 512,
-    1000).
+    a 40-channel input, one image in many strips, an image too wide for full
+    rows, a layer wider than one n tile) and at every chain the canonical
+    models launch, at the batch sizes of their paths (1, 16, 512, 1000).
 C2. ``SuperResolver(model, chain=True)``: counters set to 0, ``super_resolve``
     B=16 and ``uncertainty`` N=1000; launches asserted against hooks and the
     expected numbers (3x3 16 and chain 2 per request in place of 3x3 24: for
@@ -124,8 +124,10 @@ C5. Timing by CUDA events per chain shape: the chain, the per-layer kernel
     launches it replaces, the plain version, and one cuDNN call per layer
     (TF32 off; no single PyTorch call computes a chain, so the kernel's
     ``library_ms`` is null); the bound (bytes of input, output and weights
-    over 3.35 TB/s, or float32 operations over 67 TFLOP/s). Request
-    latencies chained beside unchained, in turns, float32 and W8A8.
+    over 3.35 TB/s, or float32 operations over the 3xTF32 tensor-core peak
+    the chain runs on, 495/3 TFLOP/s) and the chain's share of it, with the
+    CUDA-core figure (67 TFLOP/s) beside. Request latencies chained beside
+    unchained, in turns, float32 and W8A8.
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -423,9 +425,8 @@ def tc_bound_ms(flops, nbytes):
 
 def tc_columns(tot):
     """A float32 conv kernel's 3xTF32 bound (165 TFLOP/s) and its share of
-    it, beside ``bound_ms``: for a kernel on the CUDA cores (the chain) a
-    tensor-core design could beat its ``bound_ms`` (67 TFLOP/s) but not this
-    one; for the three conv kernels the two are the same, and
+    it, beside ``bound_ms``: for the four kernels on the tensor cores (the
+    three convs and the chain) the two are the same, and
     ``bound_cuda_core_ms`` is the CUDA-core figure."""
     return {"bound_tc_ms": tot["bound_tc_ms"], "share_of_bound_tc": tot["bound_tc_ms"] / tot["ms"]}
 
@@ -1363,14 +1364,19 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
 CHAIN_SOURCE = "simple_vae_rs_tpu_torch/csrc/conv_chain.cu"
 TAIL = (64, 16, 16, 4)  # later widths of a decoder tail, after its 64 input channels
 # (x shape, later channel widths): one, two and four layers, odd H, W and
-# channel widths, images wider than a tile so that halos and ragged last
-# tiles run, and a 40-channel input (two weight slices)
+# channel widths, a 40-channel input (K over several weight slots), one image
+# in many strips (seams inside it, the rings wrapping), an image too wide for
+# full rows (panels), and a layer wider than one n tile (N = 136)
 RAGGED_CHAIN = [
     ((2, 5, 7, 3), (6,)),
     ((3, 9, 11, 5), (7, 3)),
     ((2, 19, 23, 64), TAIL),
     ((1, 37, 21, 13), (18, 5, 9, 2)),
     ((1, 4, 4, 40), (24, 9)),
+    ((1, 64, 64, 64), TAIL),
+    ((4, 29, 30, 64), TAIL),
+    ((1, 12, 200, 64), TAIL),
+    ((1, 5, 6, 8), (136, 7)),
 ]
 # every chain the canonical models launch: Cond_SRVAE (cr=1.2, ps=64:
 # u_channels 53, z_channels 212) and VAE (cr=1.5, ps=32: latent_channels 42)
@@ -1432,10 +1438,10 @@ def check_chain(shape, widths, seed, timing: bool):
         raise AssertionError(f"chain {shape}->{widths}: max|diff| {err} > {KERNEL_TOL} * {ref}")
     if tuple(got.shape) != tuple(shape[:3]) + (widths[-1],):
         raise AssertionError(f"chain {shape}->{widths}: output shape {tuple(got.shape)}")
-    th, tw, buf0, buf1 = fch.plan_chain(shape[1], shape[2], chans)
+    plan = fch.plan_chain(*shape[:3], chans)
     row = {"name": fc.CHAIN, "x": list(shape), "widths": list(widths), "max_abs_err": err,
-           "max_abs_ref": ref, "tile": [th, tw],
-           "shared_memory_bytes": 4 * (buf0 + buf1 + fch.WS_FLOATS)}
+           "max_abs_ref": ref, "plan": plan_text(shape[0], plan),
+           "shared_memory_bytes": plan.smem_bytes}
     if not timing:
         return row
     ones = [torch.ones(c, device="cuda") for c in widths]
@@ -1473,9 +1479,19 @@ def check_chain(shape, widths, seed, timing: bool):
     pixels = shape[0] * shape[1] * shape[2]
     flops = 2.0 * 9 * pixels * sum(chans[i] * chans[i + 1] for i in range(len(widths)))
     nbytes = 4.0 * (x.numel() + got.numel() + sum(k.numel() for k in ks) + sum(widths))
-    bound_row(row, flops, nbytes, PEAK_F32_FLOPS)
-    row["bound_tc_ms"] = tc_bound_ms(flops, nbytes)
+    # the chain runs on the 3xTF32 tensor cores: its bound is theirs, the
+    # CUDA-core figure beside
+    bound_row(row, flops, nbytes, PEAK_F32_TC_FLOPS)
+    row["bound_tc_ms"] = row["bound_ms"]
+    row["bound_cuda_core_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    row["share_of_bound_tc"] = row["bound_ms"] / row["ms"]
     return row
+
+
+def plan_text(batch, plan):
+    """A chain plan in a line: strips and panels a block, rows a step, blocks."""
+    return (f"strip {plan.strip} x panel {plan.panel}, {plan.rs} rows a step, "
+            f"{batch * plan.strips * plan.panels} blocks, {plan.smem_bytes} B")
 
 
 class ChainRows:
@@ -1490,12 +1506,13 @@ class ChainRows:
             row = self.rows[key] = check_chain(shape, widths, seed=900 + len(self.rows), timing=True)
             row["site"] = site
             self.report.append(row)
-            log(f"chain shape {site} x{tuple(shape)}->{tuple(widths)} tile {row['tile']}: chain "
+            log(f"chain shape {site} x{tuple(shape)}->{tuple(widths)} ({row['plan']}): chain "
                 f"{row['ms']:.4f} ms, the {len(widths)} per-layer kernel launches "
                 f"{row['per_layer_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"{len(widths)} library calls {row['library4_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), 3xTF32 bound "
-                f"{row['bound_tc_ms']:.4f} ms, max|diff| {row['max_abs_err']:.2e}")
+                f"{len(widths)} library calls {row['library4_ms']:.4f} ms, 3xTF32 bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                f"{100 * row['share_of_bound_tc']:.1f}% of it), CUDA-core bound "
+                f"{row['bound_cuda_core_ms']:.4f} ms, max|diff| {row['max_abs_err']:.2e}")
         return self.rows[key]
 
 
@@ -1524,7 +1541,7 @@ def chain_phase(report, model, sr, y, f32_out, f32_uq):
     for i, (shape, widths) in enumerate(RAGGED_CHAIN):
         row = check_chain(shape, widths, seed=850 + i, timing=False)
         chain_report["ragged"].append(row)
-        log(f"ragged chain x{shape}->{widths} tile {row['tile']}: max|diff| "
+        log(f"ragged chain x{shape}->{widths} ({row['plan']}): max|diff| "
             f"{row['max_abs_err']:.3e}")
     rows = ChainRows(chain_report["shapes"])
     for site, shape, widths in CHAIN_SHAPES:
@@ -1939,6 +1956,8 @@ def main() -> int:
                 log(f"ptxas {src}: {line.strip()}")
     log("ptxas conv_tc: " + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"])
         + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes)")
+    log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernel")
+        + " (dynamic shared memory per shape: ops/fused_chain.plan_chain)")
     int8_report = _build.ptxas_logs["int8_conv.cu"]
     log("ptxas int8_tc: " + tensor_core_ptxas(int8_report, "int8_tc")
         + " (dynamic shared memory per tile: ops/fused_int8.tc_smem_bytes); every kernel of "
@@ -2135,7 +2154,7 @@ def main() -> int:
                if name == "act_absmax" else {}),
         })
     tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms",
-                         "bound_tc_ms", "ops", "bytes"), 0.0)
+                         "bound_tc_ms", "bound_cuda_core_ms", "ops", "bytes"), 0.0)
     for path_calls in chain_paths.values():
         for shape, widths in path_calls:
             row = chain_rows.row(shape, widths)
@@ -2151,11 +2170,11 @@ def main() -> int:
         "launches_by_path": {k: len(v) for k, v in chain_paths.items()},
         "max_abs_err": chain_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
-        "bound_by": ("operations" if tot["ops"] / PEAK_F32_FLOPS > tot["bytes"] / PEAK_BYTES
+        "bound_by": ("operations" if tot["ops"] / PEAK_F32_TC_FLOPS > tot["bytes"] / PEAK_BYTES
                      else "bytes"),
         "library_ms": None,  # no single PyTorch call computes the chain
         "per_layer_kernels_ms": tot["per_layer_ms"], "library_calls_per_layer_ms": tot["library4_ms"],
-        **tc_columns(tot),
+        **tc_columns(tot), "bound_cuda_core_ms": tot["bound_cuda_core_ms"],
     })
     for k in kernels:
         k["launches_on_new_paths"] = {path: {key: v for key, v in counts.items()

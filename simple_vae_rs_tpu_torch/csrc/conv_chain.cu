@@ -9,54 +9,85 @@
 // in float32, with x and the result NHWC and each W_l in HWIO layout
 // (3, 3, C_l, C_{l+1}), row-major. One Hopper kernel serves both.
 //
-// Design. A block owns one TH x TW output tile of one image and carries it
-// through every layer; the intermediates live in two shared-memory buffers
-// that the layers read and write in turn, and never reach device memory.
-// Stage s (the input of layer s) is stored on the rectangle S_s = C_{s+1}
-// grown by one pixel per side, where C_s is the part of S_s that lies inside
-// the image and C_n is the tile itself: an n-layer chain reads an n-pixel
-// halo, clipped to the image plus its one-pixel zero border. A layer
-// computes only the positions of C_{s+1}; every other stored position of a
-// stage stays zero, which is exactly the SAME padding each layer sees on the
-// image (an intermediate outside the image is zero, not bias and not a conv
-// of padded input). At an 8 x 8 image one tile is the whole image and no
-// halo is recomputed; at 64 x 64 the halo costs (T + 2n)^2 / T^2 in the
-// first layer.
+// What bounds it: operations. The decoder tails (64 -> 64 -> 16 -> 16 -> 4
+// channels at 64x64 and 32x32, up to 1000 images) do 49k multiply-adds a
+// pixel and move 272 bytes of input and output: float32 FMA on the CUDA
+// cores tops out at 67 TFLOP/s, the TF32 tensor cores at 495, so at float32
+// accuracy (3xTF32, below) at 165. What the chain saves is the trips of the
+// intermediates to device memory and three launches; it pays for that only
+// if it recomputes nothing and multiplies as fast as the per-layer kernel.
+// (The kernel this one replaced ran scalar FMA on 2-D tiles that recomputed
+// a halo around every tile, 2.24x the multiply-adds of a 64x64 tail.)
 //
-// Each layer is an implicit GEMM, M = pixels of C_{s+1}, N = C_{s+1}
-// channels, K = 9 * C_s. The A operand is read straight from the stored
-// stage (four channels per 16-byte load; the pixel stride is padded to an odd
-// number of 16-byte words so that neighbouring pixels fall in different
-// banks). The weights do not fit in shared memory (9 * 128 * 128 * 4 bytes a
-// layer at the encoder heads), so they stream from L2 in slices of BK rows,
-// the next slice fetched into registers while the current one is multiplied.
-// A thread accumulates TM pixels x 4 channels in registers; the tile shape
-// (TX threads along N, TM pixels a thread) is picked per layer by its width
-// (64 -> 64 -> 16 -> 16 -> 4 in the decoder tails). The bias is added in the
-// epilogue, which writes the next stage to shared memory or, for the last
-// layer, the output to device memory.
+// Design: a block owns a strip of output rows of one image across a panel of
+// columns (the whole width wherever the rings fit: the models' tails always)
+// and streams down the rows, as the TPU kernel streams full-width row strips.
+// For each stage s (the input of layer s) it keeps a ring of the last few
+// rows in shared memory, rows of the stage's stored columns at pixel_stride
+// floats a pixel. A step first takes up to RS new input rows into stage 0's
+// ring, then each layer produces up to RS rows of the next stage, each from
+// the three rows above, beside and below it in its input ring; the last layer
+// writes the output to device memory. Each stage then lags its input by at
+// most one row (ops/fused_chain.advance, the schedule every block follows),
+// so a ring of RS + 2 rows holds every row a layer still reads, and every
+// intermediate row is computed once per strip: only the seams between two
+// strips of an image recompute, n - s rows per side at stage s (and the same
+// for columns between panels). The next step's input rows are copied in
+// (cp.async) while layers 1 .. n-1 run. Stage s is stored n - s rows and
+// columns out from the block's output, clipped to the image and its
+// one-pixel border; stored positions outside the image stay zero (the ring
+// starts zeroed, a border row is written as zeros, border columns are never
+// written): exactly the SAME padding each layer sees on the image. Where RS
+// covers a block's whole strip (the 8x8 encoder tails), the block runs the
+// chain in one step and the even stages share one region of shared memory,
+// the odd stages another.
 //
-// What bounds it on this card: float32 FMA on the CUDA cores. The chain
-// saves the intermediates' trips to device memory (each under a
-// millisecond at the 1000-draw decode) and pays for the halo in operations.
-// 227 KB of shared memory hold two float32 stages of 64 channels only up to
-// about 24 x 16 pixels, so the 64-channel tails run on 8 x 16 tiles and
-// recompute more than twice the first layer's work; the launcher picks, per
-// shape, the tile that fits with the least work.
+// Each layer step is an implicit GEMM on mma.sync.m16n8k8 TF32: M = the
+// pixels of its rows, N = C_{l+1} padded to 8, K = 9 taps x C_l padded to 8
+// (so that every 8-deep k group lies in one tap: no k / C in the inner loop,
+// the tap and channel advance as the loop walks K). The A fragment is read
+// straight from the input ring; pixel_stride = round_up(C, 8) + 4 floats, an
+// odd number of 16-byte words, puts the 8 pixels x 4 channels of a fragment
+// read on 32 distinct banks. The weights stream through a ring of two
+// cp.async slots of KS k rows each ([KS][BN + 8], the rows as the HWIO
+// weight stores them, zero-filled past C_l and C_{l+1}; KS = 64, and 128 for
+// the narrow layers, whose slots hold less work between two barriers): layer
+// 1 of a 64-channel tail (147 KB) does not fit beside the stage rings. TF32
+// alone keeps 10 mantissa bits, too coarse for the 1e-4 the chain is held
+// to, so each operand is split as a = hi + lo (split_tf32) and each product
+// is lo*b_hi + hi*b_lo + hi*b_hi (3xTF32); each 8-deep partial is added to
+// the register sum with a rounded add, since the tensor core's float32
+// accumulate truncates (as conv_tc in fused_conv.cu). The bias is added in
+// the epilogue. Eight warps a block; the warp tile follows the layer's
+// width: 32x32 for N > 16 (128x64 or 64x128 a block), 16x16 for N <= 16,
+// 16x8 for N <= 8. A warp whose tile lies wholly past M or N skips its MMAs.
+// No atomics and a fixed order of summation: the same bits every launch.
+// Measured on the H100 (PERF.md), the layers run at about the per-layer
+// kernel's rate, the narrow ones slower; barrier and copy waits are a few
+// percent of a block's time, so the MMAs and their operand splits bound it.
 //
-// Interface: plain C, loaded with ctypes. The function launches on the given
-// stream, does not synchronise, allocates nothing, and returns the CUDA error
-// of the launch (0 on success).
+// Launch geometry (ops/fused_chain.plan_chain, passed in): strip height,
+// panel width and RS (up to 128 output pixels a step, fewer where the rings
+// do not fit), and per stage its ring rows, ring pixels and offset. Strips
+// are chosen so that the grid fills the SMs: a whole image a block at the
+// training batch and the 1000-draw decode, strips at 1 and 16 images.
+//
+// Interface: plain C, loaded with ctypes. The function makes the given device
+// current for the call, launches on the given stream, does not synchronise,
+// allocates nothing, and returns the CUDA error of the launch (0 on success).
+// The dynamic shared memory limit is raised once per device.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int MAXL = 8;             // layers in one chain
-constexpr int NT = 256;             // threads per block
-constexpr int BK = 32;              // weight rows staged per step
-constexpr int WS_FLOATS = BK * 64;  // the staged slice: BK rows x the widest N tile
+constexpr int MAXL = 8;        // layers in one chain
+constexpr int NT = 256;        // threads per block: eight warps
+constexpr int STAGES = 2;      // slots of the weight ring
+constexpr int SMEM_MAX = 232448;
 
 struct Chain {
   const float* w[MAXL];
@@ -64,236 +95,481 @@ struct Chain {
   int C[MAXL + 1];  // channel widths C_0 .. C_n
   int n;
   int B, H, W;
-  int TH, TW;       // output tile
-  int tiles_x, tiles_y;
-  int buf1;         // offset (floats) of the second stage buffer
-  int wsoff;        // offset (floats) of the weight slice
+  int strip, panel, rs;  // output rows and columns a block owns; rows a step
+  int strips, panels;
+  int Q[MAXL];    // ring rows of stage s
+  int NX[MAXL];   // stored pixels a ring row of stage s
+  int off[MAXL];  // offset (floats) of stage s's ring
+  int ws_off;     // offset (floats) of the weight ring
+  int ws_slot;    // floats a slot of the weight ring holds
+  int clear;      // bit s: stage s shares its ring with stage s - 2; zero it first
+  int vec_x;      // x moves in 16-byte copies
+  int vec_w;      // bit l: layer l's weight rows move in 16-byte copies
 };
 
-struct Rect { int y0, x0, h, w; };
+// Channels rounded up to whole 8-deep k groups.
+__device__ __forceinline__ int c8(int c) { return (c + 7) & ~7; }
+// Floats between two stored pixels: an odd number of 16-byte words.
+__device__ __forceinline__ int pixel_stride(int c) { return c8(c) + 4; }
 
-// Channels rounded up to whole 16-byte words: the depth of the K loop.
-__device__ __forceinline__ int chan4(int c) { return (c + 3) & ~3; }
-// Floats between two stored pixels: chan4 padded to an odd number of words.
-__device__ __forceinline__ int pixel_stride(int c) {
-  const int s = chan4(c);
-  return ((s >> 2) & 1) ? s : s + 4;
+struct Span { int lo, hi; };
+
+// The span of stage s a block with output [o0, o1) stores along an axis of
+// `size` (ops/fused_chain.stage_spans); stage n is the output itself.
+__device__ __forceinline__ Span stage_span(int o0, int o1, int n, int s, int size) {
+  if (s == n) return Span{o0, o1};
+  return Span{max(-1, o0 - (n - s)), min(size + 1, o1 + (n - s))};
 }
 
-__device__ __forceinline__ float lane(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-// One layer on one tile. TX threads along N (4 channels each), NT / TX along
-// M (TM pixels each, strided by NT / TX so that a warp reads neighbouring
-// pixels).
-template <int TX, int TM>
-__device__ __forceinline__ void layer(const float* __restrict__ src, float* __restrict__ dst,
-                                      float* __restrict__ ws, const float* __restrict__ wgt,
-                                      const float* __restrict__ bias, int Cin, int Cout,
-                                      Rect sin, Rect cout, Rect sout, bool last,
-                                      float* __restrict__ out, int b, int H, int W) {
-  constexpr int TY = NT / TX, BM = TM * TY, BN = 4 * TX;
-  constexpr int W_LD = (BK * BN + NT - 1) / NT;
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int cin4 = chan4(Cin), cin_p = pixel_stride(Cin);
-  const int cout4 = chan4(Cout), cout_p = pixel_stride(Cout);
-  const int M = cout.h * cout.w;
-  const int kchunks = (cin4 + BK - 1) / BK;
-  const int nchunks = 9 * kchunks;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
 
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    int in_off[TM], out_off[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + i * TY;
-      const bool ok = m < M;
-      const int mm = ok ? m : 0;
-      const int oy = mm / cout.w;
-      const int y = cout.y0 + oy, x = cout.x0 + (mm - oy * cout.w);
-      // the pixel above and left of (y, x) in the stored input stage
-      in_off[i] = ((y - 1 - sin.y0) * sin.w + (x - 1 - sin.x0)) * cin_p;
-      if (!ok) out_off[i] = -1;
-      else if (last) out_off[i] = ((b * H + y) * W + x) * Cout;
-      else out_off[i] = ((y - sout.y0) * sout.w + (x - sout.x0)) * cout_p;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// a = hi + lo in two instructions: the tensor core reads only the top 19
+// bits of a TF32 operand, so a itself serves as hi (a truncated to TF32),
+// and lo = a - trunc(a) is exact; the tensor core truncates lo in turn, by
+// at most 2^-10 of itself (2^-20 of a). (split_tf32 in fused_conv.cu rounds
+// both halves, in four instructions: here the splits of the operands a warp
+// reads again at every tap are a large share of its instructions.)
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a);
+  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u));
+}
+
+// d += a * b on one m16n8k8 tile (A row-major 16x8, B column-major 8x8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Zeroes the ring row of stage s that holds row y (a border row).
+__device__ __forceinline__ void zero_row(float* smem, const Chain& p, int s, int y) {
+  const int row = p.NX[s] * pixel_stride(p.C[s]);  // a multiple of 4
+  float4* dst = reinterpret_cast<float4*>(smem + p.off[s] + ((y + 1) % p.Q[s]) * row);
+  for (int i = threadIdx.x; i < row / 4; i += NT) dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Rows [r0, r1) of stage 0: the input's columns [x0, x1) of image b (16-byte
+// or 4-byte cp.async, one commit group, waited for by the caller), a row
+// outside the image as zeros. Channels past C_0 are never written: they stay
+// zero.
+__device__ void load_rows(const float* __restrict__ x, float* smem, const Chain& p, int b,
+                          int r0, int r1, Span xs) {
+  const int C = p.C[0], P = pixel_stride(C);
+  const int cx0 = max(0, xs.lo), cw = min(p.W, xs.hi) - cx0;
+  for (int y = r0; y < r1; ++y) {
+    if (y < 0 || y >= p.H) {
+      zero_row(smem, p, 0, y);
+      continue;
     }
-    for (int n0 = 0; n0 < cout4; n0 += BN) {
-      float acc[TM][4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-
-      float wreg[W_LD];
-      auto fetch = [&](int chunk) {
-        const int t = chunk / kchunks;
-        const int c0 = (chunk - t * kchunks) * BK;
-#pragma unroll
-        for (int j = 0; j < W_LD; ++j) {
-          const int e = tid + j * NT;
-          const int kk = e / BN, c = c0 + kk, n = n0 + (e - kk * BN);
-          float v = 0.f;
-          if (e < BK * BN && c < Cin && n < Cout)
-            v = __ldg(wgt + ((int64_t)(t * Cin + c)) * Cout + n);
-          wreg[j] = v;
-        }
-      };
-
-      fetch(0);
-      for (int chunk = 0; chunk < nchunks; ++chunk) {
-#pragma unroll
-        for (int j = 0; j < W_LD; ++j) {
-          const int e = tid + j * NT;
-          if (e < BK * BN) ws[e] = wreg[j];
-        }
-        __syncthreads();
-        if (chunk + 1 < nchunks) fetch(chunk + 1);
-        const int t = chunk / kchunks;
-        const int c0 = (chunk - t * kchunks) * BK;
-        const int rows = min(BK, cin4 - c0);
-        const int ky = t / 3;
-        const int tap = (ky * sin.w + (t - 3 * ky)) * cin_p + c0;
-        for (int kk = 0; kk < rows; kk += 4) {
-          float4 a[TM];
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-            a[i] = *reinterpret_cast<const float4*>(src + in_off[i] + tap + kk);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 bq = *reinterpret_cast<const float4*>(ws + (kk + j) * BN + tx * 4);
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-              const float av = lane(a[i], j);
-              acc[i][0] = fmaf(av, bq.x, acc[i][0]);
-              acc[i][1] = fmaf(av, bq.y, acc[i][1]);
-              acc[i][2] = fmaf(av, bq.z, acc[i][2]);
-              acc[i][3] = fmaf(av, bq.w, acc[i][3]);
-            }
-          }
-        }
-        __syncthreads();
+    float* dst = smem + p.off[0] + ((y + 1) % p.Q[0]) * p.NX[0] * P + (cx0 - xs.lo) * P;
+    const float* src = x + ((int64_t)(b * p.H + y) * p.W + cx0) * C;
+    if (p.vec_x) {
+      const int words = C / 4, total = cw * words;
+      for (int i = threadIdx.x; i < total; i += NT) {
+        const int px = i / words, q = i - px * words;
+        cp_async16(dst + px * P + 4 * q, src + 4 * i, true);
       }
-
-      const int n = n0 + tx * 4;
-      if (n < cout4) {
-        float bv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bv[q] = n + q < Cout ? __ldg(bias + n + q) : 0.f;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          if (out_off[i] < 0) continue;
-          // channels past Cout hold 0 + 0: the next layer's K loop reads them
-          const float4 v = make_float4(acc[i][0] + bv[0], acc[i][1] + bv[1],
-                                       acc[i][2] + bv[2], acc[i][3] + bv[3]);
-          if (!last) {
-            *reinterpret_cast<float4*>(dst + out_off[i] + n) = v;
-          } else if ((Cout & 3) == 0) {
-            *reinterpret_cast<float4*>(out + out_off[i] + n) = v;
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (n + q < Cout) out[out_off[i] + n + q] = lane(v, q);
-          }
-        }
+    } else {
+      const int total = cw * C;
+      for (int i = threadIdx.x; i < total; i += NT) {
+        const int px = i / C, c = i - px * C;
+        cp_async4(dst + px * P + c, src + i, true);
       }
     }
   }
+  cp_async_commit();
+}
+
+// Layer l on rows [ra, rb) of stage l + 1 (inside the image), computed
+// columns [cx0, cx0 + cw): M = (rb - ra) * cw pixels in tiles of BM, N in
+// tiles of BN, K = 9 * c8(C_l) in slots of KS rows through the weight ring.
+// Warps tile the block as WARPS_M x WARPS_N of WM x WN. Fragment maps (PTX
+// m16n8k8 .tf32, lane = 4 * gq + tq): A a0 (gq, tq), a1 (gq+8, tq),
+// a2 (gq, tq+4), a3 (gq+8, tq+4); B b0 (k=tq, n=gq), b1 (k=tq+4, n=gq);
+// C c0/c1 (gq, 2tq / 2tq+1), c2/c3 (gq+8, 2tq / 2tq+1).
+// The k groups of a slot run as straight-line code (the tap and channel
+// advance by selects, the input row by a select among three), so that the
+// compiler can overlap one group's loads and splits with another's MMAs;
+// only the last slot of K, when partial, checks each group.
+template <int BM, int BN, int WM, int WN, int KS>
+__device__ void layer_gemm(float* smem, const Chain& p, int l, int b, int ra, int rb, int cx0,
+                           int cw, int xlo_in, int xlo_out, float* __restrict__ out) {
+  constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
+  static_assert(WARPS_M * WARPS_N * 32 == NT && WM % 16 == 0 && WN % 8 == 0, "warp tile");
+  constexpr int MI = WM / 16, NI = WN / 8;
+  constexpr int B_LD = (BN < 16 ? 16 : BN) + 8;
+  constexpr int NQ = BN / 4;  // 16-byte groups in a row of a weight slot
+  constexpr int B_VECS = (KS * NQ + NT - 1) / NT;
+  constexpr int GROUPS = KS / 8;
+  // a wide warp tile has work enough in one group; unrolling it spills
+  constexpr int UNROLL = MI * NI >= 8 ? 1 : 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int Cin = p.C[l], Cout = p.C[l + 1];
+  const int K8 = c8(Cin), G8 = K8 / 8, K = 9 * K8, N8 = c8(Cout);
+  const int Pin = pixel_stride(Cin), Qin = p.Q[l], in_row = p.NX[l] * Pin;
+  const bool last = l == p.n - 1;
+  const int Pout = last ? 0 : pixel_stride(Cout);
+  const int Qout = last ? 1 : p.Q[l + 1], out_row = last ? 0 : p.NX[l + 1] * Pout;
+  const float* const ring = smem + p.off[l];
+  float* const wsm = smem + p.ws_off;
+  const float* const wg = p.w[l];
+  const float* const bias = p.bias[l];
+  const bool vec_w = (p.vec_w >> l) & 1;
+  const int M = (rb - ra) * cw;
+  const int nsteps = (K + KS - 1) / KS;
+
+  for (int m0 = 0; m0 < M; m0 += BM) {
+    // This thread's fragment pixels (a pixel past M reads the tile's first
+    // pixel and is not written), and for each the ring offset of its input
+    // rows ky - 1 = -1, 0, 1 at column -1, lane column tq included.
+    int frow[MI][2], fcol[MI][2], roff[3][MI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
+        const int mm = m < M ? m : m0;
+        const int r = mm / cw;
+        frow[mi][h] = ra + r;
+        fcol[mi][h] = cx0 + (mm - r * cw);
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+          roff[ky][mi][h] = ((frow[mi][h] + ky) % Qin) * in_row
+                            + (fcol[mi][h] - 1 - xlo_in) * Pin + tq;
+      }
+    const bool m_live = m0 + wm * WM < M;
+    for (int n0 = 0; n0 < N8; n0 += BN) {
+      const bool live = m_live && n0 + wn * WN < N8;
+
+      auto load_slot = [&](int slot, int k0) {
+        float* const bs = wsm + slot * p.ws_slot;
+#pragma unroll
+        for (int j = 0; j < B_VECS; ++j) {
+          const int e = tid + j * NT;
+          if ((KS * NQ) % NT != 0 && e >= KS * NQ) continue;  // fewer groups than threads
+          const int kk = e / NQ, nq = e - kk * NQ;
+          const int kr = k0 + kk, n = n0 + 4 * nq;
+          const int t = kr / K8, c = kr - t * K8;
+          const bool kv = kr < K && c < Cin;
+          const float* const row = wg + (int64_t)(kv ? t * Cin + c : 0) * Cout;
+          float* const dst = bs + kk * B_LD + 4 * nq;
+          if (vec_w) {
+            const bool v = kv && n < Cout;
+            cp_async16(dst, v ? row + n : wg, v);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const bool v = kv && n + q < Cout;
+              cp_async4(dst + q, v ? row + n + q : wg, v);
+            }
+          }
+        }
+      };
+
+      float acc[MI][NI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+
+      // one 8-deep k group: tap (ky, kx), channels c0 .. c0 + 7, B rows kk ..
+      auto group = [&](const float* bs, int kk, int ky, int kx, int c0) {
+        uint32_t bh[NI][2], bl[NI][2];
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const float* const bp = bs + kk * B_LD + ni * 8;
+          split_tf32(bp[0], bh[ni][0], bl[ni][0]);
+          split_tf32(bp[4 * B_LD], bh[ni][1], bl[ni][1]);
+        }
+        const int koff = kx * Pin + c0;
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const int o0 = ky == 0 ? roff[0][mi][0] : ky == 1 ? roff[1][mi][0] : roff[2][mi][0];
+          const int o1 = ky == 0 ? roff[0][mi][1] : ky == 1 ? roff[1][mi][1] : roff[2][mi][1];
+          const float* const a0 = ring + o0 + koff;
+          const float* const a1 = ring + o1 + koff;
+          uint32_t ah[4], al[4];
+          split_tf32(a0[0], ah[0], al[0]);
+          split_tf32(a1[0], ah[1], al[1]);
+          split_tf32(a0[4], ah[2], al[2]);
+          split_tf32(a1[4], ah[3], al[3]);
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            // each 8-deep product formed in the tensor core (small terms
+            // first), then added to the running sum with a rounded add
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(part, al, bh[ni]);
+            mma_tf32(part, ah, bl[ni]);
+            mma_tf32(part, ah, bh[ni]);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[r];
+          }
+        }
+      };
+
+#pragma unroll
+      for (int st = 0; st < STAGES - 1; ++st) {
+        if (st < nsteps) load_slot(st, st * KS);
+        cp_async_commit();
+      }
+      for (int step = 0; step < nsteps; ++step) {
+        // slot step has landed for every thread, and every warp is done with
+        // slot step - 1, which the next load refills
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        const int nxt = step + STAGES - 1;
+        if (nxt < nsteps) load_slot(nxt % STAGES, nxt * KS);
+        cp_async_commit();
+        if (!live) continue;
+
+        const float* const bs = wsm + (step % STAGES) * p.ws_slot + tq * B_LD + wn * WN + gq;
+        // the tap and first channel of the slot's first k group
+        const int g0 = step * GROUPS, t0 = g0 / G8;
+        int c0 = (g0 - t0 * G8) * 8, ky = t0 / 3, kx = t0 - 3 * ky;
+        if ((step + 1) * KS <= K) {
+#pragma unroll UNROLL
+          for (int j = 0; j < GROUPS; ++j) {
+            group(bs, 8 * j, ky, kx, c0);
+            c0 += 8;
+            const bool next_tap = c0 == K8;
+            c0 = next_tap ? 0 : c0;
+            kx += next_tap;
+            const bool next_row = kx == 3;
+            kx = next_row ? 0 : kx;
+            ky += next_row;
+          }
+        } else {
+          for (int j = 0; j < GROUPS && step * KS + 8 * j < K; ++j) {
+            group(bs, 8 * j, ky, kx, c0);
+            c0 += 8;
+            if (c0 == K8) {
+              c0 = 0;
+              if (++kx == 3) { kx = 0; ++ky; }
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();  // only empty groups are left; leave none in flight
+
+      if (live) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
+            if (m >= M) continue;
+            const int y = frow[mi][h], xc = fcol[mi][h];
+            float* const dst = last
+                ? out + ((int64_t)(b * p.H + y) * p.W + xc) * Cout
+                : smem + p.off[l + 1] + ((y + 1) % Qout) * out_row + (xc - xlo_out) * Pout;
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) {
+              const int n = n0 + wn * WN + ni * 8 + 2 * tq;
+              if (n >= N8) continue;
+              // channels past C_{l+1} hold 0 + 0: the next layer's K reads them
+              const float v0 = acc[mi][ni][2 * h] + (n < Cout ? __ldg(bias + n) : 0.f);
+              const float v1 = acc[mi][ni][2 * h + 1] + (n + 1 < Cout ? __ldg(bias + n + 1) : 0.f);
+              if (!last) {
+                *reinterpret_cast<float2*>(dst + n) = make_float2(v0, v1);
+              } else if ((Cout & 1) == 0) {
+                if (n < Cout) *reinterpret_cast<float2*>(dst + n) = make_float2(v0, v1);
+              } else {
+                if (n < Cout) dst[n] = v0;
+                if (n + 1 < Cout) dst[n + 1] = v1;
+              }
+            }
+          }
+      }
+      __syncthreads();  // the weight ring is refilled by the next tile
+    }
+  }
+}
+
+// Layer l produces rows [r0, r1) of stage l + 1: its border rows as zeros,
+// the rest by the GEMM with the layer's warp tile.
+__device__ void layer_rows(float* smem, const Chain& p, int l, int b, int r0, int r1, int x0,
+                           int x1, float* __restrict__ out) {
+  const int n = p.n;
+  if (l + 1 < n)
+    for (int y = r0; y < r1; ++y)
+      if (y < 0 || y >= p.H) zero_row(smem, p, l + 1, y);
+  const int ra = max(r0, 0), rb = min(r1, p.H);
+  if (rb <= ra) return;
+  const Span xin = stage_span(x0, x1, n, l, p.W), xout = stage_span(x0, x1, n, l + 1, p.W);
+  const int cx0 = max(0, xout.lo), cw = min(p.W, xout.hi) - cx0;
+  const int n8 = c8(p.C[l + 1]);
+  // ops/fused_chain.LAYER_TILES: (BM, BN, WM, WN, KS) by the layer's width
+  if (n8 <= 8) layer_gemm<128, 8, 16, 8, 128>(smem, p, l, b, ra, rb, cx0, cw, xin.lo, xout.lo, out);
+  else if (n8 <= 16) layer_gemm<128, 16, 16, 16, 128>(smem, p, l, b, ra, rb, cx0, cw, xin.lo, xout.lo, out);
+  else if (n8 <= 64) layer_gemm<128, 64, 32, 32, 64>(smem, p, l, b, ra, rb, cx0, cw, xin.lo, xout.lo, out);
+  else layer_gemm<64, 128, 32, 32, 64>(smem, p, l, b, ra, rb, cx0, cw, xin.lo, xout.lo, out);
 }
 
 __global__ void __launch_bounds__(NT, 1)
 chain_kernel(const float* __restrict__ x, float* __restrict__ out, Chain p) {
   extern __shared__ __align__(16) float smem[];
-  float* bufs[2] = {smem, smem + p.buf1};
-  float* ws = smem + p.wsoff;
-  const int tid = threadIdx.x;
-  const int tiles = p.tiles_x * p.tiles_y;
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x - b * tiles;
-  const int ty0 = (tile / p.tiles_x) * p.TH, tx0 = (tile % p.tiles_x) * p.TW;
+  const int per_image = p.strips * p.panels;
+  const int b = blockIdx.x / per_image;
+  const int blk = blockIdx.x - b * per_image;
+  const int o0 = (blk / p.panels) * p.strip, o1 = min(p.H, o0 + p.strip);
+  const int x0 = (blk % p.panels) * p.panel, x1 = min(p.W, x0 + p.panel);
   const int n = p.n;
 
-  // S[s]: where stage s is stored; Cc[s]: where it is computed (inside the image).
-  Rect S[MAXL], Cc[MAXL + 1];
-  Cc[n] = Rect{ty0, tx0, min(p.TH, p.H - ty0), min(p.TW, p.W - tx0)};
-  for (int s = n - 1; s >= 0; --s) {
-    S[s] = Rect{Cc[s + 1].y0 - 1, Cc[s + 1].x0 - 1, Cc[s + 1].h + 2, Cc[s + 1].w + 2};
-    const int y0 = max(S[s].y0, 0), y1 = min(S[s].y0 + S[s].h, p.H);
-    const int x0 = max(S[s].x0, 0), x1 = min(S[s].x0 + S[s].w, p.W);
-    Cc[s] = Rect{y0, x0, y1 - y0, x1 - x0};
+  // every ring starts as zeros: border columns and pad channels stay so
+  for (int i = threadIdx.x; i < p.ws_off / 4; i += NT)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int nxt[MAXL + 1], hi[MAXL + 1];
+  for (int s = 0; s <= n; ++s) {
+    const Span r = stage_span(o0, o1, n, s, p.H);
+    nxt[s] = r.lo;
+    hi[s] = r.hi;
   }
-
-  {  // stage 0: the input on S[0], zero outside the image and past C_0
-    const Rect s0 = S[0];
-    const int C0 = p.C[0], c0p = pixel_stride(C0);
-    const int total = s0.h * s0.w * c0p;
-    for (int idx = tid; idx < total; idx += NT) {
-      const int pix = idx / c0p, c = idx - pix * c0p;
-      const int py = pix / s0.w;
-      const int yy = s0.y0 + py, xx = s0.x0 + (pix - py * s0.w);
-      float v = 0.f;
-      if (c < C0 && yy >= 0 && yy < p.H && xx >= 0 && xx < p.W)
-        v = __ldg(x + (((int64_t)b * p.H + yy) * p.W + xx) * C0 + c);
-      bufs[0][idx] = v;
-    }
-  }
+  const Span x_in = stage_span(x0, x1, n, 0, p.W);
   __syncthreads();
 
-  for (int l = 0; l < n; ++l) {
-    const bool last = l == n - 1;
-    const float* src = bufs[l & 1];
-    float* dst = bufs[(l + 1) & 1];
-    const int Cin = p.C[l], Cout = p.C[l + 1];
-    const Rect sout = last ? Rect{0, 0, 0, 0} : S[l + 1];
-    if (!last) {  // the next stage starts as zeros: its border and pad channels stay so
-      const int total = sout.h * sout.w * pixel_stride(Cout);
-      for (int idx = tid; idx < total; idx += NT) dst[idx] = 0.f;
+  // The row schedule of ops/fused_chain.advance: stage 0 takes up to RS
+  // rows, then each layer up to RS rows whose input rows are stored. A
+  // step's input rows are loaded while the step before runs its layers
+  // 1 .. n-1: they replace rows layer 0 no longer reads (each stage lags its
+  // input by at most one row), and no layer but layer 0 reads stage 0. (A
+  // one-step plan, whose stage 2 shares stage 0's memory, loads all its
+  // input rows in the first step.)
+  int loading = min(hi[0], nxt[0] + p.rs);  // rows [nxt[0], loading) in flight
+  load_rows(x, smem, p, b, nxt[0], loading, x_in);
+  while (nxt[n] < hi[n]) {
+    if (loading > nxt[0]) {
+      cp_async_wait<0>();
       __syncthreads();
+      nxt[0] = loading;
     }
-    const int M = Cc[l + 1].h * Cc[l + 1].w;
-#define SVRS_LAYER(TX, TM)                                                                  \
-  layer<TX, TM>(src, dst, ws, p.w[l], p.bias[l], Cin, Cout, S[l], Cc[l + 1], sout, last, \
-                out, b, p.H, p.W)
-    if (Cout > 16) {
-      if (M <= 64) SVRS_LAYER(16, 4); else SVRS_LAYER(16, 8);
-    } else if (Cout > 4) {
-      if (M <= 256) SVRS_LAYER(4, 4); else SVRS_LAYER(4, 8);
-    } else {
-      SVRS_LAYER(1, 2);
+    for (int l = 0; l < n; ++l) {
+      const int lim = nxt[l] == hi[l] ? hi[l + 1] : nxt[l] - 1;
+      const int e = min(min(hi[l + 1], nxt[l + 1] + p.rs), lim);
+      if (e > nxt[l + 1]) {
+        if ((p.clear >> (l + 1)) & 1 && nxt[l + 1] == stage_span(o0, o1, n, l + 1, p.H).lo) {
+          // a one-step plan: stage l + 1 takes over the ring of stage l - 1,
+          // which no layer reads again; the layer's first barrier orders these
+          // zeros before its epilogue's writes
+          const int size = p.Q[l + 1] * p.NX[l + 1] * pixel_stride(p.C[l + 1]);
+          float4* ring = reinterpret_cast<float4*>(smem + p.off[l + 1]);
+          for (int i = threadIdx.x; i < size / 4; i += NT) ring[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        layer_rows(smem, p, l, b, nxt[l + 1], e, x0, x1, out);
+        __syncthreads();
+        nxt[l + 1] = e;
+      }
+      if (l == 0) {
+        loading = min(hi[0], nxt[0] + p.rs);
+        if (loading > nxt[0]) load_rows(x, smem, p, b, nxt[0], loading, x_in);
+      }
     }
-#undef SVRS_LAYER
-    __syncthreads();
   }
 }
+
+// Floats of a weight slot of a layer with `cout` outputs: its tile's KS rows
+// of BN + 8 floats (ops/fused_chain.slot_floats).
+int slot_floats(int cout) {
+  const int n8 = (cout + 7) & ~7;
+  const int bn = n8 <= 8 ? 8 : n8 <= 16 ? 16 : n8 <= 64 ? 64 : 128;
+  return (n8 <= 16 ? 128 : 64) * ((bn < 16 ? 16 : bn) + 8);
+}
+
+// Makes `device` current for a call (restored by the destructor).
+struct OnDevice {
+  int prev = 0, device;
+  cudaError_t err;
+  explicit OnDevice(int d) : device(d) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~OnDevice() {
+    if (err == cudaSuccess && prev != device) cudaSetDevice(prev);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
 // chans holds C_0 .. C_n; ws and bs hold n device pointers each (host arrays).
-// buf0 and buf1 are the two stage buffers' sizes in floats (multiples of 4).
-int svrs_conv3x3_chain(const void* x, const void* const* ws, const void* const* bs,
-                       const int* chans, int n, void* out, int B, int H, int W, int TH,
-                       int TW, int buf0, int buf1, void* stream) {
-  if (n < 1 || n > MAXL || TH < 1 || TW < 1 || (buf0 & 3) || (buf1 & 3))
-    return (int)cudaErrorInvalidValue;
+// geo is the plan of ops/fused_chain.plan_chain: strip, panel, rows a step, the weight
+// ring's offset and slot size, the shared memory in bytes, the stages zeroed
+// before their first row, then per stage its ring rows, ring pixels and ring
+// offset (n each).
+int svrs_conv3x3_chain(int device, const void* x, const void* const* ws, const void* const* bs,
+                       const int* chans, int n, void* out, int B, int H, int W, const int* geo,
+                       void* stream) {
+  if (n < 1 || n > MAXL || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   Chain p;
   for (int l = 0; l < n; ++l) {
     p.w[l] = static_cast<const float*>(ws[l]);
     p.bias[l] = static_cast<const float*>(bs[l]);
   }
   for (int l = 0; l <= n; ++l) p.C[l] = chans[l];
-  p.n = n; p.B = B; p.H = H; p.W = W; p.TH = TH; p.TW = TW;
-  p.tiles_x = (W + TW - 1) / TW;
-  p.tiles_y = (H + TH - 1) / TH;
-  p.buf1 = buf0;
-  p.wsoff = buf0 + buf1;
-  const size_t bytes = sizeof(float) * ((size_t)buf0 + buf1 + WS_FLOATS);
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)B * p.tiles_x * p.tiles_y;
-  chain_kernel<<<grid, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+  p.n = n; p.B = B; p.H = H; p.W = W;
+  p.strip = geo[0]; p.panel = geo[1]; p.rs = geo[2];
+  p.ws_off = geo[3]; p.ws_slot = geo[4];
+  const int smem = geo[5];
+  p.clear = geo[6];
+  if (p.strip < 1 || p.panel < 1 || p.rs < 1 || (p.ws_off & 3)) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < n; ++s) {
+    p.Q[s] = geo[7 + s];
+    p.NX[s] = geo[7 + n + s];
+    p.off[s] = geo[7 + 2 * n + s];
+    const int size = p.Q[s] * p.NX[s] * (((p.C[s] + 7) & ~7) + 4);
+    if (p.Q[s] < 1 || p.NX[s] < 1 || p.off[s] < 0 || (p.off[s] & 3) || p.off[s] + size > p.ws_off)
+      return (int)cudaErrorInvalidValue;
+  }
+  for (int l = 0; l < n; ++l)
+    if (slot_floats(p.C[l + 1]) > p.ws_slot) return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_MAX || smem < (int)sizeof(float) * (p.ws_off + STAGES * p.ws_slot))
+    return (int)cudaErrorInvalidValue;
+  p.strips = (H + p.strip - 1) / p.strip;
+  p.panels = (W + p.panel - 1) / p.panel;
+  p.vec_x = p.C[0] % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  p.vec_w = 0;
+  for (int l = 0; l < n; ++l)
+    if (p.C[l + 1] % 4 == 0 && (reinterpret_cast<uintptr_t>(ws[l]) & 15) == 0) p.vec_w |= 1 << l;
+
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  // The attribute holds per device; set it on the first launch there (a
+  // repeat from two threads at once is harmless).
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> ready[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices || !ready[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    if (device >= 0 && device < kMaxDevices) ready[device].store(true, std::memory_order_release);
+  }
+  const unsigned grid = (unsigned)B * p.strips * p.panels;
+  chain_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), p);
   return (int)cudaGetLastError();
 }

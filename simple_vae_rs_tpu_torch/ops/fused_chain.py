@@ -23,17 +23,21 @@ per-layer kernels with their gradients), so the wrapper refuses tensors that
 require one.
 
 The CUDA source's header says what bounds the kernel and what its design
-does about shared memory and halos; :func:`plan_chain` is the launch
-geometry (output tile and the two stage buffers) it is given, and
-:func:`tile_rects` the rectangles a block stores and computes per stage,
-which the kernel derives the same way.
+does about it. This module holds the launch geometry it is given: a block
+owns a strip of output rows of one image across a panel of columns (the
+whole width wherever the rings fit), and streams down the rows.
+:func:`stage_spans` is the span of rows (or columns) a block stores of each
+stage, :func:`chain_layout` the rings in shared memory for a strip, a panel
+and a number of rows per step, and :func:`plan_chain` the layout a launch
+takes. :func:`advance` is the row schedule every block follows; the kernel
+computes the same.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,108 +50,174 @@ NAME = fc.CHAIN
 SOURCE = "conv_chain.cu"
 MAX_LAYERS = 8  # MAXL of the CUDA source
 SMEM_BYTES = 232_448  # shared memory a block can use on sm_90 (227 KB)
-BK = 32  # weight rows staged per step
-WS_FLOATS = BK * 64  # the staged weight slice of the CUDA source
-TILE_SIDES = (4, 8, 16, 32, 64)
+NT = 256  # threads a block
+STAGES = 2  # slots of the weight ring
+SMS = 132  # streaming multiprocessors of the H100 SXM
+TARGET_M = 128  # output pixels a layer step aims at: one 128-row tile
+STEP_MACS = 200_000  # the plan's price of one layer step (ring fill, barriers) in multiply-adds
+# (BM, BN, WM, WN, KS) of a layer's tile by its output width (layer_tile):
+# eight warps of WM x WN, each (WM / 16) x (WN / 8) m16n8k8 tiles, and KS
+# weight rows a slot of the weight ring (deeper for the narrow layers, whose
+# slots hold little work between two barriers)
+LAYER_TILES = ((128, 8, 16, 8, 128), (128, 16, 16, 16, 128), (128, 64, 32, 32, 64),
+               (64, 128, 32, 32, 64))
 
-Rect = Tuple[int, int, int, int]  # y0, x0, h, w
 
-
-def chan4(c: int) -> int:
-    """Channels rounded up to whole 16-byte words: the depth of the K loop."""
-    return (c + 3) & ~3
+def c8(c: int) -> int:
+    """Channels rounded up to whole 8-deep k groups: a tap's share of K."""
+    return (c + 7) & ~7
 
 
 def pixel_stride(c: int) -> int:
-    """Floats between two stored pixels: :func:`chan4` padded to an odd
-    number of 16-byte words, so neighbouring pixels fall in different banks."""
-    s = chan4(c)
-    return s if (s >> 2) & 1 else s + 4
+    """Floats between two stored pixels: :func:`c8` plus one 16-byte word, an
+    odd number of words, so that the A fragment of 8 neighbouring pixels x 4
+    channels falls on 32 distinct banks."""
+    return c8(c) + 4
 
 
-def layer_tile(cout: int, m: int) -> Tuple[int, int]:
-    """``(TX, TM)`` of a layer with ``cout`` output channels on ``m`` pixels:
-    threads along N (4 channels each) and pixels per thread, as the kernel
-    picks them."""
-    if cout > 16:
-        return (16, 4) if m <= 64 else (16, 8)
-    if cout > 4:
-        return (4, 4) if m <= 256 else (4, 8)
-    return (1, 2)
+def layer_tile(cout: int) -> int:
+    """Index into :data:`LAYER_TILES` of a layer with ``cout`` outputs."""
+    n8 = c8(cout)
+    return 0 if n8 <= 8 else 1 if n8 <= 16 else 2 if n8 <= 64 else 3
 
 
-def tile_rects(ty0: int, tx0: int, th: int, tw: int, n: int, h: int, w: int
-               ) -> Tuple[List[Rect], List[Rect]]:
-    """``(stored, computed)`` rectangles per stage of the tile at
-    ``(ty0, tx0)``: stage ``s`` (the input of layer ``s``) is stored on
-    ``stored[s]`` = ``computed[s + 1]`` grown by one pixel per side, and
-    computed on the part of it inside the image; ``computed[n]`` is the
-    tile. ``stored`` has ``n`` entries, ``computed`` ``n + 1``."""
-    computed: List[Optional[Rect]] = [None] * (n + 1)
-    stored: List[Optional[Rect]] = [None] * n
-    computed[n] = (ty0, tx0, min(th, h - ty0), min(tw, w - tx0))
-    for s in range(n - 1, -1, -1):
-        cy, cx, ch, cw = computed[s + 1]
-        stored[s] = (cy - 1, cx - 1, ch + 2, cw + 2)
-        y0, y1 = max(cy - 1, 0), min(cy + ch + 1, h)
-        x0, x1 = max(cx - 1, 0), min(cx + cw + 1, w)
-        computed[s] = (y0, x0, y1 - y0, x1 - x0)
-    return stored, computed
+def b_ld(bn: int) -> int:
+    """Floats between two rows of a staged weight slice of width ``bn``: the
+    B fragment (4 k rows x 8 columns) then falls on 32 distinct banks."""
+    return max(bn, 16) + 8
 
 
-def _extents(size: int, tile: int, n: int) -> List[List[int]]:
-    """Computed extent along one axis, per tile and stage 1..n."""
-    out = []
-    for t0 in range(0, size, tile):
-        _, computed = tile_rects(t0, 0, tile, 1, n, size, 1)
-        out.append([r[2] for r in computed[1:]])
-    return out
+def slot_floats(cout: int) -> int:
+    """Floats of a weight slot of a layer with ``cout`` outputs."""
+    _, bn, _, _, ks = LAYER_TILES[layer_tile(cout)]
+    return ks * b_ld(bn)
 
 
-def _sides(size: int) -> List[int]:
-    """Tile sides worth trying along an axis of ``size``: every side below it
-    and the first that covers it."""
-    return [s for i, s in enumerate(TILE_SIDES) if i == 0 or TILE_SIDES[i - 1] < size]
+def stage_spans(o0: int, o1: int, n: int, size: int) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` per stage ``s = 0 .. n`` along one axis of ``size`` for a
+    block whose output is ``[o0, o1)``: stage ``s`` (the input of layer
+    ``s``) is stored ``n - s`` further out per side, clipped to the image and
+    its one-pixel zero border; stage ``n`` is the output itself. The stored
+    positions outside the image stay zero: the SAME padding of every layer."""
+    return [(max(-1, o0 - (n - s)), min(size + 1, o1 + (n - s))) for s in range(n)] + [(o0, o1)]
 
 
-def stage_buffers(th: int, tw: int, h: int, w: int, chans: Sequence[int]) -> Tuple[int, int]:
-    """Floats of the two stage buffers of a ``th x tw`` tile: stage ``s`` is
-    at most ``th + 2 (n - s)`` by ``tw + 2 (n - s)`` pixels (and never more
-    than the image with its border), and stages alternate between the two."""
+def advance(nxt: Sequence[int], hi: Sequence[int], rs: int) -> List[int]:
+    """One step of a block's row schedule: ``nxt[s]`` is the next row of
+    stage ``s`` to produce, ``hi[s]`` the end of its span. Stage 0 takes up
+    to ``rs`` more rows; then each later stage takes up to ``rs`` rows
+    whose three input rows are stored (all of the rest once its input stage
+    is complete). Every stage then lags its input by at most one row, so a
+    ring of ``rs + 2`` rows per stage holds every row a layer still reads,
+    and a step's input rows may be copied in as soon as layer 0 of the step
+    before is done (the kernel overlaps them with layers 1 .. n-1)."""
+    new = [min(hi[0], nxt[0] + rs)]
+    for s in range(1, len(nxt)):
+        lim = hi[s] if new[s - 1] == hi[s - 1] else new[s - 1] - 1
+        new.append(max(nxt[s], min(hi[s], nxt[s] + rs, lim)))
+    return new
+
+
+class ChainPlan(NamedTuple):
+    """The launch geometry of a chain (floats for offsets and widths)."""
+
+    strip: int  # output rows a block owns
+    panel: int  # output columns a block owns
+    rs: int  # rows a stage advances per step
+    rows: Tuple[int, ...]  # ring rows per stage 0 .. n-1
+    cols: Tuple[int, ...]  # stored pixels per ring row
+    offsets: Tuple[int, ...]  # the rings' offsets in shared memory (floats)
+    ws_off: int  # the weight ring's offset (floats)
+    ws_slot: int  # floats a slot of the weight ring holds
+    smem_bytes: int
+    strips: int
+    panels: int
+    clear: int  # bit s: stage s shares its ring with stage s - 2 and is zeroed first
+
+
+@functools.lru_cache(maxsize=4096)
+def _max_span(size: int, extent: int, n: int, s: int, inside: bool = False) -> int:
+    """The longest span of stage ``s`` over the blocks of extent ``extent``
+    along an axis of ``size``: stored, or with ``inside`` computed (the part
+    inside the image)."""
+    spans = (stage_spans(o0, min(size, o0 + extent), n, size)[s] for o0 in range(0, size, extent))
+    if inside:
+        return max(min(hi, size) - max(lo, 0) for lo, hi in spans)
+    return max(hi - lo for lo, hi in spans)
+
+
+def chain_layout(h: int, w: int, chans: Sequence[int], strip: int, panel: int, rs: int
+                 ) -> ChainPlan:
+    """The shared memory of a chain over ``h x w`` images run in strips of
+    ``strip`` rows and panels of ``panel`` columns, ``rs`` rows per step:
+    stage ``s`` keeps a ring of ``min(rs + 2, its longest span)`` rows of its
+    longest span of pixels at :func:`pixel_stride`; the weight ring follows.
+    When ``rs`` covers every span, a block runs its whole chain in one step
+    (each stage complete before the next layer reads it, and never read
+    again), so the even stages share one region and the odd stages another,
+    and a stage that takes over a region is zeroed before it is written."""
     n = len(chans) - 1
-    bufs = [4, 4]
-    for s in range(n):
-        size = (min(th + 2 * (n - s), h + 2) * min(tw + 2 * (n - s), w + 2)
-                * pixel_stride(chans[s]))
-        bufs[s & 1] = max(bufs[s & 1], size)
-    return bufs[0], bufs[1]
+    rows = tuple(min(rs + 2, _max_span(h, strip, n, s)) for s in range(n))
+    cols = tuple(_max_span(w, panel, n, s) for s in range(n))
+    sizes = [rows[s] * cols[s] * pixel_stride(chans[s]) for s in range(n)]
+    if rs >= _max_span(h, strip, n, 0):  # one step: two regions, in turns
+        region = [max(sizes[0::2]), max(sizes[1::2], default=0)]
+        offsets = tuple(0 if s % 2 == 0 else region[0] for s in range(n))
+        off, clear = sum(region), sum(1 << s for s in range(2, n))
+    else:
+        offsets = tuple(sum(sizes[:s]) for s in range(n))
+        off, clear = sum(sizes), 0
+    ws_slot = max(slot_floats(c) for c in chans[1:])
+    smem = 4 * (off + STAGES * ws_slot)
+    return ChainPlan(strip, panel, rs, rows, cols, offsets, off, ws_slot, smem,
+                     -(-h // strip), -(-w // panel), clear)
+
+
+def _extents(size: int) -> List[int]:
+    """Every distinct block extent ``ceil(size / k)``, largest first."""
+    return sorted({-(-size // k) for k in range(1, size + 1)}, reverse=True)
+
+
+def _cost(b: int, h: int, w: int, chans: Sequence[int], plan: ChainPlan) -> int:
+    """Multiply-adds of the busiest block, its layer steps priced at
+    :data:`STEP_MACS`, times the waves of blocks over the SMs."""
+    n = len(chans) - 1
+    macs = sum(_max_span(h, plan.strip, n, s, True) * _max_span(w, plan.panel, n, s, True)
+               * chans[s - 1] * chans[s] for s in range(1, n + 1))
+    steps = -(-(_max_span(h, plan.strip, n, 0) + n) // plan.rs)
+    blocks = b * plan.strips * plan.panels
+    return -(-blocks // SMS) * (9 * macs + STEP_MACS * n * steps)
 
 
 @functools.lru_cache(maxsize=256)
-def plan_chain(h: int, w: int, chans: Tuple[int, ...]) -> Tuple[int, int, int, int]:
-    """Launch geometry ``(TH, TW, buf0, buf1)`` of a chain over ``h x w``
-    images with channel widths ``chans`` (``C_0 .. C_n``): the output tile
-    and the two stage buffers in floats. Of the tiles whose buffers fit in a
-    block's shared memory beside the weight slice, the one with the fewest
-    multiply-adds over the image (halo recompute and ragged last tiles
-    counted), then the largest. Raises ``ValueError`` when none fits."""
+def plan_chain(b: int, h: int, w: int, chans: Tuple[int, ...]) -> ChainPlan:
+    """The launch geometry of a chain over ``b`` images of ``h x w`` with
+    channel widths ``chans`` (``C_0 .. C_n``). Panels are the whole width
+    unless no layout of full rows fits in a block's shared memory (then the
+    widest panel that does). Strips: of every strip height, the one with the
+    least :func:`_cost` (seam recompute against blocks to fill the SMs; the
+    larger strip on a tie). Rows per step: up to :data:`TARGET_M` output
+    pixels a step, fewer when the rings do not fit. Raises ``ValueError``
+    when nothing fits."""
     n = len(chans) - 1
-    best = None
-    for th in _sides(h):
-        for tw in _sides(w):
-            bufs = stage_buffers(th, tw, h, w, chans)
-            if 4 * (bufs[0] + bufs[1] + WS_FLOATS) > SMEM_BYTES:
+    for panel in _extents(w):
+        best = None
+        for strip in _extents(h):
+            rs = max(1, min(TARGET_M // panel, strip + 2 * n))
+            while rs >= 1:
+                plan = chain_layout(h, w, chans, strip, panel, rs)
+                if plan.smem_bytes <= SMEM_BYTES:
+                    break
+                rs -= 1
+            if rs < 1:
                 continue
-            rows, cols = _extents(h, th, n), _extents(w, tw, n)
-            macs = sum(sum(r[l] for r in rows) * sum(c[l] for c in cols)
-                       * chans[l] * chans[l + 1] for l in range(n))
-            key = (macs, -th * tw, th)
-            if best is None or key < best[0]:
-                best = (key, (th, tw, bufs[0], bufs[1]))
-    if best is None:
-        raise ValueError(f"{NAME}: no tile of a {h}x{w} image with channels {chans} fits in "
-                         f"{SMEM_BYTES} bytes of shared memory")
-    return best[1]
+            cost = _cost(b, h, w, chans, plan)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+        if best is not None:
+            return best[1]
+    raise ValueError(f"{NAME}: no layout of a {h}x{w} image with channels {chans} fits in "
+                     f"{SMEM_BYTES} bytes of shared memory")
 
 
 def _check(x: Tensor, kernels: Sequence[Tensor], biases: Sequence[Tensor]) -> Tuple[int, ...]:
@@ -190,9 +260,10 @@ def _library() -> ctypes.CDLL:
 
         lib = _build.load(SOURCE)
         ptrs = ctypes.POINTER(ctypes.c_void_p)
+        ints = ctypes.POINTER(ctypes.c_int)
         lib.svrs_conv3x3_chain.argtypes = (
-            [ctypes.c_void_p, ptrs, ptrs, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-             ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_int, ctypes.c_void_p, ptrs, ptrs, ints, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ints, ctypes.c_void_p])
         lib.svrs_conv3x3_chain.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -216,17 +287,21 @@ def _launch(x: Tensor, kernels: Sequence[Tensor], biases: Sequence[Tensor]) -> T
         return out
     if min(chans) < 1:
         raise ValueError(f"{NAME}: every layer needs at least one channel, got {chans}")
-    th, tw, buf0, buf1 = plan_chain(h, w, chans)
+    plan = plan_chain(b, h, w, chans)
+    # the plan as the C entry point reads it
+    geo = [plan.strip, plan.panel, plan.rs, plan.ws_off, plan.ws_slot, plan.smem_bytes,
+           plan.clear, *plan.rows, *plan.cols, *plan.offsets]
     n = len(kernels)
-    # the pointer arrays are read during the call only; the tensors outlive it
+    # the arrays are read during the call only; the tensors outlive it
     kernel_ptrs = (ctypes.c_void_p * n)(*[k.data_ptr() for k in kernels])
     bias_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in biases])
     widths = (ctypes.c_int * (n + 1))(*chans)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().svrs_conv3x3_chain(
-            x.data_ptr(), kernel_ptrs, bias_ptrs, widths, n, out.data_ptr(), b, h, w, th, tw,
-            buf0, buf1, stream)
+    # one C call that makes the device current itself, on the raw handle of
+    # its current stream
+    index = x.get_device()
+    err = _library().svrs_conv3x3_chain(
+        index, x.data_ptr(), kernel_ptrs, bias_ptrs, widths, n, out.data_ptr(), b, h, w,
+        (ctypes.c_int * len(geo))(*geo), torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{NAME}: CUDA launch failed with cudaError {err}")
     fc.launches[NAME] += 1

@@ -439,9 +439,10 @@ def test_int8_cuda_serving_matches_plain_path(cuda):
 
 
 # (x shape, later channel widths): one, two and four layers; odd H, W and
-# channel widths; images larger than a tile in both directions, so that
-# halos and ragged last tiles run; a 40-channel input (two weight slices);
-# and the models' tails at a small batch
+# channel widths; a 40-channel input (K over several weight slots); the
+# models' tails at a small batch; one image in many strips and 16 images in
+# strips of 8 rows (seams inside an image, the rings wrapping); an image too
+# wide for full rows (panels); a layer wider than one n tile (N = 136)
 CHAIN_CASES = [
     ((2, 5, 7, 3), (6,)),
     ((3, 9, 11, 5), (7, 3)),
@@ -453,6 +454,11 @@ CHAIN_CASES = [
     ((5, 8, 8, 64), (64, 128, 128, 106)),
     ((3, 8, 8, 128), (128, 128, 128, 424)),
     ((1, 8, 8, 64), (64, 128, 128, 84)),
+    ((1, 64, 64, 64), (64, 16, 16, 4)),
+    ((16, 64, 64, 64), (64, 16, 16, 4)),
+    ((4, 29, 30, 64), (64, 16, 16, 4)),
+    ((1, 12, 200, 64), (64, 16, 16, 4)),
+    ((1, 5, 6, 8), (136, 7)),
 ]
 
 
@@ -480,6 +486,11 @@ def test_chain_cuda_kernel_matches_plain(cuda, case):
     assert after.pop(fc.CHAIN) == before.pop(fc.CHAIN) + 1 and after == before  # one launch
     want = fch.conv3x3_chain_plain(x, ks, bs)
     assert got.shape == want.shape == shape[:3] + (widths[-1],)
+    plan = fch.plan_chain(*shape[:3], (shape[-1],) + widths)
+    if shape[0] == 1 and shape[1] == 64:
+        assert plan.strips > 1  # seams inside the image
+    if shape[2] == 200:
+        assert plan.panels > 1
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
     assert torch.equal(fch.fused_conv3x3_chain(x, ks, bs), got)  # the same sums every run
     assert torch.equal(fch.fused_conv3x3_chain(x, ks, bs, plain=True), want)

@@ -18,11 +18,14 @@ another order) at ragged shapes, with C % 4 != 0, at every tile
 configuration. Inputs come from numpy seeds.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from simple_vae_rs_tpu.ops import pallas_conv as pc
+from simple_vae_rs_tpu_torch.ops import fused_chain as fch
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -462,3 +465,33 @@ def test_every_float_conv_kernel_takes_the_tensor_cores():
         threads = (bm // wm) * (bn // wn) * 32
         assert threads in (128, 256) and (bm * fc.TC_BK // 4) % threads == 0
         assert 2 * fc.tc_smem_bytes(cfg) <= 228 * 1024 - 2048
+
+
+# every chain the canonical models launch, at the batch sizes of their paths:
+# (B, H, W, C_0 .. C_n)
+_CHAIN_TAIL = (64, 64, 16, 16, 4)
+_CANONICAL_CHAINS = [(b, 64, 64, _CHAIN_TAIL) for b in (16, 512, 1000)] + [
+    (b, 32, 32, _CHAIN_TAIL) for b in (16, 512, 1000)] + [
+    (b, 8, 8, (64, 64, 128, 128, 106)) for b in (1, 16, 512)] + [
+    (512, 8, 8, (128, 128, 128, 128, 424))] + [
+    (b, 8, 8, (64, 64, 128, 128, 84)) for b in (1, 512)]
+
+
+def test_the_chain_takes_the_tensor_cores():
+    """The chain's multiply-adds run on mma.sync TF32 with the 3xTF32 split
+    and the rounded promotion of each 8-deep partial (as conv_tc), and no
+    scalar FMA loop is left; its plan fits in shared memory at every
+    canonical chain, full-width rows."""
+    src = (Path(fc.__file__).resolve().parent.parent / "csrc" / fch.SOURCE).read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "split_tf32(a0[0], ah[0], al[0])" in src and "split_tf32(bp[0]" in src
+    for product in ("mma_tf32(part, al, bh[ni])", "mma_tf32(part, ah, bl[ni])",
+                    "mma_tf32(part, ah, bh[ni])", "acc[mi][ni][r] += part[r]"):
+        assert product in src
+    assert "fmaf(" not in src
+    for b, h, w, chans in _CANONICAL_CHAINS:
+        plan = fch.plan_chain(b, h, w, chans)
+        assert plan.smem_bytes <= SMEM_LIMIT and plan.panel == w
+        # the card is filled: nine in ten SMs at least, or a block per output row
+        assert b * plan.strips * plan.panels >= min(0.9 * SMS, b * h)
+
