@@ -11,7 +11,7 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 2. Build the CUDA kernels from ``simple_vae_rs_tpu_torch/csrc`` (nvcc, one
    process per source, all started together) and print ptxas's registers and
    spills per kernel; a spill in the tensor-core conv kernel, in the chain
-   kernel or in any int8 kernel fails.
+   kernel, in any int8 kernel or in the quantizer fails.
 3. Hold each kernel against its plain PyTorch version on ragged shapes (for
    the tensor-core kernel, in all three convs: C = 53 and 106, N = 4 and 53,
    odd O, M <= 64 (per phase for the transposed conv) with a K split, K not
@@ -53,17 +53,19 @@ Phases (any failure raises and exits non-zero; no phase's failure is caught):
 
 Between phases 5 and 6, the int8 serving modes (the model of phase 4):
 
-I1. Hold each int8 conv kernel (activation absmax pass, for the 3x3 and
-    transposed convs the quantize pass, + W8A8 conv) against its exact plain
-    version on ragged shapes: odd H/W, C = 3, 5, 6, 7, 130, 300 and 424,
-    O = 5, 9, 13, 70 and 200, K splits, ``act_group`` smaller than the batch;
-    the tensor-core kernels (#9, #12) and the quantize pass bit for bit.
-I2. The stochastic-round quantizer on the 18 canonical decoder kernels:
-    the same bytes as its plain version, ``|q - w/scale| < 1`` everywhere,
-    the mean error within 4 standard errors of 0 per leaf, the same bytes
-    on a second run, other bytes for another leaf's seed; timed.
+I1. Hold each int8 conv kernel (activation absmax pass, quantize pass and
+    W8A8 conv on the int8 tensor cores: #9, #11 and #12) against its exact
+    plain version on ragged shapes, bit for bit: odd H/W, C = 3, 4, 5, 6, 7,
+    130, 300 and 424, O = 5, 9, 13, 70 and 200, K splits, ``act_group``
+    smaller than the batch; the quantize pass bit for bit too.
+I2. The stochastic-round quantizer on the canonical W8A8 tree (the 18
+    decoder kernels) in one C call: every leaf the same bytes, q and scales,
+    as its plain version, ``|q - w/scale| < 1`` everywhere, the mean error
+    within 4 standard errors of 0 per leaf, the same bytes on a second call,
+    other bytes for another leaf's seed; the tree timed (CUDA events and
+    profiler device time) against its bytes bound.
 I3. ``SuperResolver(model, int8=True)``: every counter is set to 0, the
-    resolver is built (which quantizes: 18 launches), then ``super_resolve``
+    resolver is built (which quantizes the tree: 2 launches), then ``super_resolve``
     B=16 and ``uncertainty`` N=1000 run; the counters must equal the calls
     the hooks recorded and the expected numbers (per request: int8 3x3 x7,
     int8 convT x2, the absmax pass x9, the quantize pass x9, float 3x3 x17,
@@ -72,9 +74,10 @@ I3. ``SuperResolver(model, int8=True)``: every counter is set to 0, the
     agree; PSNR against the float32 resolver of phase 4 on the same seeds
     (so the same noise) must exceed 30 dB. Median latencies, peak memory.
 I4. The int8 4x4/s2 kernel through the block path: six ``DownBlock``s at the
-    canonical shapes (B=16), each given a ``quant`` tree, against the plain
-    path; counters set to 0 before and read after (their 3x3 convs run #9
-    and its quantize pass six times).
+    canonical shapes (B=16), each given a ``quant`` tree (one quantizer call
+    of 2 launches a block, its bytes held against the plain version and
+    timed), against the plain path; counters set to 0 before and read after
+    (their 3x3 convs run #9, and every int8 conv its quantize pass: 12).
 I5. Each int8 kernel against its plain version at every distinct shape I3
     and I4 launched, timed, with the float32 kernel's time at the same shape
     and the bound (bytes over 3.35 TB/s or integer operations over the 1,979
@@ -84,8 +87,9 @@ I5. Each int8 kernel against its plain version at every distinct shape I3
     absmax pass is also timed by ``torch.profiler`` (device time of its
     kernel and its result's memset: CUDA events around one call of a few
     microseconds measure the wrapper), with its share of the bytes bound.
-    The quantize pass is timed alone against its bytes bound, and beside
-    each tensor-core int8 conv stands cuBLASLt's int8 GEMM
+    The quantize pass is timed alone against its bytes bound, each int8
+    conv call (absmax, quantize and conv) also by the profiler
+    (``device_ms``), and beside each int8 conv stands cuBLASLt's int8 GEMM
     (``torch._int_mm``) at the same (M, N, K) on operands im2col'd outside
     the timing (``gemm_ms``): a yardstick of the tensor-core rate, not the
     same function, so ``library_ms`` stays null.
@@ -132,9 +136,9 @@ C5. Timing by CUDA events per chain shape: the chain, the per-layer kernel
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
 one val step; for the int8 kernels over the int8 serving run and the block
-path; an int8 conv's time includes its absmax pass and, for #9 and #12, its
-quantize pass, each also listed on its own; for the chain over the chained
-runs of C2-C4), then the last line
+path; an int8 conv's time includes its absmax and quantize passes, each also
+listed on its own; the quantizer's over its seven trees; for the chain over
+the chained runs of C2-C4), then the last line
 ``{"ok": true, "device": {...}}``. A per-shape report is written to
 ``chiprun_out/chip_smoke_report.json``. Exits non-zero without a CUDA card.
 
@@ -151,10 +155,9 @@ a long sum that cancels, and the permuted batch alone moves it by up to
 0.6% of the leaf's largest value; the bias of such a conv has a true
 gradient of 0. Parameters after the step within 2 * lr (Adam's first step
 moves a weight by about lr * sign(g)), and 99% of all elements within
-1e-2 * lr. Int8: kernel vs plain max|diff| <= 1e-5 * max|plain| (the same
-integers summed exactly on both sides, the same float32 epilogue), and the
-tensor-core kernels and the quantize pass equal to the last bit; the
-quantizer byte for byte; the int8 resolver vs its plain path 2e-3 absolute
+1e-2 * lr. Int8: the three convs and the quantize pass equal to their plain
+versions to the last bit (the same integers summed exactly on both sides,
+the same float32 epilogue); the quantizer byte for byte; the int8 resolver vs its plain path 2e-3 absolute
 (the float32 layers above the decoder differ in the last bits, so a few
 activations on a rounding boundary quantize one step apart), with the share
 of elements beyond 1e-5 printed.
@@ -192,7 +195,7 @@ NOISE_FACTOR = 8.0  # times float32's own noise: the plain path on the permuted 
 SOURCE = "simple_vae_rs_tpu_torch/csrc/fused_conv.cu"
 ROW_SOURCE = "simple_vae_rs_tpu_torch/csrc/elbo_rows.cu"
 INT8_SOURCE = "simple_vae_rs_tpu_torch/csrc/int8_conv.cu"
-TC_INT8 = ("int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu")  # on the int8 tensor cores
+TC_INT8 = ("int8_conv3x3_bn_relu", "int8_conv4x4s2_bn_relu", "int8_convT4x4s2_bn_relu")
 QUANT_SOURCE = "simple_vae_rs_tpu_torch/csrc/quantize.cu"
 PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
 INT8_TOL = 1e-5  # of max|plain|
@@ -216,10 +219,10 @@ REPLACES = {
     "int8_conv4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:328",
     "int8_convT4x4s2_bn_relu": "simple_vae_rs_tpu/ops/pallas_int8.py:441",
 }
-# (name, x shape, O, relu, act_group); for the tensor-core kernels C = 3, 5,
-# 6, 7, 130, 300 and 424 (padded to 16, 16, 16, 16, 144, 304, 432), O = 5,
-# 9, 13, 70 and 200 (weight rows not whole 16-byte words), every tile, K
-# splits in both modes, short last groups, odd H and W
+# (name, x shape, O, relu, act_group): C = 3, 4, 5, 6, 7, 130, 300 and 424
+# (padded to 16, 16, 16, 16, 16, 144, 304, 432), O = 5, 9, 13, 70 and 200
+# (weight rows not whole 16-byte words), every tile, K splits in all three
+# modes, short last groups, odd H and W
 RAGGED_INT8 = [
     ("int8_conv3x3_bn_relu", (3, 5, 7, 3), 5, True, None),
     ("int8_conv3x3_bn_relu", (5, 9, 11, 6), 13, False, 2),
@@ -230,6 +233,9 @@ RAGGED_INT8 = [
     ("int8_conv3x3_bn_relu", (1, 4, 4, 424), 424, False, None),
     ("int8_conv4x4s2_bn_relu", (3, 6, 10, 5), 7, True, 1),
     ("int8_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, False, None),
+    ("int8_conv4x4s2_bn_relu", (5, 9, 11, 4), 13, True, 2),
+    ("int8_conv4x4s2_bn_relu", (1, 8, 8, 130), 200, False, None),
+    ("int8_conv4x4s2_bn_relu", (2, 12, 13, 5), 70, True, 1),
     ("int8_convT4x4s2_bn_relu", (2, 3, 5, 7), 9, True, None),
     ("int8_convT4x4s2_bn_relu", (4, 4, 4, 130), 70, False, 3),
     ("int8_convT4x4s2_bn_relu", (3, 5, 6, 5), 13, True, 2),
@@ -275,10 +281,11 @@ def log(*args):
     print(*args, flush=True)
 
 
-def tensor_core_ptxas(report: str, kernel: str = "conv_tc") -> str:
+def tensor_core_ptxas(report: str, kernel: str = "conv_tc", expect: int = 0) -> str:
     """Registers of the kernels whose name holds ``kernel`` (every kernel of
     the report for "") from ptxas's ``-v`` report (the tensor-core kernels'
-    shared memory is dynamic); fails if one of them spills."""
+    shared memory is dynamic); fails if one of them spills, or if there are
+    not ``expect`` of them (any number for 0)."""
     current, regs, entries = "", [], 0
     for line in report.splitlines():
         if "Function properties for" in line:
@@ -292,6 +299,8 @@ def tensor_core_ptxas(report: str, kernel: str = "conv_tc") -> str:
             regs.append(int(line.split("Used")[1].split()[0]))
     if not entries or len(regs) != entries:
         raise AssertionError(f"ptxas: no report for the {kernel or 'int8'} kernels")
+    if expect and entries != expect:
+        raise AssertionError(f"ptxas: {entries} {kernel} instances, expected {expect}")
     return f"{entries} instances, {min(regs)}-{max(regs)} registers, no spills"
 
 
@@ -882,9 +891,10 @@ def bound_row(row, ops, nbytes, peak_ops):
 
 def int8_gemm_ms(f8, name, qx, kq, reps):
     """cuBLASLt's int8 GEMM (``torch._int_mm``, int32 out) at the (M, N, K)
-    of tensor-core int8 conv ``name`` on the quantized input ``qx``: A its
-    im2col (the transposed conv's four phases stacked along M), B the
-    channel-padded weight with N padded to 8, both built outside the timing.
+    of int8 conv ``name`` on the quantized input ``qx``: A its im2col (the
+    strided conv's 16 taps at stride 2, the transposed conv's four phases
+    stacked along M), B the channel-padded weight with N padded to 8, both
+    built outside the timing.
     Not the same function (no quantize pass, no epilogue): a yardstick of
     the int8 tensor-core rate. None where ``torch._int_mm`` does not exist or
     M is too small for it."""
@@ -893,16 +903,21 @@ def int8_gemm_ms(f8, name, qx, kq, reps):
     b, h, w, cp = qx.shape
     c, o = kq.shape[2], kq.shape[3]
     xp = F.pad(qx, (0, 0, 1, 1, 1, 1))
+    st = 2 if name == "int8_conv4x4s2_bn_relu" else 1
+    ho, wo = h // st, w // st
     if name == "int8_conv3x3_bn_relu":
         groups = [[(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]]
+    elif st == 2:
+        groups = [[(dy, dx) for dy in (-1, 0, 1, 2) for dx in (-1, 0, 1, 2)]]
     else:  # per phase (u, v) its four live taps
         groups = [[(ta + u - 1, tb + v - 1) for ta in (0, 1) for tb in (0, 1)]
                   for u in (0, 1) for v in (0, 1)]
-    a = torch.cat([torch.cat([xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w] for dy, dx in taps],
-                             dim=-1).reshape(b * h * w, -1) for taps in groups])
+    a = torch.cat([torch.cat([xp[:, 1 + dy:1 + dy + st * ho:st, 1 + dx:1 + dx + st * wo:st]
+                              for dy, dx in taps], dim=-1).reshape(b * ho * wo, -1)
+                   for taps in groups])
     o8 = -(-o // 8) * 8
-    # (taps * Cp, N8): all nine taps; for the transposed conv four taps' rows,
-    # one phase's K (the values do not change the time)
+    # (taps * Cp, N8): all nine or sixteen taps; for the transposed conv four
+    # taps' rows, one phase's K (the values do not change the time)
     bw = F.pad(kq, (0, o8 - o, 0, cp - c)).reshape(-1, o8)[:a.shape[1]].contiguous()
     if a.shape[0] <= 16:
         return None
@@ -910,12 +925,12 @@ def int8_gemm_ms(f8, name, qx, kq, reps):
 
 
 def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group=None):
-    """Int8 kernel (absmax pass, the quantize pass for the tensor-core ones,
-    and the W8A8 conv) vs its exact plain version at one shape, and the
-    quantize pass vs its plain version; with ``timing``, also the times, the
-    float32 kernel's time at the same shape, the absmax and quantize passes
-    alone and, for the tensor-core kernels, cuBLASLt's int8 GEMM at the same
-    GEMM shape."""
+    """Int8 kernel (absmax pass, quantize pass and the W8A8 conv on the int8
+    tensor cores) vs its exact plain version at one shape, bit for bit, and
+    the quantize pass vs its plain version; with ``timing``, also the times
+    (events, and the call's device time by the profiler), the float32
+    kernel's time at the same shape, the absmax and quantize passes alone
+    and cuBLASLt's int8 GEMM at the same GEMM shape."""
     from simple_vae_rs_tpu_torch.ops import quantize as qz
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -928,8 +943,7 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
     kq, ks = qz.quantize_rtn(kernel)
     scale = torch.rand((o,), generator=gen, device="cuda") + 0.5
     shift = torch.randn((o,), generator=gen, device="cuda")
-    packed = f8.pack_for(name, kq)
-    tc = name in f8.TC_KERNELS
+    packed = f8.pack_kernel_q(kq)
 
     def run():
         return f8.WRAPPERS[name](x, kq, ks, scale, shift, relu=relu, act_group=act_group,
@@ -951,20 +965,23 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
     row = {"name": name, "x": list(shape), "o": o, "relu": relu, "act_group": act_group,
            "max_abs_err": err, "max_abs_ref": ref,
            "equal_share": float((got == want).float().mean())}
-    if tc:
-        # exact int32 sums and the plain version's epilogue: the same bits
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} {shape}->{o} group {act_group}: "
-                                 f"{100 * row['equal_share']:.4f}% equal to the last bit")
-        qx = f8.act_quant(x, amax, act_group)
-        if not torch.equal(qx, f8.act_quant_plain(x, amax_want, act_group)):
-            raise AssertionError(f"act_quant {shape} group {act_group}: bytes differ from the "
-                                 f"plain version")
+    # exact int32 sums and the plain version's epilogue: the same bits
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {shape}->{o} group {act_group}: "
+                             f"{100 * row['equal_share']:.4f}% equal to the last bit")
+    qx = f8.act_quant(x, amax, act_group)
+    if not torch.equal(qx, f8.act_quant_plain(x, amax_want, act_group)):
+        raise AssertionError(f"act_quant {shape} group {act_group}: bytes differ from the "
+                             f"plain version")
     if timing:
         first = cuda_ms(run, 1)
         reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
         row["ms"] = cuda_ms(run, reps)
-        row["gemm_ms"] = int8_gemm_ms(f8, name, qx, kq, reps) if tc else None
+        # the call's device work: the absmax memset and kernel, the quantize
+        # pass, the conv and its K-split reduce
+        row["device_ms"] = profiled_device_ms(run, 10, ("act_absmax", "emset", "act_quant",
+                                                        "int8_tc", "splitk_reduce"))
+        row["gemm_ms"] = int8_gemm_ms(f8, name, qx, kq, reps)
         row["plain_ms"] = cuda_ms(
             lambda: f8.PLAIN[name](x, kq, ks, scale, shift, relu, act_group), 2)
         row["library_ms"] = None
@@ -990,71 +1007,111 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
         if absmax["device_ms"]:
             absmax["share_of_bound_device"] = absmax["bound_ms"] / absmax["device_ms"]
         row["absmax"] = absmax
-        if tc:
-            # 4 bytes read and round_up(C, 16) / C written per element, the
-            # group scales read; a true division per element
-            row["quant"] = {"name": "act_quant", "x": list(shape), "qx_bytes": qx.numel(),
-                            "ms": cuda_ms(lambda: f8.act_quant(x, amax, act_group), 50),
-                            "plain_ms": cuda_ms(
-                                lambda: f8.act_quant_plain(x, amax, act_group), 50),
-                            "library_ms": None}
-            bound_row(row["quant"], float(x.numel()),
-                      4.0 * x.numel() + qx.numel() + 4.0 * groups, PEAK_F32_FLOPS)
+        # 4 bytes read and round_up(C, 16) / C written per element, the
+        # group scales read; a true division per element
+        row["quant"] = {"name": "act_quant", "x": list(shape), "qx_bytes": qx.numel(),
+                        "ms": cuda_ms(lambda: f8.act_quant(x, amax, act_group), 50),
+                        "plain_ms": cuda_ms(lambda: f8.act_quant_plain(x, amax, act_group), 50),
+                        "library_ms": None}
+        bound_row(row["quant"], float(x.numel()),
+                  4.0 * x.numel() + qx.numel() + 4.0 * groups, PEAK_F32_FLOPS)
+    return row
+
+
+def quant_leaves(model, seed, prefixes):
+    """``(name, w, seed)`` of every leaf ``quantize_params_tree(model, seed,
+    prefixes)`` quantizes, in its order."""
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    out = []
+    for path, mod in qz._conv_modules(model):
+        leaf = path + ("kernel",)
+        if any(comp.startswith(p) for comp in leaf for p in prefixes):
+            out.append(("/".join(leaf), mod.kernel.detach(), qz.leaf_seed(seed, leaf)))
+    return out
+
+
+def check_quant_tree(label, leaves, stats: bool):
+    """The stochastic-round quantizer on one quant tree (``quant_leaves``) in
+    one C call: every leaf's q and scales equal to its plain version's, the
+    same bytes on a second call, the call's launches; with ``stats`` also
+    ``|q - w/scale| < 1``, the mean error within 4 standard errors of 0 and
+    other bytes for another leaf's seed, per leaf. Times the call (events
+    and profiler device time) against its bound."""
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    pairs = [(w, seed) for _, w, seed in leaves]
+    before = qz.launches["quantize_stochastic"]
+    got = qz.quantize_leaves(pairs)
+    torch.cuda.synchronize()
+    calls = qz.launches["quantize_stochastic"] - before
+    if calls != 2:
+        raise AssertionError(f"quantizer {label}: {calls} launches for one tree, expected 2")
+    again = qz.quantize_leaves(pairs)
+    prev = None
+    leaf_rows = []
+    for (name, w, seed), (q, scale), (q2, s2) in zip(leaves, got, again):
+        q_plain, scale_plain = qz.quantize_stochastic_plain(w, seed)
+        if not (torch.equal(q, q_plain) and torch.equal(scale, scale_plain)):
+            raise AssertionError(f"quantizer {label} {name}: kernel and plain version differ in "
+                                 f"{int((q != q_plain).sum())} bytes and "
+                                 f"{int((scale != scale_plain).sum())} scales")
+        if not (torch.equal(q2, q) and torch.equal(s2, scale)):
+            raise AssertionError(f"quantizer {label} {name}: two calls differ")
+        leaf_row = {"leaf": name, "shape": list(w.shape),
+                    "max_abs_err": float((q.float() - q_plain.float()).abs().max())}
+        if stats:
+            x = (w / scale).double()
+            err = q.double() - x
+            frac = x - torch.floor(x)
+            se = float(torch.sqrt((frac * (1 - frac)).sum())) / x.numel()
+            if not float(err.abs().max()) < 1.0:
+                raise AssertionError(f"quantizer {name}: |q - w/scale| reaches "
+                                     f"{float(err.abs().max())}")
+            if not abs(float(err.mean())) <= 4 * se:
+                raise AssertionError(f"quantizer {name}: mean error {float(err.mean())} beyond "
+                                     f"4 standard errors ({se})")
+            if prev is not None and torch.equal(qz.quantize_stochastic(w, prev)[0], q):
+                raise AssertionError(f"quantizer {name}: another leaf's seed gave the same bytes")
+            prev = seed
+            leaf_row.update(max_abs_round_err=float(err.abs().max()), mean_err=float(err.mean()),
+                            mean_err_se=se)
+            log(f"quantizer {name} {tuple(w.shape)}: bytes equal to the plain version, "
+                f"max|q - w/s| {leaf_row['max_abs_round_err']:.4f}, mean error "
+                f"{leaf_row['mean_err']:+.2e} (se {se:.2e})")
+        leaf_rows.append(leaf_row)
+    numel = sum(w.numel() for _, w, _ in leaves)
+    width = sum(w.shape[-1] for _, w, _ in leaves)
+    match = ("col_absmax", "stochastic_round", "emset")
+    row = {"name": "quantize_stochastic", "tree": label, "leaves": leaf_rows,
+           "elements": numel, "launches": calls,
+           "max_abs_err": max(r["max_abs_err"] for r in leaf_rows),
+           "ms": cuda_ms(lambda: qz.quantize_leaves(pairs), 20),
+           # a second window where the profiler records no device time in the first
+           "device_ms": (profiled_device_ms(lambda: qz.quantize_leaves(pairs), 10, match)
+                         or profiled_device_ms(lambda: qz.quantize_leaves(pairs), 10, match)),
+           "plain_ms": cuda_ms(lambda: [qz.quantize_stochastic_plain(w, sd) for w, sd in pairs],
+                               5),
+           "library_ms": None}
+    # each weight read once and each byte and scale written once; per element a
+    # division, floor, subtract, compare, add and two clamps
+    bound_row(row, 7.0 * numel, 5.0 * numel + 4.0 * width, PEAK_F32_FLOPS)
+    log(f"quantizer tree {label}: {len(leaves)} leaves, {numel} elements in one call of "
+        f"{calls} launches, every leaf's bytes and scales equal to the plain version; "
+        f"{row['ms']:.4f} ms by events, device {row['device_ms']} ms, plain {row['plain_ms']:.3f} "
+        f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     return row
 
 
 def check_quantizer(model, report):
-    """Phase I2: the stochastic-round quantizer on the canonical decoder leaves."""
+    """Phase I2: the stochastic-round quantizer on the canonical W8A8 tree."""
     from simple_vae_rs_tpu_torch.ops import quantize as qz
 
-    rows = []
-    prev = None
-    for path, mod in qz._conv_modules(model):
-        leaf = path + ("kernel",)
-        if not any(comp.startswith(p) for comp in leaf for p in qz.DECODER_PREFIXES):
-            continue
-        w = mod.kernel.detach()
-        seed = qz.leaf_seed(0, leaf)
-        q, scale = qz.quantize_stochastic(w, seed)
-        q_plain, scale_plain = qz.quantize_stochastic_plain(w, seed)
-        torch.cuda.synchronize()
-        name = "/".join(leaf)
-        if not (torch.equal(q, q_plain) and torch.equal(scale, scale_plain)):
-            raise AssertionError(f"quantizer {name}: kernel and plain version differ in "
-                                 f"{int((q != q_plain).sum())} bytes")
-        if not torch.equal(qz.quantize_stochastic(w, seed)[0], q):
-            raise AssertionError(f"quantizer {name}: two runs differ")
-        x = (w / scale).double()
-        err = q.double() - x
-        frac = x - torch.floor(x)
-        se = float(torch.sqrt((frac * (1 - frac)).sum())) / x.numel()
-        if not float(err.abs().max()) < 1.0:
-            raise AssertionError(f"quantizer {name}: |q - w/scale| reaches "
-                                 f"{float(err.abs().max())}")
-        if not abs(float(err.mean())) <= 4 * se:
-            raise AssertionError(f"quantizer {name}: mean error {float(err.mean())} beyond "
-                                 f"4 standard errors ({se})")
-        if prev is not None and torch.equal(qz.quantize_stochastic(w, prev)[0], q):
-            raise AssertionError(f"quantizer {name}: another leaf's seed gave the same bytes")
-        prev = seed
-        row = {"name": "quantize_stochastic", "leaf": name, "shape": list(w.shape),
-               "max_abs_err": float((q.float() - q_plain.float()).abs().max()),
-               "max_abs_round_err": float(err.abs().max()), "mean_err": float(err.mean()),
-               "mean_err_se": se,
-               "ms": cuda_ms(lambda: qz.quantize_stochastic(w, seed), 20),
-               "plain_ms": cuda_ms(lambda: qz.quantize_stochastic_plain(w, seed), 20),
-               "library_ms": None}
-        # per element: a division, floor, subtract, compare, add and two clamps
-        bound_row(row, 7.0 * w.numel(), 5.0 * w.numel() + 4.0 * w.shape[-1], PEAK_F32_FLOPS)
-        rows.append(row)
-        log(f"quantizer {name} {tuple(w.shape)}: bytes equal to the plain version, max|q - w/s| "
-            f"{row['max_abs_round_err']:.4f}, mean error {row['mean_err']:+.2e} (se {se:.2e}), "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
-    if len(rows) != 18:
-        raise AssertionError(f"expected 18 decoder kernels, quantized {len(rows)}")
-    report["quantizer"] = rows
-    return rows
+    leaves = quant_leaves(model, 0, qz.DECODER_PREFIXES)
+    if len(leaves) != 18:
+        raise AssertionError(f"expected 18 decoder kernels, found {len(leaves)}")
+    rows = report["quantizer"] = [check_quant_tree("decoder", leaves, stats=True)]
+    return rows  # phase I4 adds the block path's trees
 
 
 def record_routed_calls(model, calls):
@@ -1151,7 +1208,7 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for h in hooks:
         h.remove()
-    if counts["quantize_stochastic"] != 18:
+    if counts["quantize_stochastic"] != 2:  # one tree, one call of two launches
         raise AssertionError(f"the quantizer launched {counts['quantize_stochastic']} times")
     for name, want in INT8_EXPECTED.items():
         per_uq = counts[name] - after_sr[name]
@@ -1207,13 +1264,17 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     rng = np.random.default_rng(5)
     reset_all_counts()
     worst_block = 0.0
+    block_trees = []
     for i, (cin, cout, hw) in enumerate(DOWN_BLOCKS):
         block = blocks.DownBlock(cin, cout, device="cuda").eval()
         for mod in block.modules():
             if hasattr(mod, "reset_parameters"):
                 mod.reset_parameters(rng)
         randomize_bn(block, seed=20 + i)
-        qz.attach_quant(block, qz.quantize_params_tree(block, seed=i, prefixes=("",)))
+        tree = qz.quantize_params_tree(block, seed=i, prefixes=("",))
+        qz.attach_quant(block, tree)
+        block_trees.append((f"DownBlock {cin}->{cout} at {hw}", quant_leaves(block, i, ("",)),
+                            [tree["conv"], tree["downsample"]]))
         hooks = record_routed_calls(block, block_calls)
         x = torch.randn((16, hw, hw, cin), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(700 + i))
@@ -1231,7 +1292,7 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
                                  f"{INT8_TOL} * {ref}")
     block_counts = all_counts()
     want_counts = {"int8_conv3x3_bn_relu": 6, "int8_conv4x4s2_bn_relu": 6, "act_absmax": 12,
-                   "act_quant": 6, "quantize_stochastic": 12}
+                   "act_quant": 12, "quantize_stochastic": 12}
     for name, count in block_counts.items():
         if count != want_counts.get(name, 0):
             raise AssertionError(f"block path {name}: {count} launches, expected "
@@ -1240,6 +1301,16 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
         f"{block_counts['int8_conv4x4s2_bn_relu']} times, worst max|diff| vs the plain path "
         f"{worst_block:.2e} of max|plain|")
     int8_report["block_path"] = {"launches": block_counts, "worst_rel_err": worst_block}
+    # each block's tree: the attached leaves and a call of its own, against
+    # the plain version, and timed
+    for label, leaves, nodes in block_trees:
+        for (name, w, seed), node in zip(leaves, nodes):
+            q_plain, s_plain = qz.quantize_stochastic_plain(w, seed)
+            if not (torch.equal(node["kernel_q"], q_plain)
+                    and torch.equal(node["kernel_s"], s_plain)):
+                raise AssertionError(f"quantizer {label} {name}: the attached leaf differs "
+                                     f"from the plain version")
+        quant_rows.append(check_quant_tree(label, leaves, stats=False))
 
     # I5. every distinct int8 shape of I3 and I4: check and time
     paths = (("serving_int8", [c for c in calls if c[0] in f8.PLAIN]),
@@ -1263,7 +1334,8 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
                     f"bound {am['bound_ms']:.4f}"
                     + (f"; quantize pass {qt['ms']:.4f} ms, plain {qt['plain_ms']:.4f}, bound "
                        f"{qt['bound_ms']:.4f}" if qt else "")
-                    + f"), plain {row['plain_ms']:.3f} ms, float32 kernel "
+                    + f"), device {row['device_ms']} ms, plain {row['plain_ms']:.3f} ms, "
+                    f"float32 kernel "
                     f"{row['f32_kernel_ms']:.4f} ms, int8 GEMM {row['gemm_ms']} ms, bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max|diff| "
                     f"{row['max_abs_err']:.2e}, equal share {row['equal_share']}")
@@ -1286,12 +1358,13 @@ def int8_phase(report, model, y, f32_out, f32_uq, f32_launches):
     for name in list(f8.PLAIN) + [f8.QUANT]:
         totals[name]["library_ms"] = None
     tot = totals["quantize_stochastic"] = dict.fromkeys(fields + ("max_abs_err",), 0.0)
-    for row in quant_rows:
-        for k in ("ms", "plain_ms", "bound_ms", "ops", "bytes"):
-            tot[k] += row[k]
+    for row in quant_rows:  # the decoder's tree and the six blocks'
+        for k in ("ms", "plain_ms", "bound_ms", "ops", "bytes", "device_ms"):
+            tot[k] += row[k] or 0.0
         tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
     tot["library_ms"] = None
-    by_path["quantize_stochastic"] = {"serving_int8": counts["quantize_stochastic"]}
+    by_path["quantize_stochastic"] = {"serving_int8": counts["quantize_stochastic"],
+                                      "block_path": block_counts["quantize_stochastic"]}
     for name, tot in totals.items():
         log(f"int8 paths {name}: launches {by_path[name]}, kernel {tot['ms']:.3f} ms, bound "
             f"{tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms"
@@ -1959,9 +2032,12 @@ def main() -> int:
     log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernel")
         + " (dynamic shared memory per shape: ops/fused_chain.plan_chain)")
     int8_report = _build.ptxas_logs["int8_conv.cu"]
-    log("ptxas int8_tc: " + tensor_core_ptxas(int8_report, "int8_tc")
+    # four tiles in each of the three modes
+    log("ptxas int8_tc: " + tensor_core_ptxas(int8_report, "int8_tc", 12)
         + " (dynamic shared memory per tile: ops/fused_int8.tc_smem_bytes); every kernel of "
         + "int8_conv.cu: " + tensor_core_ptxas(int8_report, ""))
+    log("ptxas quantize.cu (col_absmax, stochastic_round): "
+        + tensor_core_ptxas(_build.ptxas_logs["quantize.cu"], "", 2))
 
     # 3. ragged shapes
     report = {"card": card, "torch": torch.__version__, "ragged": [], "shapes": []}
@@ -2151,7 +2227,7 @@ def main() -> int:
             **({"device_ms": tot["device_ms"] or None,
                 "share_of_bound_device": (tot["bound_ms"] / tot["device_ms"]
                                           if tot["device_ms"] else None)}
-               if name == "act_absmax" else {}),
+               if name != "act_quant" else {}),
         })
     tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms",
                          "bound_tc_ms", "bound_cuda_core_ms", "ops", "bytes"), 0.0)

@@ -6,10 +6,10 @@
 //                           TPU kernel runs once on its tile
 //   svrs_int8_tc         <- int8_conv3x3_bn_relu (:216) and its row-strip
 //                           variant _int8_conv3x3_strips (:169), mode kConv3;
-//                           int8_convT4x4s2_bn_relu (:441), mode kConvT
-//                           (transposed 4x4, stride 2, pad 1, kernel in the
-//                           input-dilated form)
-//   svrs_int8_conv4x4s2  <- int8_conv4x4s2_bn_relu (:328) (4x4, stride 2, pad 1)
+//                           int8_conv4x4s2_bn_relu (:328), mode kConv4 (4x4,
+//                           stride 2, pad 1); int8_convT4x4s2_bn_relu (:441),
+//                           mode kConvT (transposed 4x4, stride 2, pad 1,
+//                           kernel in the input-dilated form)
 // Each conv computes, with x NHWC float32 and the weight int8 with one
 // float32 scale ks[o] per output channel,
 //   a      = max(absmax(x over the image's group) / 127, 1e-12)
@@ -20,11 +20,11 @@
 // reference int8_reference* and the strip kernel compute, a smaller group
 // reproduces a Pallas launch of several programs.
 //
-// Design of the 3x3 and transposed convs (int8_tc). The TPU kernel holds a
-// whole padded batch tile in VMEM, takes its absmax there, quantizes it once
-// (_quant_act) and runs int8 dots with int32 accumulation. A block here owns
-// one output tile and no block sees the whole group, so the work is three
-// passes on one stream, with no host sync:
+// Design of the three convs (int8_tc). The TPU kernel holds a whole padded
+// batch tile in VMEM, takes its absmax there, quantizes it once (_quant_act)
+// and runs int8 dots with int32 accumulation. A block here owns one output
+// tile and no block sees the whole group, so the work is three passes on one
+// stream, with no host sync:
 //   1. act_absmax: the group's absmax (a read-bound streaming reduction: see
 //      its note below). Absmax over the padded tile equals absmax over x (the
 //      pad is zeros), so no pad is stored.
@@ -34,15 +34,16 @@
 //      pixel: up to four 16-byte loads, one 16-byte store.
 //   3. int8_tc: an implicit GEMM on the int8 tensor cores
 //      (mma.sync.m16n8k32.s8.s8.s32) over qx: M = output pixels (per output
-//      phase for the transposed conv, blockIdx.z = phase * splits + split),
+//      phase for the transposed conv, blockIdx.z = phase * splits + split;
+//      the strided conv's pixel (oy, ox) reads from (2 oy - 1, 2 ox - 1)),
 //      N = O, K = live taps * Cp, counted in 32-bit words of four channels
 //      (Kw = taps * Cp / 4) in the order tap * Cp + c. A 16-byte word of qx
 //      is 16 channels of one pixel and one tap, so A moves by 16-byte
 //      cp.async only (a tap outside the image is a zero fill), with the tap
 //      of each staged word resolved once per step. The weight is packed once
-//      per module (ops/fused_int8.pack_kernel_q with pad 16) to (kh * kw *
-//      Cp / 4, O) words, four consecutive channels of one output channel in
-//      one word: the s8 MMA's B fragment layout as it stands. The epilogue
+//      per module (ops/fused_int8.pack_kernel_q) to (kh * kw * Cp / 4, O)
+//      words, four consecutive channels of one output channel in one word:
+//      the s8 MMA's B fragment layout as it stands. The epilogue
 //      dequantises with the row's group scale and applies the affine and the
 //      ReLU with separate roundings, as the plain version does.
 // The int8 product sums exactly in int32 (|acc| <= 127^2 * 16 * 432 < 2^31
@@ -53,10 +54,11 @@
 // bytes (float32 in, twice, for the two passes; float32 out); at the deep
 // layers (C = 424, 256) operations, against the int8 tensor-core peak of
 // 1,979 TOP/s. With the MMAs nearly free, quantizing per tap and per N tile
-// (the dp4a kernel below did: 9 to 18 true divisions per activation) would be
-// the whole kernel; pass 2 does each division once, and the MMA loop reads
-// int8 words only. mma.sync and not wgmma: the first tensor-core version
-// keeps conv_tc's shape (csrc/fused_conv.cu) and its proven fragment maps.
+// would be the whole kernel (the first, CUDA-core dp4a design of these convs
+// did: 9 to 16 true divisions per activation); pass 2 does each division
+// once, and the MMA loop reads int8 words only. mma.sync and not wgmma: the
+// first tensor-core version keeps conv_tc's shape (csrc/fused_conv.cu) and
+// its proven fragment maps.
 // Later work: wgmma with TMA-fed operands, and folding the quantize pass into
 // the kernel that produces x (its epilogue would need the group's absmax
 // before the group is complete, so that is a two-kernel handshake).
@@ -81,10 +83,6 @@
 // reduce in one C call that makes the device current itself, so the wrapper
 // needs no device context and no Stream object.
 //
-// The strided 4x4 conv (#11, the block path only) keeps the first design,
-// int8_igemm: CUDA-core dp4a on packs of four channels (the weight packed
-// to ceil(C / 4) words per tap), quantizing while it stages.
-//
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue for a mode
@@ -101,23 +99,21 @@ enum Mode { kConv3 = 0, kConv4 = 1, kConvT = 2 };
 
 struct Geo {
   int B, H, W, C, O;  // input batch/height/width/channels, output channels
-  int C4;             // words of four channels per tap: ceil(C / 4) for int8_igemm,
-                      // Cp / 4 = round_up(C, 16) / 4 for int8_tc (qx's pixel stride)
+  int C4;             // words of four channels per tap: Cp / 4 = round_up(C, 16) / 4
+                      // (qx's pixel stride)
   int Ho, Wo;         // GEMM grid per phase (output pixels of one phase)
   int M;              // B * Ho * Wo
   int K4;             // live taps * C4
   int phases;         // 1, or 4 for the transposed conv
   int act_group;      // images per activation scale
-  unsigned c_mul;     // k / C4 == umulhi(k, c_mul) >> c_shr for 0 <= k < 2^31, C4 > 1
+  unsigned c_mul;     // k / C4 == umulhi(k, c_mul) >> c_shr for 0 <= k < 2^31
   int c_shr;
 };
-
-constexpr int BK = 8;  // int8_igemm: packs per K step, 32 channels
 
 // k / C4 without a division instruction (the round-up method of Granlund and
 // Montgomery, as CUTLASS's FastDivmod): exact for 0 <= k < 2^31.
 __device__ __forceinline__ int div_w(const Geo& g, int k) {
-  return g.C4 == 1 ? k : (int)(__umulhi((unsigned)k, g.c_mul) >> g.c_shr);
+  return (int)(__umulhi((unsigned)k, g.c_mul) >> g.c_shr);
 }
 
 __device__ __forceinline__ float act_scale(const float* __restrict__ amax, int group) {
@@ -169,165 +165,6 @@ __device__ __forceinline__ float epilogue(int acc, float a, float ks, float scal
   return relu ? fmaxf(v, 0.0f) : v;
 }
 
-// ------------------------------------------------------------- int8_igemm
-template <int MODE, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-int8_igemm(const float* __restrict__ x, const int* __restrict__ wq,
-           const float* __restrict__ ks, const float* __restrict__ scale,
-           const float* __restrict__ shift, const float* __restrict__ amax,
-           float* __restrict__ out, int* __restrict__ ws, Geo g, int relu,
-           int splits, int kchunk) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int A_LD = BM * BK / NT;
-  constexpr int B_LD = (BK * BN + NT - 1) / NT;
-  constexpr int STRIDE = MODE == kConv4 ? 2 : 1;
-  static_assert(NT % BK == 0 && (BM * BK) % NT == 0, "tile shape");
-  static_assert(TM % 4 == 0, "micro-tile rows are read as int4");
-
-  // +4 pads the rows so the transposed stores below hit distinct banks.
-  __shared__ __align__(16) int As[BK][BM + 4];
-  __shared__ __align__(16) int Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int p = blockIdx.z / splits;
-  const int s = blockIdx.z - p * splits;
-  const int kbeg = s * kchunk;
-  const int kend = min(g.K4, kbeg + kchunk);
-  const int hw = g.Ho * g.Wo;
-  const bool vec = (g.C & 3) == 0;
-
-  // The pixels a thread stages keep for every K step: resolve them, and
-  // their group's activation scale, once.
-  const int ak = tid % BK;
-  int a_b[A_LD], a_y[A_LD], a_x[A_LD];
-  float a_sc[A_LD];
-#pragma unroll
-  for (int i = 0; i < A_LD; ++i) {
-    const int m = m0 + tid / BK + i * (NT / BK);
-    if (m < g.M) {
-      const int b = m / hw, r = m - b * hw;
-      const int oy = r / g.Wo;
-      a_b[i] = b;
-      a_y[i] = oy * STRIDE;
-      a_x[i] = (r - oy * g.Wo) * STRIDE;
-      a_sc[i] = act_scale(amax, b / g.act_group);
-    } else {
-      a_b[i] = -1; a_y[i] = 0; a_x[i] = 0; a_sc[i] = 1.0f;
-    }
-  }
-
-  int a_reg[A_LD], b_reg[B_LD];
-  auto load = [&](int k0) {
-    {
-      const int k = k0 + ak;
-      const bool kv = k < kend;
-      const int t = kv ? k / g.C4 : 0;
-      const int c = 4 * (k - t * g.C4);
-      int dy, dx, wtap;
-      tap_geometry<MODE>(t, p, dy, dx, wtap);
-#pragma unroll
-      for (int i = 0; i < A_LD; ++i) {
-        const int iy = a_y[i] + dy, ix = a_x[i] + dx;
-        const bool v = kv && a_b[i] >= 0 && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-        int packed = 0;
-        if (v) {
-          const float* src = x + (((int64_t)a_b[i] * g.H + iy) * g.W + ix) * g.C + c;
-          const float a = a_sc[i];
-          if (vec) {
-            const float4 f = __ldg(reinterpret_cast<const float4*>(src));
-            packed = pack4(quant1(f.x, a), quant1(f.y, a), quant1(f.z, a), quant1(f.w, a));
-          } else {
-            const int left = g.C - c;  // 1..3 live channels in a ragged last pack
-            const int q0 = quant1(__ldg(src), a);
-            const int q1 = left > 1 ? quant1(__ldg(src + 1), a) : 0;
-            const int q2 = left > 2 ? quant1(__ldg(src + 2), a) : 0;
-            const int q3 = left > 3 ? quant1(__ldg(src + 3), a) : 0;
-            packed = pack4(q0, q1, q2, q3);
-          }
-        }
-        a_reg[i] = packed;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < B_LD; ++j) {
-      const int e = tid + j * NT;
-      const int kk = e / BN, nn = e - kk * BN;
-      const int k = k0 + kk, n = n0 + nn;
-      int v = 0;
-      if (e < BK * BN && k < kend && n < g.O) {
-        int row = k;
-        if constexpr (MODE == kConvT) {
-          const int t = k / g.C4;
-          int dy, dx, wtap;
-          tap_geometry<MODE>(t, p, dy, dx, wtap);
-          row = wtap * g.C4 + (k - t * g.C4);
-        }
-        v = __ldg(wq + (int64_t)row * g.O + n);
-      }
-      b_reg[j] = v;
-    }
-  };
-
-  // Thread (tx, ty) owns rows ty*TM .. ty*TM+TM-1 (contiguous: one vector
-  // shared-memory read, broadcast across the warp) and columns
-  // tx, tx + BN/TN, ... (strided: conflict-free reads, coalesced writes).
-  constexpr int TX = BN / TN;
-  const int tx = tid % TX, ty = tid / TX;
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  if (kbeg < kend) load(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_LD; ++i) As[ak][tid / BK + i * (NT / BK)] = a_reg[i];
-#pragma unroll
-    for (int j = 0; j < B_LD; ++j) {
-      const int e = tid + j * NT;
-      if (e < BK * BN) Bs[e / BN][e % BN] = b_reg[j];
-    }
-    __syncthreads();
-    if (k0 + BK < kend) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const int4 v = *reinterpret_cast<const int4*>(&As[kk][ty * TM + i]);
-        a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= g.M) continue;
-    const float a = act_scale(amax, (m / hw) / g.act_group);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= g.O) continue;
-      if (splits == 1) {
-        out[out_offset<MODE>(g, p, m, n)] = epilogue(acc[i][j], a, ks[n], scale[n], shift[n], relu);
-      } else {
-        ws[(((int64_t)s * g.phases + p) * g.M + m) * g.O + n] = acc[i][j];
-      }
-    }
-  }
-}
-
 // Sums the K-split partials (exact in int32) and applies the epilogue.
 template <int MODE>
 __global__ void splitk_reduce(const int* __restrict__ ws, const float* __restrict__ ks,
@@ -358,23 +195,6 @@ cudaError_t reduce_splits(const float* ks, const float* scale, const float* shif
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
   splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, ks, scale, shift, amax, out, g, relu, splits);
   return cudaGetLastError();
-}
-
-// int8_igemm's tile configurations; the Python launcher picks one by (M, N)
-// (ops/fused_conv.plan).
-//   0 wide:  BM=128 BN=128 TM=8 TN=8   (N > 64)
-//   1 mid:   BM=128 BN=64  TM=8 TN=4   (32 < N <= 64)
-//   2 narrow:BM=256 BN=16  TM=8 TN=2   (N <= 32)
-//   3 thin:  BM=32  BN=128 TM=4 TN=4   (M <= 64)
-template <int MODE, int BM, int BN, int TM, int TN>
-cudaError_t launch_cfg(const float* x, const int* wq, const float* ks, const float* scale,
-                       const float* shift, const float* amax, float* out, int* ws,
-                       const Geo& g, int relu, int splits, int kchunk, cudaStream_t st) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
-  int8_igemm<MODE, BM, BN, TM, TN><<<grid, NT, 0, st>>>(x, wq, ks, scale, shift, amax, out,
-                                                        ws, g, relu, splits, kchunk);
-  return reduce_splits<MODE>(ks, scale, shift, amax, out, ws, g, relu, splits, st);
 }
 
 // ---------------------------------------------------------------- act_quant
@@ -704,12 +524,11 @@ cudaError_t launch_tc_cfg(int cfg, const int* qx, const int* wq, const float* ks
   }
 }
 
-// word_pad: the channel multiple of a tap's words, 4 for int8_igemm
-// (ceil(C / 4) words), 16 for int8_tc (Cp / 4 words, qx's pixel stride).
-Geo make_geo(int B, int H, int W, int C, int O, int act_group, int mode, int word_pad) {
+// A tap's words: Cp / 4 = round_up(C, 16) / 4, qx's pixel stride.
+Geo make_geo(int B, int H, int W, int C, int O, int act_group, int mode) {
   Geo g;
   g.B = B; g.H = H; g.W = W; g.C = C; g.O = O;
-  g.C4 = (C + word_pad - 1) / word_pad * word_pad / 4;
+  g.C4 = (C + 15) / 16 * 4;
   g.act_group = act_group;
   int taps;
   if (mode == kConv3) { g.Ho = H; g.Wo = W; taps = 9; g.phases = 1; }
@@ -717,11 +536,12 @@ Geo make_geo(int B, int H, int W, int C, int O, int act_group, int mode, int wor
   else { g.Ho = H; g.Wo = W; taps = 4; g.phases = 4; }
   g.K4 = taps * g.C4;
   g.M = B * g.Ho * g.Wo;
-  // div_w's constants: c_shr = 31 + ceil(log2 C4) - 32, c_mul = ceil(2^(c_shr + 32) / C4)
+  // div_w's constants (C4 >= 4): c_shr = 31 + ceil(log2 C4) - 32,
+  // c_mul = ceil(2^(c_shr + 32) / C4)
   int l = 0;
   while ((1u << l) < (unsigned)g.C4) ++l;
-  g.c_shr = g.C4 > 1 ? l - 1 : 0;
-  g.c_mul = g.C4 > 1 ? (unsigned)(((1ull << (31 + l)) + g.C4 - 1) / g.C4) : 0u;
+  g.c_shr = l - 1;
+  g.c_mul = (unsigned)(((1ull << (31 + l)) + g.C4 - 1) / g.C4);
   return g;
 }
 
@@ -831,12 +651,13 @@ int svrs_act_quant(int device, const void* x, const void* amax, void* qx, int B,
                    int C, int act_group, void* stream) {
   const OnDevice on(device);
   if (on.err != cudaSuccess) return (int)on.err;
-  const Geo g = make_geo(B, H, W, C, 0, act_group, kConv3, 16);
+  const Geo g = make_geo(B, H, W, C, 0, act_group, kConv3);
   return (int)launch_act_quant(static_cast<const float*>(x), static_cast<const float*>(amax),
                                qx, g, static_cast<cudaStream_t>(stream));
 }
 
-// The 3x3 (mode 0) or transposed (mode 2) W8A8 conv on the tensor cores:
+// The 3x3 (mode 0), strided 4x4 (mode 1) or transposed (mode 2) W8A8 conv on
+// the tensor cores:
 // act_quant of x into qx, int8_tc over qx, and the K-split reduce when
 // splits > 1, on `stream` of `device`. amax is the group absmax of x
 // (svrs_act_absmax); wq the packed weight, (kh * kw * round_up(C, 16) / 4, O)
@@ -845,11 +666,11 @@ int svrs_int8_tc(int device, int mode, int cfg, const void* x, const void* wq, c
                  const void* scale, const void* shift, const void* amax, void* qx, void* out,
                  void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
                  int splits, int kchunk, void* stream) {
-  if (mode != kConv3 && mode != kConvT) return (int)cudaErrorInvalidValue;
+  if (mode != kConv3 && mode != kConv4 && mode != kConvT) return (int)cudaErrorInvalidValue;
   const OnDevice on(device);
   if (on.err != cudaSuccess) return (int)on.err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo g = make_geo(B, H, W, C, O, act_group, mode, 16);
+  const Geo g = make_geo(B, H, W, C, O, act_group, mode);
   const float* af = static_cast<const float*>(amax);
   cudaError_t err = launch_act_quant(static_cast<const float*>(x), af, qx, g, st);
   if (err != cudaSuccess) return (int)err;
@@ -862,30 +683,9 @@ int svrs_int8_tc(int device, int mode, int cfg, const void* x, const void* wq, c
   int* wsi = static_cast<int*>(ws);
   if (mode == kConv3)
     return (int)launch_tc_cfg<kConv3>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+  if (mode == kConv4)
+    return (int)launch_tc_cfg<kConv4>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
   return (int)launch_tc_cfg<kConvT>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-}
-
-int svrs_int8_conv4x4s2(int cfg, const void* x, const void* wq, const void* ks,
-                        const void* scale, const void* shift, const void* amax, void* out,
-                        void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
-                        int splits, int kchunk, void* stream) {
-  const Geo g = make_geo(B, H, W, C, O, act_group, kConv4, 4);
-  const float* xf = static_cast<const float*>(x);
-  const int* wi = static_cast<const int*>(wq);
-  const float* kf = static_cast<const float*>(ks);
-  const float* sf = static_cast<const float*>(scale);
-  const float* tf = static_cast<const float*>(shift);
-  const float* af = static_cast<const float*>(amax);
-  float* of = static_cast<float*>(out);
-  int* wsi = static_cast<int*>(ws);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cfg) {
-    case 0: return launch_cfg<kConv4, 128, 128, 8, 8>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    case 1: return launch_cfg<kConv4, 128, 64, 8, 4>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    case 2: return launch_cfg<kConv4, 256, 16, 8, 2>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    case 3: return launch_cfg<kConv4, 32, 128, 4, 4>(xf, wi, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // extern "C"

@@ -110,7 +110,7 @@ class ConvWeights(nn.Module):
             raise ValueError(f"int8 weights {tuple(q.shape)} / {tuple(s.shape)} do not match "
                              f"a kernel of {tuple(self.kernel.shape)}")
         self.kernel_q, self.kernel_s = q, s
-        self.kernel_p = f8.pack_for(self.int8_kernel, q)
+        self.kernel_p = f8.pack_kernel_q(q)
 
 
 class Conv3x3(ConvWeights, Routed):

@@ -65,13 +65,7 @@ def reset_launches() -> None:
         role_launches[name] = dict.fromkeys(ROLES, 0)
 
 
-# Tile configurations of the CUDA-core implicit GEMM of the int8 strided conv
-# (``int8_igemm`` in ``csrc/int8_conv.cu``, launched with :func:`plan`): (BM, BN)
-# per index.
-TILES = {0: (128, 128), 1: (128, 64), 2: (256, 16), 3: (32, 128)}
-_BK = 8
 _SMS = 132  # H100 SXM streaming multiprocessors
-_MIN_SPLIT_K = 32  # keep at least 4 BK steps in every K split
 
 # The kernels that run on the tensor cores (``conv_tc``, 3xTF32: all three)
 # and their tile configurations: (BM, BN, warp tile WM, WN, cp.async stages)
@@ -87,40 +81,18 @@ TC_BK = 32
 _TC_MIN_SPLIT_K = 4 * TC_BK
 
 
-def plan(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
-    """Launch geometry ``(tile config, K splits, K per split)`` of the
-    CUDA-core int8 kernel for a GEMM of ``m`` output pixels (per phase) x
-    ``n`` channels x ``k`` reduction.
-
-    Thin tiles for few pixels (the weight-bound prior heads), narrow tiles
-    for few channels (the 64x64 tail), and a K split when the output tiles
-    alone would leave most of the card's SMs idle.
-    """
-    if m <= 64:
-        cfg = 3
-    elif n <= 32:
-        cfg = 2
-    elif n <= 64:
-        cfg = 1
-    else:
-        cfg = 0
-    bm, bn = TILES[cfg]
-    blocks = _cdiv(m, bm) * _cdiv(n, bn) * phases
-    splits = 1
-    if blocks < _SMS:
-        splits = max(1, min(_cdiv(2 * _SMS, blocks), k // _MIN_SPLIT_K))
-    kchunk = _cdiv(_cdiv(k, splits), _BK) * _BK
-    return cfg, _cdiv(k, kchunk), kchunk
-
-
 def plan_tc(m: int, n: int, k: int, phases: int = 1,
             tiles: Dict[int, Tuple[int, ...]] = TC_TILES) -> Tuple[int, int, int]:
     """Launch geometry ``(tile config, K splits, K per split)`` of a
     tensor-core kernel with tile configurations ``tiles`` (:data:`TC_TILES`;
     the int8 kernel passes its own) for a GEMM of ``m`` output pixels per
     phase x ``n`` channels x ``k`` reduction, ``phases`` of them (4 for the
-    transposed conv, each its own blocks): the same choices as :func:`plan`,
-    with K per split a multiple of the 32-deep step."""
+    transposed conv, each its own blocks).
+
+    Thin tiles for few pixels (the weight-bound prior heads), narrow tiles
+    for few channels (the 64x64 tail), and a K split of whole 32-deep steps
+    when the output tiles alone would leave most of the card's SMs idle.
+    """
     if m <= 64:
         cfg = 3
     elif n <= 16:

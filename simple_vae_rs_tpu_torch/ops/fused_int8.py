@@ -25,15 +25,14 @@ that is the reference's behaviour.
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches the kernels of ``csrc/int8_conv.cu`` on the current stream (no
-host sync between them) or raises: the absmax pass, then for the 3x3 and the
-transposed conv (:data:`TC_KERNELS`) the quantize pass (:func:`act_quant`,
-each activation quantized once into an int8 NHWC buffer with 16-channel
-padding) and the conv on the int8 tensor cores, in one C call; for the
-strided 4x4 conv the CUDA-core ``dp4a`` kernel, which quantizes as it
-stages. :data:`launches` counts the launches of each. The plain versions
-accumulate exactly (a float64 conv of integer-valued tensors, every partial
-sum below 2**53), as the kernels' int32 does; the reference's float32 conv
-rounds once sums pass 2**24, which K = 9 * 424 reaches.
+host sync between them) or raises: the absmax pass, then, in one C call, the
+quantize pass (:func:`act_quant`, each activation quantized once into an
+int8 NHWC buffer with 16-channel padding) and the conv on the int8 tensor
+cores (all three convs, :data:`TC_KERNELS`). :data:`launches` counts the
+launches of each. The plain versions accumulate exactly (a float64 conv of
+integer-valued tensors, every partial sum below 2**53), as the kernels'
+int32 does; the reference's float32 conv rounds once sums pass 2**24, which
+K = 9 * 424 reaches.
 """
 
 from __future__ import annotations
@@ -51,19 +50,19 @@ Tensor = torch.Tensor
 
 SOURCE = "int8_conv.cu"
 
-# int8 kernel -> (C entry point, the float kernel with the same geometry)
+# int8 kernel -> the float kernel with the same geometry
 _KERNELS = {
-    "int8_conv3x3_bn_relu": ("svrs_int8_tc", "fused_conv3x3_bn_relu"),
-    "int8_conv4x4s2_bn_relu": ("svrs_int8_conv4x4s2", "fused_conv4x4s2_bn_relu"),
-    "int8_convT4x4s2_bn_relu": ("svrs_int8_tc", "fused_convT4x4s2_bn_relu"),
+    "int8_conv3x3_bn_relu": "fused_conv3x3_bn_relu",
+    "int8_conv4x4s2_bn_relu": "fused_conv4x4s2_bn_relu",
+    "int8_convT4x4s2_bn_relu": "fused_convT4x4s2_bn_relu",
 }
 ABSMAX = "act_absmax"
 QUANT = "act_quant"
 
 # The kernels on the int8 tensor cores (``int8_tc``, fed by the quantize
-# pass), with their mode in the C entry point; the strided 4x4 conv keeps the
-# CUDA-core kernel, :func:`fused_conv.plan` and packs of ``ceil(C / 4)``.
-TC_KERNELS = {"int8_conv3x3_bn_relu": 0, "int8_convT4x4s2_bn_relu": 2}
+# pass): all three, with their mode in the C entry point ``svrs_int8_tc``.
+TC_KERNELS = {"int8_conv3x3_bn_relu": 0, "int8_conv4x4s2_bn_relu": 1,
+              "int8_convT4x4s2_bn_relu": 2}
 TC_PAD = 16  # channel multiple of the quantized activations and the packed weight
 # Tile configurations of ``int8_tc``: (BM, BN, warp tile WM, WN, cp.async
 # stages) per index; K runs in steps of 32 words (128 channels), the step of
@@ -88,32 +87,27 @@ def reset_launches() -> None:
 
 def float_name(name: str) -> str:
     """The float32 kernel of ``ops/fused_conv.py`` with the same geometry."""
-    return _KERNELS[name][1]
+    return _KERNELS[name]
 
 
 def output_shape(name: str, x_shape, o: int) -> Tuple[int, int, int, int]:
     return fc.output_shape(float_name(name), x_shape, o)
 
 
-def channel_pad(name: str) -> int:
-    """Channel multiple of kernel ``name``'s packed weight (and, for the
-    tensor-core kernels, of the quantized activations): 16 or 4."""
-    return TC_PAD if name in TC_KERNELS else 4
-
-
-def padded_channels(c: int, pad: int = TC_PAD) -> int:
-    return _cdiv(c, pad) * pad
+def padded_channels(c: int) -> int:
+    """Channels of a pixel of the quantized activations and of a tap of the
+    packed weight: ``round_up(c, 16)``, the pad channels zero."""
+    return _cdiv(c, TC_PAD) * TC_PAD
 
 
 def geometry(name: str, x_shape, o: int) -> Tuple[int, int, int, int]:
     """GEMM shape ``(M per phase, N, K in words, phases)`` of a kernel call,
-    a word being four channels of one tap: live taps * ``ceil(C / 4)`` for
-    the CUDA-core kernel, live taps * ``round_up(C, 16) / 4`` for the
-    tensor-core ones."""
+    a word being four channels of one tap: K = live taps * ``round_up(C, 16)
+    / 4``."""
     _, taps, stride, phases = fc._KERNELS[float_name(name)]
     b, h, w, c = x_shape
     ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
-    return b * ho * wo, o, taps * padded_channels(c, channel_pad(name)) // 4, phases
+    return b * ho * wo, o, taps * padded_channels(c) // 4, phases
 
 
 def plan_int8_tc(m: int, n: int, k: int, phases: int = 1) -> Tuple[int, int, int]:
@@ -143,22 +137,17 @@ def _group(b: int, act_group: Optional[int]) -> int:
     return max(1, min(group, b))
 
 
-def pack_kernel_q(kernel_q: Tensor, pad: int = 4) -> Tensor:
-    """``(kh, kw, C, O)`` int8 -> ``(kh * kw * round_up(C, pad) / 4, O)``
-    int32: four consecutive input channels of one output channel in one word
-    (channel ``4 j + i`` in byte ``i``, zero past ``C``), the operand layout
-    of the CUDA-core kernel's 4-way int8 dot (``pad`` 4) and of the s8 tensor
-    core MMA's B fragment (``pad`` 16, :func:`pack_for`)."""
+def pack_kernel_q(kernel_q: Tensor) -> Tensor:
+    """``(kh, kw, C, O)`` int8 -> ``(kh * kw * round_up(C, 16) / 4, O)``
+    int32, the weight as every int8 conv kernel takes it: four consecutive
+    input channels of one output channel in one word (channel ``4 j + i`` in
+    byte ``i``, zero past ``C``), the s8 tensor-core MMA's B fragment
+    layout. The conv modules keep it (``kernel_p``)."""
     kh, kw, c, o = kernel_q.shape
-    c4 = padded_channels(c, pad) // 4
+    c4 = padded_channels(c) // 4
     q = F.pad(kernel_q, (0, 0, 0, 4 * c4 - c))
     q = q.reshape(kh * kw, c4, 4, o).permute(0, 1, 3, 2).contiguous()
     return q.view(torch.int32).reshape(kh * kw * c4, o)
-
-
-def pack_for(name: str, kernel_q: Tensor) -> Tensor:
-    """``kernel_q`` packed as kernel ``name`` takes it (:func:`channel_pad`)."""
-    return pack_kernel_q(kernel_q, channel_pad(name))
 
 
 def _check(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
@@ -256,13 +245,11 @@ def _library() -> ctypes.CDLL:
 
         lib = _build.load(SOURCE)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.svrs_int8_conv4x4s2.argtypes = [i32] + [vp] * 8 + [i32] * 9 + [vp]
         lib.svrs_int8_tc.argtypes = [i32] * 3 + [vp] * 9 + [i32] * 9 + [vp]
         lib.svrs_act_quant.argtypes = [i32] + [vp] * 3 + [i32] * 5 + [vp]
         lib.svrs_act_absmax.argtypes = [i32, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
                                         i32, i32, vp]
-        for fn in (lib.svrs_int8_conv4x4s2, lib.svrs_int8_tc, lib.svrs_act_quant,
-                   lib.svrs_act_absmax):
+        for fn in (lib.svrs_int8_tc, lib.svrs_act_quant, lib.svrs_act_absmax):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -370,9 +357,8 @@ def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Ten
     b, h, w, c = x.shape
     m, n, k4, phases = geometry(name, x.shape, kernel_q.shape[-1])
     if packed is None:
-        packed = pack_for(name, kernel_q)
-    want = (kernel_q.shape[0] * kernel_q.shape[1] * padded_channels(c, channel_pad(name)) // 4,
-            n)
+        packed = pack_kernel_q(kernel_q)
+    want = (kernel_q.shape[0] * kernel_q.shape[1] * padded_channels(c) // 4, n)
     if packed.dtype != torch.int32 or tuple(packed.shape) != want or not packed.is_contiguous():
         raise ValueError(f"{name}: packed weight must be contiguous int32 {want}, "
                          f"got {packed.dtype} {tuple(packed.shape)}")
@@ -386,32 +372,21 @@ def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Ten
         return out
     group = _group(b, act_group)
     amax = act_absmax(x, group)
-    tc = name in TC_KERNELS
-    cfg, splits, kchunk = (plan_int8_tc if tc else fc.plan)(m, n, k4, phases)
+    cfg, splits, kchunk = plan_int8_tc(m, n, k4, phases)
     ws = (torch.empty((splits * phases * m * n,), device=dev, dtype=torch.int32)
           if splits > 1 else None)
-    ws_ptr = ws.data_ptr() if ws is not None else None
-    if tc:
-        qx = _qx_buffer(x)
-        # quantize pass, conv and K-split reduce in one C call that makes the
-        # device current itself, on the raw handle of its current stream
-        index = x.get_device()
-        err = _library().svrs_int8_tc(
-            index, TC_KERNELS[name], cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), amax.data_ptr(), qx.data_ptr(), out.data_ptr(),
-            ws_ptr, b, h, w, c, n, group, int(relu), splits, kchunk,
-            torch._C._cuda_getCurrentRawStream(index))
-    else:
-        fn = getattr(_library(), _KERNELS[name][0])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(), scale.data_ptr(),
-                     shift.data_ptr(), amax.data_ptr(), out.data_ptr(), ws_ptr,
-                     b, h, w, c, n, group, int(relu), splits, kchunk, stream)
+    qx = _qx_buffer(x)
+    # quantize pass, conv and K-split reduce in one C call that makes the
+    # device current itself, on the raw handle of its current stream
+    index = x.get_device()
+    err = _library().svrs_int8_tc(
+        index, TC_KERNELS[name], cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), amax.data_ptr(), qx.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, h, w, c, n, group, int(relu), splits,
+        kchunk, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    if tc:
-        launches[QUANT] += 1
+    launches[QUANT] += 1
     launches[name] += 1
     return out
 
@@ -420,7 +395,7 @@ def int8_conv(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: T
               shift: Tensor, relu: bool, plain: bool = False,
               act_group: Optional[int] = None, packed: Optional[Tensor] = None) -> Tensor:
     """W8A8 conv ``name``: its plain version with ``plain`` or on CPU
-    tensors, else the kernels. ``packed`` is ``pack_for(name, kernel_q)`` when
+    tensors, else the kernels. ``packed`` is ``pack_kernel_q(kernel_q)`` when
     the caller keeps it (the conv modules do), else it is built per call."""
     if plain or x.device.type == "cpu":
         return PLAIN[name](x, kernel_q, kernel_s, scale, shift, relu, act_group)

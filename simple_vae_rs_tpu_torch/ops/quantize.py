@@ -25,7 +25,10 @@ CPU and on the card, on every run. The stream is not the TPU's, nor
 (error below one grid step, unbiased).
 
 A CPU tensor goes through the plain version; a CUDA tensor launches the
-kernel or raises. :data:`launches` counts the kernel's launches.
+kernels or raises. On the card a whole quant tree is one C call
+(:func:`quantize_leaves`: a column-absmax pass and a stochastic-round pass,
+each one launch over every leaf); :func:`quantize_stochastic` is the tree of
+one leaf. :data:`launches` counts the kernels' launches.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import zlib
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -140,6 +143,18 @@ def quantize_stochastic_plain(w: Tensor, seed: int) -> Tuple[Tensor, Tensor]:
     return q.to(torch.int8), scale
 
 
+# Leaves of one table of ``csrc/quantize.cu`` (its MAX_LEAVES): a C call
+# launches its two passes once per this many leaves.
+TABLE_LEAVES = 48
+
+
+class _Leaf(ctypes.Structure):
+    """``SvrsQuantLeaf`` of ``csrc/quantize.cu``."""
+    _fields_ = [("w", ctypes.c_void_p), ("q", ctypes.c_void_p), ("scale", ctypes.c_void_p),
+                ("numel", ctypes.c_longlong), ("o", ctypes.c_int), ("k0", ctypes.c_uint),
+                ("k1", ctypes.c_uint)]
+
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -149,40 +164,73 @@ def _library() -> ctypes.CDLL:
         from simple_vae_rs_tpu_torch.ops import _build
 
         lib = _build.load(SOURCE)
-        fn = lib.svrs_quantize_stochastic
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+        fn = lib.svrs_quantize_tree
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(_Leaf), ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def quantize_leaves(leaves: Sequence[Tuple[Tensor, int]]) -> List[Tuple[Tensor, Tensor]]:
+    """:func:`quantize_stochastic` of every ``(w, seed)`` of ``leaves``: on
+    CPU tensors the plain version leaf by leaf; on one CUDA card one C call
+    for all of them (a zeroed absmax scratch, then two launches per
+    :data:`TABLE_LEAVES` leaves; an empty leaf launches nothing). On the card
+    the results are views of one int8 and one float32 buffer."""
+    if not leaves:
+        return []
+    dev = leaves[0][0].device
+    if dev.type == "cpu":
+        return [quantize_stochastic_plain(w, seed) for w, seed in leaves]
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_stochastic: CPU or CUDA tensors only, not {dev}")
+    for w, _ in leaves:
+        if w.device != dev:
+            raise ValueError(f"quantize_stochastic: all leaves must be on {dev}, one is on "
+                             f"{w.device}")
+        if w.dtype != torch.float32:
+            raise TypeError(f"quantize_stochastic: float32 only, got {w.dtype}")
+        if w.dim() < 1 or w.numel() >= 2**31:
+            raise ValueError(f"quantize_stochastic: bad shape {tuple(w.shape)}")
+    out: List[Optional[Tuple[Tensor, Tensor]]] = [None] * len(leaves)
+    live = []
+    for i, (w, seed) in enumerate(leaves):
+        if w.numel() == 0:  # nothing to launch: the plain version's result (or error)
+            out[i] = quantize_stochastic_plain(w, seed)
+        else:
+            live.append(i)
+    if live:
+        ws = [leaves[i][0].detach().contiguous() for i in live]
+        sizes = [w.numel() for w in ws]
+        widths = [w.shape[-1] for w in ws]
+        q_all = torch.empty(sum(sizes), dtype=torch.int8, device=dev)
+        # the scales, then the absmax scratch
+        s_all = torch.empty(2 * sum(widths), dtype=torch.float32, device=dev)
+        table = (_Leaf * len(ws))()
+        qo = so = 0
+        for j, (i, w) in enumerate(zip(live, ws)):
+            q = q_all[qo:qo + sizes[j]].view(w.shape)
+            s = s_all[so:so + widths[j]]
+            table[j] = _Leaf(w.data_ptr(), q.data_ptr(), s.data_ptr(), sizes[j], widths[j],
+                             *seed_words(leaves[i][1]))
+            out[i] = (q, s)
+            qo += sizes[j]
+            so += widths[j]
+        index = ws[0].get_device()
+        err = _library().svrs_quantize_tree(index, table, len(ws), s_all[so:].data_ptr(),
+                                            torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            raise RuntimeError(f"quantize_stochastic: CUDA launch failed with cudaError {err}")
+        launches["quantize_stochastic"] += 2 * -(-len(ws) // TABLE_LEAVES)
+    return out
+
+
 def quantize_stochastic(w: Tensor, seed: int) -> Tuple[Tensor, Tensor]:
     """Stochastic-round ``w`` to ``(int8 values, float32 per-last-axis
-    scales)``; the same ``(w, seed)`` give the same bytes on any device."""
-    if w.device.type == "cpu":
-        return quantize_stochastic_plain(w, seed)
-    if w.device.type != "cuda":
-        raise ValueError(f"quantize_stochastic: CPU or CUDA tensors only, not {w.device}")
-    if w.dtype != torch.float32:
-        raise TypeError(f"quantize_stochastic: float32 only, got {w.dtype}")
-    if w.dim() < 1 or w.numel() >= 2**32:
-        raise ValueError(f"quantize_stochastic: bad shape {tuple(w.shape)}")
-    w = w.detach().contiguous()
-    scale = channel_scales(w).contiguous()
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-    if w.numel() == 0:
-        return q, scale
-    k0, k1 = seed_words(seed)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _library().svrs_quantize_stochastic(
-            w.data_ptr(), scale.data_ptr(), q.data_ptr(), w.numel(), w.shape[-1], k0, k1,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"quantize_stochastic: CUDA launch failed with cudaError {err}")
-    launches["quantize_stochastic"] += 1
-    return q, scale
+    scales)``; the same ``(w, seed)`` give the same bytes on any device. On
+    the card, the tree of one leaf (:func:`quantize_leaves`)."""
+    return quantize_leaves([(w, seed)])[0]
 
 
 # ----------------------------------------------------------- the quant tree
@@ -207,13 +255,16 @@ def quantize_params_tree(model: nn.Module, seed: int,
     of ``prefixes`` becomes ``{"kernel_q": int8, "kernel_s": (O,) float32}``
     at the same path; every other leaf is left out. Each leaf has its own
     stream (:func:`leaf_seed`), so the tree is reproducible for a given
-    ``(weights, seed)``. Attach it with :func:`attach_quant`."""
-    tree: Dict[str, Any] = {}
+    ``(weights, seed)``. On the card the whole tree is one C call
+    (:func:`quantize_leaves`). Attach it with :func:`attach_quant`."""
+    paths, leaves = [], []
     for path, mod in _conv_modules(model):
         leaf = path + ("kernel",)
-        if not any(comp.startswith(pref) for comp in leaf for pref in prefixes):
-            continue
-        q, s = quantize_stochastic(mod.kernel.detach(), leaf_seed(seed, leaf))
+        if any(comp.startswith(pref) for comp in leaf for pref in prefixes):
+            paths.append(path)
+            leaves.append((mod.kernel.detach(), leaf_seed(seed, leaf)))
+    tree: Dict[str, Any] = {}
+    for path, (q, s) in zip(paths, quantize_leaves(leaves)):
         node = tree
         for comp in path:
             node = node.setdefault(comp, {})

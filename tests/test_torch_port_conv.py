@@ -139,11 +139,11 @@ def test_kernel_index_arithmetic_matches_plain(case):
     (16384, 4, 36, 1),        # image-facing conv
 ])
 def test_plan_covers_k_and_fills_card(m, n, k, phases):
-    cfg, splits, kchunk = fc.plan(m, n, k, phases)
-    bm, bn = fc.TILES[cfg]
-    assert kchunk % 8 == 0 and (splits - 1) * kchunk < k <= splits * kchunk
+    cfg, splits, kchunk = fc.plan_tc(m, n, k, phases)
+    bm, bn = fc.TC_TILES[cfg][:2]
+    assert kchunk % fc.TC_BK == 0 and (splits - 1) * kchunk < k <= splits * kchunk
     blocks = -(-m // bm) * -(-n // bn) * phases
-    if blocks < 132 and k >= 64:
+    if blocks < 132 and k >= 2 * fc._TC_MIN_SPLIT_K:
         assert splits > 1 and blocks * splits >= 132
     if blocks >= 132:
         assert splits == 1

@@ -7,9 +7,10 @@ Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (float32 both, TF32 off,
 sums in another order); the row reductions 1e-5 (every element term >= 0);
 a training step as ``chip_smoke.py`` holds it (loss terms rtol 1e-4, each
 gradient leaf 1e-3 of the largest gradient in its block). The int8 convs
-1e-5 * max|plain| (the same integers summed exactly on both sides), and the
-tensor-core ones (#9, #12) and their quantize pass bit for bit; the
-stochastic quantizer byte for byte, the int8 resolver against its plain path
+(#9, #11, #12, all on the int8 tensor cores) and their quantize pass bit for
+bit (the same integers summed exactly on both sides, the same float32
+epilogue); the stochastic quantizer byte for byte, a leaf alone and a whole
+quant tree in one call, the int8 resolver against its plain path
 2e-3 absolute (a float32 layer above an int8 conv may move an activation
 across a rounding boundary). The chain kernel 1e-4 * max|plain| as the other
 float32 kernels; chained against unchained served outputs 1e-4 absolute.
@@ -266,10 +267,11 @@ def test_cuda_train_and_val_step_match_plain_path(cuda):
 
 # (name, x shape, O, relu, act_group): ragged packs (C=3, C=6), odd H/W, O=5,
 # a K split (few pixels, many channels), groups smaller than the batch with a
-# ragged last group, and the canonical deep decoder shapes; for the
-# tensor-core kernels (#9, #12) also C = 5, 7, 130, 300 and 424 (padded to
-# 16, 16, 144, 304, 432), O = 9, 13, 70 and 200 (weight rows that are not
-# whole 16-byte words) and every tile
+# ragged last group, and the canonical deep decoder shapes; also C = 5, 7,
+# 130, 300 and 424 (padded to 16, 16, 144, 304, 432), O = 9, 13, 70 and 200
+# (weight rows that are not whole 16-byte words) and every tile; for the
+# strided conv (#11) odd H and W, C = 4 (12 of every 16 bytes padding), 130,
+# a K split and its canonical DownBlock shapes
 INT8_CASES = [
     ("int8_conv3x3_bn_relu", (2, 8, 8, 4), 8, True, None),
     ("int8_conv3x3_bn_relu", (3, 5, 7, 3), 5, False, None),
@@ -284,6 +286,10 @@ INT8_CASES = [
     ("int8_conv4x4s2_bn_relu", (3, 10, 6, 5), 7, False, 1),
     ("int8_conv4x4s2_bn_relu", (2, 7, 9, 3), 20, True, None),
     ("int8_conv4x4s2_bn_relu", (16, 16, 16, 64), 128, True, None),
+    ("int8_conv4x4s2_bn_relu", (5, 9, 11, 4), 13, False, 2),
+    ("int8_conv4x4s2_bn_relu", (3, 11, 12, 130), 24, True, None),
+    ("int8_conv4x4s2_bn_relu", (1, 8, 8, 130), 200, False, None),
+    ("int8_conv4x4s2_bn_relu", (16, 64, 64, 4), 16, True, None),
     ("int8_convT4x4s2_bn_relu", (3, 5, 7, 4), 9, False, 2),
     ("int8_convT4x4s2_bn_relu", (16, 8, 8, 424), 256, True, None),
     ("int8_convT4x4s2_bn_relu", (4, 4, 4, 130), 70, False, 3),
@@ -306,17 +312,15 @@ def test_int8_cuda_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert f8.launches[name] == before[name] + 1
     assert f8.launches["act_absmax"] == before["act_absmax"] + 1
-    # the tensor-core kernels quantize in a pass of their own, once a call
-    assert f8.launches["act_quant"] == before["act_quant"] + (name in f8.TC_KERNELS)
+    # every int8 conv quantizes in a pass of its own, once a call
+    assert f8.launches["act_quant"] == before["act_quant"] + 1
     want = f8.PLAIN[name](x, kq, ks, s, t, relu, group)
     assert got.shape == want.shape == f8.output_shape(name, shape, o)
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    if name in f8.TC_KERNELS:  # exact int32 sums, the plain version's epilogue
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)  # exact int32 sums, the plain version's epilogue
     assert torch.equal(f8.act_absmax(x, group), f8.act_absmax_plain(x, group))
     # a cached packing gives the same result, and the same result every run
     again = f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group,
-                              packed=f8.pack_for(name, kq))
+                              packed=f8.pack_kernel_q(kq))
     assert torch.equal(again, got)
 
 
@@ -389,10 +393,9 @@ def test_int8_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         f8.int8_conv3x3_bn_relu(x, kq.cpu(), ks, s, t)
     with pytest.raises(ValueError):
-        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_for("int8_conv3x3_bn_relu",
-                                                                    kq)[:, :1])
-    with pytest.raises(ValueError):  # the CUDA-core kernel's packing, not the tensor cores'
-        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_kernel_q(kq))
+        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_kernel_q(kq)[:, :1])
+    with pytest.raises(ValueError):  # ceil(C / 4) words a tap, not round_up(C, 16) / 4
+        f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, packed=f8.pack_kernel_q(kq)[:9])
     with pytest.raises(ValueError):  # one scale per group
         f8.act_quant(x, f8.act_absmax(x, 1)[:0], 1)
 
@@ -405,7 +408,7 @@ def test_quantizer_cuda_kernel_gives_the_plain_versions_bytes(cuda, shape):
     before = qz.launches["quantize_stochastic"]
     q, s = qz.quantize_stochastic(w, seed=(9 << 32) | 1234)
     torch.cuda.synchronize()
-    assert qz.launches["quantize_stochastic"] == before + 1
+    assert qz.launches["quantize_stochastic"] == before + 2  # the tree of one leaf
     q_plain, s_plain = qz.quantize_stochastic_plain(w, seed=(9 << 32) | 1234)
     assert torch.equal(q, q_plain) and torch.equal(s, s_plain)
     # the same bytes as on the CPU, and other bytes for another seed
@@ -413,6 +416,40 @@ def test_quantizer_cuda_kernel_gives_the_plain_versions_bytes(cuda, shape):
     assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
     assert not torch.equal(qz.quantize_stochastic(w, seed=5)[0], q)
     assert float((q.float() - w / s).abs().max()) < 1.0
+    # a whole tree in one call: the decoder of a small model, this leaf, a
+    # NaN and an infinity in a channel, a zero channel, an empty leaf and
+    # more leaves than one table holds, each leaf the plain version's bytes
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16), device=cuda).init_weights(2)
+    leaves = [(mod.kernel.detach(), qz.leaf_seed(3, path + ("kernel",)))
+              for path, mod in qz._conv_modules(model)]
+    odd = w.clone().reshape(-1, w.shape[-1])
+    odd[0, 0], odd[-1, -1] = float("nan"), float("-inf")
+    if odd.shape[-1] > 2:
+        odd[:, 1] = 0.0
+    leaves += [(w, 11), (odd, 12), (torch.zeros((3, 3, 4, 0), device=cuda), 13)]
+    leaves += [(w[..., :1] * (i + 1), 20 + i) for i in range(qz.TABLE_LEAVES)]
+    live = sum(leaf.numel() > 0 for leaf, _ in leaves)
+    before = qz.launches["quantize_stochastic"]
+    got = qz.quantize_leaves(leaves)
+    torch.cuda.synchronize()
+    assert qz.launches["quantize_stochastic"] == before + 2 * -(-live // qz.TABLE_LEAVES)
+    for (leaf, seed), (q, s) in zip(leaves, got):
+        q_plain, s_plain = qz.quantize_stochastic_plain(leaf, seed)
+        assert torch.equal(q, q_plain) and torch.equal(s, s_plain), tuple(leaf.shape)
+    again = qz.quantize_leaves(leaves)
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(got, again))
+    # quantize_params_tree: one call of two launches for the decoder's 18 leaves
+    before = qz.launches["quantize_stochastic"]
+    tree = qz.quantize_params_tree(model, seed=3)
+    assert qz.launches["quantize_stochastic"] == before + 2
+    for path, mod in qz._conv_modules(model):
+        if any(c.startswith(qz.DECODER_PREFIXES) for c in path):
+            node = tree
+            for comp in path:
+                node = node[comp]
+            q_plain, s_plain = qz.quantize_stochastic_plain(
+                mod.kernel.detach(), qz.leaf_seed(3, path + ("kernel",)))
+            assert torch.equal(node["kernel_q"], q_plain) and torch.equal(node["kernel_s"], s_plain)
 
 
 @pytest.mark.gpu

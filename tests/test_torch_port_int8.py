@@ -237,12 +237,12 @@ def test_absmax_plan_fills_the_card_with_tens_of_kb_a_block():
 
 def test_pack_kernel_q_layout():
     """Word (tap, j, o) holds channels 4j..4j+3 of output channel o, channel
-    4j+i in byte i, zeros past C."""
+    4j+i in byte i, zeros past C, up to round_up(C, 16)."""
     kq = torch.from_numpy(
         np.random.default_rng(2).integers(-127, 128, (3, 3, 6, 5)).astype(np.int8))
     words = f8.pack_kernel_q(kq)
-    assert words.dtype == torch.int32 and tuple(words.shape) == (9 * 2, 5)
-    raw = words.numpy().view(np.int8).reshape(9, 2, 5, 4)
+    assert words.dtype == torch.int32 and tuple(words.shape) == (9 * 4, 5)
+    raw = words.numpy().view(np.int8).reshape(9, 4, 5, 4)
     for tap in (0, 4, 8):
         for o in (0, 3):
             got = raw[tap, :, o, :].reshape(-1)
@@ -251,24 +251,23 @@ def test_pack_kernel_q_layout():
 
 
 def _implicit_gemm_int8(name, x, kq, ks, scale, shift, relu, act_group):
-    """The CUDA kernels' index arithmetic replayed in numpy on the packed
+    """The CUDA kernel's index arithmetic replayed in numpy on the packed
     operands: tap geometry, words of four channels with the ragged last word
-    (and, for the tensor-core kernels, the words of the 16-channel padding),
-    the packed weight rows, each kernel's K splits, output phases and the
-    per-group activation scale, so a wrong tap, row or offset shows on the
-    CPU. (``tests/test_torch_port_int8_tc.py`` replays the tensor-core
-    kernel block by block, down to its MMA fragments.)"""
+    and the words of the 16-channel padding, the packed weight rows, the K
+    splits of ``plan_int8_tc``, output phases and the per-group activation
+    scale, so a wrong tap, row or offset shows on the CPU.
+    (``tests/test_torch_port_int8_tc.py`` replays the kernel block by block,
+    down to its MMA fragments.)"""
     _, taps, stride, phases = fc._KERNELS[f8.float_name(name)]
     b, h, w, c = x.shape
     o = kq.shape[-1]
-    c4 = f8.padded_channels(c, f8.channel_pad(name)) // 4
+    c4 = f8.padded_channels(c) // 4
     m, n, k4, _ = f8.geometry(name, x.shape, o)
     assert k4 == taps * c4
     ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
-    plan = f8.plan_int8_tc if name in f8.TC_KERNELS else fc.plan
-    _, splits, kchunk = plan(m, n, k4, phases)
+    _, splits, kchunk = f8.plan_int8_tc(m, n, k4, phases)
     # (kh*kw*c4, O) int32
-    wwords = f8.pack_for(name, torch.from_numpy(np.array(kq))).numpy()
+    wwords = f8.pack_kernel_q(torch.from_numpy(np.array(kq))).numpy()
     wbytes = wwords.view(np.int8).reshape(wwords.shape[0], o, 4).astype(np.int64)
     group = b if act_group is None else act_group
     amax = f8.act_absmax_plain(torch.from_numpy(x), group).numpy()

@@ -1,6 +1,7 @@
 """The W8A8 tensor-core kernels (``int8_tc`` and ``act_quant`` in
-``csrc/int8_conv.cu``: the 3x3 conv #9 and the transposed conv #12 on
-``mma.sync.m16n8k32`` s8, fed by one quantize pass) replayed on the CPU.
+``csrc/int8_conv.cu``: the 3x3 conv #9, the strided 4x4 conv #11 and the
+transposed conv #12 on ``mma.sync.m16n8k32`` s8, fed by one quantize pass)
+replayed on the CPU.
 
 The kernels run only on the card (``tests/test_torch_port_gpu.py``). Here a
 numpy replay of each launch is held against the plain versions, which the
@@ -12,7 +13,8 @@ other int8 tests hold against the JAX package:
   ``act_quant_plain`` (``quantize_act`` padded and cast), every input
   element read once, values exactly on a rounding boundary included;
 - ``int8_tc``: the launch plan (tiles, K splits, phases), block by block
-  with ``blockIdx.z = phase * splits + split``, K in words of four channels
+  with ``blockIdx.z = phase * splits + split``, the strided conv's rows
+  and columns read from 2 oy - 1 and 2 ox - 1, K in words of four channels
   in the order tap * Cp/4 + word through the cp.async ring, k / (Cp/4) by
   multiply-high, the zero-filled border and K tail, the padded weight
   packing, the m16n8k32 s8 fragment maps (A a0..a3, B b0/b1, C c0..c3 at
@@ -44,18 +46,16 @@ def _cdiv(a, b):
 
 
 def div_w_params(c4):
-    """``make_geo``'s constants for ``div_w`` (k / C4 by a multiply-high)."""
-    l = max(c4 - 1, 0).bit_length()  # ceil(log2 C4)
-    if c4 <= 1:
-        return 0, 0
+    """``make_geo``'s constants for ``div_w`` (k / C4 by a multiply-high; C4
+    = round_up(C, 16) / 4 >= 4)."""
+    assert c4 >= 4
+    l = (c4 - 1).bit_length()  # ceil(log2 C4)
     return ((1 << (31 + l)) + c4 - 1) // c4, l - 1
 
 
 def div_w(k, c4):
     """``div_w``: ``umulhi(k, c_mul) >> c_shr`` in 32-bit unsigned arithmetic."""
     mul, shr = div_w_params(c4)
-    if c4 == 1:
-        return np.asarray(k)
     k = np.asarray(k, np.uint64)
     return ((k * np.uint64(mul)) >> np.uint64(32 + shr)).astype(np.int64)
 
@@ -65,6 +65,8 @@ def _tap(name, t, p):
     GEMM tap ``t`` in phase ``p``."""
     if name == "int8_conv3x3_bn_relu":
         return t // 3 - 1, t % 3 - 1, t
+    if name == "int8_conv4x4s2_bn_relu":
+        return (t >> 2) - 1, (t & 3) - 1, t
     ta, tb, u, v = t >> 1, t & 1, p >> 1, p & 1  # the transposed conv's _T_TAPS
     return ta + u - 1, tb + v - 1, (2 * ta + u) * 4 + 2 * tb + v
 
@@ -126,9 +128,10 @@ def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group):
     amax = f8.act_absmax_plain(torch.from_numpy(x), act_group).numpy()
     qx, _ = act_quant_replay(x, amax, act_group)
     qw = qx.reshape(-1).view(np.int32)  # words of four channels, C4 a pixel
-    wq = f8.pack_for(name, torch.from_numpy(kq)).numpy().reshape(-1)  # (rows, O) words
+    wq = f8.pack_kernel_q(torch.from_numpy(kq)).numpy().reshape(-1)  # (rows, O) words
     assert wq.size == kq.shape[0] * kq.shape[1] * c4 * o
-    ho, wo = h, w
+    stride = 2 if name == "int8_conv4x4s2_bn_relu" else 1
+    ho, wo = h // stride, w // stride
     out_shape = f8.output_shape(name, x.shape, o)
     vec_b = o % 4 == 0
 
@@ -174,8 +177,8 @@ def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group):
             valid_m = mm < m_all
             bb, r = np.divmod(mm, ho * wo)
             oy, ox = np.divmod(r, wo)
-            a_y = np.where(valid_m, oy, -(1 << 24))
-            a_x = np.where(valid_m, ox, 0)
+            a_y = np.where(valid_m, oy * stride, -(1 << 24))
+            a_x = np.where(valid_m, ox * stride, 0)
             a_pix = np.where(valid_m, (bb * h + a_y) * w + a_x, 0)
             for by in range(_cdiv(o, bn)):
                 n0 = by * bn
@@ -331,6 +334,16 @@ REPLAY_CASES = [
     ("int8_convT4x4s2_bn_relu", (1, 9, 9, 64), 200, True, None, 0),
     ("int8_convT4x4s2_bn_relu", (2, 6, 6, 256), 128, True, None, 0),
     ("int8_convT4x4s2_bn_relu", (1, 4, 4, 424), 256, True, None, 3),
+    # the strided 4x4 conv (#11): odd H and W (the last row and column of
+    # the input unread), C = 3, 4 (Cp = 16: 12 of every 16 bytes padding),
+    # 5, 64 and 130, O = 5, 13, 24, 70, 128 and 200, a group smaller than
+    # the batch with a short last group, K splits and every tile
+    ("int8_conv4x4s2_bn_relu", (3, 7, 9, 3), 5, True, None, 3),
+    ("int8_conv4x4s2_bn_relu", (5, 9, 11, 4), 13, False, 2, 2),
+    ("int8_conv4x4s2_bn_relu", (3, 11, 12, 130), 24, True, None, 1),
+    ("int8_conv4x4s2_bn_relu", (2, 12, 13, 5), 70, True, 1, 0),
+    ("int8_conv4x4s2_bn_relu", (1, 8, 8, 130), 200, False, None, 3),
+    ("int8_conv4x4s2_bn_relu", (2, 16, 16, 64), 128, True, None, 0),
 ]
 
 
@@ -350,6 +363,9 @@ def test_int8_tc_replay_splits_k_in_both_modes():
     # the K-split cases above really split, in each mode
     for name, shape, o in (("int8_conv3x3_bn_relu", (1, 4, 4, 424), 424),
                            ("int8_conv3x3_bn_relu", (1, 9, 9, 130), 70),
+                           ("int8_conv4x4s2_bn_relu", (3, 11, 12, 130), 24),
+                           ("int8_conv4x4s2_bn_relu", (1, 8, 8, 130), 200),
+                           ("int8_conv4x4s2_bn_relu", (2, 16, 16, 64), 128),
                            ("int8_convT4x4s2_bn_relu", (2, 6, 6, 256), 128),
                            ("int8_convT4x4s2_bn_relu", (1, 4, 4, 424), 256)):
         m, n, k, phases = f8.geometry(name, shape, o)
@@ -422,12 +438,11 @@ def test_div_w_is_exact_division():
 
 
 def test_pack_for_pads_each_tap_to_16_channels():
-    """The tensor-core kernels' weight: (kh * kw * Cp/4, O) words, channel
-    4j + i of tap t in byte i of row t * Cp/4 + j, zero in the padding; the
-    strided 4x4 conv keeps ceil(C / 4) words a tap."""
+    """The weight every int8 conv takes: (kh * kw * Cp/4, O) words, channel
+    4j + i of tap t in byte i of row t * Cp/4 + j, zero in the padding."""
     kq = torch.from_numpy(
         np.random.default_rng(2).integers(-127, 128, (3, 3, 6, 5)).astype(np.int8))
-    words = f8.pack_for("int8_conv3x3_bn_relu", kq)
+    words = f8.pack_kernel_q(kq)
     assert words.dtype == torch.int32 and tuple(words.shape) == (9 * 4, 5)
     raw = words.numpy().view(np.int8).reshape(9, 4, 5, 4)
     for tap in range(9):
@@ -435,16 +450,18 @@ def test_pack_for_pads_each_tap_to_16_channels():
             got = raw[tap, :, o, :].reshape(-1)
             np.testing.assert_array_equal(got[:6], kq.numpy()[tap // 3, tap % 3, :, o])
             assert not got[6:].any()
-    assert torch.equal(words[:, :], f8.pack_kernel_q(kq, 16))
     k4 = torch.from_numpy(np.random.default_rng(3).integers(-127, 128, (4, 4, 7, 3)).astype(np.int8))
-    assert tuple(f8.pack_for("int8_convT4x4s2_bn_relu", k4).shape) == (16 * 4, 3)
-    assert torch.equal(f8.pack_for("int8_conv4x4s2_bn_relu", k4), f8.pack_kernel_q(k4))
-    assert tuple(f8.pack_kernel_q(k4).shape) == (16 * 2, 3)
+    raw4 = f8.pack_kernel_q(k4).numpy().view(np.int8).reshape(16, 4, 3, 4)
+    assert raw4.shape[:3] == (16, 4, 3)  # 16 taps of Cp/4 = 4 words, for #11 and #12 alike
+    for tap in (0, 5, 15):
+        got = raw4[tap, :, 2, :].reshape(-1)
+        np.testing.assert_array_equal(got[:7], k4.numpy()[tap // 4, tap % 4, :, 2])
+        assert not got[7:].any()
 
 
 @pytest.mark.parametrize("cls,cin,cout,tail,kernel,rows", [
     ("Conv3x3", 5, 7, None, "int8_conv3x3_bn_relu", 9 * 4),
-    ("DownBlock", 5, 7, "downsample", "int8_conv4x4s2_bn_relu", 16 * 2),
+    ("DownBlock", 5, 7, "downsample", "int8_conv4x4s2_bn_relu", 16 * 4),
     ("UpBlock", 200, 7, "upsample", "int8_convT4x4s2_bn_relu", 16 * 52),
 ])
 def test_each_module_keeps_the_packing_its_kernel_takes(cls, cin, cout, tail, kernel, rows):
@@ -455,18 +472,20 @@ def test_each_module_keeps_the_packing_its_kernel_takes(cls, cin, cout, tail, ke
     conv.set_quant(q, np.ones(conv.kernel.shape[-1], np.float32))
     assert conv.int8_kernel == kernel
     assert tuple(conv.kernel_p.shape) == (rows, cout)
-    assert torch.equal(conv.kernel_p, f8.pack_for(kernel, conv.kernel_q))
+    assert torch.equal(conv.kernel_p, f8.pack_kernel_q(conv.kernel_q))
 
 
 # Every int8 conv geometry of the canonical Cond_SRVAE (cr=1.2, ps=64) per
 # image, as (kernel, H, W, C, O): the W8A8 decoder (serving) and the
-# DownBlocks' 3x3 convs of the block path
+# DownBlocks' 3x3 convs and strided 4x4 tails of the block path
 _CANONICAL = [
     ("int8_conv3x3_bn_relu", hw, hw, c, o) for hw, c, o in [
         (8, 424, 424), (16, 256, 256), (32, 128, 128), (64, 64, 64), (64, 64, 16),
         (64, 16, 16), (64, 16, 4), (32, 4, 4), (16, 16, 16), (8, 64, 64), (64, 4, 4),
         (32, 16, 16), (16, 64, 64)]
-] + [("int8_convT4x4s2_bn_relu", 8, 8, 424, 256), ("int8_convT4x4s2_bn_relu", 16, 16, 256, 128)]
+] + [("int8_convT4x4s2_bn_relu", 8, 8, 424, 256), ("int8_convT4x4s2_bn_relu", 16, 16, 256, 128)
+      ] + [("int8_conv4x4s2_bn_relu", hw, hw, c, o) for c, o, hw in [
+          (4, 16, 32), (16, 64, 16), (64, 128, 8), (4, 16, 64), (16, 64, 32), (64, 128, 16)]]
 
 
 @pytest.mark.parametrize("batch", [16, 1000])
@@ -477,7 +496,7 @@ def test_plan_int8_tc_at_every_canonical_shape(batch):
     unless K is too short to split further."""
     for name, h, w, c, o in _CANONICAL:
         m, n, k, phases = f8.geometry(name, (batch, h, w, c), o)
-        taps = 9 if name == "int8_conv3x3_bn_relu" else 4
+        taps = {"int8_conv3x3_bn_relu": 9, "int8_conv4x4s2_bn_relu": 16}.get(name, 4)
         assert k == taps * f8.padded_channels(c) // 4 and n == o
         cfg, splits, kchunk = f8.plan_int8_tc(m, n, k, phases)
         bm, bn = f8.TC_TILES[cfg][:2]
@@ -501,8 +520,10 @@ def test_int8_tc_tiles_meet_the_kernels_static_checks():
     """What the CUDA source's static_asserts and fragment reads need: whole
     warp tiles, whole 16-byte groups per thread, conflict-free fragment reads
     (A's row stride 36 words, B's BN + 8), and a ring that fits."""
-    assert set(f8.TC_KERNELS) == {"int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu"}
-    assert "int8_conv4x4s2_bn_relu" not in f8.TC_KERNELS  # #11 keeps the CUDA-core kernel
+    # all three int8 convs, in the C entry point's modes kConv3, kConv4, kConvT
+    assert f8.TC_KERNELS == {"int8_conv3x3_bn_relu": 0, "int8_conv4x4s2_bn_relu": 1,
+                             "int8_convT4x4s2_bn_relu": 2}
+    assert set(f8.TC_KERNELS) == set(f8.PLAIN)
     lane = np.arange(32)
     gq, tq = lane >> 2, lane & 3
     for cfg, (bm, bn, wm, wn, stages) in f8.TC_TILES.items():

@@ -8,8 +8,10 @@ than ``jax.random``, so against ``quantize_stochastic_ref`` its contract is
 distributional: every value within one grid step of ``w / scale``, and a mean
 over seeds that is unbiased where round-to-nearest is not. The CUDA kernel
 computes the integer hash that ``hash_uniform`` computes; a pure-Python replay
-pins that algorithm here, and ``tests/test_torch_port_gpu.py`` holds the
-kernel's bytes against the plain version's on the card.
+pins that algorithm here, a numpy replay of the two passes of
+``csrc/quantize.cu`` (one C call per quant tree) holds their index arithmetic
+against the plain version leaf by leaf, and ``tests/test_torch_port_gpu.py``
+holds the kernels' bytes against the plain version's on the card.
 """
 
 import numpy as np
@@ -131,6 +133,201 @@ def test_quantize_stochastic_matches_ref_distribution():
     q2, _ = tq.quantize_stochastic(torch.from_numpy(w), seed=0)
     q3, _ = tq.quantize_stochastic(torch.from_numpy(w), seed=1)
     assert torch.equal(q, q2) and not torch.equal(q, q3)
+
+
+# csrc/quantize.cu's launch geometry
+THREADS, AMAX_COLS, AMAX_ROWS, QUANT_PER_BLOCK = 256, 32, 256, 8 * 256
+AMAX_LANES = THREADS // AMAX_COLS
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _mix32_np(x):
+    x = x ^ (x >> np.uint64(16))
+    x = (x * np.uint64(0x7FEB352D)) & M32
+    x = x ^ (x >> np.uint64(15))
+    x = (x * np.uint64(0x846CA68B)) & M32
+    return x ^ (x >> np.uint64(16))
+
+
+def _leaf_of(block0, b):
+    """``leaf_of``: the last leaf whose first block is <= b."""
+    l = np.zeros(b.shape, np.int64)
+    for j in range(1, block0.size):
+        l = np.where(block0[j] <= b, j, l)
+    return l
+
+
+def quantize_tree_replay(leaves):
+    """``svrs_quantize_tree`` as ``quantize_leaves`` calls it, in numpy: the
+    empty leaves to the plain version, the others in tables of
+    ``TABLE_LEAVES``, each one ``col_absmax`` launch (a block: 32 columns x
+    ``AMAX_ROWS`` rows of one leaf, its column maxima folded into the zeroed
+    scratch by an integer max of the bits of |w|) and one
+    ``stochastic_round`` launch (a block: ``QUANT_PER_BLOCK`` consecutive
+    elements of one leaf, the scale inline from the scratch, row 0 writing
+    it), every block finding its leaf by the table's first-block offsets.
+    Returns ``[(q, scale)]`` and the number of launches; asserts that pass
+    1 reads every element once and pass 2 writes every byte and scale once."""
+    out = [None] * len(leaves)
+    live = []
+    for i, (w, seed) in enumerate(leaves):
+        if w.size == 0:
+            q, sc = tq.quantize_stochastic_plain(torch.from_numpy(w), seed)
+            out[i] = (q.numpy(), sc.numpy())
+        else:
+            live.append(i)
+    launches = 0
+    for first in range(0, len(live), tq.TABLE_LEAVES):
+        chunk = live[first:first + tq.TABLE_LEAVES]
+        w_flat = np.concatenate([leaves[i][0].reshape(-1) for i in chunk])
+        numel = np.array([leaves[i][0].size for i in chunk], np.int64)
+        o = np.array([leaves[i][0].shape[-1] for i in chunk], np.int64)
+        m = numel // o
+        base = np.concatenate([[0], np.cumsum(numel)[:-1]])  # w, q
+        soff = np.concatenate([[0], np.cumsum(o)[:-1]])      # scale, amax
+        keys = np.array([tq.seed_words(leaves[i][1]) for i in chunk], np.uint64)
+        a_blocks = -(-m // AMAX_ROWS) * -(-o // AMAX_COLS)
+        q_blocks = -(-numel // QUANT_PER_BLOCK)
+        a0 = np.concatenate([[0], np.cumsum(a_blocks)[:-1]])
+        q0 = np.concatenate([[0], np.cumsum(q_blocks)[:-1]])
+        amax = np.zeros(o.sum(), np.uint32)  # the memset
+        t = np.arange(THREADS)
+
+        # col_absmax
+        b = np.arange(a_blocks.sum())
+        l = _leaf_of(a0, b)[:, None]
+        tiles = -(-o[l] // AMAX_COLS)
+        bb = b[:, None] - a0[l]
+        split, tile = bb // tiles, bb % tiles
+        lane, row = t % AMAX_COLS, t // AMAX_COLS
+        col = tile * AMAX_COLS + lane
+        r1 = np.minimum(m[l], (split + 1) * AMAX_ROWS)
+        mx = np.zeros((b.size, THREADS), np.uint32)
+        reads = np.zeros(w_flat.size, np.int64)
+        for it in range(AMAX_ROWS // AMAX_LANES):
+            r = split * AMAX_ROWS + row + it * AMAX_LANES
+            ok = (col < o[l]) & (r < r1)
+            addr = np.where(ok, base[l] + r * o[l] + col, 0)
+            np.add.at(reads, addr[ok], 1)
+            bits = np.abs(w_flat[addr]).view(np.uint32)
+            mx = np.where(ok, np.maximum(mx, bits), mx)
+        col_max = mx.reshape(b.size, AMAX_LANES, AMAX_COLS).max(axis=1)  # the shared reduce
+        col0 = col[:, :AMAX_COLS]
+        ok0 = col0 < o[l]
+        np.maximum.at(amax, (soff[l] + col0)[ok0], col_max[ok0])
+        assert (reads == 1).all()
+
+        # stochastic_round
+        b = np.arange(q_blocks.sum())
+        l = _leaf_of(q0, b)[:, None]
+        q_flat = np.zeros(w_flat.size, np.int8)
+        s_flat = np.zeros(o.sum(), np.float32)
+        q_writes = np.zeros(w_flat.size, np.int64)
+        s_writes = np.zeros(o.sum(), np.int64)
+        for k in range(QUANT_PER_BLOCK // THREADS):
+            i = (b[:, None] - q0[l]) * QUANT_PER_BLOCK + t + k * THREADS
+            ok = i < numel[l]
+            i = np.where(ok, i, 0)
+            c = i % o[l]
+            a = amax[soff[l] + c].view(np.float32)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                scale = np.where(a > 0, a / np.float32(127.0), np.float32(1.0)).astype(np.float32)
+                first_row = ok & (i < o[l])
+                np.add.at(s_writes, (soff[l] + i)[first_row], 1)
+                s_flat[(soff[l] + i)[first_row]] = scale[first_row]
+                bits = _mix32_np((_mix32_np(i.astype(np.uint64) ^ keys[l[:, 0], 0][:, None])
+                                  + keys[l[:, 0], 1][:, None]) & M32)
+                u = ((bits >> np.uint64(9)) | np.uint64(0x3F800000)).astype(np.uint32) \
+                    .view(np.float32) - np.float32(1.0)
+                x = (w_flat[base[l] + i] / scale).astype(np.float32)
+                lo = np.floor(x)
+                v = lo + (u < (x - lo)).astype(np.float32)
+                v = np.where(v < -127, np.float32(-127), np.where(v > 127, np.float32(127), v))
+                qv = np.where(np.isnan(v), 0, v).astype(np.int8)
+            np.add.at(q_writes, (base[l] + i)[ok], 1)
+            q_flat[(base[l] + i)[ok]] = qv[ok]
+        assert (q_writes == 1).all() and (s_writes == 1).all()
+        for j, i in enumerate(chunk):
+            out[i] = (q_flat[base[j]:base[j] + numel[j]].reshape(leaves[i][0].shape),
+                      s_flat[soff[j]:soff[j] + o[j]])
+        launches += 2
+    return out, launches
+
+
+def _ragged_leaves():
+    """O = 1, 3 and 424; M not a multiple of the row split (300, 257, 600);
+    a zero channel; an empty leaf; a NaN and an infinity in a channel."""
+    nan = _w((3, 3, 5, 6), 13)
+    nan[1, 2, 3, 4] = np.nan
+    inf = _w((2, 2, 3, 5), 14)
+    inf[0, 1, 2, 0] = -np.inf
+    return [(_w((300, 1), 10), 1), (_w((257, 3), 11, 2.0), 2), (_w((600, 424), 12), 3),
+            (_zero_channel((3, 3, 6, 3), 2), 4), (np.zeros((3, 3, 4, 0), np.float32), 5),
+            (nan, 6), (inf, 7)]
+
+
+def _decoder_leaves():
+    """The 18 leaves of the W8A8 decoder, with their seeds, at the test widths."""
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=PS)).init_weights(3)
+    leaves = []
+    for path, mod in tq._conv_modules(model):
+        leaf = path + ("kernel",)
+        if any(c.startswith(p) for c in leaf for p in tq.DECODER_PREFIXES):
+            leaves.append((mod.kernel.detach().numpy().copy(), tq.leaf_seed(7, leaf)))
+    return model, leaves
+
+
+@pytest.mark.parametrize("tree", ["ragged", "decoder", "two_tables"])
+def test_quantize_tree_kernels_replay_gives_the_plain_versions_bytes(tree):
+    if tree == "ragged":
+        leaves = _ragged_leaves()
+    elif tree == "decoder":
+        model, leaves = _decoder_leaves()
+        assert len(leaves) == 18
+    else:  # more leaves than one table holds: two C-side tables
+        rng = np.random.default_rng(8)
+        leaves = [(_w(tuple(rng.integers(1, 6, 3)) + (int(rng.integers(1, 40)),), 20 + i), i)
+                  for i in range(tq.TABLE_LEAVES + 5)]
+    got, launches = quantize_tree_replay(leaves)
+    live = sum(w.size > 0 for w, _ in leaves)
+    assert launches == 2 * -(-live // tq.TABLE_LEAVES)
+    for (w, seed), (q, sc) in zip(leaves, got):
+        want_q, want_s = tq.quantize_stochastic_plain(torch.from_numpy(w), seed)
+        np.testing.assert_array_equal(q, want_q.numpy())
+        np.testing.assert_array_equal(sc.view(np.uint32), want_s.numpy().view(np.uint32))
+    # the CPU wrapper of the tree is the same plain version, leaf by leaf
+    for (q, sc), (tq_q, tq_s) in zip(got, tq.quantize_leaves(
+            [(torch.from_numpy(w), seed) for w, seed in leaves])):
+        np.testing.assert_array_equal(q, tq_q.numpy())
+        np.testing.assert_array_equal(sc, tq_s.numpy())
+    if tree == "decoder":  # and quantize_params_tree's leaves are these, in this order
+        flat = [(n["kernel_q"], n["kernel_s"]) for n in _nodes(tq.quantize_params_tree(model, 7))]
+        assert len(flat) == 18
+        for (q, sc), (tq_q, tq_s) in zip(got, flat):
+            np.testing.assert_array_equal(q, tq_q.numpy())
+            np.testing.assert_array_equal(sc, tq_s.numpy())
+
+
+def test_quantize_tree_replay_keeps_nan_and_zero_channels_as_the_plain_version():
+    """A NaN weight makes its channel's scale 1 and its own byte 0 (torch's
+    amax propagates the NaN, NaN > 0 is false, the cast of NaN gives 0); an
+    infinity makes its channel's scale inf and the whole channel 0 but itself
+    0 too; a zero channel gets scale 1 and bytes 0."""
+    leaves = _ragged_leaves()
+    got, _ = quantize_tree_replay(leaves)
+    (nan_q, nan_s), (inf_q, inf_s), (zero_q, zero_s) = got[5], got[6], got[3]
+    assert nan_s[4] == 1.0 and nan_q[1, 2, 3, 4] == 0
+    assert np.isinf(inf_s[0]) and not inf_q[..., 0].any()
+    assert zero_s[1] == 1.0 and not zero_q[..., 1].any()
+
+
+def _nodes(tree):
+    """The ``{kernel_q, kernel_s}`` nodes of a quant tree in insertion order."""
+    for val in tree.values():
+        if "kernel_q" in val:
+            yield val
+        else:
+            yield from _nodes(val)
 
 
 def test_quantize_stochastic_is_unbiased_where_rtn_is_not():
