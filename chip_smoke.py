@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (H100): the quickest proof
 that the port builds, is right, serves and trains at full width (Cond_SRVAE
-in float32, int8 and with chained tails; VAE; SRVAE).
+in float32, int8, with chained tails and in bfloat16; VAE; SRVAE).
 
     python3 chip_smoke.py
 
@@ -132,6 +132,38 @@ C5. Timing by CUDA events per chain shape: the chain, the per-layer kernel
     the chain runs on, 495/3 TFLOP/s) and the chain's share of it, with the
     CUDA-core figure (67 TFLOP/s) beside. Request latencies chained beside
     unchained, in turns, float32 and W8A8.
+
+After phase C4, bfloat16 compute (models built with ``dtype=torch.bfloat16``;
+the bfloat16 instances of #1, #5 and #6 in ``csrc/fused_conv.cu``):
+
+B1. Each bfloat16 instance against its plain version in both roles (forward
+    and input gradient) at the ragged shapes of phase 3 and at C % 8 == 0
+    beside C % 8 != 0: within one bfloat16 ulp at the element plus 1e-4 of
+    max|plain| (``fused_conv.compare_bf16``; the share bit-equal printed),
+    the same bits on a second launch. Phase 2 prints ``ptxas conv_tc_bf16``
+    and fails on a spill there.
+B2. The canonical Cond_SRVAE in bfloat16 (phase 4's weights) through
+    ``SuperResolver(chain=True)`` (the chain steps aside in bfloat16):
+    ``super_resolve`` B=16 and ``uncertainty`` N=1000 on phase 4's seeds;
+    bfloat16 launches by kernel and role equal the hooks' and no float32
+    kernel launches; outputs float32 in [0, 1], within 2e-2 of the plain
+    path in bfloat16 on the card, PSNR against phase 4's float32 outputs
+    above 40 dB.
+B3. One Cond_SRVAE train step in bfloat16 at B=512, ``bf16_moments`` off
+    then on: launches against hooks, finite terms, median of 5 steps, peak
+    memory beside the float32 step's; then phase 8's comparison with
+    bfloat16 tolerances (``BF16_STEP_TOLS``: each gradient leaf within 2x
+    its own bfloat16 error, the float32 plain path against the bfloat16
+    one, + 1e-3 of its block's max); one val step.
+B4. The canonical VAE and SRVAE in bfloat16: one request (1000 draws of one
+    window, against the plain path; ``super_resolve`` B=16 from HR input)
+    and one train step each, launches counted.
+B5/B6. Every distinct bfloat16 shape of B2 and B3, checked as in B1 and
+    timed: the bfloat16 instance, its plain version, one cuDNN call in
+    bfloat16 and the float32 kernel at the same shape, and the bound (bytes
+    over 3.35 TB/s or operations over the 989 TFLOP/s bf16 tensor-core
+    peak); sums by kernel, path and role. The kernels line gets three more
+    entries, ``<kernel>_bf16``.
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -329,15 +361,16 @@ def library_fn(name, x, kernel, scale, shift, relu):
     """One cuDNN call computing the same function (scale folded into the
     weights beforehand): the yardstick, never used by the port."""
     xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels_last)
+    # in x's dtype (cuDNN takes a bfloat16 conv with bfloat16 weights and bias)
+    folded, shift = (kernel * scale).to(x.dtype), shift.to(x.dtype)
     if name == "fused_convT4x4s2_bn_relu":
-        wt = (kernel * scale).flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        wt = folded.flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
         def call():
             y = F.conv_transpose2d(xn, wt, shift, stride=2, padding=1)
             return F.relu(y) if relu else y
     else:
-        wt = (kernel * scale).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
+        wt = folded.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         stride, pad = (2, 1) if name == "fused_conv4x4s2_bn_relu" else (1, 1)
 
         def call():
@@ -355,7 +388,7 @@ def library_dx(site, g, kernel):
     k_site = fc.flip_swap(kernel)
     in_shape = fc.output_shape(fc.DX_KERNEL[site], g.shape, kernel.shape[-1])
     gn = g.permute(0, 3, 1, 2)
-    xn = torch.empty(in_shape, device=g.device).permute(0, 3, 1, 2)
+    xn = torch.empty(in_shape, device=g.device, dtype=g.dtype).permute(0, 3, 1, 2)
     if site == "fused_convT4x4s2_bn_relu":
         w, stride, transposed = k_site.flip(0, 1).permute(2, 3, 0, 1).contiguous(), 2, True
     else:
@@ -596,26 +629,38 @@ def block_of(name: str) -> str:
     return parts[1] if parts[0] == "core" and len(parts) > 1 else parts[0]
 
 
-def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=False):
+def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=False,
+                     train_cfg=None, tols=None, noise_model=None):
     """Phase 8: one train step and one val step from the same state, batch and
     noise, through the kernels and through the plain path; a third copy takes
     the plain step on the batch permuted (the same function, summed in
     another order), which measures float32's own noise in each gradient.
     ``make_model()`` builds the model on the card; with ``chain`` both
-    copies' val steps run their conv tails through the chain."""
+    copies' val steps run their conv tails through the chain. ``train_cfg``
+    adds TrainConfig fields; ``tols`` replaces the float32 tolerances
+    (``BF16_STEP_TOLS`` for a bfloat16 model). With ``noise_model`` (a
+    bfloat16 model's float32 twin) the third copy is that model on the plain
+    path and the same batch: the gradient's own bfloat16 error stands in for
+    the permuted batch's float32 noise."""
     from simple_vae_rs_tpu_torch import TrainConfig, Trainer
     from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
     from simple_vae_rs_tpu_torch.ops import fused_conv as fc
     from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
 
     n = batch[0].shape[0]
+    tols = tols or {"terms": TERMS_TOL, "stats": STATS_TOL, "grad": GRAD_TOL,
+                    "noise": NOISE_FACTOR, "params_share": 0.99}
 
     def copy_trainer(plain):
         m = make_model()
         m.load_state_dict(init_state)
         blocks.use_plain_path(m, plain)
         blocks.use_chain(m, chain)
-        return Trainer(m, TrainConfig(learning_rate=LR), device="cuda")
+        return Trainer(m, TrainConfig(learning_rate=LR, **(train_cfg or {})), device="cuda")
+
+    def counts():
+        return (dict(fc.launches), dict(fe.launches),
+                {k: dict(v) for k, v in fc.bf16_launches.items()})
 
     tk, tp = copy_trainer(False), copy_trainer(True)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -623,22 +668,30 @@ def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=Fa
     grads_k, terms_k = tk.grads_and_terms(batch, eps)
     tk.apply_grads(grads_k, LR)
     torch.cuda.synchronize()
-    before = (dict(fc.launches), dict(fe.launches))
+    before = counts()
     grads_p, terms_p = tp.grads_and_terms(batch, eps)
     tp.apply_grads(grads_p, LR)
-    perm = torch.randperm(n, generator=gen, device="cuda")
-    grads_q, _ = copy_trainer(True).grads_and_terms(tuple(t[perm] for t in batch),
-                                                    tuple(e[perm] for e in eps))
+    if noise_model is None:
+        perm = torch.randperm(n, generator=gen, device="cuda")
+        grads_q, _ = copy_trainer(True).grads_and_terms(tuple(t[perm] for t in batch),
+                                                        tuple(e[perm] for e in eps))
+    else:
+        m = noise_model()
+        m.load_state_dict(init_state)
+        blocks.use_plain_path(m)
+        tq = Trainer(m, TrainConfig(learning_rate=LR), device="cuda")
+        grads_q, _ = tq.grads_and_terms(batch, eps)
+        tq.apply_grads(grads_q, LR)
     torch.cuda.synchronize()
-    if (dict(fc.launches), dict(fe.launches)) != before:
+    if counts() != before:
         raise AssertionError("the plain training path launched a kernel")
     failures = []
     cmp = {"terms": {}, "grads": {}}
     for key, v in terms_p.items():
         rel = abs(float(terms_k[key] - v)) / max(abs(float(v)), 1e-30)
         cmp["terms"][key] = rel
-        if not rel <= TERMS_TOL:
-            failures.append(f"train step {key}: relative diff {rel} > {TERMS_TOL}")
+        if not rel <= tols["terms"]:
+            failures.append(f"train step {key}: relative diff {rel} > {tols['terms']}")
     block_max = {}
     for name, g in grads_p.items():
         blk = block_of(name)
@@ -651,12 +704,13 @@ def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=Fa
             "of_block_max": err / max(block_max[block_of(name)], 1e-30),
             "of_leaf_max": err / max(float(g.abs().max()), 1e-30)}
         cmp["grads"][name]["of_noise"] = err / max(noise, 1e-30)
-        limit = NOISE_FACTOR * noise + GRAD_TOL * block_max[block_of(name)]
+        limit = tols["noise"] * noise + tols["grad"] * block_max[block_of(name)]
         if not err <= limit:
-            failures.append(f"grad {name}: max|diff| {err} > {NOISE_FACTOR} * {noise} "
-                            f"(permuted-batch noise) + {GRAD_TOL} of its block's max")
+            failures.append(f"grad {name}: max|diff| {err} > {tols['noise']} * {noise} "
+                            f"(permuted-batch noise) + {tols['grad']} of its block's max")
     log("gradient leaves, worst 15 of block max: leaf, kernels-vs-plain max|diff|, "
-        "permuted-plain-vs-plain max|diff|, leaf max, block max")
+        + ("permuted-plain-vs-plain" if noise_model is None else "float32-plain-vs-plain")
+        + " max|diff|, leaf max, block max")
     for name, c in sorted(cmp["grads"].items(), key=lambda kv: -kv[1]["of_block_max"])[:15]:
         log(f"  {name}: {c['max_abs_err']:.3e} {c['perm_noise']:.3e} {c['leaf_max']:.3e} "
             f"{block_max[block_of(name)]:.3e}")
@@ -664,13 +718,19 @@ def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=Fa
     for (name, buf), buf_p in zip(tk.model.named_buffers(), tp.model.buffers()):
         rel = float((buf - buf_p).abs().max()) / max(float(buf_p.abs().max()), 1e-30)
         worst_stat = max(worst_stat, rel)
-        if not rel <= STATS_TOL:
+        if not rel <= tols["stats"]:
             failures.append(f"BatchNorm statistic {name}: relative diff {rel}")
     diffs = torch.cat([(p - tp.params[name]).detach().abs().flatten()
                        for name, p in tk.params.items()])
     max_dp = float(diffs.max())
     share_close = float((diffs <= 1e-2 * LR).float().mean())
-    if not (max_dp <= 2 * LR * (1 + 1e-3) and share_close >= 0.99):
+    want_share = tols["params_share"]
+    if noise_model is not None:  # the share the float32 step keeps from the plain step
+        noise_diffs = torch.cat([(p - tp.params[name]).detach().abs().flatten()
+                                 for name, p in tq.params.items()])
+        want_share = float((noise_diffs <= 1e-2 * LR).float().mean())
+        cmp["param_share_float32_vs_plain"] = want_share
+    if not (max_dp <= 2 * LR * (1 + 1e-3) and share_close >= want_share):
         failures.append(f"parameters after the step: max|diff| {max_dp}, "
                         f"{share_close:.4f} within 1e-2 * lr")
     chain_before = fc.launches[fc.CHAIN]
@@ -683,8 +743,8 @@ def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=Fa
     for key, v in vp.items():
         rel = abs(float(vk[key] - v)) / max(abs(float(v)), 1e-30)
         cmp["val_terms"][key] = rel
-        if not rel <= TERMS_TOL:
-            failures.append(f"val step {key}: relative diff {rel} > {TERMS_TOL}")
+        if not rel <= tols["terms"]:
+            failures.append(f"val step {key}: relative diff {rel} > {tols['terms']}")
     worst = max((c["of_block_max"], name) for name, c in cmp["grads"].items())
     worst_noise = max((c["of_noise"], name) for name, c in cmp["grads"].items())
     cmp.update({"worst_grad_of_block": worst, "worst_grad_of_noise": worst_noise,
@@ -693,7 +753,8 @@ def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=Fa
                 "failures": failures})
     log(f"{label} kernels vs plain path: terms rel {max(cmp['terms'].values()):.2e}, "
         f"grads worst {worst[0]:.2e} of block max ({worst[1]}), worst {worst_noise[0]:.2f}x "
-        f"the permuted-batch noise ({worst_noise[1]}), BN stats rel "
+        f"the {'permuted-batch noise' if noise_model is None else 'float32-vs-bf16 error'} "
+        f"({worst_noise[1]}), BN stats rel "
         f"{worst_stat:.2e}, params max|diff| {max_dp:.3e} ({share_close:.4f} within 1e-2 lr), "
         f"val terms rel {max(cmp['val_terms'].values()):.2e} (chain launches in the val step: "
         f"{cmp['val_chain_launches']})")
@@ -2001,6 +2062,370 @@ def families_phase(report):
     return by_path, others
 
 
+# ------------------------------------------------------------------ bfloat16
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+BF16_SOURCE_TAG = "_bf16"  # the kernels line's name of a bfloat16 instance
+# served outputs in [0, 1] through ~25 bfloat16 layers: the kernels and the
+# plain path round float32 sums taken in other orders, so an activation may
+# land one bfloat16 ulp (2^-8 relative) apart and carry that on
+BF16_SERVE_TOL = 2e-2  # absolute
+# PSNR of the bfloat16 resolver against the float32 one on the same noise: a
+# pre-sigmoid value rounded to bfloat16 moves an output by ~1e-3 (60 dB); the
+# floor leaves two orders of magnitude for the error carried through the
+# network and is 10 dB above the int8 modes' 30
+MIN_PSNR_BF16_DB = 40.0
+# the bfloat16 step through the kernels against the plain path: loss terms
+# and BatchNorm statistics 1e-2 relative (bfloat16 activations one ulp
+# apart, averaged over the batch); each gradient leaf within 2x its own
+# bfloat16 error (the plain path in float32 against the plain path in
+# bfloat16, the noise rule of the CPU parity tests) + 1e-3 of its block's
+# largest gradient: a bfloat16 gradient that cancels (a conv that BatchNorm
+# follows) moves far more than an ulp when an activation flips, and the
+# permuted batch, which moves float32 sums, rarely moves a bfloat16 one;
+# parameters after the step within 2 * lr, and as large a share within
+# 1e-2 * lr as the float32 step keeps from the bfloat16 plain step (Adam's
+# first step is lr * sign(g): an element whose gradient is within the
+# bfloat16 spread of 0 may take either sign)
+BF16_STEP_TOLS = {"terms": 1e-2, "stats": 1e-2, "grad": 1e-3, "noise": 2.0,
+                  "params_share": None}
+
+
+def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None):
+    """The bfloat16 instance vs its plain version at one shape (within one
+    bfloat16 ulp plus 1e-4 of max|plain|: ``fc.compare_bf16``; the same bits
+    on a second launch); with ``timing`` also its time, the plain version's,
+    one cuDNN call in bfloat16 and the float32 kernel at the same shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = 3 if name == "fused_conv3x3_bn_relu" else 4
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    kernel = (torch.randn((k, k, c, o), generator=gen, device="cuda")
+              / math.sqrt(k * k * c)).bfloat16()
+    if site is None:
+        scale = torch.rand((o,), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((o,), generator=gen, device="cuda")
+    else:
+        scale, shift = torch.ones(o, device="cuda"), torch.zeros(o, device="cuda")
+    fn = getattr(fc, name)
+    got = fn(x, kernel, scale, shift, relu=relu)
+    want = fc.PLAIN[name](x, kernel, scale, shift, relu)
+    torch.cuda.synchronize()
+    cmp = fc.compare_bf16(got, want)
+    if got.dtype != torch.bfloat16 or not cmp["of_bound"] <= 1.0 or not torch.isfinite(got).all():
+        raise AssertionError(f"bf16 {name} {shape}->{o}: {cmp}")
+    if not torch.equal(fn(x, kernel, scale, shift, relu=relu), got):
+        raise AssertionError(f"bf16 {name} {shape}->{o}: a second launch gave other bits")
+    row = {"name": name, "role": "forward" if site is None else "dx", "x": list(shape), "o": o,
+           "relu": relu, **cmp}
+    if timing:
+        if site is None:
+            lib = library_fn(name, x, kernel, scale, shift, relu)
+        else:
+            lib = library_dx(site, x, kernel)
+        # the library call folds scale into bfloat16 weights, each rounded once
+        # more, so it is only held to compute the same function: 2^-5 of max|plain|
+        lib_cmp = fc.compare_bf16(lib().permute(0, 2, 3, 1), want)
+        if not lib_cmp["max_abs_err"] <= 2.0**-5 * lib_cmp["max_abs_ref"]:
+            raise AssertionError(f"bf16 library call disagrees at {name} {shape}: {lib_cmp}")
+        xf, kf = x.float(), kernel.float()
+        first = cuda_ms(lambda: fn(x, kernel, scale, shift, relu=relu), 1)
+        reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
+        row["ms"] = cuda_ms(lambda: fn(x, kernel, scale, shift, relu=relu), reps)
+        row["plain_ms"] = cuda_ms(lambda: fc.PLAIN[name](x, kernel, scale, shift, relu), reps)
+        row["library_ms"] = cuda_ms(lib, reps)
+        row["f32_kernel_ms"] = cuda_ms(lambda: fn(xf, kf, scale, shift, relu=relu), reps)
+        m, n, kk, phases = fc.geometry(name, x, kernel)
+        flops = 2.0 * phases * m * n * kk
+        nbytes = 2.0 * (x.numel() + kernel.numel() + got.numel()) + 4.0 * 2 * o
+        bound_row(row, flops, nbytes, PEAK_BF16_FLOPS)
+        row["flops"] = flops
+    return row
+
+
+def bf16_counts(fc):
+    """The bfloat16 launches by (kernel, role) since the last reset, and a
+    check that no float32 conv kernel and no chain launched."""
+    if any(fc.launches.values()):
+        raise AssertionError(f"a float32 kernel launched on a bfloat16 path: {fc.launches}")
+    return {(name, role): n for name, roles in fc.bf16_launches.items()
+            for role, n in roles.items() if n}
+
+
+def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
+    """Phase B: bfloat16 compute. Returns the kernels line's three bfloat16
+    entries. Failures of the comparisons are collected and raised at the
+    end, after every number is printed."""
+    from simple_vae_rs_tpu_torch import (SRVAE, VAE, CondSRVAE, CondSRVAEConfig, SuperResolver,
+                                         TrainConfig, Trainer, VAEConfig)
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.tasks import sample_chunked
+
+    bf = report["bf16"] = {"ragged": [], "shapes": []}
+    failures = []
+    # B1. ragged shapes, and C % 8 == 0 beside C % 8 != 0, both roles
+    ragged = RAGGED + [
+        ("fused_conv3x3_bn_relu", (4, 16, 16, 64), 64, True),
+        ("fused_conv3x3_bn_relu", (4, 16, 16, 60), 64, True),
+        ("fused_conv4x4s2_bn_relu", (4, 16, 16, 16), 64, True),
+        ("fused_conv4x4s2_bn_relu", (4, 16, 16, 12), 64, True),
+        ("fused_convT4x4s2_bn_relu", (4, 8, 8, 64), 16, True),
+        ("fused_convT4x4s2_bn_relu", (4, 8, 8, 60), 16, True),
+    ]
+    for i, (name, shape, o, relu) in enumerate(ragged):
+        row = check_shape_bf16(fc, name, shape, o, relu, seed=700 + i, timing=False)
+        site = fc.DX_KERNEL[name]
+        dx = check_shape_bf16(fc, name, shape, o, False, seed=800 + i, timing=False, site=site)
+        bf["ragged"] += [row, dx]
+        log(f"bf16 ragged {name} x{shape} O={o}: forward {row['of_bound']:.3f} of bound, "
+            f"bit-equal {row['share_bit_equal']:.4f}, within 1 ulp {row['share_within_1ulp']:.6f};"
+            f" dx {dx['of_bound']:.3f}, bit-equal {dx['share_bit_equal']:.4f}")
+
+    # B2. serving in bfloat16 at full width: the weights of phase 4's model
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    f32_model = CondSRVAE(cfg, device="cuda").init_weights(seed=0)
+    randomize_bn(f32_model, seed=1)
+    model = CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(f32_model.state_dict())
+    del f32_model
+    sr = SuperResolver(model, device="cuda", seed=0, chain=True)  # the chain steps aside
+    y = np.random.default_rng(2).random((16, cfg.lr_patch_size, cfg.lr_patch_size, 4),
+                                        dtype=np.float32)
+    sr.super_resolve(y, seed=0)
+    sr.uncertainty(y[0], samples=8, seed=0)
+    serve_calls = []
+    hooks = record_conv_calls(sr.model, serve_calls)
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launches()
+    out, sr_ms = timed(lambda: sr.super_resolve(y, seed=11))
+    sr_counts = bf16_counts(fc)
+    uq, uq_ms = timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))
+    serve_counts = bf16_counts(fc)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in hooks:
+        h.remove()
+    recorded = counts_by_role(serve_calls)
+    if serve_counts != recorded or not serve_counts:
+        raise AssertionError(f"bf16 serving launches {serve_counts}, hooks recorded {recorded}")
+    served_ok("bf16 super_resolve", out, (16, 64, 64, 4))
+    if out.dtype != torch.float32 or any(v.dtype != torch.float32 for v in uq.values()):
+        raise AssertionError("bf16 serving: outputs are not float32")
+    for key in ("mean", "std", "variance"):
+        if tuple(uq[key].shape) != (64, 64, 4) or not torch.isfinite(uq[key]).all():
+            raise AssertionError(f"bf16 uncertainty[{key}] is wrong")
+    rep_sr = [timed(lambda: sr.super_resolve(y, seed=11))[1] for _ in range(5)]
+    rep_uq = [timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))[1] for _ in range(3)]
+    blocks.use_plain_path(sr.model)
+    before = bf16_counts(fc)
+    plain_out = sr.super_resolve(y, seed=11)
+    plain_uq = sr.uncertainty(y[0], samples=1000, seed=12)
+    if bf16_counts(fc) != before:
+        raise AssertionError("the bf16 plain path launched a kernel")
+    blocks.use_plain_path(sr.model, False)
+    serve_err = {"super_resolve": float((out - plain_out).abs().max()),
+                 **{f"uncertainty.{k}": float((uq[k] - plain_uq[k]).abs().max())
+                    for k in ("mean", "std")}}
+    psnr = {"super_resolve": psnr_db(out, f32_out), "uncertainty.mean":
+            psnr_db(uq["mean"], f32_uq["mean"])}
+    for key, err in serve_err.items():
+        if not err <= BF16_SERVE_TOL:
+            failures.append(f"bf16 {key}: kernels vs plain path {err} > {BF16_SERVE_TOL}")
+    for key, db in psnr.items():
+        if not db >= MIN_PSNR_BF16_DB:
+            failures.append(f"bf16 {key}: PSNR {db:.2f} dB against float32 < {MIN_PSNR_BF16_DB}")
+    log("bf16 serving launches: super_resolve(16) "
+        + " ".join(f"{k[0]}={v}" for k, v in sr_counts.items()) + " | with uncertainty(1000) "
+        + " ".join(f"{k[0]}={v}" for k, v in serve_counts.items()) + " (float32 kernels 0, chain 0)")
+    log(f"bf16 super_resolve B=16: {sr_ms:.2f} ms (repeats median {statistics.median(rep_sr):.2f}"
+        f" ms); uncertainty N=1000: {uq_ms:.2f} ms (repeats median "
+        f"{statistics.median(rep_uq):.2f} ms); peak memory {serve_peak:.2f} GiB; kernels vs "
+        f"plain path max|diff| {serve_err}; PSNR against float32 {psnr}")
+    bf["serving"] = {"super_resolve_b16_ms": sr_ms, "super_resolve_b16_ms_repeats": rep_sr,
+                     "uncertainty_n1000_ms": uq_ms, "uncertainty_n1000_ms_repeats": rep_uq,
+                     "peak_memory_gib": serve_peak, "max_abs_err_vs_plain": serve_err,
+                     "psnr_db_vs_f32": psnr,
+                     "launches": {" ".join(k): v for k, v in serve_counts.items()}}
+    del sr, model, plain_out, plain_uq
+
+    # B3. one Cond_SRVAE training step at B=512, bf16_moments off then on
+    batch = training_batch()
+    n = batch[0].shape[0]
+    init_state = copy.deepcopy(CondSRVAE(cfg, device="cuda").init_weights(seed=0).state_dict())
+    train_calls, val_calls, steps = [], [], {}
+    for moments in (False, True):
+        model = CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16)
+        model.load_state_dict(init_state)
+        tcfg = TrainConfig(learning_rate=LR, use_bfloat16=True, bf16_moments=moments)
+        trainer = Trainer(model, tcfg, device="cuda")
+        calls = []
+        hooks = record_conv_calls(model, calls)
+        fc.reset_launches()
+        fe.reset_launches()
+        terms = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        counts, rows = bf16_counts(fc), dict(fe.launches)
+        for h in hooks:
+            h.remove()
+        if counts != counts_by_role(calls) or rows != {"sq_rows": 2, "kl_std_rows": 1,
+                                                       "kl_gen_rows": 1}:
+            raise AssertionError(f"bf16 train step launches {counts} {rows}, hooks recorded "
+                                 f"{counts_by_role(calls)}")
+        if not all(torch.isfinite(v) for v in terms.values()):
+            raise AssertionError(f"bf16 train step: non-finite loss terms {terms}")
+        if moments and not all(m.dtype == torch.bfloat16 for m in trainer.opt.mu):
+            raise AssertionError("bf16_moments: Adam's first moment is not bfloat16")
+        timed(lambda: trainer.train_step(batch))
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = [timed(lambda: trainer.train_step(batch))[1] for _ in range(5)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not moments:
+            train_calls = calls
+            vcalls = []
+            hooks = record_conv_calls(model, vcalls)
+            fc.reset_launches()
+            val = trainer.val_step(batch)
+            torch.cuda.synchronize()
+            val_counts = bf16_counts(fc)
+            for h in hooks:
+                h.remove()
+            if val_counts != counts_by_role(vcalls):
+                raise AssertionError(f"bf16 val step launches {val_counts}")
+            if not all(torch.isfinite(v) for v in val.values()):
+                raise AssertionError(f"bf16 val step: non-finite loss terms {val}")
+            val_calls = vcalls
+            val_ms = [timed(lambda: trainer.val_step(batch))[1] for _ in range(3)]
+        med = statistics.median(step_ms)
+        steps[moments] = {"step_ms": step_ms, "step_ms_median": med, "peak_memory_gib": peak,
+                          "patches_per_s": n / (med / 1e3),
+                          "terms": {k: float(v) for k, v in terms.items()},
+                          "launches": {" ".join(k): v for k, v in counts.items()}}
+        log(f"bf16 train step B={n} bf16_moments={moments}: median {med:.2f} ms over 5 ("
+            + ", ".join(f"{t:.2f}" for t in step_ms) + f"), {n / (med / 1e3):.1f} patches/s, "
+            f"peak memory {peak:.2f} GiB (float32 step {f32_train_peak_gib:.2f} GiB); launches "
+            + " ".join(f"{k[0]} {k[1]}={v}" for k, v in counts.items())
+            + "; terms " + " ".join(f"{k}={float(v):.4f}" for k, v in terms.items()))
+        del trainer, model
+        torch.cuda.empty_cache()
+        cmp = kernels_vs_plain(lambda: CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16),
+                               init_state, batch, label=f"bf16 train step (moments={moments})",
+                               train_cfg={"use_bfloat16": True, "bf16_moments": moments},
+                               tols=BF16_STEP_TOLS, noise_model=lambda: CondSRVAE(cfg, device="cuda"))
+        steps[moments]["kernels_vs_plain"] = cmp
+        failures += [f"bf16_moments={moments}: {f}" for f in cmp["failures"]]
+    log(f"bf16 val step B={n}: median {statistics.median(val_ms):.2f} ms; launches "
+        + " ".join(f"{k[0]}={v}" for k, v in val_counts.items()))
+    bf["training"] = {"moments_off": steps[False], "moments_on": steps[True], "val_step_ms": val_ms,
+                      "launches_val_step": {" ".join(k): v for k, v in val_counts.items()}}
+
+    # B4. the VAE and the SRVAE in bfloat16: one request and one train step each
+    vcfg = VAEConfig(cr=1.5, patch_size=32)
+    vae = VAE(vcfg, device="cuda", dtype=torch.bfloat16).init_weights(seed=0)
+    trainer = Trainer(vae, TrainConfig(learning_rate=LR, use_bfloat16=True), device="cuda")
+    fc.reset_launches()
+    vterms = trainer.train_step(batch)
+    vcounts = bf16_counts(fc)
+    vae.eval()
+    window = batch[0][:1]
+    fc.reset_launches()
+    draws, vae_ms = timed(lambda: sample_chunked(vae, window, torch.Generator(device="cuda")
+                                                 .manual_seed(3), samples=1000, chunk=1000))
+    vdraw_counts = bf16_counts(fc)
+    blocks.use_plain_path(vae)
+    plain_draws = sample_chunked(vae, window, torch.Generator(device="cuda").manual_seed(3),
+                                 samples=1000, chunk=1000)
+    vae_err = float((draws - plain_draws).abs().max())
+    if draws.dtype != torch.float32 or not torch.isfinite(draws).all() or not all(
+            torch.isfinite(v) for v in vterms.values()):
+        raise AssertionError("bf16 VAE: non-finite or non-float32 results")
+    if not vae_err <= BF16_SERVE_TOL:
+        failures.append(f"bf16 VAE sample_chunked vs plain path {vae_err}")
+    log(f"bf16 VAE train step B={n}: launches "
+        + " ".join(f"{k[0]} {k[1]}={v}" for k, v in vcounts.items())
+        + f"; sample_chunked N=1000: {vae_ms:.2f} ms (first call), launches "
+        + " ".join(f"{k[0]}={v}" for k, v in vdraw_counts.items())
+        + f", max|diff| vs plain path {vae_err:.3e}")
+    del trainer, vae, draws, plain_draws
+    srvae = SRVAE(cfg, device="cuda", dtype=torch.bfloat16).init_weights(seed=0)
+    srs = SuperResolver(srvae, device="cuda", seed=0)
+    hr = batch[1][:16] * 1000.0
+    fc.reset_launches()
+    s_out, s_ms = timed(lambda: srs.super_resolve(hr, seed=31))
+    s_counts = bf16_counts(fc)
+    served_ok("bf16 SRVAE super_resolve", s_out, (16, 64, 64, 4))
+    trainer = Trainer(srvae, TrainConfig(learning_rate=LR, use_bfloat16=True), device="cuda")
+    fc.reset_launches()
+    sterms = trainer.train_step(batch)
+    st_counts = bf16_counts(fc)
+    if not all(torch.isfinite(v) for v in sterms.values()):
+        raise AssertionError("bf16 SRVAE train step: non-finite loss terms")
+    log(f"bf16 SRVAE super_resolve B=16 from HR input: {s_ms:.2f} ms (first call), launches "
+        + " ".join(f"{k[0]}={v}" for k, v in s_counts.items()) + f"; train step B={n} launches "
+        + " ".join(f"{k[0]} {k[1]}={v}" for k, v in st_counts.items()))
+    bf["families"] = {"vae_train_launches": {" ".join(k): v for k, v in vcounts.items()},
+                      "vae_draws_ms": vae_ms, "vae_draws_max_abs_err": vae_err,
+                      "srvae_super_resolve_ms": s_ms,
+                      "srvae_train_launches": {" ".join(k): v for k, v in st_counts.items()}}
+    del trainer, srvae, srs
+
+    # B6. every distinct bfloat16 shape of the serving run and the steps, timed
+    def key_of(call):
+        name, role, shape, o, relu, site, _ = call
+        return name, role, shape, o, relu, site if role == "dx" else None
+
+    per_key = {}
+    paths = (("serving", serve_calls), ("train_step", train_calls), ("val_step", val_calls))
+    for i, call in enumerate(sorted({key_of(c) for _, cs in paths for c in cs}, key=str)):
+        name, role, shape, o, relu, site = call
+        per_key[call] = row = check_shape_bf16(fc, name, shape, o, relu, seed=900 + i,
+                                               timing=True, site=site)
+        bf["shapes"].append(row)
+        log(f"bf16 shape {name} {role} x{shape} O={o}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, cuDNN bf16 {row['library_ms']:.4f} ms, float32 kernel "
+            f"{row['f32_kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['of_bound']:.3f} of the ulp bound, bit-equal {row['share_bit_equal']:.4f}")
+    fields = ("ms", "plain_ms", "library_ms", "f32_kernel_ms", "bound_ms", "flops", "bytes")
+    kernels = []
+    for name in fc.TC_KERNELS:
+        tot = dict.fromkeys(fields, 0.0)
+        by_path = {}
+        for path, cs in paths:
+            for role in fc.ROLES:
+                mine = [c for c in cs if c[0] == name and c[1] == role]
+                if not mine:
+                    continue
+                d = dict.fromkeys(("launches",) + fields, 0.0)
+                for c in mine:
+                    row = per_key[key_of(c)]
+                    d["launches"] += 1
+                    for k in fields:
+                        d[k] += row[k]
+                by_path[f"{path}_{role}"] = int(d["launches"])
+                for k in fields:
+                    tot[k] += d[k]
+                log(f"bf16 {path} {name} {role}: launches {int(d['launches'])}, kernel "
+                    f"{d['ms']:.3f} ms, bound {d['bound_ms']:.3f} ms (989 TFLOP/s, 3.35 TB/s), "
+                    f"plain {d['plain_ms']:.3f} ms, cuDNN bf16 {d['library_ms']:.3f} ms, "
+                    f"float32 kernel {d['f32_kernel_ms']:.3f} ms")
+        rows = [r for r in bf["ragged"] + bf["shapes"] if r["name"] == name]
+        kernels.append({
+            "name": name + BF16_SOURCE_TAG, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_of_ulp_bound": max(r["of_bound"] for r in rows),
+            "min_share_bit_equal": min(r["share_bit_equal"] for r in rows),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["flops"] / PEAK_BF16_FLOPS > tot["bytes"] / PEAK_BYTES
+                         else "bytes"),
+            "library_ms": tot["library_ms"], "f32_kernel_ms": tot["f32_kernel_ms"],
+            "share_of_bound": tot["bound_ms"] / tot["ms"],
+        })
+    if failures:
+        raise AssertionError("bf16 phase: " + "; ".join(failures))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2027,8 +2452,12 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {src}: {line.strip()}")
-    log("ptxas conv_tc: " + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"])
+    log("ptxas conv_tc: " + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"], "conv_tcI", 12)
         + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes)")
+    # four tiles in each of the three modes
+    log("ptxas conv_tc_bf16: "
+        + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"], "conv_tc_bf16I", 12)
+        + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes(bf16=True))")
     log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernel")
         + " (dynamic shared memory per shape: ops/fused_chain.plan_chain)")
     int8_report = _build.ptxas_logs["int8_conv.cu"]
@@ -2184,6 +2613,10 @@ def main() -> int:
     # C3, C4. the chained val step, the VAE and the SRVAE
     family_chains, family_launches = families_phase(report)
     chain_paths.update(family_chains)
+    torch.cuda.empty_cache()
+
+    # B1-B6. bfloat16 compute: the bfloat16 instances of #1, #5 and #6
+    bf16_kernels = bf16_phase(report, sr_out, uq, report["training"]["peak_memory_gib"])
 
     kernels = []
     for name in dict.fromkeys(list(totals) + list(train_totals)):
@@ -2257,7 +2690,8 @@ def main() -> int:
                                              if key.split(" ")[0] == k["name"]}
                                       for path, counts in family_launches.items()}
         k["launches_on_new_paths"] = {p: c for p, c in k["launches_on_new_paths"].items() if c}
-    if len(kernels) != 13 or any(k["launches"] <= 0 for k in kernels):
+    kernels += bf16_kernels
+    if len(kernels) != 16 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was launched no time: "
                              + str({k["name"]: k["launches"] for k in kernels}))
     report["kernels"] = kernels

@@ -128,9 +128,12 @@ class CondSRVAEConfig:
 class TrainConfig:
     """The training step's hyper-parameters (JAX ``TrainConfig`` defaults).
 
-    ``use_bfloat16=True`` is not ported yet and raises ``NotImplementedError``;
-    the JAX config's other fields (``remat``, ``bf16_moments``, ``zero1``,
-    ``scan_steps``, ``train_elbo``, the epoch loop's) do not exist here.
+    ``use_bfloat16`` is recorded, as in the JAX package: the model's
+    ``dtype`` (``CondSRVAE(cfg, dtype=torch.bfloat16)``) is what computes in
+    bfloat16, and a caller sets both from one flag. ``bf16_moments`` keeps
+    Adam's first moment in bfloat16 (optax ``mu_dtype``). The JAX config's
+    other fields (``remat``, ``zero1``, ``scan_steps``, ``train_elbo``, the
+    epoch loop's) do not exist here.
     """
 
     learning_rate: float = 1e-4
@@ -140,11 +143,12 @@ class TrainConfig:
     # microbatches per optimizer update: grads and loss terms averaged,
     # BatchNorm statistics threaded through them in order
     accum_steps: int = 1
+    # numerical policy, recorded: the model's dtype computes the convs in bf16
     use_bfloat16: bool = False
+    # Adam's first moment stored in bf16 (second moment float32)
+    bf16_moments: bool = False
 
     def __post_init__(self) -> None:
-        if self.use_bfloat16:
-            raise NotImplementedError("use_bfloat16: the port trains in float32 only")
         if self.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1 (got {self.accum_steps})")
         if not self.grad_clip_norm > 0:

@@ -77,16 +77,40 @@
 // multiplies zeros: a skip's predicates cost more than its MMAs), and 32x128
 // for M <= 64 per phase (the weight-bound prior heads, with a K split).
 //
+// bf16 instances (conv_tc_bf16; the JAX kernels' bf16 operands, as the
+// models' dtype=bfloat16 gives them): x, W and out bf16, scale and shift
+// float32, the products on mma.sync.m16n8k16 bf16 with float32 accumulation
+// (one MMA per 16-deep step where 3xTF32 issues three per 8-deep step; the
+// bf16 dense peak is 989 TFLOP/s). A bf16 x bf16 product is exact in float32,
+// so no operand split is needed; each 64-deep step's four MMAs are summed in
+// the tensor core and added to the running sum with a rounded add, as above.
+// The epilogue is acc * scale + shift, the ReLU, then one round to nearest
+// even to bf16 (__float2bfloat16_rn); K-split partials stay float32 in the
+// workspace and the reduce rounds once. The geometry, the modes, the tile
+// configurations, the phase layout and the split-K plan are the float32
+// kernel's; BK = 64 (twice as deep at the same shared-memory bytes). A is
+// staged [BM][BK+8] and B [BK][BN+8] (rows 16-byte aligned, the eight rows
+// of one ldmatrix phase on eight distinct 16-byte bank groups); A's fragments
+// come from ldmatrix.x4, B's from ldmatrix.x4.trans straight off the HWIO
+// rows (two k per register, no transposed copy of the weight). C % 8 == 0
+// stages A in 16-byte cp.async copies of 8 channels of one tap, O % 8 == 0
+// B the same; otherwise a pixel's channel run can start on a 2-byte
+// boundary (C = 53, 106, 4 in the canonical model), which cp.async cannot
+// copy, so that operand goes through plain 2-byte loads into shared memory
+// with the same masks.
+//
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue for a tile
 // configuration it does not know). Each conv_tc instance gets its dynamic
 // shared memory limit raised once per device, on its first launch there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -151,7 +175,7 @@ __device__ __forceinline__ int64_t out_offset(const Geo& g, int p, int m, int n)
 // ---------------------------------------------------------------- conv_tc
 constexpr int TC_BK = 32;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
@@ -409,10 +433,290 @@ conv_tc(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Sums the K-split partials in split order and applies the epilogue.
-template <int MODE>
+// ------------------------------------------------------------ conv_tc_bf16
+constexpr int TB_BK = 64;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// d = a * b + c on one m16n8k16 tile (A row-major 16x16, B column-major 16x8),
+// bf16 operands, float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1, const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+template <int BM, int BN, int STAGES>
+constexpr int tcb_smem_bytes() {
+  return STAGES * (BM * (TB_BK + 8) + TB_BK * (BN + 8)) * 2;
+}
+
+__device__ __forceinline__ uint4 pack8(const uint16_t (&v)[8]) {
+  uint4 q;
+  q.x = v[0] | ((uint32_t)v[1] << 16);
+  q.y = v[2] | ((uint32_t)v[3] << 16);
+  q.z = v[4] | ((uint32_t)v[5] << 16);
+  q.w = v[6] | ((uint32_t)v[7] << 16);
+  return q;
+}
+
+// The float32 kernel's structure on bf16 operands (see the header). Fragment
+// maps (PTX m16n8k16 .bf16, lane = 4 * gq + tq, two k per register, the
+// lower k in the low half): A a0 (gq, 2tq..2tq+1), a1 (gq+8, 2tq..),
+// a2 (gq, 2tq+8..), a3 (gq+8, 2tq+8..); B b0 (k = 2tq.., n = gq),
+// b1 (k = 2tq+8.., n = gq); C as the float32 kernel. ldmatrix.x4: lane l
+// gives the address of row (l & 7) of 8x8 matrix l >> 3 and receives, of
+// each matrix, row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (with .trans:
+// of the transpose). For A the four matrices are (rows 0-7 | 8-15) x (k 0-7
+// | 8-15), so lane l points at row l & 15, k 8 (l >> 4) of its 16x16 tile;
+// for B (rows k of [BK][BN+8]) they are (k 0-7 | 8-15) x (n 0-7 | 8-15):
+// lane l points at k row l & 15, n 8 (l >> 4), and the four registers are
+// b0, b1 of n tile ni, then of ni + 1.
+template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
+conv_tc_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+             const float* __restrict__ scale, const float* __restrict__ shift,
+             bf16* __restrict__ out, float* __restrict__ ws, Geo g, int relu,
+             int splits, int kchunk, int vec_a, int vec_b) {
+  constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
+  constexpr int NT = WARPS_M * WARPS_N * 32;
+  constexpr int MI = WM / 16, NI = WN / 8;
+  constexpr int A_LD = TB_BK + 8, B_LD = BN + 8;
+  constexpr int A_TILE = BM * A_LD, B_TILE = TB_BK * B_LD;
+  constexpr int KQ = TB_BK / 8;           // 16-byte groups in a row of A
+  constexpr int A_ROWS = BM * KQ / NT;    // rows of A a thread stages per step
+  constexpr int NQ = BN / 8;              // 16-byte groups in a row of B
+  constexpr int B_VECS = (TB_BK * NQ + NT - 1) / NT;  // groups of B a thread stages per step
+  constexpr int KS = TB_BK / 16;          // m16n8k16 steps in a K step
+  constexpr int STRIDE = MODE == kConv4 ? 2 : 1;
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && STAGES >= 2, "warp tile");
+  static_assert(NT % KQ == 0 && (BM * KQ) % NT == 0, "tile shape");
+  static_assert((A_LD * 2) % 16 == 0 && (B_LD * 2) % 16 == 0, "16-byte rows");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const As = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const Bs = As + STAGES * A_TILE;
+  const uint16_t* const xs = reinterpret_cast<const uint16_t*>(x);
+  const uint16_t* const wsrc = reinterpret_cast<const uint16_t*>(w);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int p = blockIdx.z / splits;
+  const int s = blockIdx.z - p * splits;
+  const int kbeg = s * kchunk;
+  const int kend = min(g.K, kbeg + kchunk);
+  const int nsteps = kend > kbeg ? (kend - kbeg + TB_BK - 1) / TB_BK : 0;
+
+  // as the float32 kernel: row tid / KQ + i * (NT / KQ), K group tid % KQ
+  const int kq = tid % KQ;
+  int a_pix[A_ROWS], a_y[A_ROWS], a_x[A_ROWS];
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) {
+    const int m = m0 + tid / KQ + i * (NT / KQ);
+    if (m < g.M) {
+      const int hw = g.Ho * g.Wo;
+      const int b = m / hw, r = m - b * hw;
+      const int oy = r / g.Wo, ox = r - oy * g.Wo;
+      a_y[i] = oy * STRIDE;
+      a_x[i] = ox * STRIDE;
+      a_pix[i] = (b * g.H + a_y[i]) * g.W + a_x[i];
+    } else {
+      a_y[i] = -(1 << 24); a_x[i] = 0; a_pix[i] = 0;
+    }
+  }
+
+  auto load_stage = [&](int slot, int k0) {
+    bf16* const as = As + slot * A_TILE + (tid / KQ) * A_LD + 8 * kq;
+    bf16* const bs = Bs + slot * B_TILE;
+    const int k = k0 + 8 * kq;  // the first of this thread's eight K indices
+    if (vec_a) {
+      // C % 8 == 0: k .. k+7 are channels c .. c+7 of one tap
+      const bool kv = k < kend;
+      const int t = kv ? div_c(g, k) : 0;
+      const int c = k - t * g.C;
+      int dy, dx, wtap;
+      tap_geometry<MODE>(t, p, dy, dx, wtap);
+      const int off = dy * g.W + dx;
+#pragma unroll
+      for (int i = 0; i < A_ROWS; ++i) {
+        const int iy = a_y[i] + dy, ix = a_x[i] + dx;
+        const bool v = kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+        cp_async16(as + i * (NT / KQ) * A_LD, v ? x + (a_pix[i] + off) * g.C + c : x, v);
+      }
+    } else {
+      // C % 8 != 0: a channel run may start on a 2-byte boundary, which
+      // cp.async cannot copy; eight plain loads per row, each masked alone
+      uint16_t vals[A_ROWS][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool kv = k + j < kend;
+        const int t = kv ? div_c(g, k + j) : 0;
+        const int c = k + j - t * g.C;
+        int dy, dx, wtap;
+        tap_geometry<MODE>(t, p, dy, dx, wtap);
+        const int off = dy * g.W + dx;
+#pragma unroll
+        for (int i = 0; i < A_ROWS; ++i) {
+          const int iy = a_y[i] + dy, ix = a_x[i] + dx;
+          const bool v = kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+          vals[i][j] = v ? __ldg(xs + (a_pix[i] + off) * g.C + c) : (uint16_t)0;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < A_ROWS; ++i)
+        *reinterpret_cast<uint4*>(as + i * (NT / KQ) * A_LD) = pack8(vals[i]);
+    }
+    // the transposed conv's weight rows each resolve their tap: unrolled,
+    // the 128x64 tile spilled at 128 registers, so that loop is not
+    constexpr int B_UNROLL = MODE == kConvT ? 1 : B_VECS;
+#pragma unroll (B_UNROLL)
+    for (int j = 0; j < B_VECS; ++j) {
+      const int e = tid + j * NT;
+      const int kk = e / NQ, nq = e - kk * NQ;
+      const int kr = k0 + kk, n = n0 + 8 * nq;
+      bf16* const dst = bs + kk * B_LD + 8 * nq;
+      if ((TB_BK * NQ) % NT != 0 && e >= TB_BK * NQ) continue;  // fewer groups than threads
+      const bool kv = kr < kend;
+      const int64_t row = (int64_t)(kv ? weight_row<MODE>(g, kr, p) : 0) * g.O;
+      if (vec_b) {
+        const bool v = kv && n < g.O;
+        cp_async16(dst, v ? w + row + n : w, v);
+      } else {
+        uint16_t v8[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const bool v = kv && n + q < g.O;
+          v8[q] = v ? __ldg(wsrc + row + n + q) : (uint16_t)0;
+        }
+        *reinterpret_cast<uint4*>(dst) = pack8(v8);
+      }
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load_stage(st, kbeg + st * TB_BK);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    // slot step has landed for every thread (cp.async, and the plain stores
+    // before the barrier), and every warp is done with slot step - 1
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = step + STAGES - 1;
+    if (next < nsteps) load_stage(next % STAGES, kbeg + next * TB_BK);
+    cp_async_commit();
+
+    const bf16* const as = As + (step % STAGES) * A_TILE
+                           + (wm * WM + (lane & 15)) * A_LD + 8 * (lane >> 4);
+    const bf16* const bs = Bs + (step % STAGES) * B_TILE
+                           + (lane & 15) * B_LD + wn * WN + 8 * (lane >> 4);
+    uint32_t bfr[KS][NI][2];  // the step's B fragments
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int ni = 0; ni < NI; ni += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, bs + ks * 16 * B_LD + ni * 8);
+        bfr[ks][ni][0] = r[0]; bfr[ks][ni][1] = r[1];
+        bfr[ks][ni + 1][0] = r[2]; bfr[ks][ni + 1][1] = r[3];
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      uint32_t afr[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(afr[ks], as + mi * 16 * A_LD + ks * 16);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        // the step's 64-deep product formed in the tensor core, then added
+        // to the running sum with a rounded add (the accumulate truncates)
+        float part[4];
+        mma_bf16(part, afr[0], bfr[0][ni][0], bfr[0][ni][1], zero);
+#pragma unroll
+        for (int ks = 1; ks < KS; ++ks)
+          mma_bf16(part, afr[ks], bfr[ks][ni][0], bfr[ks][ni][1], part);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[r];
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left; leave none in flight
+
+  const bool pairs = (g.O & 1) == 0;  // n is even, so n, n+1 is one aligned store
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * WM + mi * 16 + gq + 8 * h;
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int n = n0 + wn * WN + ni * 8 + 2 * tq;
+        if (n >= g.O) continue;
+        float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (splits > 1) {  // this split's float32 partials
+          float* const row = ws + (((int64_t)s * g.phases + p) * g.M + m) * g.O;
+          if (pairs) {
+            *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+          } else {
+            row[n] = v0;
+            if (n + 1 < g.O) row[n + 1] = v1;
+          }
+          continue;
+        }
+        bf16* const row = out + out_offset<MODE>(g, p, m, 0);
+        v0 = fmaf(v0, scale[n], shift[n]);
+        if (relu) v0 = fmaxf(v0, 0.f);
+        if (n + 1 < g.O) {
+          v1 = fmaf(v1, scale[n + 1], shift[n + 1]);
+          if (relu) v1 = fmaxf(v1, 0.f);
+        }
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          row[n] = __float2bfloat16_rn(v0);
+          if (n + 1 < g.O) row[n + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Sums the K-split partials in split order and applies the epilogue (and,
+// for a bf16 output, the one rounding).
+template <int MODE, typename T>
 __global__ void splitk_reduce(const float* __restrict__ ws, const float* __restrict__ scale,
-                              const float* __restrict__ shift, float* __restrict__ out,
+                              const float* __restrict__ shift, T* __restrict__ out,
                               Geo g, int relu, int splits) {
   const int64_t total = (int64_t)g.phases * g.M * g.O;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
@@ -424,32 +728,40 @@ __global__ void splitk_reduce(const float* __restrict__ ws, const float* __restr
     for (int s = 0; s < splits; ++s) acc += ws[s * total + e];
     float v = fmaf(acc, scale[n], shift[n]);
     if (relu) v = fmaxf(v, 0.f);
-    out[out_offset<MODE>(g, p, m, n)] = v;
+    store_out(out + out_offset<MODE>(g, p, m, n), v);
   }
 }
 
-template <int MODE>
-cudaError_t reduce_splits(const float* scale, const float* shift, float* out, float* ws,
+template <int MODE, typename T>
+cudaError_t reduce_splits(const float* scale, const float* shift, T* out, float* ws,
                           const Geo& g, int relu, int splits, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int64_t total = (int64_t)g.phases * g.M * g.O;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, scale, shift, out, g, relu, splits);
+  splitk_reduce<MODE, T><<<blocks, 256, 0, st>>>(ws, scale, shift, out, g, relu, splits);
   return cudaGetLastError();
 }
 
-// Tile configurations, picked by ops/fused_conv.plan_tc.
+// Tile configurations, picked by ops/fused_conv.plan_tc; the bf16 instances
+// take the same four (the same plan, BK = 64).
 //   0 wide:   BM=128 BN=128 warps 2x4 of 64x32, 3 stages  (N > 64)
 //   1 mid:    BM=128 BN=64  warps 4x2 of 32x32, 3 stages  (16 < N <= 64)
 //   2 narrow: BM=64  BN=16  warps 4x1 of 16x16, 4 stages  (N <= 16)
 //   3 thin:   BM=32  BN=128 warps 1x4 of 32x32, 4 stages  (M <= 64 per phase)
-template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
-cudaError_t launch_tc(const float* x, const float* w, const float* scale, const float* shift,
-                      float* out, float* ws, const Geo& g, int relu, int splits, int kchunk,
+// T is float (conv_tc) or bf16 (conv_tc_bf16).
+template <int MODE, int BM, int BN, int WM, int WN, int STAGES, typename T>
+cudaError_t launch_tc(const T* x, const T* w, const float* scale, const float* shift,
+                      T* out, float* ws, const Geo& g, int relu, int splits, int kchunk,
                       cudaStream_t st) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int NT = (BM / WM) * (BN / WN) * 32;
-  constexpr int SMEM = tc_smem_bytes<BM, BN, STAGES>();
+  constexpr int SMEM = F32 ? tc_smem_bytes<BM, BN, STAGES>() : tcb_smem_bytes<BM, BN, STAGES>();
+  constexpr int VEC = 16 / sizeof(T);  // elements in one 16-byte copy
+  const auto kernel = [] {
+    if constexpr (F32) return conv_tc<MODE, BM, BN, WM, WN, STAGES>;
+    else return conv_tc_bf16<MODE, BM, BN, WM, WN, STAGES>;
+  }();
   // The attribute holds per device; set it on this instance's first launch
   // on each device (a repeat from two threads at once is harmless).
   constexpr int kMaxDevices = 64;
@@ -458,34 +770,33 @@ cudaError_t launch_tc(const float* x, const float* w, const float* scale, const 
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(conv_tc<MODE, BM, BN, WM, WN, STAGES>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
   }
-  const int vec_a = g.C % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const int vec_b = g.O % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int vec_a = g.C % VEC == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int vec_b = g.O % VEC == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
-  conv_tc<MODE, BM, BN, WM, WN, STAGES><<<grid, NT, SMEM, st>>>(
-      x, w, scale, shift, out, ws, g, relu, splits, kchunk, vec_a, vec_b);
+  kernel<<<grid, NT, SMEM, st>>>(x, w, scale, shift, out, ws, g, relu, splits, kchunk,
+                                 vec_a, vec_b);
   return reduce_splits<MODE>(scale, shift, out, ws, g, relu, splits, st);
 }
 
-template <int MODE>
+template <int MODE, typename T>
 int launch(int cfg, const void* x, const void* w, const void* scale, const void* shift,
            void* out, void* ws, Geo g, int relu, int splits, int kchunk, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
   const float* sf = static_cast<const float*>(scale);
   const float* tf = static_cast<const float*>(shift);
-  float* of = static_cast<float*>(out);
+  T* ot = static_cast<T*>(out);
   float* wsf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cfg) {
-    case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    case 2: return launch_tc<MODE, 64, 16, 16, 16, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
-    case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(xf, wf, sf, tf, of, wsf, g, relu, splits, kchunk, st);
+    case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(xt, wt, sf, tf, ot, wsf, g, relu, splits, kchunk, st);
+    case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(xt, wt, sf, tf, ot, wsf, g, relu, splits, kchunk, st);
+    case 2: return launch_tc<MODE, 64, 16, 16, 16, 4>(xt, wt, sf, tf, ot, wsf, g, relu, splits, kchunk, st);
+    case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(xt, wt, sf, tf, ot, wsf, g, relu, splits, kchunk, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -512,22 +823,43 @@ extern "C" {
 int svrs_conv3x3(int cfg, const void* x, const void* w, const void* scale, const void* shift,
                  void* out, void* ws, int B, int H, int W, int C, int O, int relu,
                  int splits, int kchunk, void* stream) {
-  return launch<kConv3>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConv3),
+  return launch<kConv3, float>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConv3),
                         relu, splits, kchunk, stream);
 }
 
 int svrs_conv4x4s2(int cfg, const void* x, const void* w, const void* scale, const void* shift,
                    void* out, void* ws, int B, int H, int W, int C, int O, int relu,
                    int splits, int kchunk, void* stream) {
-  return launch<kConv4>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConv4),
+  return launch<kConv4, float>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConv4),
                         relu, splits, kchunk, stream);
 }
 
 int svrs_convT4x4s2(int cfg, const void* x, const void* w, const void* scale, const void* shift,
                     void* out, void* ws, int B, int H, int W, int C, int O, int relu,
                     int splits, int kchunk, void* stream) {
-  return launch<kConvT>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConvT),
+  return launch<kConvT, float>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConvT),
                         relu, splits, kchunk, stream);
+}
+
+int svrs_conv3x3_bf16(int cfg, const void* x, const void* w, const void* scale,
+                      const void* shift, void* out, void* ws, int B, int H, int W, int C,
+                      int O, int relu, int splits, int kchunk, void* stream) {
+  return launch<kConv3, bf16>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConv3),
+                              relu, splits, kchunk, stream);
+}
+
+int svrs_conv4x4s2_bf16(int cfg, const void* x, const void* w, const void* scale,
+                        const void* shift, void* out, void* ws, int B, int H, int W, int C,
+                        int O, int relu, int splits, int kchunk, void* stream) {
+  return launch<kConv4, bf16>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConv4),
+                              relu, splits, kchunk, stream);
+}
+
+int svrs_convT4x4s2_bf16(int cfg, const void* x, const void* w, const void* scale,
+                         const void* shift, void* out, void* ws, int B, int H, int W, int C,
+                         int O, int relu, int splits, int kchunk, void* stream) {
+  return launch<kConvT, bf16>(cfg, x, w, scale, shift, out, ws, make_geo(B, H, W, C, O, kConvT),
+                              relu, splits, kchunk, stream);
 }
 
 }  // extern "C"

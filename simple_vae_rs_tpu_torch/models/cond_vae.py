@@ -19,9 +19,15 @@ Training runs :meth:`CondSRVAE.forward` (the reference 8-tuple) in
 ``torch.Generator`` the caller passes.
 
 The four convs that end ``ey``, ``ex``, ``dy`` and ``dx`` have nothing
-between them; in ``eval()`` mode, on a model whose chain is switched on
-(``ops/conv_blocks.use_chain``), each of these tails is one launch of the
+between them; in ``eval()`` mode, on a float32 model whose chain is switched
+on (``ops/conv_blocks.use_chain``), each of these tails is one launch of the
 chain kernel (``ops/conv_blocks.conv_tail``).
+
+``dtype`` (float32 or bfloat16) is the convs' compute dtype, as the JAX
+model's; parameters stay float32. The casts sit where the JAX model has
+them: the encoder heads and the prior's (mu, logvar) to float32, ``u`` to
+the y features' dtype, the decoders' inputs to ``dtype``, the pre-sigmoid
+outputs to float32. The reparameterisation and its noise are float32.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from simple_vae_rs_tpu_torch.ops.conv_blocks import (
     UpBlock,
     conv_tail,
     reset_parameters,
+    set_dtype,
 )
 from simple_vae_rs_tpu_torch.ops.reshape import (
     cmajor_regroup_down,
@@ -58,7 +65,8 @@ class CondSRVAE(Routed):
     ``plain`` (set by ``use_plain_path``) also routes the training loss's
     row reductions to their plain versions."""
 
-    def __init__(self, config: CondSRVAEConfig, device=None) -> None:
+    def __init__(self, config: CondSRVAEConfig, device=None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.config = cfg = config
         ch = cfg.channels
@@ -121,6 +129,7 @@ class CondSRVAE(Routed):
         self.pz_mu_conv2 = conv(lz16, lz16)
         self.pz_lv_conv1 = conv(2 * lz16, lz16)
         self.pz_lv_conv2 = conv(lz16, lz16)
+        set_dtype(self, dtype)
 
     def init_weights(self, seed: int) -> "CondSRVAE":
         """Random weights from a numpy seed with torch's default init bounds
@@ -149,7 +158,7 @@ class CondSRVAE(Routed):
         h = self.ey_down2(h)
         h = conv_tail(self, (self.ey_conv1, self.ey_conv2, self.ey_conv3, self.ey_head), h)
         c = self.config.u_channels
-        return h[..., :c], h[..., c:]
+        return h[..., :c].float(), h[..., c:].float()
 
     def encode_x(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         """HR (B, ps, ps, C) -> (mu_z, logvar_z) on the z grid."""
@@ -158,7 +167,7 @@ class CondSRVAE(Routed):
         h = self.ex_down3(h)
         h = conv_tail(self, (self.ex_conv1, self.ex_conv2, self.ex_conv3, self.ex_head), h)
         c = self.config.z_channels
-        return h[..., :c], h[..., c:]
+        return h[..., :c].float(), h[..., c:].float()
 
     def y_embedding(self, y: Tensor) -> Tensor:
         """Shared conditioning features (B, ps/16, ps/16, latent//16)."""
@@ -170,28 +179,29 @@ class CondSRVAE(Routed):
 
     def z_cond(self, y_feat: Tensor, u_map: Tensor) -> Tuple[Tensor, Tensor]:
         """p(z|u, y): prior (mu, logvar) on the z grid, logvar in [-7, 7]."""
-        u_feat = self.uz_conv1(self._regroup_down(u_map))
+        u_feat = self.uz_conv1(self._regroup_down(u_map.to(y_feat.dtype)))
         u_feat = self.uz_conv2(u_feat)
         joint = torch.cat([y_feat, u_feat], dim=-1)
         mu = self.pz_mu_conv2(self.pz_mu_conv1(joint))
         logvar = self.pz_lv_conv2(self.pz_lv_conv1(joint)).clamp(-7.0, 7.0)
-        return self._regroup_up(mu), self._regroup_up(logvar)
+        return self._regroup_up(mu.float()), self._regroup_up(logvar.float())
 
     def decode_x_from_features(self, z_map: Tensor, y_feat: Tensor) -> Tensor:
         """z grid + y features -> HR reconstruction (B, ps, ps, C) in [0, 1]."""
-        h = torch.cat([self._regroup_up(y_feat), z_map], dim=-1)
+        y_grid = self._regroup_up(y_feat).to(z_map.dtype)
+        h = torch.cat([y_grid, z_map], dim=-1).to(self.dtype)
         h = self.dx_up1(h)
         h = self.dx_up2(h)
         h = self.dx_up3(h)
         h = conv_tail(self, (self.dx_conv1, self.dx_conv2, self.dx_conv3, self.dx_conv4), h)
-        return torch.sigmoid(h)
+        return torch.sigmoid(h.float())
 
     def decode_y(self, u_map: Tensor) -> Tensor:
         """u grid -> LR reconstruction (B, ps/2, ps/2, C) in [0, 1]."""
-        h = self.dy_up1(u_map)
+        h = self.dy_up1(u_map.to(self.dtype))
         h = self.dy_up2(h)
         h = conv_tail(self, (self.dy_conv1, self.dy_conv2, self.dy_conv3, self.dy_conv4), h)
-        return torch.sigmoid(h)
+        return torch.sigmoid(h.float())
 
     def decode_x(self, z_map: Tensor, y: Tensor) -> Tensor:
         """Parity API: recomputes the y embedding (reference ``cond_vae.py:270``)."""

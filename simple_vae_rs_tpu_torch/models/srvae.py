@@ -1,7 +1,8 @@
 """Hierarchical srVAE over single HR images (port of the JAX package's
 ``models/srvae.py``): the six sub-networks of :class:`CondSRVAE` under the
 name ``core``, with the LR view ``y`` computed inside the model as the 2x2
-box downsample of ``x``. No parameter beyond the core's.
+box downsample of ``x`` (of the float32 input, whatever the compute
+``dtype`` the core is given). No parameter beyond the core's.
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ class SRVAE(Routed):
     """Two-level hierarchical srVAE; ``core`` holds every parameter, so the
     flax tree ``core/...`` is the port's ``core. ...``."""
 
-    def __init__(self, config: CondSRVAEConfig, device=None) -> None:
+    def __init__(self, config: CondSRVAEConfig, device=None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.config = config
-        self.core = CondSRVAE(config, device=device)
+        self.core = CondSRVAE(config, device=device, dtype=dtype)
+        self.dtype = dtype
 
     def init_weights(self, seed: int) -> "SRVAE":
         self.core.init_weights(seed)

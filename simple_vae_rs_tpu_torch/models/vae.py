@@ -9,9 +9,14 @@ package's ``models/vae.py``), and the reparameterization the models share.
 
 NHWC; latent vectors flatten in HWC order (``ops/reshape.flatten_map``).
 Parameters and buffers carry the flax tree's names. In ``eval()`` mode, on a
-model whose chain is switched on (``ops/conv_blocks.use_chain``), the four
-convs that end the encoder and the decoder are one launch of the chain kernel
-each.
+float32 model whose chain is switched on (``ops/conv_blocks.use_chain``),
+the four convs that end the encoder and the decoder are one launch of the
+chain kernel each.
+
+``dtype`` (float32 or bfloat16) is the convs' compute dtype, as the JAX
+model's; parameters stay float32. As there, the heads (mu, logvar) are cast
+to float32, the decoder's input to ``dtype`` and the pre-sigmoid output to
+float32; the noise is float32.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from simple_vae_rs_tpu_torch.ops.conv_blocks import (
     UpBlock,
     conv_tail,
     reset_parameters,
+    set_dtype,
 )
 from simple_vae_rs_tpu_torch.ops.reshape import flatten_map, unflatten_map
 
@@ -41,10 +47,11 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``mu + eps * exp(0.5 * logvar)`` (reference ``models/vae.py:94-98``).
 
-    ``eps`` is drawn from ``generator`` on ``mu``'s device unless passed in.
+    ``eps`` is drawn (float32) from ``generator`` on ``mu``'s device unless
+    passed in.
     """
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=torch.float32)
     return mu + eps * torch.exp(0.5 * logvar)
 
 
@@ -63,7 +70,7 @@ def decode_draws(decode: Callable[[torch.Tensor], torch.Tensor], mu: torch.Tenso
     for lo in range(0, samples, chunk):
         if eps is None:
             noise = torch.randn((chunk,) + tuple(mu.shape[1:]), generator=generator,
-                                device=mu.device, dtype=mu.dtype)
+                                device=mu.device, dtype=torch.float32)
         else:
             noise = eps[lo:lo + chunk]
         outs.append(decode(mu + noise * std))
@@ -75,7 +82,8 @@ class VAE(Routed):
     (set by ``use_plain_path``) also routes the training loss's row
     reductions to their plain versions."""
 
-    def __init__(self, config: VAEConfig, device=None) -> None:
+    def __init__(self, config: VAEConfig, device=None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.config = cfg = config
         lc = cfg.latent_channels
@@ -103,6 +111,7 @@ class VAE(Routed):
         self.dec_conv2 = conv(64, 16)
         self.dec_conv3 = conv(16, 16)
         self.dec_conv4 = conv(16, cfg.channels)
+        set_dtype(self, dtype)
 
     def init_weights(self, seed: int) -> "VAE":
         """Random weights from a numpy seed with torch's default init bounds
@@ -118,16 +127,16 @@ class VAE(Routed):
         h = self.enc_down2(h)
         h = conv_tail(self, (self.enc_conv1, self.enc_conv2, self.enc_conv3, self.enc_head), h)
         lc = self.config.latent_channels
-        return flatten_map(h[..., :lc]), flatten_map(h[..., lc:])
+        return flatten_map(h[..., :lc]).float(), flatten_map(h[..., lc:]).float()
 
     def decode(self, z: Tensor) -> Tensor:
         """z (B, latent_dim) -> reconstruction (B, ps, ps, C) in [0, 1]."""
         cfg = self.config
         h = unflatten_map(z, cfg.latent_spatial, cfg.latent_spatial, cfg.latent_channels)
-        h = self.dec_up1(h.contiguous())
+        h = self.dec_up1(h.to(self.dtype).contiguous())
         h = self.dec_up2(h)
         h = conv_tail(self, (self.dec_conv1, self.dec_conv2, self.dec_conv3, self.dec_conv4), h)
-        return torch.sigmoid(h)
+        return torch.sigmoid(h.float())
 
     def forward(self, x: Tensor, eps: Optional[Tensor] = None,
                 generator: Optional[torch.Generator] = None
@@ -148,5 +157,5 @@ class VAE(Routed):
         mu, logvar = self.encode(y)
         if eps is None:
             eps = torch.randn((samples, self.config.latent_dim), generator=generator,
-                              device=mu.device, dtype=mu.dtype)
+                              device=mu.device, dtype=torch.float32)
         return self.decode(mu + torch.exp(0.5 * logvar) * eps)

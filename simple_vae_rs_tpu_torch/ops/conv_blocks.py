@@ -25,6 +25,18 @@ Training never takes that path.
 ELBO reductions) to the kernels' plain versions: the reference that the
 kernels are held against on the card.
 
+Compute dtype (:func:`set_dtype`; the models' ``dtype`` argument): float32,
+or bfloat16 as the JAX modules' ``dtype=jnp.bfloat16``. Parameters, the
+BatchNorm statistics, the fused kernels' ``scale`` and ``shift`` stay
+float32; every conv casts its input and its kernel to the compute dtype per
+call and returns that dtype. BatchNorm in training computes its statistics
+and the normalisation in float32 and rounds once (flax ``BatchNorm(dtype,
+param_dtype=float32)``); the eval tails fold BatchNorm in float32 and cast
+only the kernel. A bfloat16 model has no int8 route (ROADMAP A.3.2b: int8 x
+bf16) and its conv tails never chain (ROADMAP A.3.2c: the bf16 chain instance):
+the tail runs as four bfloat16 3x3 launches, the function the JAX chain
+computes, which rounds each layer to the compute dtype.
+
 :func:`tail_chain` runs an eval-mode tail of 3x3 convs (the four convs that
 end each decoder and encoder) as one launch of the chain kernel of
 ``ops/fused_chain.py`` on a model whose chain is switched on
@@ -58,14 +70,20 @@ def _uniform_(param: torch.Tensor, rng: np.random.Generator, bound: float) -> No
         param.copy_(torch.from_numpy(vals))
 
 
+BF16_INT8 = ("int8 weights on a bfloat16 model are not ported (ROADMAP A.3.2b: int8 x bf16); "
+             "serve the int8 modes from a float32 model")
+
+
 class Routed(nn.Module):
     """A module whose convs run through the fused kernels, or through their
     plain versions when ``plain`` is set (:func:`use_plain_path`); a model
     whose ``chain`` is set (:func:`use_chain`) runs its eval-mode conv tails
-    through the chain kernel (:func:`tail_chain`)."""
+    through the chain kernel (:func:`tail_chain`). ``dtype`` is the compute
+    dtype of its convs (:func:`set_dtype`)."""
 
     plain = False
     chain = False
+    dtype = torch.float32
 
 
 class ConvWeights(nn.Module):
@@ -122,11 +140,14 @@ class Conv3x3(ConvWeights, Routed):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_q is not None and not self.training:
+            if self.dtype != torch.float32:
+                raise NotImplementedError(BF16_INT8)
             return f8.int8_conv("int8_conv3x3_bn_relu", x, self.kernel_q, self.kernel_s,
                                 self.unit_scale, self.bias, False, self.plain,
                                 packed=self.kernel_p)
-        return fc.fused_conv("fused_conv3x3_bn_relu", x, self.kernel, self.unit_scale,
-                             self.bias, False, self.plain)
+        dt = self.dtype
+        return fc.fused_conv("fused_conv3x3_bn_relu", x.to(dt), self.kernel.to(dt),
+                             self.unit_scale, self.bias, False, self.plain)
 
 
 class BatchNorm(nn.Module):
@@ -161,13 +182,17 @@ class BatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalised ``x`` in ``x``'s dtype; statistics and arithmetic in
+        float32 (a bfloat16 ``x`` is upcast, and the result rounded once)."""
         dims = (0, 1, 2)
-        mean = x.mean(dim=dims)
-        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        x32 = x.float()
+        mean = x32.mean(dim=dims)
+        var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
         with torch.no_grad():
             self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
             self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
-        return (x - mean) * (self.scale * torch.rsqrt(var + self.eps)) + self.bias
+        y = (x32 - mean) * (self.scale * torch.rsqrt(var + self.eps)) + self.bias
+        return y.to(x.dtype)
 
     def fold(self, conv: ConvWeights):
         """``(kernel, scale, shift)`` of ``conv`` followed by this BatchNorm."""
@@ -186,15 +211,18 @@ class _Block(Routed):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         tail = getattr(self, self._tail_name)
+        dt = self.dtype
         if self.training:
-            h = fc.fused_conv(self._kernel, x, tail.kernel, tail.unit_scale, tail.bias,
+            h = fc.fused_conv(self._kernel, x, tail.kernel.to(dt), tail.unit_scale, tail.bias,
                               False, self.plain)
             return torch.relu(self.bn(h))
-        kernel, s, t = self.bn.fold(tail)
+        kernel, s, t = self.bn.fold(tail)  # float32; only the kernel is cast
         if tail.kernel_q is not None and x.shape[3] >= self._int8_min_channels:
+            if dt != torch.float32:
+                raise NotImplementedError(BF16_INT8)
             return f8.int8_conv(self._int8_kernel, x, tail.kernel_q, tail.kernel_s, s, t, True,
                                 self.plain, packed=tail.kernel_p)
-        return fc.fused_conv(self._kernel, x, kernel, s, t, True, self.plain)
+        return fc.fused_conv(self._kernel, x, kernel.to(dt), s, t, True, self.plain)
 
 
 class DownBlock(_Block):
@@ -248,6 +276,16 @@ def use_plain_path(model: nn.Module, plain: bool = True) -> None:
             mod.plain = plain
 
 
+def set_dtype(model: nn.Module, dtype: torch.dtype) -> None:
+    """Set the compute dtype of every conv of ``model``: float32 (the
+    default of a new model) or bfloat16. Parameters stay float32."""
+    if dtype not in fc.DTYPES:
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    for mod in model.modules():
+        if isinstance(mod, Routed):
+            mod.dtype = dtype
+
+
 def use_chain(model: nn.Module, chain: bool = True) -> None:
     """Switch ``model``'s eval-mode conv tails to the fused chain kernel
     (``True``) or back to one launch per conv (``False``, the default of a
@@ -264,11 +302,14 @@ def tail_chain(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor
     version on the plain path), or ``None`` when the caller is to run the
     convs one by one: when the chain is not switched on, in training mode
     and wherever a gradient is being recorded (the chain has no backward;
-    the per-layer kernels have theirs), and when any of ``convs`` carries
-    int8 weights, so that W8A8 serving keeps its int8 kernels. (The JAX
-    package steps aside whenever its model holds any int8 weight; a chain of
-    float32 convs computes the same function either way.)"""
-    if not owner.chain or owner.training:
+    the per-layer kernels have theirs), when any of ``convs`` carries
+    int8 weights, so that W8A8 serving keeps its int8 kernels, and on a
+    bfloat16 model (the chain is float32 only: the tail runs as four
+    bfloat16 3x3 launches, each rounded to bfloat16, which is the function
+    the JAX chain computes in bfloat16). (The JAX package steps aside
+    whenever its model holds any int8 weight; a chain of float32 convs
+    computes the same function either way.)"""
+    if not owner.chain or owner.training or owner.dtype != torch.float32:
         return None
     if any(conv.kernel_q is not None for conv in convs):
         return None

@@ -2,7 +2,10 @@
 
 The port of ``simple_vae_rs_tpu/ops/pallas_conv.py``'s three eval-path
 kernels. Each computes ``act(conv(x, kernel) * scale + shift)`` with ``x``
-NHWC float32 and ``kernel`` in the JAX HWIO layout ``(kh, kw, C, O)``:
+NHWC and ``kernel`` in the JAX HWIO layout ``(kh, kw, C, O)``, both float32
+or both bfloat16, ``scale`` and ``shift`` float32, the sums in float32 and
+the output in ``x``'s dtype (one rounding, as the JAX kernels store
+``out.astype(x.dtype)``):
 
 - :func:`fused_conv3x3_bn_relu`: 3x3, stride 1, SAME padding (every 3x3 conv);
 - :func:`fused_conv4x4s2_bn_relu`: 4x4, stride 2, pad 1 (DownBlock eval tail
@@ -13,8 +16,11 @@ NHWC float32 and ``kernel`` in the JAX HWIO layout ``(kh, kw, C, O)``:
 A wrapper given CPU tensors computes its plain version (``*_plain``, plain
 PyTorch on permuted tensors); given CUDA tensors it launches the hand-written
 kernel in ``csrc/fused_conv.cu`` on the current stream or raises. There is no
-fallback between the two. :data:`launches` counts kernel launches per wrapper,
-and :data:`role_launches` splits them into forward calls and input gradients.
+fallback between the two. :data:`launches` counts the float32 kernels'
+launches per wrapper, and :data:`role_launches` splits them into forward
+calls and input gradients; :data:`bf16_launches` counts the bfloat16
+instances' launches the same way, by role. A bfloat16 CUDA tensor launches
+the bfloat16 instance or raises: it never reaches the float32 kernel.
 
 :func:`fused_conv` is the differentiable form (port of the JAX ``_make_grad``
 VJPs): its backward computes every input gradient with one of the three
@@ -24,9 +30,10 @@ XLA too).
 
 The CUDA source's header says what bounds the kernels on the card and what
 their implicit-GEMM design does about it. All three (:data:`TC_KERNELS`) run
-on the tensor cores at float32 accuracy (3xTF32) with the launch geometry of
-:func:`plan_tc`; the transposed conv as four output phases of four live taps
-each.
+on the tensor cores, at float32 accuracy (3xTF32) for float32 operands and
+on the bf16 MMA with float32 accumulation for bfloat16 ones, with the launch
+geometry of :func:`plan_tc`; the transposed conv as four output phases of
+four live taps each.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ Tensor = torch.Tensor
 
 SOURCE = "fused_conv.cu"
 
-# kernel name -> (C entry point, live taps, spatial stride, output phases)
+# kernel name -> (C entry point, live taps, spatial stride, output phases);
+# the bfloat16 instance of each is the entry point + "_bf16"
 _KERNELS = {
     "fused_conv3x3_bn_relu": ("svrs_conv3x3", 9, 1, 1),
     "fused_conv4x4s2_bn_relu": ("svrs_conv4x4s2", 16, 2, 1),
@@ -56,13 +64,18 @@ ROLES = ("forward", "dx")
 CHAIN = "fused_conv3x3_chain"
 launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, CHAIN: 0}
 role_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for name in _KERNELS}
+# The bfloat16 instances' launches by kernel and role (none of them counts in
+# ``launches`` or ``role_launches``)
+bf16_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for name in _KERNELS}
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-    for name in role_launches:
-        role_launches[name] = dict.fromkeys(ROLES, 0)
+    for counts in (role_launches, bf16_launches):
+        for name in counts:
+            counts[name] = dict.fromkeys(ROLES, 0)
 
 
 _SMS = 132  # H100 SXM streaming multiprocessors
@@ -78,20 +91,24 @@ TC_TILES = {
     3: (32, 128, 32, 32, 4),   # M <= 64 per phase: the weight-bound prior heads
 }
 TC_BK = 32
+TC_BK_BF16 = 64  # the bfloat16 instances' K step: the same bytes per stage
 _TC_MIN_SPLIT_K = 4 * TC_BK
 
 
 def plan_tc(m: int, n: int, k: int, phases: int = 1,
-            tiles: Dict[int, Tuple[int, ...]] = TC_TILES) -> Tuple[int, int, int]:
+            tiles: Dict[int, Tuple[int, ...]] = TC_TILES, bk: int = TC_BK
+            ) -> Tuple[int, int, int]:
     """Launch geometry ``(tile config, K splits, K per split)`` of a
     tensor-core kernel with tile configurations ``tiles`` (:data:`TC_TILES`;
-    the int8 kernel passes its own) for a GEMM of ``m`` output pixels per
+    the int8 kernel passes its own) and K step ``bk`` (:data:`TC_BK_BF16`
+    for the bfloat16 instances) for a GEMM of ``m`` output pixels per
     phase x ``n`` channels x ``k`` reduction, ``phases`` of them (4 for the
     transposed conv, each its own blocks).
 
     Thin tiles for few pixels (the weight-bound prior heads), narrow tiles
-    for few channels (the 64x64 tail), and a K split of whole 32-deep steps
-    when the output tiles alone would leave most of the card's SMs idle.
+    for few channels (the 64x64 tail), and a K split of whole K steps (at
+    least four a split) when the output tiles alone would leave most of the
+    card's SMs idle.
     """
     if m <= 64:
         cfg = 3
@@ -105,17 +122,22 @@ def plan_tc(m: int, n: int, k: int, phases: int = 1,
     blocks = _cdiv(m, bm) * _cdiv(n, bn) * phases
     splits = 1
     if blocks < _SMS:
-        splits = max(1, min(_cdiv(2 * _SMS, blocks), k // _TC_MIN_SPLIT_K))
-    kchunk = _cdiv(_cdiv(k, splits), TC_BK) * TC_BK
+        splits = max(1, min(_cdiv(2 * _SMS, blocks), k // (4 * bk)))
+    kchunk = _cdiv(_cdiv(k, splits), bk) * bk
     return cfg, _cdiv(k, kchunk), kchunk
 
 
-def tc_smem_bytes(cfg: int, tiles: Dict[int, Tuple[int, ...]] = TC_TILES) -> int:
+def tc_smem_bytes(cfg: int, tiles: Dict[int, Tuple[int, ...]] = TC_TILES,
+                  bf16: bool = False) -> int:
     """Dynamic shared memory of tensor-core tile ``cfg`` of ``tiles``: its
     cp.async ring of A ``[BM][BK + 4]`` and B ``[BK][BN + 8]`` 4-byte slots
-    (float32, or int32 words of the int8 kernel; the CUDA source's
-    ``tc_smem_bytes``, which sizes the launch; here for the plan's checks)."""
+    (float32, or int32 words of the int8 kernel), or with ``bf16`` of A
+    ``[BM][64 + 8]`` and B ``[64][BN + 8]`` bfloat16 slots (the CUDA
+    source's ``tc_smem_bytes`` and ``tcb_smem_bytes``, which size the
+    launch; here for the plan's checks)."""
     bm, bn, _, _, stages = tiles[cfg]
+    if bf16:
+        return 2 * stages * (bm * (TC_BK_BF16 + 8) + TC_BK_BF16 * (bn + 8))
     return 4 * stages * (bm * (TC_BK + 4) + TC_BK * (bn + 8))
 
 
@@ -155,28 +177,38 @@ def _check(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor) -
             raise ValueError(f"{name}: {what} must be ({o},), got {tuple(t.shape)}")
 
 
+def _check_dtypes(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor) -> None:
+    """x and kernel float32 or bfloat16, of one dtype; scale and shift float32."""
+    if x.dtype not in DTYPES or kernel.dtype != x.dtype:
+        raise TypeError(f"{name}: x and kernel must both be float32 or both bfloat16, got "
+                        f"{x.dtype} and {kernel.dtype}")
+    if scale.dtype != torch.float32 or shift.dtype != torch.float32:
+        raise TypeError(f"{name}: scale and shift must be float32, got {scale.dtype} and "
+                        f"{shift.dtype}")
+
+
 def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
             relu: bool, role: str = "forward") -> Tensor:
     _check(name, x, kernel, scale, shift)
+    _check_dtypes(name, x, kernel, scale, shift)
     dev = x.device
     for t in (x, kernel, scale, shift):
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, one is on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     m, n, k, phases = geometry(name, x, kernel)
     if max(x.numel(), phases * m * n) >= 2**31:
         raise ValueError(f"{name}: tensor too large for 32-bit pixel indices")
     b, h, w, c = x.shape
-    out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=torch.float32)
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
-    cfg, splits, kchunk = plan_tc(m, n, k, phases)
+    cfg, splits, kchunk = plan_tc(m, n, k, phases, bk=TC_BK_BF16 if bf16 else TC_BK)
     ws = (torch.empty((splits * phases * m * n,), device=dev, dtype=torch.float32)
           if splits > 1 else None)
-    fn = getattr(_library(), _KERNELS[name][0])
+    fn = getattr(_library(), _KERNELS[name][0] + ("_bf16" if bf16 else ""))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cfg, x.data_ptr(), kernel.data_ptr(), scale.data_ptr(), shift.data_ptr(),
@@ -184,8 +216,11 @@ def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
                  b, h, w, c, n, int(relu), splits, kchunk, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    launches[name] += 1
-    role_launches[name][role] += 1
+    if bf16:
+        bf16_launches[name][role] += 1
+    else:
+        launches[name] += 1
+        role_launches[name][role] += 1
     return out
 
 
@@ -199,16 +234,27 @@ def _library() -> ctypes.CDLL:
 
         lib = _build.load(SOURCE)
         for sym, *_ in _KERNELS.values():
-            fn = getattr(lib, sym)
-            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for fn in (getattr(lib, sym), getattr(lib, sym + "_bf16")):
+                fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def _dispatch(name: str, x, kernel, scale, shift, relu, role: str = "forward"):
     if x.device.type == "cpu":
+        _check_dtypes(name, x, kernel, scale, shift)
         return PLAIN[name](x, kernel, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA card, not {x.device}")
@@ -216,9 +262,18 @@ def _dispatch(name: str, x, kernel, scale, shift, relu, role: str = "forward"):
 
 
 # ------------------------------------------------------------ plain versions
-def _affine(y_nchw: Tensor, scale: Tensor, shift: Tensor, relu: bool) -> Tensor:
+# The JAX ``_reference3`` contract for both dtypes: the operands upcast to
+# float32, the conv in float32 with TF32 off, ``* scale + shift`` and the
+# ReLU in float32, then one rounding to ``x``'s dtype.
+def _up(t: Tensor) -> Tensor:
+    """bfloat16 upcast to float32; float32 (and the int8 plain versions'
+    float64) as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _affine(y_nchw: Tensor, scale: Tensor, shift: Tensor, relu: bool, dtype) -> Tensor:
     y = y_nchw.permute(0, 2, 3, 1) * scale + shift
-    return (y.clamp_min(0.0) if relu else y).contiguous()
+    return (y.clamp_min(0.0) if relu else y).to(dtype).contiguous()
 
 
 def _nchw(x: Tensor) -> Tensor:
@@ -231,22 +286,27 @@ def _oihw(kernel: Tensor) -> Tensor:
 
 def conv3x3_plain(x, kernel, scale, shift, relu=True):
     """Plain version of :func:`fused_conv3x3_bn_relu` (JAX ``_reference3``)."""
-    return _affine(F.conv2d(_nchw(x), _oihw(kernel), padding=1), scale, shift, relu)
+    with _no_tf32():
+        y = F.conv2d(_nchw(_up(x)), _oihw(_up(kernel)), padding=1)
+    return _affine(y, scale, shift, relu, x.dtype)
 
 
 def conv4x4s2_plain(x, kernel, scale, shift, relu=True):
     """Plain version of :func:`fused_conv4x4s2_bn_relu` (JAX ``_reference4``)."""
-    y = F.conv2d(_nchw(x), _oihw(kernel), stride=2, padding=1)
-    return _affine(y, scale, shift, relu)
+    with _no_tf32():
+        y = F.conv2d(_nchw(_up(x)), _oihw(_up(kernel)), stride=2, padding=1)
+    return _affine(y, scale, shift, relu, x.dtype)
 
 
 def convT4x4s2_plain(x, kernel, scale, shift, relu=True):
     """Plain version of :func:`fused_convT4x4s2_bn_relu` (JAX ``_referenceT``):
     a conv over the zero-dilated input with pad 2 and the stored kernel."""
     b, h, w, c = x.shape
-    xd = x.new_zeros((b, c, 2 * h - 1, 2 * w - 1))
-    xd[:, :, ::2, ::2] = _nchw(x)
-    return _affine(F.conv2d(xd, _oihw(kernel), padding=2), scale, shift, relu)
+    xd = _up(x).new_zeros((b, c, 2 * h - 1, 2 * w - 1))
+    xd[:, :, ::2, ::2] = _nchw(_up(x))
+    with _no_tf32():
+        y = F.conv2d(xd, _oihw(_up(kernel)), padding=2)
+    return _affine(y, scale, shift, relu, x.dtype)
 
 
 PLAIN = {
@@ -305,31 +365,23 @@ def input_grad(name: str, g_conv: Tensor, kernel: Tensor, in_shape,
     """Gradient of conv ``name`` with respect to its input ``(B, H, W, C)``,
     given the gradient ``g_conv`` of its pre-affine output: the
     :data:`DX_KERNEL` kernel on the flip-swapped weight, scale 1, shift 0,
-    no ReLU (the plain version of that kernel with ``plain``)."""
+    no ReLU (the plain version of that kernel with ``plain``), in
+    ``g_conv``'s dtype."""
     b, h, w, c = in_shape
     if name == "fused_conv4x4s2_bn_relu" and (h, w) != (2 * g_conv.shape[1], 2 * g_conv.shape[2]):
         raise ValueError(f"{name}: the input gradient needs an even input, got {tuple(in_shape)}")
     dx_name = DX_KERNEL[name]
-    args = (g_conv, flip_swap(kernel), g_conv.new_ones(c), g_conv.new_zeros(c), False)
+    ones = torch.ones(c, device=g_conv.device, dtype=torch.float32)
+    args = (g_conv, flip_swap(kernel), ones, torch.zeros_like(ones), False)
     if plain:
         return PLAIN[dx_name](*args)
     return _dispatch(dx_name, *args, role="dx")
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def weight_grad(name: str, x: Tensor, g_conv: Tensor, kernel: Tensor) -> Tensor:
     """Gradient of conv ``name`` with respect to its HWIO ``kernel``: one
-    library call (``aten.convolution_backward``, weight only, TF32 off), as
-    the JAX package leaves it to XLA's ``linear_transpose``."""
+    library call (``aten.convolution_backward``, weight only, TF32 off) in
+    ``x``'s dtype, as the JAX package leaves it to XLA's ``linear_transpose``."""
     xn, gn = _nchw(x), _nchw(g_conv)
     mask = [False, True, False]
     with _no_tf32():
@@ -349,7 +401,10 @@ def weight_grad(name: str, x: Tensor, g_conv: Tensor, kernel: Tensor) -> Tensor:
 class _FusedConv(torch.autograd.Function):
     """``act(conv(x, kernel) * scale + shift)`` with the backward of JAX's
     ``_make_grad``: the ReLU mask and the pre-affine conv result come from
-    the saved output, so the forward conv is not run again."""
+    the saved output, so the forward conv is not run again. The backward
+    works in float32 (the ReLU mask, ``dscale`` and ``dshift``) and rounds
+    ``g * scale`` once to ``x``'s dtype for the input and weight gradients,
+    which come back in that dtype."""
 
     @staticmethod
     def forward(ctx, x, kernel, scale, shift, name, relu, plain):
@@ -363,6 +418,7 @@ class _FusedConv(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel, scale, shift, out = ctx.saved_tensors
         need_x, need_k, need_scale, need_shift = ctx.needs_input_grad[:4]
+        g, out = g.float(), out.float()  # no-ops in float32
         if ctx.relu:
             g = torch.where(out > 0.0, g, 0.0)
         dx = dk = dscale = dshift = None
@@ -372,7 +428,7 @@ class _FusedConv(torch.autograd.Function):
         if need_shift:
             dshift = torch.sum(g, dim=(0, 1, 2))
         # the kernels take contiguous tensors; autograd may hand back views
-        g_conv = (g * scale).contiguous()
+        g_conv = (g * scale).to(x.dtype).contiguous()
         if need_x:
             dx = input_grad(ctx.name, g_conv, kernel, x.shape, ctx.plain)
         if need_k:
@@ -385,6 +441,40 @@ def fused_conv(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tenso
     """Differentiable ``act(conv(x, kernel) * scale + shift)`` through kernel
     ``name`` (its plain version with ``plain``), forward and backward."""
     return _FusedConv.apply(x, kernel, scale, shift, name, relu, plain)
+
+
+# bfloat16 instances against their plain versions: one rounding of a float32
+# sum on each side, the sums in another order. Where the two float32 sums
+# straddle a rounding boundary the outputs are one bfloat16 ulp apart; below
+# about 1e-4 of the tensor's largest value the float32 sums' own order
+# (the float32 kernels' tolerance) can move an element by more ulps of its
+# own magnitude, so the bound is one ulp at the element plus that much.
+BF16_SUM_TOL = 1e-4  # of max|plain|
+
+
+def bf16_ulp(t: Tensor) -> Tensor:
+    """The spacing of bfloat16 at ``|t|``: ``2^(floor(log2|t|) - 7)`` (8
+    significant bits), float32."""
+    a = t.float().abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def compare_bf16(got: Tensor, want: Tensor) -> Dict[str, float]:
+    """``got`` against ``want`` (both bfloat16): the largest difference, the
+    largest of it over the bound (one ulp at the element plus
+    :data:`BF16_SUM_TOL` of max|want|; <= 1 passes), the share of elements
+    bit-equal and the share within one ulp of their own magnitude."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ulp = bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    ref = float(w.abs().max()) if w.numel() else 0.0
+    bound = ulp + BF16_SUM_TOL * ref
+    n = max(err.numel(), 1)
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0, "max_abs_ref": ref,
+            "of_bound": float((err / bound).max()) if err.numel() else 0.0,
+            "share_bit_equal": float((got.view(torch.int16) == want.view(torch.int16))
+                                     .sum()) / n,
+            "share_within_1ulp": float((err <= ulp).sum()) / n}
 
 
 def fold_conv_bn(kernel: Tensor, bias: Optional[Tensor], bn_scale: Tensor, bn_bias: Tensor,

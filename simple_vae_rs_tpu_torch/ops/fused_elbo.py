@@ -142,6 +142,11 @@ def _launch(name: str, rows: Tuple[Tensor, ...]) -> Tensor:
 
 
 def _forward(name: str, rows: Tuple[Tensor, ...], plain: bool) -> Tensor:
+    # the models cast their outputs and heads to float32 (a bfloat16 model
+    # too), so a row of another dtype here is a missing cast: not upcast
+    for t in rows:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 rows only, got {t.dtype}")
     dev = rows[0].device.type
     if plain or dev == "cpu":
         return PLAIN[name](*rows)

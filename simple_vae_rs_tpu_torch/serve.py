@@ -20,6 +20,12 @@ Two quantized modes, one at most:
   request dequantizes them, runs the float32 graph and releases them, so
   between requests the resolver holds a quarter of the weight bytes.
 
+A bfloat16 model (``CondSRVAE(cfg, dtype=torch.bfloat16)``) is served as
+it is: its convs compute in bfloat16 and every output is float32. Neither
+int8 mode takes one (``NotImplementedError``; ROADMAP A.3.2b), and on a
+bfloat16 model ``chain=True`` changes nothing: the chain steps aside
+(``ops/conv_blocks.tail_chain``).
+
 ``SuperResolver(model, chain=True)`` serves a copy of the model whose
 eval-mode conv tails each run as one launch of the chain kernel
 (``ops/conv_blocks.use_chain``; off by default). It combines with either
@@ -45,7 +51,7 @@ import torch
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.ops import quantize as qz
-from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
+from simple_vae_rs_tpu_torch.ops.conv_blocks import BF16_INT8, use_chain
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
 from simple_vae_rs_tpu_torch.utils.image import normalize_image
 
@@ -79,6 +85,8 @@ class SuperResolver:
                 "int8 (W8A8 decoder kernels) and int8_weights (weights only, "
                 "dequantized per request) are different quantization modes: pick one"
             )
+        if (int8 or int8_weights) and model.dtype != torch.float32:
+            raise NotImplementedError(BF16_INT8)
         self.device = resolve_device(device)
         self.int8, self.int8_weights = int8, int8_weights
         self._packed = None

@@ -42,7 +42,8 @@ def sample_chunked(model, y: Tensor, generator: Optional[torch.Generator] = None
     grid and ``eps_z`` (samples, z grid), or for a VAE ``eps_z`` (samples,
     latent_dim) alone. ``packed`` is the payload of a model in the
     weights-only int8 mode (``ops/quantize.pack_int8_weights``): its weights
-    are dequantized for the length of this call.
+    are dequantized for the length of this call. The noise and the draws are
+    float32 for a model of either compute dtype (its decoder casts).
     """
     with unpack_weights(model, packed):
         if isinstance(model, (CondSRVAE, SRVAE)):
@@ -75,8 +76,9 @@ def error_statistics(samples: Tensor, target: Tensor) -> Dict[str, Tensor]:
 
 def uncertainty_maps(model, y: Tensor, generator: Optional[torch.Generator] = None,
                      samples: int = 32, chunk: int = 32) -> Dict[str, Tensor]:
-    """Per-pixel mean, variance and std maps over ``samples`` posterior draws."""
-    draws = sample_chunked(model, y, generator, samples=samples, chunk=chunk)
+    """Per-pixel mean, variance and std maps over ``samples`` posterior
+    draws, in float32 whatever the model's compute dtype."""
+    draws = sample_chunked(model, y, generator, samples=samples, chunk=chunk).float()
     return {
         "mean": draws.mean(dim=0),
         "variance": draws.var(dim=0, correction=0),

@@ -19,6 +19,11 @@ through the conv kernels' input gradients, then the clip and Adam. Loss terms
 come back as 0-dim float32 tensors on the trainer's device (no host sync). A
 val step runs in ``eval()`` mode, so on a model whose chain is switched on
 (``ops/conv_blocks.use_chain``) its conv tails run through the chain kernel.
+
+A bfloat16 model (``dtype=torch.bfloat16``) trains the same way: the batch
+stays float32 (the model casts it), the loss is float32, and the gradients
+reach the float32 parameters in float32; ``TrainConfig.bf16_moments``
+keeps Adam's first moment in bfloat16.
 """
 
 from __future__ import annotations

@@ -562,3 +562,46 @@ def test_tail_chain_obeys_the_plain_path(model, chain_calls):
     fc.launches[fc.CHAIN] = 3
     fc.reset_launches()
     assert fc.launches[fc.CHAIN] == 0
+
+
+def test_tail_chain_steps_aside_on_a_bf16_model(chain_calls):
+    """The chain is float32 only (ROADMAP A.3.2c): a bfloat16 model's eval
+    tails never chain, chain switched on or not, and each runs as four
+    bfloat16 #1 calls, each rounded to bfloat16. That is the function the
+    JAX chain computes in bfloat16 (``_kernel3_chain`` rounds every layer to
+    ``x.dtype``): held against the JAX chain in bfloat16 in interpret mode by
+    the noise rule of ``tests/test_torch_port_bf16.py`` (the JAX chain also
+    rounds each bias to bfloat16; the port's kernel adds it in float32), and
+    against four bfloat16 #1 calls on the plain path, bit for bit."""
+    m = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=PS), dtype=torch.bfloat16).init_weights(3)
+    m.eval()
+    tblocks.use_chain(m)
+    with torch.no_grad():
+        out = m(*_forward_inputs(m, 2, seed=9))
+    assert not chain_calls and all(o.dtype == torch.float32 for o in out)
+    convs = (m.dx_conv1, m.dx_conv2, m.dx_conv3, m.dx_conv4)
+    rng = np.random.default_rng(10)
+    h = torch.from_numpy(rng.standard_normal((2, PS, PS, 64)).astype(np.float32)).bfloat16()
+    assert tblocks.tail_chain(m, convs, h) is None
+    with torch.no_grad():
+        got = tblocks.conv_tail(m, convs, h)
+        want = h
+        for conv in convs:
+            want = fc.conv3x3_plain(want, conv.kernel.bfloat16(), conv.unit_scale, conv.bias,
+                                    False)
+    assert not chain_calls and got.dtype == torch.bfloat16 and torch.equal(got, want)
+    ks = [jnp.asarray(c.kernel.detach().numpy()) for c in convs]
+    bs = [jnp.asarray(c.bias.detach().numpy()) for c in convs]
+    hj = jnp.asarray(h.float().numpy())
+    jb = pc.fused_conv3x3_chain(hj.astype(jnp.bfloat16), ks, bs, interpret=True)
+    jf = pc.fused_conv3x3_chain(hj, ks, bs, interpret=True)
+    assert jb.dtype == jnp.bfloat16
+    jb, jf = np.asarray(jb.astype(jnp.float32)), np.asarray(jf)
+    err = float(np.abs(got.float().numpy() - jb).max())
+    assert err <= 2 * float(np.abs(jb - jf).max()) + 1e-3
+    # the float32 model with the same weights still chains
+    m32 = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=PS)).init_weights(3).eval()
+    tblocks.use_chain(m32)
+    with torch.no_grad():
+        assert tblocks.tail_chain(m32, (m32.dx_conv1, m32.dx_conv2, m32.dx_conv3, m32.dx_conv4),
+                                  h.float()) is not None

@@ -607,3 +607,146 @@ def test_vae_and_srvae_cuda_paths_match_plain_path(cuda):
         assert fc.launches[fc.CHAIN] == (2 if model is vae else 4)
         for key in val:
             assert abs(float(val[key] - val_p[key])) <= 1e-4 * abs(float(val_p[key])) + 1e-6
+
+
+# ----------------------------------------------------------------- bfloat16
+# The bfloat16 instances of #1, #5 and #6 at the edge paths of their loaders:
+# C % 8 == 0 (16-byte copies) beside C % 8 != 0 (plain 2-byte loads: C = 53,
+# 106, 4, 7, 12), O % 8 != 0 (O = 53, 13, 9, 4), odd H and W, M <= 64 with a
+# K split and K not a multiple of 64, the canonical prior head. Bound: one
+# bfloat16 ulp at the element plus 1e-4 of max|plain| (fc.compare_bf16).
+BF16_CASES = TC_CASES + [
+    ("fused_conv3x3_bn_relu", (2, 8, 8, 64), 64, True),
+    ("fused_conv3x3_bn_relu", (2, 8, 8, 60), 64, True),
+    ("fused_conv3x3_bn_relu", (3, 5, 7, 12), 9, False),
+    ("fused_conv4x4s2_bn_relu", (2, 16, 16, 16), 64, True),
+    ("fused_conv4x4s2_bn_relu", (2, 16, 16, 12), 64, True),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 64), 16, True),
+    ("fused_convT4x4s2_bn_relu", (2, 7, 5, 60), 16, False),
+]
+
+
+def _bf16_inputs(name, shape, o, seed, device):
+    x, kern, s, t = _inputs(name, shape, o, seed, device)
+    return x.bfloat16(), kern.bfloat16(), s, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BF16_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_bf16_kernel_matches_plain_in_both_roles(cuda, case):
+    name, shape, o, relu = case
+    x, kern, s, t = _bf16_inputs(name, shape, o, seed=sum(shape) + 3 * o, device=cuda)
+    f32_before = {k: dict(v) for k, v in fc.role_launches.items()}
+    before = fc.bf16_launches[name]["forward"]
+    got = getattr(fc, name)(x, kern, s, t, relu=relu)
+    torch.cuda.synchronize()
+    assert fc.bf16_launches[name]["forward"] == before + 1
+    assert got.dtype == torch.bfloat16
+    want = fc.PLAIN[name](x, kern, s, t, relu)
+    assert want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert fc.compare_bf16(got, want)["of_bound"] <= 1.0
+    assert torch.equal(getattr(fc, name)(x, kern, s, t, relu=relu), got)  # the same bits
+    site = fc.DX_KERNEL[name]
+    in_shape = fc.output_shape(name, shape, o)
+    before = fc.bf16_launches[name]["dx"]
+    got = fc.input_grad(site, x, fc.flip_swap(kern), in_shape)
+    torch.cuda.synchronize()
+    assert fc.bf16_launches[name]["dx"] == before + 1
+    want = fc.input_grad(site, x, fc.flip_swap(kern), in_shape, plain=True)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape == in_shape
+    assert fc.compare_bf16(got, want)["of_bound"] <= 1.0
+    assert torch.equal(fc.input_grad(site, x, fc.flip_swap(kern), in_shape), got)
+    # a bfloat16 tensor never reaches the float32 kernel
+    assert {k: dict(v) for k, v in fc.role_launches.items()} == f32_before
+
+
+@pytest.mark.gpu
+def test_bf16_wrapper_rejects_mixed_dtypes(cuda):
+    x, kern, s, t = _bf16_inputs("fused_conv3x3_bn_relu", (1, 4, 4, 8), 8, 0, cuda)
+    for args in ((x, kern.float(), s, t), (x.float(), kern, s, t), (x, kern, s.bfloat16(), t),
+                 (x, kern, s, t.bfloat16()), (x.half(), kern.half(), s, t)):
+        with pytest.raises(TypeError):
+            fc.fused_conv3x3_bn_relu(*args)
+    assert fc.fused_conv3x3_bn_relu(x, kern, s, t).dtype == torch.bfloat16
+
+
+def _bf16_pair(device, kind="cond"):
+    if kind == "vae":
+        model = VAE(VAEConfig(cr=2.0, patch_size=8), device=device, dtype=torch.bfloat16)
+    elif kind == "srvae":
+        model = SRVAE(CondSRVAEConfig(cr=2.0, patch_size=16), device=device,
+                      dtype=torch.bfloat16)
+    else:
+        model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16), device=device,
+                          dtype=torch.bfloat16)
+    model.init_weights(4)
+    plain = copy.deepcopy(model)
+    blocks.use_plain_path(plain)
+    return model, plain
+
+
+@pytest.mark.gpu
+def test_bf16_serving_matches_plain_path(cuda):
+    model, plain = _bf16_pair(cuda)
+    y = np.random.default_rng(15).random((3, 8, 8, 4)).astype(np.float32)
+    sr, sr_p = SuperResolver(model, device="cuda", chain=True), SuperResolver(plain, device="cuda")
+    fc.reset_launches()
+    got = sr.super_resolve(y, seed=1)
+    maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
+    torch.cuda.synchronize()
+    assert all(v["forward"] > 0 for v in fc.bf16_launches.values())
+    assert sum(fc.launches.values()) == 0  # no float32 kernel, no chain: it steps aside
+    want = sr_p.super_resolve(y, seed=1)
+    want_maps = sr_p.uncertainty(y[0], samples=20, chunk=8, seed=2)
+    assert got.dtype == maps["std"].dtype == torch.float32
+    # outputs in [0, 1] through ~25 bfloat16 layers: a few bfloat16 ulps of 1
+    assert float((got - want).abs().max()) <= 2e-2
+    assert float((maps["mean"] - want_maps["mean"]).abs().max()) <= 2e-2
+    for kw in ({"int8": True}, {"int8_weights": True}):
+        with pytest.raises(NotImplementedError):
+            SuperResolver(model, device="cuda", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cond", "srvae", "vae"])
+def test_bf16_train_step_matches_plain_path(cuda, kind):
+    """A bfloat16 step through the kernels against the plain path. A
+    bfloat16 activation one ulp apart (the two sides round float32 sums
+    taken in other orders) moves a gradient that cancels (a conv that
+    BatchNorm follows) by far more than an ulp of it, so each leaf is held,
+    as in ``chip_smoke.py``, to the noise rule: 2x its own bfloat16 error
+    (the plain path in float32 against the plain path in bfloat16) plus
+    1e-3 of its block's largest gradient."""
+    model, plain = _bf16_pair(cuda, kind)
+    f32 = copy.deepcopy(plain)
+    blocks.set_dtype(f32, torch.float32)
+    cfg = TrainConfig(use_bfloat16=True, bf16_moments=True)
+    kernels, plain = Trainer(model, cfg, device=cuda), Trainer(plain, cfg, device=cuda)
+    rng = np.random.default_rng(16)
+    batch = (torch.tensor(rng.random((6, 8, 8, 4)), dtype=torch.float32, device=cuda),
+             torch.tensor(rng.random((6, 16, 16, 4)), dtype=torch.float32, device=cuda))
+    eps = kernels.noise(6, (8, 8), torch.Generator(device=cuda).manual_seed(1))
+    fc.reset_launches()
+    grads, terms = kernels.grads_and_terms(batch, eps)
+    torch.cuda.synchronize()
+    assert all(v["forward"] > 0 and v["dx"] > 0 for v in fc.bf16_launches.values())
+    assert sum(fc.launches.values()) == 0
+    before = {k: dict(v) for k, v in fc.bf16_launches.items()}
+    grads_p, terms_p = plain.grads_and_terms(batch, eps)
+    grads_f, terms_f = Trainer(f32, TrainConfig(), device=cuda).grads_and_terms(batch, eps)
+    assert {k: dict(v) for k, v in fc.bf16_launches.items()} == before  # plain: no launch
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    for key in terms:
+        noise = abs(float(terms_f[key] - terms_p[key]))
+        assert abs(float(terms[key] - terms_p[key])) <= 2 * noise + 1e-3 * abs(float(
+            terms_p[key])), key
+    block_max = {}
+    for name, g in grads_p.items():
+        blk = name.split(".")[0]
+        block_max[blk] = max(block_max.get(blk, 0.0), float(g.abs().max()))
+    for name, g in grads.items():
+        err = float((g - grads_p[name]).abs().max())
+        noise = float((grads_f[name] - grads_p[name]).abs().max())
+        assert err <= 2 * noise + 1e-3 * block_max[name.split(".")[0]], (name, err, noise)
+    kernels.apply_grads(grads, 1e-4)
+    assert all(m.dtype == torch.bfloat16 for m in kernels.opt.mu)

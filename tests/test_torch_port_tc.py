@@ -495,3 +495,308 @@ def test_the_chain_takes_the_tensor_cores():
         # the card is filled: nine in ten SMs at least, or a block per output row
         assert b * plan.strips * plan.panels >= min(0.9 * SMS, b * h)
 
+
+
+# ------------------------------------------------- the bfloat16 instances
+def _bf16(a):
+    """float32 -> nearest bfloat16 (ties to even), held in float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _bank_groups_distinct(byte_offsets):
+    """The eight 16-byte rows one ldmatrix phase reads sit on eight distinct
+    16-byte bank groups (no conflict): rows 16-byte aligned, (offset / 16) % 8
+    all different."""
+    byte_offsets = np.asarray(byte_offsets)
+    assert (byte_offsets % 16 == 0).all()
+    return len(np.unique((byte_offsets // 16) % 8)) == 8
+
+
+def conv_tc_bf16_replay(name, x, kern, scale, shift, relu):
+    """``conv_tc_bf16``'s launch replayed block by block in numpy: the plan
+    with 64-deep K steps, the A loader in 8-channel groups (one 16-byte copy
+    when C % 8 == 0, else eight masked 2-byte loads), the B loader likewise by
+    O, ldmatrix.x4 for A and ldmatrix.x4.trans for B emulated lane by lane
+    from the addresses each lane gives (every phase checked free of bank
+    conflicts), the registers placed where the m16n8k16 .bf16 fragment maps
+    say, each step's four products summed before the float32 running sum,
+    the epilogue rounded to bfloat16 and the ordered split-K reduce. Shared
+    memory is NaN before each load. Returns (output as float32, writes per
+    output element)."""
+    b, h, w, c = x.shape
+    o = kern.shape[-1]
+    stride = 2 if name == "fused_conv4x4s2_bn_relu" else 1
+    m_all, _, k_all, phases = fc.geometry(name, torch.from_numpy(x), torch.from_numpy(kern))
+    ho, wo = (h // 2, w // 2) if stride == 2 else (h, w)
+    bk = fc.TC_BK_BF16
+    cfg, splits, kchunk = fc.plan_tc(m_all, o, k_all, phases, bk=bk)
+    bm, bn, wm_t, wn_t, stages = fc.TC_TILES[cfg]
+    warps_m, warps_n = bm // wm_t, bn // wn_t
+    nt = warps_m * warps_n * 32
+    kq_n, nq = bk // 8, bn // 8
+    a_rows, b_vecs = bm * kq_n // nt, _cdiv(bk * nq, nt)
+    a_ld, b_ld = bk + 8, bn + 8
+    mi_n, ni_n = wm_t // 16, wn_t // 8
+    a_tile, b_tile = bm * a_ld, bk * b_ld
+    assert fc.tc_smem_bytes(cfg, bf16=True) == 2 * stages * (a_tile + b_tile)
+    assert fc.tc_smem_bytes(cfg, bf16=True) == fc.tc_smem_bytes(cfg)  # the same bytes a stage
+    xf, wf = x.reshape(-1), kern.reshape(-1)
+    vec_a, vec_b = c % 8 == 0, o % 8 == 0
+    out_shape = fc.output_shape(name, x.shape, o)
+
+    def out_offset(p, m, n):
+        if phases == 1:
+            return m * o + n
+        bb, r = np.divmod(m, ho * wo)
+        i, j = np.divmod(r, wo)
+        return ((bb * 2 * ho + 2 * i + (p >> 1)) * 2 * wo + 2 * j + (p & 1)) * o + n
+
+    def weight_row(kr, p):
+        if phases == 1:
+            return kr
+        t = div_c(kr, c)
+        return kr + (_tap(name, t, p)[2] - t) * c
+
+    tid = np.arange(nt)
+    kq = tid % kq_n
+    rows = tid[:, None] // kq_n + np.arange(a_rows)[None, :] * (nt // kq_n)
+    lane = np.arange(32)
+    gq, tq = lane >> 2, lane & 3
+    out = np.full(int(np.prod(out_shape)), np.nan, np.float32)
+    writes = np.zeros(out.size, np.int64)
+    ws = np.full((splits, phases, m_all, o), np.nan, np.float32)
+    ws_writes = np.zeros((splits, phases, m_all, o), np.int64)
+
+    def ldsm(sm, addr, trans):
+        """ldmatrix.x4 (.trans) of one warp: ``addr[l]`` is lane l's row
+        address (elements); returns regs[t, j, half] for thread t."""
+        regs = np.zeros((32, 4, 2), np.float32)
+        for j in range(4):
+            base = addr[8 * j: 8 * j + 8]
+            assert _bank_groups_distinct(2 * base)
+            mat = sm[base[:, None] + np.arange(8)[None, :]]  # [row][col] of matrix j
+            if trans:
+                mat = mat.T
+            regs[:, j, 0] = mat[lane // 4, 2 * (lane % 4)]
+            regs[:, j, 1] = mat[lane // 4, 2 * (lane % 4) + 1]
+        return regs
+
+    for bz in range(phases * splits):
+        p, s = divmod(bz, splits)
+        kbeg = s * kchunk
+        kend = min(k_all, kbeg + kchunk)
+        nsteps = _cdiv(kend - kbeg, bk) if kend > kbeg else 0
+        for bx in range(_cdiv(m_all, bm)):
+            m0 = bx * bm
+            mm = m0 + rows
+            valid_m = mm < m_all
+            bb, r = np.divmod(mm, ho * wo)
+            oy, ox = np.divmod(r, wo)
+            a_y = np.where(valid_m, oy * stride, -(1 << 24))
+            a_x = np.where(valid_m, ox * stride, 0)
+            a_pix = np.where(valid_m, (bb * h + a_y) * w + a_x, 0)
+            for by in range(_cdiv(o, bn)):
+                n0 = by * bn
+                a_sm = np.full((stages, a_tile), np.nan, np.float32)
+                b_sm = np.full((stages, b_tile), np.nan, np.float32)
+
+                def gather(v, idx):
+                    return np.where(v, xf[np.where(v, idx, 0)], np.float32(0))
+
+                def load(slot, k0):
+                    a_sm[slot] = np.nan
+                    b_sm[slot] = np.nan
+                    dst = rows * a_ld + 8 * kq[:, None]
+                    assert ((2 * dst) % 16 == 0).all()  # each group one aligned 16-byte store
+                    k = k0 + 8 * kq
+                    if vec_a:  # channels c .. c+7 of one tap, one 16-byte copy
+                        kv = k < kend
+                        t = np.where(kv, div_c(k, c), 0)
+                        cc = k - t * c
+                        dy, dx, _ = _tap(name, t, p)
+                        iy, ix = a_y + dy[:, None], a_x + dx[:, None]
+                        v = kv[:, None] & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                        src = (a_pix + (dy * w + dx)[:, None]) * c + cc[:, None]
+                        assert ((2 * src[v]) % 16 == 0).all()  # the copy's source is aligned
+                        for j in range(8):
+                            a_sm[slot, dst + j] = gather(v, src + j)
+                    else:  # eight 2-byte loads, each resolved on its own
+                        for j in range(8):
+                            kv = k + j < kend
+                            t = np.where(kv, div_c(k + j, c), 0)
+                            cc = k + j - t * c
+                            dy, dx, _ = _tap(name, t, p)
+                            iy, ix = a_y + dy[:, None], a_x + dx[:, None]
+                            v = kv[:, None] & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                            src = (a_pix + (dy * w + dx)[:, None]) * c + cc[:, None]
+                            a_sm[slot, dst + j] = gather(v, src)
+                    b_dst = []
+                    for jv in range(b_vecs):
+                        e = tid + jv * nt
+                        e = e[e < bk * nq]
+                        kk, nqi = np.divmod(e, nq)
+                        kr, n = k0 + kk, n0 + 8 * nqi
+                        kv = kr < kend
+                        row = np.where(kv, weight_row(np.where(kv, kr, 0), p), 0) * o
+                        if vec_b:
+                            assert ((2 * (row + n)[kv & (n < o)]) % 16 == 0).all()
+                        for q in range(8):
+                            v = kv & ((n < o) if vec_b else (n + q < o))
+                            b_sm[slot, kk * b_ld + 8 * nqi + q] = np.where(
+                                v, wf[np.where(v, row + n + q, 0)], np.float32(0))
+                        b_dst.append(kk * b_ld + 8 * nqi)
+                    a_cells = (dst[..., None] + np.arange(8)).ravel()
+                    b_cells = (np.concatenate(b_dst)[:, None] + np.arange(8)).ravel()
+                    assert len(np.unique(a_cells)) == a_cells.size == bm * bk
+                    assert len(np.unique(b_cells)) == b_cells.size == bk * bn
+                    assert not np.isnan(a_sm[slot].reshape(bm, a_ld)[:, :bk]).any()
+                    assert not np.isnan(b_sm[slot].reshape(bk, b_ld)[:, :bn]).any()
+
+                acc = np.zeros((warps_m, warps_n, mi_n, ni_n, 32, 4), np.float32)
+                for st in range(stages - 1):
+                    if st < nsteps:
+                        load(st, kbeg + st * bk)
+                for step in range(nsteps):
+                    nxt = step + stages - 1
+                    if nxt < nsteps:
+                        load(nxt % stages, kbeg + nxt * bk)
+                    a_s, b_s = a_sm[step % stages], b_sm[step % stages]
+                    for wmi in range(warps_m):
+                        for wni in range(warps_n):
+                            part = np.zeros((mi_n, ni_n, 32, 4), np.float64)
+                            for ks in range(bk // 16):
+                                b_frag = np.full((ni_n, 16, 8), np.nan, np.float32)
+                                for ni in range(0, ni_n, 2):
+                                    addr = ((ks * 16 + (lane & 15)) * b_ld + wni * wn_t
+                                            + ni * 8 + 8 * (lane >> 4))
+                                    regs = ldsm(b_s, addr, trans=True)
+                                    for tile, (j0, j1) in ((ni, (0, 1)), (ni + 1, (2, 3))):
+                                        for jj, k_off in ((j0, 0), (j1, 8)):
+                                            b_frag[tile, k_off + 2 * tq, gq] = regs[:, jj, 0]
+                                            b_frag[tile, k_off + 2 * tq + 1, gq] = regs[:, jj, 1]
+                                for mi in range(mi_n):
+                                    addr = ((wmi * wm_t + mi * 16 + (lane & 15)) * a_ld
+                                            + ks * 16 + 8 * (lane >> 4))
+                                    regs = ldsm(a_s, addr, trans=False)
+                                    a_frag = np.full((16, 16), np.nan, np.float32)
+                                    for jj, (r_off, k_off) in enumerate(
+                                            ((0, 0), (8, 0), (0, 8), (8, 8))):
+                                        a_frag[gq + r_off, k_off + 2 * tq] = regs[:, jj, 0]
+                                        a_frag[gq + r_off, k_off + 2 * tq + 1] = regs[:, jj, 1]
+                                    d = np.einsum("ik,nkj->nij", a_frag.astype(np.float64),
+                                                  b_frag.astype(np.float64))
+                                    part[mi] += np.stack(
+                                        [d[:, gq, 2 * tq], d[:, gq, 2 * tq + 1],
+                                         d[:, gq + 8, 2 * tq], d[:, gq + 8, 2 * tq + 1]], -1)
+                            acc[wmi, wni] = (acc[wmi, wni]
+                                             + part.astype(np.float32)).astype(np.float32)
+                for wmi in range(warps_m):
+                    for wni in range(warps_n):
+                        for mi in range(mi_n):
+                            for hh in range(2):
+                                m = m0 + wmi * wm_t + mi * 16 + gq + 8 * hh
+                                for ni in range(ni_n):
+                                    n = n0 + wni * wn_t + ni * 8 + 2 * tq
+                                    for col, reg in ((n, 2 * hh), (n + 1, 2 * hh + 1)):
+                                        ok = (m < m_all) & (n < o) & (col < o)
+                                        val = acc[wmi, wni, mi, ni, :, reg][ok]
+                                        mo, co = m[ok], col[ok]
+                                        if splits == 1:
+                                            y = val * scale[co] + shift[co]
+                                            dst = out_offset(p, mo, co)
+                                            out[dst] = _bf16(np.maximum(y, 0) if relu else y)
+                                            np.add.at(writes, dst, 1)
+                                        else:
+                                            ws[s, p, mo, co] = val
+                                            np.add.at(ws_writes, (s, p, mo, co), 1)
+    if splits > 1:
+        assert (ws_writes == 1).all()
+        tot = np.zeros((phases, m_all, o), np.float32)
+        for s in range(splits):
+            tot = (tot + ws[s]).astype(np.float32)
+        y = tot * scale + shift
+        y = np.maximum(y, 0) if relu else y
+        pp, mm, nn = np.meshgrid(np.arange(phases), np.arange(m_all), np.arange(o),
+                                 indexing="ij")
+        dst = out_offset(pp, mm, nn).ravel()
+        out[dst] = _bf16(y).ravel()
+        np.add.at(writes, dst, 1)
+    return out.reshape(out_shape), writes.reshape(out_shape)
+
+
+# (name, x shape, O, relu, tile config): C % 8 == 0 beside C % 8 != 0 (4, 12,
+# 53, 7, 106: the 2-byte loads), O % 8 != 0 (13, 53, 9, 4: the same for B),
+# odd H and W, M <= 64 (per phase) with a K split and K not a multiple of
+# 64, and every tile configuration, for each of the three convs
+BF16_REPLAY_CASES = [
+    ("fused_conv3x3_bn_relu", (3, 5, 7, 8), 13, True, 2),
+    ("fused_conv3x3_bn_relu", (2, 9, 11, 4), 3, False, 2),
+    ("fused_conv3x3_bn_relu", (2, 6, 6, 53), 53, False, 1),
+    ("fused_conv3x3_bn_relu", (1, 9, 9, 16), 72, True, 0),
+    ("fused_conv3x3_bn_relu", (1, 9, 9, 12), 72, True, 0),
+    ("fused_conv3x3_bn_relu", (1, 4, 4, 212), 96, False, 3),
+    ("fused_conv4x4s2_bn_relu", (3, 10, 12, 7), 9, True, 2),
+    ("fused_conv4x4s2_bn_relu", (2, 16, 16, 16), 53, False, 1),
+    ("fused_conv4x4s2_bn_relu", (1, 8, 8, 53), 40, True, 3),
+    ("fused_convT4x4s2_bn_relu", (2, 6, 5, 53), 9, True, 3),
+    ("fused_convT4x4s2_bn_relu", (2, 6, 7, 16), 24, False, 1),
+    ("fused_convT4x4s2_bn_relu", (2, 8, 8, 16), 4, True, 2),
+    ("fused_convT4x4s2_bn_relu", (1, 9, 9, 8), 72, True, 0),
+    ("fused_convT4x4s2_bn_relu", (1, 4, 4, 64), 24, False, 3),
+    ("fused_convT4x4s2_bn_relu", (1, 3, 4, 130), 13, True, 3),
+]
+
+
+@pytest.mark.parametrize("case", BF16_REPLAY_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_conv_tc_bf16_index_arithmetic_matches_plain(case):
+    name, shape, o, relu, cfg = case
+    x, kern, s, t = _data(shape, o, 4 if "4x4" in name else 3, seed=sum(shape) + 2 * o)
+    x, kern = _bf16(x), _bf16(kern)
+    m, n, k, phases = fc.geometry(name, torch.from_numpy(x), torch.from_numpy(kern))
+    assert fc.plan_tc(m, n, k, phases, bk=fc.TC_BK_BF16)[0] == cfg
+    got, writes = conv_tc_bf16_replay(name, x, kern, s, t, relu)
+    assert (writes == 1).all()
+    xb, kb = torch.from_numpy(x).bfloat16(), torch.from_numpy(kern).bfloat16()
+    want = fc.PLAIN[name](xb, kb, *map(torch.from_numpy, (s, t)), relu)
+    assert want.dtype == torch.bfloat16
+    assert fc.compare_bf16(torch.from_numpy(got).bfloat16(), want)["of_bound"] <= 1.0
+
+
+def test_conv_tc_bf16_plan_splits_k_in_64_deep_steps():
+    # the K-split replay cases above really split, with K not a multiple of 64
+    for m, n, k, phases in ((16, 96, 9 * 212, 1), (4, 40, 16 * 53, 1), (12, 13, 4 * 130, 4)):
+        cfg, splits, kchunk = fc.plan_tc(m, n, k, phases, bk=fc.TC_BK_BF16)
+        assert cfg == 3 and splits > 1 and kchunk % fc.TC_BK_BF16 == 0
+        assert (splits - 1) * kchunk < k <= splits * kchunk and k % fc.TC_BK_BF16 != 0
+
+
+@pytest.mark.parametrize("batch", [1, 16, 512, 1000])
+def test_plan_tc_bf16_at_every_canonical_shape(batch):
+    """The bfloat16 plan at every canonical shape: the ring fits, K is
+    covered by 64-deep steps, the card is filled unless K is too short."""
+    for name, h, w, c, o in _CANONICAL:
+        _, taps, stride, phases = fc._KERNELS[name]
+        m, k = batch * (h // stride) * (w // stride), taps * c
+        cfg, splits, kchunk = fc.plan_tc(m, o, k, phases, bk=fc.TC_BK_BF16)
+        bm, bn = fc.TC_TILES[cfg][:2]
+        assert fc.tc_smem_bytes(cfg, bf16=True) <= SMEM_LIMIT
+        assert kchunk % fc.TC_BK_BF16 == 0 and (splits - 1) * kchunk < k <= splits * kchunk
+        blocks = _cdiv(m, bm) * _cdiv(o, bn) * phases
+        if blocks >= SMS:
+            assert splits == 1
+        else:
+            # or each split is at most twice the shortest (four 64-deep steps)
+            assert blocks * splits >= SMS or kchunk <= 8 * fc.TC_BK_BF16, (name, m, o, k)
+
+
+def test_bf16_instances_are_mma_bf16_in_all_three_modes():
+    src = (Path(fc.__file__).resolve().parent.parent / "csrc" / fc.SOURCE).read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    for mode in ("kConv3", "kConv4", "kConvT"):
+        assert f"launch<{mode}, bf16>" in src
+    for cfg, (bm, bn, wm, wn, stages) in fc.TC_TILES.items():
+        threads = (bm // wm) * (bn // wn) * 32
+        assert wn % 16 == 0 and (bm * fc.TC_BK_BF16 // 8) % threads == 0
+        assert 2 * fc.tc_smem_bytes(cfg, bf16=True) <= 228 * 1024 - 2048

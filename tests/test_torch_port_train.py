@@ -337,32 +337,46 @@ def test_trainer_draws_noise_and_validates(jax_setup, monkeypatch):
     assert trainer.model.training
     with pytest.raises(ValueError):
         _port_trainer(state0, 3).train_step((y[:4], x[:4]))
-    with pytest.raises(NotImplementedError):
-        TrainConfig(use_bfloat16=True)
+    # bf16 is ported: the flags are recorded, as in the JAX config
+    cfg = TrainConfig(use_bfloat16=True, bf16_moments=True)
+    assert cfg.use_bfloat16 and cfg.bf16_moments and not TrainConfig().bf16_moments
+    with pytest.raises(ValueError):
+        TrainConfig(accum_steps=0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         Trainer(trainer.model)  # the default device is the card
 
 
 # --------------------------------------------------------------- optimizer
-def test_clip_adam_matches_optax():
+@pytest.mark.parametrize("bf16_moments", [False, True], ids=["f32_moments", "bf16_moments"])
+def test_clip_adam_matches_optax(bf16_moments):
+    """With ``bf16_moments`` (optax ``mu_dtype=bfloat16``): several steps, the
+    first moment stored in bfloat16 after each, equal to optax's bytes, and
+    each update computed from the float32 moment before that rounding."""
     rng = np.random.default_rng(12)
     shapes = [(3, 4), (5,), ()]
     params = [np.asarray(rng.standard_normal(s), np.float32) for s in shapes]
-    tx = j_make_optimizer(JTrainConfig())
+    tx = j_make_optimizer(JTrainConfig(bf16_moments=bf16_moments))
     jstate = tx.init(params)
-    opt = ClipAdam(_t(*params))
+    opt = ClipAdam(_t(*params), mu_dtype=torch.bfloat16 if bf16_moments else torch.float32)
     # global norms over, under, and over 1: the clip engages, idles, engages
-    for step, scale in enumerate((3.0, 0.05, 10.0)):
+    scales = (3.0, 0.05, 10.0, 2.0, 0.5)[:5 if bf16_moments else 3]
+    for step, scale in enumerate(scales):
         grads = [np.asarray(rng.standard_normal(s) * scale / 3, np.float32) for s in shapes]
         norm = float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2) for g in grads)))
-        assert (norm > 1.0) == (step != 1)
+        assert (norm > 1.0) == (scale > 1.0)
         want, jstate = tx.update(grads, jstate, params)
         got = opt.update(_t(*grads))
         _close(opt.global_norm(_t(*grads)), np.float32(norm), 1e-5, 0)
         for g, w in zip(got, want):
             _close(g, w, 1e-5, 1e-8)
-    assert opt.count == 3
+        if bf16_moments:
+            jmu = jstate[1].mu
+            assert all(m.dtype == torch.bfloat16 for m in opt.mu)
+            assert all(jm.dtype == jnp.bfloat16 for jm in jmu)
+            for m, jm in zip(opt.mu, jmu):  # the stored moment: optax's bytes
+                np.testing.assert_array_equal(m.float().numpy(), np.asarray(jm, np.float32))
+    assert opt.count == len(scales)
 
 
 # ----------------------------------------------------------------- patchify
