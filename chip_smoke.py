@@ -111,9 +111,9 @@ C2. ``SuperResolver(model, chain=True)``: counters set to 0, ``super_resolve``
     ``uncertainty`` 13 + 1 in the prior pass and 3 + 1 in the decode);
     outputs within 1e-4 of the unchained resolver of phase 4 on the same
     noise and of the plain path. ``SuperResolver(model, int8=True,
-    chain=True)``: the int8 counts of I3 unchanged, the chain once per
-    request (the float32 ``ey`` tail), outputs within 2e-3 of the unchained
-    W8A8 resolver.
+    chain=True)``: the launches of I3 unchanged and no chain (a model with
+    int8 weights chains no tail, as the JAX ``tail_chain`` steps aside),
+    outputs within 2e-3 of the unchained W8A8 resolver.
 C3. One val step of the canonical Cond_SRVAE at B=512, unchained (3x3 37)
     and chained (3x3 21, chain 4); loss terms within 1e-4 relative.
 C4. The canonical VAE (cr=1.5, ps=32): ``sample_chunked`` with 1000 draws of
@@ -143,7 +143,7 @@ B1. Each bfloat16 instance against its plain version in both roles (forward
     the same bits on a second launch. Phase 2 prints ``ptxas conv_tc_bf16``
     and fails on a spill there.
 B2. The canonical Cond_SRVAE in bfloat16 (phase 4's weights) through
-    ``SuperResolver(chain=True)`` (the chain steps aside in bfloat16):
+    ``SuperResolver`` (unchained; chained in B9):
     ``super_resolve`` B=16 and ``uncertainty`` N=1000 on phase 4's seeds;
     bfloat16 launches by kernel and role equal the hooks' and no float32
     kernel launches; outputs float32 in [0, 1], within 2e-2 of the plain
@@ -157,13 +157,47 @@ B3. One Cond_SRVAE train step in bfloat16 at B=512, ``bf16_moments`` off
     one, + 1e-3 of its block's max); one val step.
 B4. The canonical VAE and SRVAE in bfloat16: one request (1000 draws of one
     window, against the plain path; ``super_resolve`` B=16 from HR input)
-    and one train step each, launches counted.
+    and one train step each, launches counted; each request also chained
+    (B9: the chain's bfloat16 instance, C4's chain counts, within 2e-2 of
+    the unchained request).
 B5/B6. Every distinct bfloat16 shape of B2 and B3, checked as in B1 and
     timed: the bfloat16 instance, its plain version, one cuDNN call in
     bfloat16 and the float32 kernel at the same shape, and the bound (bytes
     over 3.35 TB/s or operations over the 989 TFLOP/s bf16 tensor-core
     peak); sums by kernel, path and role. The kernels line gets three more
     entries, ``<kernel>_bf16``.
+
+Then the bfloat16 int8 and chain instances (``csrc/int8_conv.cu``'s and
+``csrc/conv_chain.cu``'s ``*_bf16`` entry points; phase 2 prints their
+ptxas lines and fails on a spill):
+
+B7. The bfloat16 absmax pass, quantize pass and ``int8_tc`` (#9, #11, #12)
+    at I1's ragged shapes against their plain versions, bit for bit (q, the
+    scales and the output; the same bits on a second launch).
+B8. ``SuperResolver(bf16 model, int8=True)`` and ``(..., int8_weights=True)``
+    on the canonical model (phase 4's weights in bfloat16): ``super_resolve``
+    B=16 and ``uncertainty`` N=1000, counters set to 0 before each request
+    and read after; the bfloat16 int8 counts equal I3's float32 ones and no
+    float32 instance launches; outputs float32, within 2e-2 of the same
+    requests on the plain path on the card, above 30 dB against phase 4's
+    float32 outputs. I4's DownBlocks in bfloat16 (#11), equal to the plain
+    path bit for bit. Every distinct bfloat16 int8 shape checked bit for
+    bit and timed: the call, its plain version, the bfloat16 #1/#5/#6 kernel
+    and one cuDNN bfloat16 call on the dequantized weights, cuBLASLt's int8
+    GEMM, the passes alone, the bound (bfloat16 bytes at 3.35 TB/s against
+    1,979 TOP/s).
+B9. The chain's bfloat16 instance at C1's ragged shapes (one to eight
+    layers, strips and panels) and every chain of the canonical models:
+    each layer within one bfloat16 ulp at the element plus 1e-4 of
+    max|plain| of the plain layer on the kernel's own input
+    (``fused_conv.compare_bf16``), the whole chain within the noise rule
+    (2x the plain bfloat16 chain's distance from the float32 chain, plus
+    1e-4 of max|plain|: each layer rounds to bfloat16, so one ulp apart at a
+    layer is carried on), the same bits twice; timed beside the bfloat16 #1
+    launches it replaces, the plain version and one cuDNN bfloat16 call per
+    layer, the bound at 989 TFLOP/s. ``SuperResolver(bf16 model,
+    chain=True)``: C2's chain counts, outputs within 2e-2 of B2's unchained
+    ones; with ``int8=True`` no chain launches.
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -230,6 +264,7 @@ INT8_SOURCE = "simple_vae_rs_tpu_torch/csrc/int8_conv.cu"
 TC_INT8 = ("int8_conv3x3_bn_relu", "int8_conv4x4s2_bn_relu", "int8_convT4x4s2_bn_relu")
 QUANT_SOURCE = "simple_vae_rs_tpu_torch/csrc/quantize.cu"
 PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
+BF16_MANGLED = "13__nv_bfloat16"  # a bfloat16 template argument in a kernel's mangled name
 INT8_TOL = 1e-5  # of max|plain|
 INT8_SERVE_TOL = 2e-3  # absolute, on outputs in [0, 1]
 MIN_PSNR_DB = 30.0
@@ -985,13 +1020,18 @@ def int8_gemm_ms(f8, name, qx, kq, reps):
     return cuda_ms(lambda: torch._int_mm(a, bw), reps)
 
 
-def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group=None):
+def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group=None,
+                     dtype=torch.float32):
     """Int8 kernel (absmax pass, quantize pass and the W8A8 conv on the int8
     tensor cores) vs its exact plain version at one shape, bit for bit, and
     the quantize pass vs its plain version; with ``timing``, also the times
     (events, and the call's device time by the profiler), the float32
     kernel's time at the same shape, the absmax and quantize passes alone
-    and cuBLASLt's int8 GEMM at the same GEMM shape."""
+    and cuBLASLt's int8 GEMM at the same GEMM shape. With ``dtype`` bfloat16
+    x and the output are bfloat16 (the ``*_bf16`` instances), and beside the
+    kernel stand the bfloat16 #1/#5/#6 kernel and one cuDNN bfloat16 call on
+    the dequantized weights (same geometry, not the same function: no
+    activation quantization) instead of the float32 kernel."""
     from simple_vae_rs_tpu_torch.ops import quantize as qz
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -999,7 +1039,8 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
     c = shape[-1]
     # images of different ranges, so that the grouping of the scale matters
     x = torch.randn(shape, generator=gen, device="cuda")
-    x = x * (0.25 + 2 * torch.rand((shape[0], 1, 1, 1), generator=gen, device="cuda"))
+    x = (x * (0.25 + 2 * torch.rand((shape[0], 1, 1, 1), generator=gen, device="cuda"))).to(dtype)
+    item = x.element_size()
     kernel = torch.randn((k, k, c, o), generator=gen, device="cuda") / math.sqrt(k * k * c)
     kq, ks = qz.quantize_rtn(kernel)
     scale = torch.rand((o,), generator=gen, device="cuda") + 0.5
@@ -1015,9 +1056,9 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
     amax = f8.act_absmax(x, act_group)
     amax_want = f8.act_absmax_plain(x, act_group)
     torch.cuda.synchronize()
-    err, ref = float((got - want).abs().max()), float(want.abs().max())
-    if not (err <= INT8_TOL * ref) or not torch.isfinite(got).all():
-        raise AssertionError(f"{name} {shape}->{o} group {act_group}: max|diff| {err} > "
+    err, ref = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    if not (err <= INT8_TOL * ref) or not torch.isfinite(got).all() or got.dtype != dtype:
+        raise AssertionError(f"{name} {shape}->{o} group {act_group} {dtype}: max|diff| {err} > "
                              f"{INT8_TOL} * {ref}")
     if not torch.equal(amax, amax_want):
         raise AssertionError(f"act_absmax {shape} group {act_group}: {amax} != {amax_want}")
@@ -1046,13 +1087,18 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
         row["plain_ms"] = cuda_ms(
             lambda: f8.PLAIN[name](x, kq, ks, scale, shift, relu, act_group), 2)
         row["library_ms"] = None
-        deq = qz.dequantize(kq, ks)
-        row["f32_kernel_ms"] = cuda_ms(
-            lambda: fc.WRAPPERS[f8.float_name(name)](x, deq, scale, shift, relu=relu), reps)
+        deq = qz.dequantize(kq, ks).to(dtype)
+        fname = f8.float_name(name)
+        float_ms = cuda_ms(lambda: fc.WRAPPERS[fname](x, deq, scale, shift, relu=relu), reps)
+        if dtype == torch.bfloat16:
+            row["bf16_kernel_ms"] = float_ms
+            row["cudnn_bf16_ms"] = cuda_ms(library_fn(fname, x, deq, scale, shift, relu), reps)
+        else:
+            row["f32_kernel_ms"] = float_ms
         m, n, _, phases = f8.geometry(name, shape, o)
-        taps = fc._KERNELS[f8.float_name(name)][1]
+        taps = fc._KERNELS[fname][1]
         bound_row(row, 2.0 * phases * m * n * taps * c,
-                  4.0 * x.numel() + kq.numel() + 4.0 * 3 * o + 4.0 * got.numel(), PEAK_INT8_OPS)
+                  item * x.numel() + kq.numel() + 4.0 * 3 * o + item * got.numel(), PEAK_INT8_OPS)
         groups = amax.numel()
         # 50 calls a timing (at most 0.4 ms each): the first call's host time
         # stays out of the big shapes' numbers, as it does for the library's
@@ -1061,7 +1107,7 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
                   "plain_ms": cuda_ms(lambda: f8.act_absmax_plain(x, act_group), 50),
                   "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(
                       x.view(groups, -1), float("inf"), dim=1), 50)}
-        bound_row(absmax, float(x.numel()), 4.0 * (x.numel() + groups), PEAK_F32_FLOPS)
+        bound_row(absmax, float(x.numel()), item * x.numel() + 4.0 * groups, PEAK_F32_FLOPS)
         # the pass's device work: its result's memset and its kernel
         absmax["device_ms"] = profiled_device_ms(lambda: f8.act_absmax(x, act_group), 20,
                                                  ("act_absmax", "emset"))
@@ -1075,7 +1121,7 @@ def check_int8_shape(f8, fc, name, shape, o, relu, seed, timing: bool, act_group
                         "plain_ms": cuda_ms(lambda: f8.act_quant_plain(x, amax, act_group), 50),
                         "library_ms": None}
         bound_row(row["quant"], float(x.numel()),
-                  4.0 * x.numel() + qx.numel() + 4.0 * groups, PEAK_F32_FLOPS)
+                  item * x.numel() + qx.numel() + 4.0 * groups, PEAK_F32_FLOPS)
     return row
 
 
@@ -1748,7 +1794,7 @@ def chain_phase(report, model, sr, y, f32_out, f32_uq):
         f"plain path {serve_err['plain']}")
     del plain_sr, plain_uq
 
-    # C2. W8A8 with the chain: the decoder keeps its int8 kernels, the ey tail chains
+    # C2. W8A8 with the chain: the model carries int8 weights, so no tail chains
     sr8 = SuperResolver(model, device="cuda", seed=0, int8=True)
     sr8c = SuperResolver(model, device="cuda", seed=0, int8=True, chain=True)
     calls8 = []
@@ -1759,10 +1805,12 @@ def chain_phase(report, model, sr, y, f32_out, f32_uq):
         counts8 = all_counts()
     for h in hooks:
         h.remove()
-    want8 = dict(INT8_EXPECTED, fused_conv3x3_bn_relu=13, **{fc.CHAIN: 1})
+    # a model with int8 weights chains no tail (the JAX tail_chain's rule):
+    # the W8A8 resolver's launches, unchanged
+    want8 = dict(INT8_EXPECTED)
     expect_counts("W8A8 chained super_resolve", after_sr8, want8)
     expect_counts("W8A8 chained uncertainty", {k: counts8[k] - after_sr8[k] for k in counts8}, want8)
-    if chained8.calls != [((16, 8, 8, 64), ey), ((1, 8, 8, 64), ey)]:
+    if chained8.calls or chained8.plain_calls:
         raise AssertionError(f"W8A8 chained serving routed the chains {chained8.calls}")
     ref8 = sr8.super_resolve(y, seed=11)
     ref8_uq = sr8.uncertainty(y[0], samples=1000, seed=12)
@@ -2189,7 +2237,7 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     model = CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16)
     model.load_state_dict(f32_model.state_dict())
     del f32_model
-    sr = SuperResolver(model, device="cuda", seed=0, chain=True)  # the chain steps aside
+    sr = SuperResolver(model, device="cuda", seed=0)  # unchained (chained: B9)
     y = np.random.default_rng(2).random((16, cfg.lr_patch_size, cfg.lr_patch_size, 4),
                                         dtype=np.float32)
     sr.super_resolve(y, seed=0)
@@ -2236,7 +2284,7 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
             failures.append(f"bf16 {key}: PSNR {db:.2f} dB against float32 < {MIN_PSNR_BF16_DB}")
     log("bf16 serving launches: super_resolve(16) "
         + " ".join(f"{k[0]}={v}" for k, v in sr_counts.items()) + " | with uncertainty(1000) "
-        + " ".join(f"{k[0]}={v}" for k, v in serve_counts.items()) + " (float32 kernels 0, chain 0)")
+        + " ".join(f"{k[0]}={v}" for k, v in serve_counts.items()) + " (float32 kernels 0)")
     log(f"bf16 super_resolve B=16: {sr_ms:.2f} ms (repeats median {statistics.median(rep_sr):.2f}"
         f" ms); uncertainty N=1000: {uq_ms:.2f} ms (repeats median "
         f"{statistics.median(rep_uq):.2f} ms); peak memory {serve_peak:.2f} GiB; kernels vs "
@@ -2331,6 +2379,18 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     draws, vae_ms = timed(lambda: sample_chunked(vae, window, torch.Generator(device="cuda")
                                                  .manual_seed(3), samples=1000, chunk=1000))
     vdraw_counts = bf16_counts(fc)
+    # B9: the same request chained, through the chain's bfloat16 instance
+    blocks.use_chain(vae)
+    fc.reset_launches()
+    draws_c, vae_c_ms = timed(lambda: sample_chunked(
+        vae, window, torch.Generator(device="cuda").manual_seed(3), samples=1000, chunk=1000))
+    vchain_counts = bf16_counts(fc)
+    blocks.use_chain(vae, False)
+    vae_chain_err = float((draws_c - draws).abs().max())
+    if vchain_counts.get((fc.CHAIN, "forward")) != 2 or not vae_chain_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"bf16 VAE chained draws: launches {vchain_counts} (chain 2 expected:"
+                             f" the encoder and the one decode chunk), max|diff| vs unchained "
+                             f"{vae_chain_err}")
     blocks.use_plain_path(vae)
     plain_draws = sample_chunked(vae, window, torch.Generator(device="cuda").manual_seed(3),
                                  samples=1000, chunk=1000)
@@ -2344,8 +2404,10 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
         + " ".join(f"{k[0]} {k[1]}={v}" for k, v in vcounts.items())
         + f"; sample_chunked N=1000: {vae_ms:.2f} ms (first call), launches "
         + " ".join(f"{k[0]}={v}" for k, v in vdraw_counts.items())
-        + f", max|diff| vs plain path {vae_err:.3e}")
-    del trainer, vae, draws, plain_draws
+        + f", max|diff| vs plain path {vae_err:.3e}; chained {vae_c_ms:.2f} ms, launches "
+        + " ".join(f"{k[0]}={v}" for k, v in vchain_counts.items())
+        + f", max|diff| vs unchained {vae_chain_err:.3e}")
+    del trainer, vae, draws, plain_draws, draws_c
     srvae = SRVAE(cfg, device="cuda", dtype=torch.bfloat16).init_weights(seed=0)
     srs = SuperResolver(srvae, device="cuda", seed=0)
     hr = batch[1][:16] * 1000.0
@@ -2353,6 +2415,16 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     s_out, s_ms = timed(lambda: srs.super_resolve(hr, seed=31))
     s_counts = bf16_counts(fc)
     served_ok("bf16 SRVAE super_resolve", s_out, (16, 64, 64, 4))
+    # B9: the same request chained (the ey and dx tails, as C2's float32 counts)
+    srs_c = SuperResolver(srvae, device="cuda", seed=0, chain=True)
+    fc.reset_launches()
+    s_c_out, s_c_ms = timed(lambda: srs_c.super_resolve(hr, seed=31))
+    s_chain_counts = bf16_counts(fc)
+    s_chain_err = float((s_c_out - s_out).abs().max())
+    if s_chain_counts.get((fc.CHAIN, "forward")) != 2 or not s_chain_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"bf16 SRVAE chained super_resolve: launches {s_chain_counts}, "
+                             f"max|diff| vs unchained {s_chain_err}")
+    del srs_c
     trainer = Trainer(srvae, TrainConfig(learning_rate=LR, use_bfloat16=True), device="cuda")
     fc.reset_launches()
     sterms = trainer.train_step(batch)
@@ -2360,11 +2432,18 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     if not all(torch.isfinite(v) for v in sterms.values()):
         raise AssertionError("bf16 SRVAE train step: non-finite loss terms")
     log(f"bf16 SRVAE super_resolve B=16 from HR input: {s_ms:.2f} ms (first call), launches "
-        + " ".join(f"{k[0]}={v}" for k, v in s_counts.items()) + f"; train step B={n} launches "
+        + " ".join(f"{k[0]}={v}" for k, v in s_counts.items()) + f"; chained {s_c_ms:.2f} ms, "
+        + "launches " + " ".join(f"{k[0]}={v}" for k, v in s_chain_counts.items())
+        + f", max|diff| vs unchained {s_chain_err:.3e}; train step B={n} launches "
         + " ".join(f"{k[0]} {k[1]}={v}" for k, v in st_counts.items()))
     bf["families"] = {"vae_train_launches": {" ".join(k): v for k, v in vcounts.items()},
                       "vae_draws_ms": vae_ms, "vae_draws_max_abs_err": vae_err,
-                      "srvae_super_resolve_ms": s_ms,
+                      "vae_chained_draws_ms": vae_c_ms, "vae_chained_max_abs_err": vae_chain_err,
+                      "vae_chained_launches": {" ".join(k): v for k, v in vchain_counts.items()},
+                      "srvae_super_resolve_ms": s_ms, "srvae_chained_super_resolve_ms": s_c_ms,
+                      "srvae_chained_max_abs_err": s_chain_err,
+                      "srvae_chained_launches": {" ".join(k): v
+                                                 for k, v in s_chain_counts.items()},
                       "srvae_train_launches": {" ".join(k): v for k, v in st_counts.items()}}
     del trainer, srvae, srs
 
@@ -2423,7 +2502,421 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
         })
     if failures:
         raise AssertionError("bf16 phase: " + "; ".join(failures))
-    return kernels
+    return kernels, (out, uq), {
+        "vae_draws_n1000_chained": vchain_counts[(fc.CHAIN, "forward")],
+        "srvae_super_resolve_b16_chained": s_chain_counts[(fc.CHAIN, "forward")]}
+
+
+# ------------------------------------------------------- bfloat16, slice 11
+# I1's ragged shapes, then the DownBlock shapes of I4: the bfloat16 int8
+# instances bit for bit
+BF16_INT8_EXPECTED = {k: v for k, v in INT8_EXPECTED.items() if k.startswith("int8_")
+                      or k in ("act_absmax", "act_quant")}
+# every 3x3 conv a request runs in float: the W8A8 resolver's float convs (I3)
+BF16_INT8_FLOAT_EXPECTED = {k: v for k, v in INT8_EXPECTED.items() if k.startswith("fused_")}
+# C1's ragged chains and an 8-layer one (MAX_LAYERS), one to eight layers
+RAGGED_CHAIN_BF16 = RAGGED_CHAIN + [((1, 9, 9, 5), (5, 5, 5, 5, 5, 5, 5, 6))]
+
+
+def bf16_int8_counts(f8, fc):
+    """The bfloat16 int8 launches and the bfloat16 #1/#5/#6 forward launches
+    since the last reset, and a check that no float32 instance launched."""
+    if any(f8.launches.values()) or any(fc.launches.values()):
+        raise AssertionError(f"a float32 kernel launched on a bfloat16 path: {f8.launches} "
+                             f"{fc.launches}")
+    return {**{k: v for k, v in f8.bf16_launches.items()},
+            **{k: fc.bf16_launches[k]["forward"] for k in fc.TC_KERNELS},
+            fc.CHAIN: fc.bf16_launches[fc.CHAIN]["forward"]}
+
+
+def bf16_canonical_model(cfg):
+    """Phase 4's weights (init_weights(0), BatchNorm statistics from seed 1)
+    in a bfloat16 Cond_SRVAE."""
+    from simple_vae_rs_tpu_torch import CondSRVAE
+
+    f32_model = CondSRVAE(cfg, device="cuda").init_weights(seed=0)
+    randomize_bn(f32_model, seed=1)
+    model = CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(f32_model.state_dict())
+    return model
+
+
+def bf16_int8_phase(report, f32_out, f32_uq):
+    """Phases B7 and B8: the bfloat16 int8 instances at the ragged shapes and
+    through ``SuperResolver(bf16 model, int8=True)`` and ``int8_weights``,
+    then the DownBlocks' #11 in bfloat16, and every distinct bfloat16 int8
+    shape timed. Returns per-kernel totals and launches by path."""
+    from simple_vae_rs_tpu_torch import CondSRVAEConfig, SuperResolver
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    rep = report["bf16_int8"] = {"ragged": [], "shapes": []}
+    bf = torch.bfloat16
+    # B7. I1's ragged shapes in bfloat16
+    for i, (name, shape, o, relu, group) in enumerate(RAGGED_INT8):
+        row = check_int8_shape(f8, fc, name, shape, o, relu, seed=1600 + i, timing=False,
+                               act_group=group, dtype=bf)
+        rep["ragged"].append(row)
+        log(f"bf16 ragged {name} x{shape} O={o} act_group={group}: bit for bit "
+            f"({100 * row['equal_share']:.2f}% equal), quantize pass bytes equal, twice the same")
+
+    # B8. the W8A8 and the weights-only resolver on the bfloat16 canonical model
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    model = bf16_canonical_model(cfg)
+    y = np.random.default_rng(2).random((16, cfg.lr_patch_size, cfg.lr_patch_size, 4),
+                                        dtype=np.float32)
+    modes = {}
+    serve_calls = []
+    for mode in ("int8", "int8_weights"):
+        sr = SuperResolver(model, device="cuda", seed=0, **{mode: True})
+        if qz.has_quant(model) or sr.model.dtype != bf or (mode == "int8") != qz.has_quant(sr.model):
+            raise AssertionError(f"bf16 {mode}: the resolver's own copy is not what it should be")
+        sr.super_resolve(y, seed=0)  # warm: the build, the allocator
+        calls = []
+        hooks = record_routed_calls(sr.model, calls)
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        out, sr_ms = timed(lambda: sr.super_resolve(y, seed=11))
+        after_sr = bf16_int8_counts(f8, fc)
+        uq, uq_ms = timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))
+        counts = bf16_int8_counts(f8, fc)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for h in hooks:
+            h.remove()
+        per_uq = {k: counts[k] - after_sr[k] for k in counts}
+        if mode == "int8":
+            serve_calls = calls
+            want = dict(BF16_INT8_EXPECTED, **BF16_INT8_FLOAT_EXPECTED, **{fc.CHAIN: 0})
+        else:
+            want = {k: 0 for k in f8.bf16_launches}
+            want.update({"fused_conv3x3_bn_relu": 24, "fused_conv4x4s2_bn_relu": 5,
+                         "fused_convT4x4s2_bn_relu": 3, fc.CHAIN: 0})
+        for name, n in want.items():
+            if after_sr[name] != n or per_uq[name] != n:
+                raise AssertionError(f"bf16 {mode} {name}: {after_sr[name]} launches per "
+                                     f"super_resolve, {per_uq[name]} per uncertainty, expected {n}")
+        for name in f8.PLAIN:
+            recorded = sum(1 for c in calls if c[0] == name)
+            if recorded != counts[name]:
+                raise AssertionError(f"bf16 {mode} {name}: {counts[name]} launches, {recorded} "
+                                     f"calls")
+        served_ok(f"bf16 {mode} super_resolve", out, (16, 64, 64, 4))
+        if out.dtype != torch.float32 or any(v.dtype != torch.float32 for v in uq.values()):
+            raise AssertionError(f"bf16 {mode}: outputs are not float32")
+        rep_sr = [timed(lambda: sr.super_resolve(y, seed=11))[1] for _ in range(5)]
+        rep_uq = [timed(lambda: sr.uncertainty(y[0], samples=1000, seed=12))[1] for _ in range(3)]
+        blocks.use_plain_path(sr.model)
+        before = {k: dict(v) for k, v in fc.bf16_launches.items()}, dict(f8.bf16_launches)
+        plain_sr = sr.super_resolve(y, seed=11)
+        plain_uq = sr.uncertainty(y[0], samples=1000, seed=12)
+        torch.cuda.synchronize()
+        if ({k: dict(v) for k, v in fc.bf16_launches.items()}, dict(f8.bf16_launches)) != before:
+            raise AssertionError(f"the bf16 {mode} plain path launched a kernel")
+        err = {"super_resolve": float((out - plain_sr).abs().max()),
+               "uncertainty.mean": float((uq["mean"] - plain_uq["mean"]).abs().max()),
+               "uncertainty.std": float((uq["std"] - plain_uq["std"]).abs().max())}
+        psnr = {"super_resolve": psnr_db(out, f32_out),
+                "uncertainty.mean": psnr_db(uq["mean"], f32_uq["mean"])}
+        for key, e in err.items():
+            if not e <= BF16_SERVE_TOL:
+                raise AssertionError(f"bf16 {mode} {key}: kernels vs plain path {e} > "
+                                     f"{BF16_SERVE_TOL}")
+        for key, db in psnr.items():
+            if not db > MIN_PSNR_DB:
+                raise AssertionError(f"bf16 {mode} {key}: {db:.2f} dB against float32")
+        modes[mode] = {"super_resolve_b16_ms": sr_ms, "super_resolve_b16_ms_repeats": rep_sr,
+                       "uncertainty_n1000_ms": uq_ms, "uncertainty_n1000_ms_repeats": rep_uq,
+                       "peak_memory_gib": peak, "max_abs_err_vs_plain": err,
+                       "psnr_db_vs_f32": psnr, "launches_super_resolve_b16": after_sr,
+                       "launches": counts}
+        log(f"bf16 {mode} serving launches per request: "
+            + " ".join(f"{k}={v}" for k, v in after_sr.items() if v)
+            + " (no float32 kernel, no chain)")
+        log(f"bf16 {mode} super_resolve B=16: median {statistics.median(rep_sr):.2f} ms; "
+            f"uncertainty N=1000: median {statistics.median(rep_uq):.2f} ms; peak memory "
+            f"{peak:.2f} GiB; kernels vs plain path max|diff| {err}; PSNR against float32 {psnr}")
+        del sr, plain_sr, plain_uq
+    rep["serving"] = modes
+    del model
+    torch.cuda.empty_cache()
+
+    # B8. #11 in bfloat16: I4's DownBlocks in a bfloat16 block path
+    block_calls = []
+    rng = np.random.default_rng(5)
+    reset_all_counts()
+    worst = 0.0
+    for i, (cin, cout, hw) in enumerate(DOWN_BLOCKS):
+        block = blocks.DownBlock(cin, cout, device="cuda").eval()
+        for mod in block.modules():
+            if hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(rng)
+        randomize_bn(block, seed=20 + i)
+        blocks.set_dtype(block, bf)
+        qz.attach_quant(block, qz.quantize_params_tree(block, seed=i, prefixes=("",)))
+        hooks = record_routed_calls(block, block_calls)
+        x = torch.randn((16, hw, hw, cin), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(700 + i)).to(bf)
+        with torch.no_grad():
+            got = block(x)
+            for h in hooks:
+                h.remove()
+            blocks.use_plain_path(block)
+            want = block(x)
+        torch.cuda.synchronize()
+        if got.dtype != bf or not torch.equal(got, want):
+            raise AssertionError(f"bf16 int8 DownBlock {cin}->{cout} at {hw}: not equal to the "
+                                 f"plain path")
+    block_counts = dict(f8.bf16_launches)
+    want_counts = {"int8_conv3x3_bn_relu": 6, "int8_conv4x4s2_bn_relu": 6, "act_absmax": 12,
+                   "act_quant": 12, "int8_convT4x4s2_bn_relu": 0}
+    if block_counts != want_counts or any(f8.launches.values()):
+        raise AssertionError(f"bf16 block path launches {block_counts}, expected {want_counts}")
+    log(f"bf16 int8 DownBlocks at the canonical shapes (B=16): int8 4x4/s2 launched "
+        f"{block_counts['int8_conv4x4s2_bn_relu']} times, equal to the plain path bit for bit")
+
+    # B8. every distinct bfloat16 int8 shape of the W8A8 run and the block path
+    paths = (("serving_int8_bf16", [c for c in serve_calls if c[0] in f8.PLAIN]),
+             ("block_path_bf16", [c for c in block_calls if c[0] in f8.PLAIN]))
+    fields = ("ms", "plain_ms", "bound_ms", "ops", "bytes", "bf16_kernel_ms", "cudnn_bf16_ms",
+              "device_ms", "gemm_ms", "library_ms")
+    per_key, totals, by_path = {}, {}, {}
+    for path, path_calls in paths:
+        for call in path_calls:
+            if call not in per_key:
+                name, shape, o, relu = call
+                row = per_key[call] = check_int8_shape(f8, fc, name, shape, o, relu,
+                                                       seed=1800 + len(per_key), timing=True,
+                                                       dtype=bf)
+                rep["shapes"].append(row)
+                am, qt = row["absmax"], row["quant"]
+                log(f"bf16 int8 shape {name} x{shape} O={o}: kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']} ms), plain {row['plain_ms']:.3f} ms, bf16 conv kernel "
+                    f"{row['bf16_kernel_ms']:.4f} ms, cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms, "
+                    f"int8 GEMM {row['gemm_ms']} ms, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']}); absmax pass {am['ms']:.4f} ms (device "
+                    f"{am['device_ms']}, bound {am['bound_ms']:.4f}, vector_norm "
+                    f"{am['library_ms']:.4f}); quantize pass {qt['ms']:.4f} ms (bound "
+                    f"{qt['bound_ms']:.4f}); bit for bit")
+            row = per_key[call]
+            for kname, src in ((call[0], row), (f8.ABSMAX, row["absmax"]),
+                               (f8.QUANT, row["quant"])):
+                tot = totals.setdefault(kname, dict.fromkeys(fields + ("max_abs_err",), 0.0))
+                for k in fields:
+                    if src.get(k) is not None:
+                        tot[k] += src[k]
+                tot["max_abs_err"] = max(tot["max_abs_err"], src.get("max_abs_err", 0.0))
+                by_path.setdefault(kname, {}).setdefault(path, 0)
+                by_path[kname][path] += 1
+    for name in list(f8.PLAIN) + [f8.QUANT]:
+        totals[name]["library_ms"] = None
+    for name, tot in totals.items():
+        log(f"bf16 int8 paths {name}: launches {by_path[name]}, kernel {tot['ms']:.3f} ms, bound "
+            f"{tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms"
+            + (f", bf16 conv kernel {tot['bf16_kernel_ms']:.3f} ms, cuDNN bf16 "
+               f"{tot['cudnn_bf16_ms']:.3f} ms, int8 GEMM {tot['gemm_ms']:.3f} ms"
+               if name in f8.PLAIN else ""))
+    return totals, by_path
+
+
+def check_chain_bf16(shape, widths, seed, timing: bool):
+    """The chain's bfloat16 instance vs its plain version at one shape: each
+    layer (a launch of the chain's first l layers; a layer's sums do not
+    depend on the plan) within one bfloat16 ulp at the element plus 1e-4 of
+    max|plain| of the plain layer on the kernel's own input
+    (``fc.compare_bf16``), the whole chain within the noise rule of the CPU
+    parity tests (2x the plain bfloat16 chain's distance from the float32
+    chain, plus 1e-4 of max|plain|: a layer one ulp apart carries that on),
+    the same bits on a second launch. With ``timing`` also the chain's
+    time, the bfloat16 #1 launches it replaces, the plain version, one cuDNN
+    bfloat16 call per layer and the bound (989 TFLOP/s, 3.35 TB/s)."""
+    from simple_vae_rs_tpu_torch.ops import fused_chain as fch
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    chans = (shape[-1],) + tuple(widths)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    ks = [torch.randn((3, 3, chans[i], chans[i + 1]), generator=gen, device="cuda")
+          / math.sqrt(9 * chans[i]) for i in range(len(widths))]
+    bs = [torch.randn((c,), generator=gen, device="cuda") for c in widths]
+    xb, kb = x.bfloat16(), [k.bfloat16() for k in ks]
+    got = fch.fused_conv3x3_chain(xb, kb, bs)
+    want = fch.conv3x3_chain_plain(xb, kb, bs)
+    want32 = fch.conv3x3_chain_plain(xb.float(), [k.float() for k in kb], bs)
+    torch.cuda.synchronize()
+    layers = []
+    h = xb
+    for l in range(len(widths)):
+        layer = got if l == len(widths) - 1 else fch.fused_conv3x3_chain(xb, kb[:l + 1], bs[:l + 1])
+        layers.append(fc.compare_bf16(layer, fch.conv3x3_chain_plain(h, kb[l:l + 1], bs[l:l + 1])))
+        h = layer
+    cmp = fc.compare_bf16(got, want)
+    noise = float((want.float() - want32).abs().max())
+    bound = 2 * noise + KERNEL_TOL * cmp["max_abs_ref"]
+    worst_layer = max(c["of_bound"] for c in layers)
+    if (got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all()
+            or not worst_layer <= 1.0 or not cmp["max_abs_err"] <= bound):
+        raise AssertionError(f"bf16 chain {shape}->{widths}: layers {layers}, whole {cmp}, "
+                             f"noise bound {bound}")
+    if not torch.equal(fch.fused_conv3x3_chain(xb, kb, bs), got):
+        raise AssertionError(f"bf16 chain {shape}->{widths}: a second launch gave other bits")
+    plan = fch.plan_chain(*shape[:3], chans, 2)
+    row = {"name": fc.CHAIN + BF16_SOURCE_TAG, "x": list(shape), "widths": list(widths),
+           "max_abs_err": cmp["max_abs_err"], "max_abs_ref": cmp["max_abs_ref"],
+           "of_noise_bound": cmp["max_abs_err"] / bound if bound else 0.0,
+           "share_bit_equal": cmp["share_bit_equal"], "worst_layer_of_ulp_bound": worst_layer,
+           "plan": plan_text(shape[0], plan), "shared_memory_bytes": plan.smem_bytes}
+    if not timing:
+        return row
+    ones = [torch.ones(c, device="cuda") for c in widths]
+
+    def per_layer():
+        h = xb
+        for k, one, b in zip(kb, ones, bs):
+            h = fc.fused_conv3x3_bn_relu(h, k, one, b, relu=False)
+        return h
+
+    xn = xb.permute(0, 3, 1, 2)
+    wts = [k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for k in kb]
+    bb = [b.bfloat16() for b in bs]
+
+    def library():
+        h = xn
+        for wt, b in zip(wts, bb):
+            h = F.conv2d(h, wt, b, padding=1)
+        return h
+
+    before = {k: dict(v) for k, v in fc.bf16_launches.items()}
+    first = cuda_ms(lambda: fch.fused_conv3x3_chain(xb, kb, bs), 1)
+    reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
+    row["ms"] = cuda_ms(lambda: fch.fused_conv3x3_chain(xb, kb, bs), reps)
+    row["per_layer_ms"] = cuda_ms(per_layer, reps)
+    row["plain_ms"] = cuda_ms(lambda: fch.conv3x3_chain_plain(xb, kb, bs), reps)
+    row["library4_ms"] = cuda_ms(library, reps)
+    row["library_ms"] = None  # no single PyTorch call computes the chain
+    for name, roles in before.items():  # timing launches are not a path's launches
+        fc.bf16_launches[name].update(roles)
+    pixels = shape[0] * shape[1] * shape[2]
+    flops = 2.0 * 9 * pixels * sum(chans[i] * chans[i + 1] for i in range(len(widths)))
+    nbytes = (2.0 * (x.numel() + got.numel() + sum(k.numel() for k in ks))
+              + 4.0 * sum(widths))
+    bound_row(row, flops, nbytes, PEAK_BF16_FLOPS)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def bf16_chain_phase(report, bf16_out, bf16_uq, family_chains):
+    """Phase B9: the chain's bfloat16 instance at C1's ragged shapes and
+    every chain of the canonical models, then ``SuperResolver(bf16 model,
+    chain=True)`` against the unchained bfloat16 resolver of B2, and
+    ``int8=True, chain=True``, which chains nothing. Returns the kernels
+    line's entry."""
+    from simple_vae_rs_tpu_torch import CondSRVAEConfig, SuperResolver
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+
+    rep = report["bf16_chain"] = {"ragged": [], "shapes": []}
+    for i, (shape, widths) in enumerate(RAGGED_CHAIN_BF16):
+        row = check_chain_bf16(shape, widths, seed=1850 + i, timing=False)
+        rep["ragged"].append(row)
+        log(f"bf16 ragged chain x{shape}->{widths} ({row['plan']}): worst layer "
+            f"{row['worst_layer_of_ulp_bound']:.3f} of its ulp bound, whole chain "
+            f"{row['of_noise_bound']:.3f} of the noise bound (max|diff| {row['max_abs_err']:.3e}, "
+            f"bit-equal {row['share_bit_equal']:.4f})")
+    rows = {}
+    for i, (site, shape, widths) in enumerate(CHAIN_SHAPES):
+        row = rows[(shape, widths)] = check_chain_bf16(shape, widths, seed=1900 + i, timing=True)
+        row["site"] = site
+        rep["shapes"].append(row)
+        log(f"bf16 chain shape {site} x{shape}->{widths} ({row['plan']}): chain {row['ms']:.4f} ms,"
+            f" the {len(widths)} bf16 #1 launches {row['per_layer_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, {len(widths)} cuDNN bf16 calls {row['library4_ms']:.4f} ms,"
+            f" bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{100 * row['share_of_bound']:.1f}% of it), worst layer "
+            f"{row['worst_layer_of_ulp_bound']:.3f} of its ulp bound")
+
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    model = bf16_canonical_model(cfg)
+    y = np.random.default_rng(2).random((16, cfg.lr_patch_size, cfg.lr_patch_size, 4),
+                                        dtype=np.float32)
+    src = SuperResolver(model, device="cuda", seed=0, chain=True)
+    src.super_resolve(y, seed=0)
+    with ChainCalls() as chained:
+        fc.reset_launches()
+        f8.reset_launches()
+        out, sr_ms = timed(lambda: src.super_resolve(y, seed=11))
+        after_sr = bf16_int8_counts(f8, fc)
+        uq, uq_ms = timed(lambda: src.uncertainty(y[0], samples=1000, seed=12))
+        counts = bf16_int8_counts(f8, fc)
+    per_request = {"fused_conv3x3_bn_relu": 16, fc.CHAIN: 2, "fused_conv4x4s2_bn_relu": 5,
+                   "fused_convT4x4s2_bn_relu": 3}  # C2's float32 counts
+    for name, n in per_request.items():
+        if after_sr[name] != n or counts[name] - after_sr[name] != n:
+            raise AssertionError(f"bf16 chained serving {name}: {after_sr[name]} and "
+                                 f"{counts[name] - after_sr[name]} launches, expected {n}")
+    u = cfg.u_channels
+    ey = (64, 128, 128, 2 * u)
+    if chained.calls != [((16, 8, 8, 64), ey), ((16, 64, 64, 64), TAIL), ((1, 8, 8, 64), ey),
+                         ((1000, 64, 64, 64), TAIL)]:
+        raise AssertionError(f"bf16 chained serving routed the chains {chained.calls}")
+    served_ok("bf16 chained super_resolve", out, (16, 64, 64, 4))
+    err = {"super_resolve": float((out - bf16_out).abs().max()),
+           "uncertainty.mean": float((uq["mean"] - bf16_uq["mean"]).abs().max()),
+           "uncertainty.std": float((uq["std"] - bf16_uq["std"]).abs().max())}
+    for key, e in err.items():
+        if not e <= BF16_SERVE_TOL:
+            raise AssertionError(f"bf16 chained {key} vs the unchained bf16 resolver: {e}")
+    rep_sr = [timed(lambda: src.super_resolve(y, seed=11))[1] for _ in range(5)]
+    rep_uq = [timed(lambda: src.uncertainty(y[0], samples=1000, seed=12))[1] for _ in range(3)]
+    log("bf16 chained serving launches per request: "
+        + " ".join(f"{k}={v}" for k, v in after_sr.items() if v)
+        + f"; super_resolve B=16 median {statistics.median(rep_sr):.2f} ms, uncertainty N=1000 "
+        f"median {statistics.median(rep_uq):.2f} ms; max|diff| vs the unchained bf16 resolver {err}")
+    del src
+    # int8 with the chain: a model with int8 weights chains no tail
+    src8 = SuperResolver(model, device="cuda", seed=0, int8=True, chain=True)
+    with ChainCalls() as chained8:
+        fc.reset_launches()
+        f8.reset_launches()
+        src8.super_resolve(y, seed=11)
+        c8 = bf16_int8_counts(f8, fc)
+    if chained8.calls or chained8.plain_calls or c8[fc.CHAIN] or any(
+            c8[k] != v for k, v in BF16_INT8_EXPECTED.items()):
+        raise AssertionError(f"bf16 W8A8 chained serving launched {c8}, chains {chained8.calls}")
+    log(f"bf16 W8A8 with chain=True: no chain launched; launches "
+        + " ".join(f"{k}={v}" for k, v in c8.items() if v))
+    rep["serving"] = {"super_resolve_b16_ms_repeats": rep_sr, "uncertainty_n1000_ms_repeats": rep_uq,
+                      "super_resolve_b16_ms": sr_ms, "uncertainty_n1000_ms": uq_ms,
+                      "launches_super_resolve_b16": after_sr, "launches": counts,
+                      "max_abs_err_vs_unchained_bf16": err, "w8a8_chained_launches": c8}
+    del src8, model
+    torch.cuda.empty_cache()
+
+    by_path = {"serving_chained_bf16": chained.calls}
+    tot = dict.fromkeys(("ms", "per_layer_ms", "plain_ms", "library4_ms", "bound_ms", "ops",
+                         "bytes"), 0.0)
+    for shape, widths in chained.calls:
+        row = rows[(shape, widths)]
+        for key in tot:
+            tot[key] += row[key]
+    every = rep["ragged"] + rep["shapes"]
+    return {
+        "name": fc.CHAIN + BF16_SOURCE_TAG, "route": "cuda", "source": CHAIN_SOURCE,
+        "replaces": "simple_vae_rs_tpu/ops/pallas_conv.py:581",
+        "also_replaces": "simple_vae_rs_tpu/ops/pallas_conv.py:502",
+        "launches": len(chained.calls),
+        "launches_by_path": {**{k: len(v) for k, v in by_path.items()}, **family_chains},
+        "max_abs_err": max(r["max_abs_err"] for r in every),
+        "max_of_noise_bound": max(r["of_noise_bound"] for r in every),
+        "max_layer_of_ulp_bound": max(r["worst_layer_of_ulp_bound"] for r in every),
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if tot["ops"] / PEAK_BF16_FLOPS > tot["bytes"] / PEAK_BYTES
+                     else "bytes"),
+        "library_ms": None,  # no single PyTorch call computes the chain
+        "per_layer_kernels_ms": tot["per_layer_ms"], "library_calls_per_layer_ms": tot["library4_ms"],
+        "share_of_bound": tot["bound_ms"] / tot["ms"],
+    }
 
 
 def main() -> int:
@@ -2458,13 +2951,22 @@ def main() -> int:
     log("ptxas conv_tc_bf16: "
         + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"], "conv_tc_bf16I", 12)
         + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes(bf16=True))")
-    log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernel")
+    log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernelIf", 1)
         + " (dynamic shared memory per shape: ops/fused_chain.plan_chain)")
+    log("ptxas chain_bf16: "
+        + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernelI" + BF16_MANGLED, 1)
+        + " (dynamic shared memory per shape: ops/fused_chain.plan_chain(itemsize=2))")
     int8_report = _build.ptxas_logs["int8_conv.cu"]
-    # four tiles in each of the three modes
-    log("ptxas int8_tc: " + tensor_core_ptxas(int8_report, "int8_tc", 12)
+    # four tiles in each of the three modes, for each output type
+    log("ptxas int8_tc: " + tensor_core_ptxas(int8_report, "int8_tcIf", 12)
         + " (dynamic shared memory per tile: ops/fused_int8.tc_smem_bytes); every kernel of "
         + "int8_conv.cu: " + tensor_core_ptxas(int8_report, ""))
+    log("ptxas int8_tc_bf16: " + tensor_core_ptxas(int8_report, "int8_tcI" + BF16_MANGLED, 12)
+        + "; act_absmax_bf16: "
+        + tensor_core_ptxas(int8_report, "act_absmaxI" + BF16_MANGLED, 1)
+        + "; act_quant_bf16: " + tensor_core_ptxas(int8_report, "act_quantI" + BF16_MANGLED, 1)
+        + "; splitk_reduce bf16: "
+        + tensor_core_ptxas(int8_report, "splitk_reduceI" + BF16_MANGLED, 3))
     log("ptxas quantize.cu (col_absmax, stochastic_round): "
         + tensor_core_ptxas(_build.ptxas_logs["quantize.cu"], "", 2))
 
@@ -2616,7 +3118,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # B1-B6. bfloat16 compute: the bfloat16 instances of #1, #5 and #6
-    bf16_kernels = bf16_phase(report, sr_out, uq, report["training"]["peak_memory_gib"])
+    bf16_kernels, (bf16_out, bf16_uq), bf16_family_chains = bf16_phase(
+        report, sr_out, uq, report["training"]["peak_memory_gib"])
+    torch.cuda.empty_cache()
+    # B7, B8. the bfloat16 int8 instances; B9. the chain's bfloat16 instance
+    bf16_int8_totals, bf16_int8_launches = bf16_int8_phase(report, sr_out, uq)
+    bf16_chain_entry = bf16_chain_phase(report, bf16_out, bf16_uq, bf16_family_chains)
+    del bf16_out, bf16_uq
 
     kernels = []
     for name in dict.fromkeys(list(totals) + list(train_totals)):
@@ -2691,7 +3199,23 @@ def main() -> int:
                                       for path, counts in family_launches.items()}
         k["launches_on_new_paths"] = {p: c for p, c in k["launches_on_new_paths"].items() if c}
     kernels += bf16_kernels
-    if len(kernels) != 16 or any(k["launches"] <= 0 for k in kernels):
+    for name, tot in bf16_int8_totals.items():
+        kernels.append({
+            "name": name + BF16_SOURCE_TAG, "route": "cuda", "source": INT8_SOURCE,
+            "replaces": REPLACES[name], "launches": sum(bf16_int8_launches[name].values()),
+            "launches_by_path": bf16_int8_launches[name], "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["ops"] / (PEAK_INT8_OPS if name in TC_INT8
+                                                       else PEAK_F32_FLOPS)
+                         > tot["bytes"] / PEAK_BYTES else "bytes"),
+            "library_ms": tot["library_ms"],
+            **({"bf16_kernel_ms": tot["bf16_kernel_ms"], "cudnn_bf16_ms": tot["cudnn_bf16_ms"],
+                "gemm_ms": tot["gemm_ms"] or None, "share_of_bound": tot["bound_ms"] / tot["ms"]}
+               if name in TC_INT8 else {}),
+            **({"device_ms": tot["device_ms"] or None} if name != "act_quant" else {}),
+        })
+    kernels.append(bf16_chain_entry)
+    if len(kernels) != 22 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was launched no time: "
                              + str({k["name"]: k["launches"] for k in kernels}))
     report["kernels"] = kernels
@@ -2703,12 +3227,13 @@ def main() -> int:
     log(f"total {report['seconds']:.1f} s; times per kernel are sums over its launches in "
         f"the serving run (super_resolve B=16 + uncertainty N=1000), one train step and "
         f"one val step (B=512); for the int8 kernels over the int8 serving run and the "
-        f"DownBlock path, an int8 conv's time including its absmax pass; "
+        f"DownBlock path (the _bf16 ones over B8's), an int8 conv's time including its "
+        f"absmax pass; "
         f"launches_by_path.serving_int8 of a float32 kernel counts its launches in the int8 "
         f"serving run, whose times its sums leave out, as they leave out launches_on_new_paths "
-        f"(the VAE and SRVAE runs); for {fc.CHAIN} over the chained runs: serving in float32 "
-        f"and W8A8, the Cond_SRVAE val step, the VAE's 1000 draws and val step, the SRVAE's "
-        f"two requests and val step")
+        f"(the VAE and SRVAE runs); for {fc.CHAIN} over the chained runs: serving in float32, "
+        f"the Cond_SRVAE val step, the VAE's 1000 draws and val step, the SRVAE's two "
+        f"requests and val step; for {fc.CHAIN}_bf16 over B9's chained serving")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,6 +62,24 @@
 // Later work: wgmma with TMA-fed operands, and folding the quantize pass into
 // the kernel that produces x (its epilogue would need the group's absmax
 // before the group is complete, so that is a two-kernel handshake).
+//
+// bf16 instances (the *_bf16 entry points; a bf16 model's convs hand the int8
+// kernels x in bf16, as the JAX blocks hand them x.astype(dtype)): the absmax
+// and quantize passes read bf16 and upcast each element to float32, which is
+// exact, so the group absmax, the scales and every byte of qx equal what the
+// float32 passes give on the upcast tensor (the TPU kernels upcast the tile
+// before _quant_act, pallas_int8.py:97). int8_tc is templated on its output
+// type: the same exact int32 sums and float32 epilogue, then one round to
+// nearest even to bf16 (__float2bfloat16_rn), in the direct epilogue and in
+// the K-split reduce alike (the TPU kernels store out.astype(x.dtype)). A bf16
+// pair is stored as one __nv_bfloat162 where O is even (every row, and every
+// phase's row of the transposed conv, then starts on an even element), else
+// element by element. The passes stream 2 bytes an element instead of 4: the
+// absmax pass's body reads whole 16-byte words (8 elements) with a head and a
+// tail of up to 7 elements read alone, and the quantize pass reads a pixel's
+// 16 channels as two 16-byte words where C % 8 == 0; otherwise a pixel's
+// channel run starts on a 2-byte boundary and each channel is one masked
+// 2-byte load (a wider load could reach past the tensor).
 // Layout: A staged [BM][32 + 4] words, B [32][BN + 8] words, a ring of
 // cp.async slots in dynamic shared memory; the padding makes every fragment
 // read hit 32 distinct banks. Fragment maps
@@ -88,6 +106,7 @@
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue for a mode
 // or tile configuration it does not know).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,6 +115,43 @@
 namespace {
 
 enum Mode { kConv3 = 0, kConv4 = 1, kConvT = 2 };
+
+typedef __nv_bfloat16 bf16;
+
+// The activations' element type T (float or bf16): elements in one 16-byte
+// word, and an element as float32 (exact for both).
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const bf16* p) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// The elements of one 16-byte word as float32, in order.
+__device__ __forceinline__ void unpack(const uint4& w, const float*, float* v) {
+  v[0] = __uint_as_float(w.x); v[1] = __uint_as_float(w.y);
+  v[2] = __uint_as_float(w.z); v[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4& w, const bf16*, float* v) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);              // the lower element
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// One output element, or two neighbours (n even, the element offset even),
+// rounded once to the output type.
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
 
 struct Geo {
   int B, H, W, C, O;  // input batch/height/width/channels, output channels
@@ -165,11 +221,12 @@ __device__ __forceinline__ float epilogue(int acc, float a, float ks, float scal
   return relu ? fmaxf(v, 0.0f) : v;
 }
 
-// Sums the K-split partials (exact in int32) and applies the epilogue.
-template <int MODE>
+// Sums the K-split partials (exact in int32) and applies the epilogue (and,
+// for a bf16 output, the one rounding).
+template <typename TO, int MODE>
 __global__ void splitk_reduce(const int* __restrict__ ws, const float* __restrict__ ks,
                               const float* __restrict__ scale, const float* __restrict__ shift,
-                              const float* __restrict__ amax, float* __restrict__ out,
+                              const float* __restrict__ amax, TO* __restrict__ out,
                               Geo g, int relu, int splits) {
   const int64_t total = (int64_t)g.phases * g.M * g.O;
   const int hw = g.Ho * g.Wo;
@@ -181,64 +238,71 @@ __global__ void splitk_reduce(const int* __restrict__ ws, const float* __restric
     int acc = 0;
     for (int s = 0; s < splits; ++s) acc += ws[s * total + e];
     const float a = act_scale(amax, (m / hw) / g.act_group);
-    out[out_offset<MODE>(g, p, m, n)] = epilogue(acc, a, ks[n], scale[n], shift[n], relu);
+    store1(out + out_offset<MODE>(g, p, m, n), epilogue(acc, a, ks[n], scale[n], shift[n], relu));
   }
 }
 
-template <int MODE>
+template <typename TO, int MODE>
 cudaError_t reduce_splits(const float* ks, const float* scale, const float* shift,
-                          const float* amax, float* out, const int* ws, const Geo& g, int relu,
+                          const float* amax, TO* out, const int* ws, const Geo& g, int relu,
                           int splits, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int64_t total = (int64_t)g.phases * g.M * g.O;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  splitk_reduce<MODE><<<blocks, 256, 0, st>>>(ws, ks, scale, shift, amax, out, g, relu, splits);
+  splitk_reduce<TO, MODE><<<blocks, 256, 0, st>>>(ws, ks, scale, shift, amax, out, g, relu,
+                                                   splits);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- act_quant
 // One thread: channels 16j .. 16j+15 of one pixel, one 16-byte word of qx.
-// vec: C % 4 == 0 and x 16-byte aligned, so a pixel's channels start on a
-// 16-byte boundary and come as whole float4s.
+// vec: C a multiple of kVec<T> (4 floats, 8 bf16) and x 16-byte aligned, so a
+// pixel's channels start on a 16-byte boundary and come as whole 16-byte
+// words; otherwise one masked load a channel.
 constexpr int QUANT_THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(QUANT_THREADS)
-act_quant(const float* __restrict__ x, const float* __restrict__ amax, int4* __restrict__ qx,
+act_quant(const T* __restrict__ x, const float* __restrict__ amax, int4* __restrict__ qx,
           int words, int C16, int hw, int C, int act_group, int vec) {
+  constexpr int V = kVec<T>;
   const int e = blockIdx.x * QUANT_THREADS + threadIdx.x;
   if (e >= words) return;
   const int pix = e / C16, j = e - pix * C16;
   const float a = act_scale(amax, (pix / hw) / act_group);
-  const float* const src = x + (int64_t)pix * C + 16 * j;
+  const T* const src = x + (int64_t)pix * C + 16 * j;
   const int live = min(16, C - 16 * j);
   int q[16];
   if (vec) {
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      if (4 * w < live) {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(src) + w);
-        q[4 * w] = quant1(f.x, a); q[4 * w + 1] = quant1(f.y, a);
-        q[4 * w + 2] = quant1(f.z, a); q[4 * w + 3] = quant1(f.w, a);
+    for (int w = 0; w < 16 / V; ++w) {
+      float v[V];
+      if (V * w < live) {
+        unpack(__ldg(reinterpret_cast<const uint4*>(src) + w), src, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) q[V * w + i] = quant1(v[i], a);
       } else {
-        q[4 * w] = q[4 * w + 1] = q[4 * w + 2] = q[4 * w + 3] = 0;
+#pragma unroll
+        for (int i = 0; i < V; ++i) q[V * w + i] = 0;
       }
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) q[i] = i < live ? quant1(__ldg(src + i), a) : 0;
+    for (int i = 0; i < 16; ++i) q[i] = i < live ? quant1(load_f(src + i), a) : 0;
   }
   qx[e] = make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
                     pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
 }
 
-cudaError_t launch_act_quant(const float* x, const float* amax, void* qx, const Geo& g,
+template <typename T>
+cudaError_t launch_act_quant(const T* x, const float* amax, void* qx, const Geo& g,
                              cudaStream_t st) {
   const int c16 = g.C4 / 4;
   const int words = g.B * g.H * g.W * c16;
   if (words == 0) return cudaSuccess;
-  const int vec = (g.C & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  act_quant<<<(words + QUANT_THREADS - 1) / QUANT_THREADS, QUANT_THREADS, 0, st>>>(
+  const int vec = g.C % kVec<T> == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  act_quant<T><<<(words + QUANT_THREADS - 1) / QUANT_THREADS, QUANT_THREADS, 0, st>>>(
       x, amax, static_cast<int4*>(qx), words, c16, g.H * g.W, g.C, g.act_group, vec);
   return cudaGetLastError();
 }
@@ -296,12 +360,14 @@ __device__ __forceinline__ int weight_row(const Geo& g, int k, int p) {
   }
 }
 
-template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+// TO, the output type: float, or bf16 for the bf16 instances (the same
+// kernel; only the epilogue's store rounds).
+template <typename TO, int MODE, int BM, int BN, int WM, int WN, int STAGES>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
 int8_tc(const int* __restrict__ qx, const int* __restrict__ wq,
         const float* __restrict__ ks, const float* __restrict__ scale,
         const float* __restrict__ shift, const float* __restrict__ amax,
-        float* __restrict__ out, int* __restrict__ ws, Geo g, int relu,
+        TO* __restrict__ out, int* __restrict__ ws, Geo g, int relu,
         int splits, int kchunk, int vec_b) {
   constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
   constexpr int NT = WARPS_M * WARPS_N * 32;
@@ -440,7 +506,9 @@ int8_tc(const int* __restrict__ qx, const int* __restrict__ wq,
   }
   cp_async_wait<0>();  // only empty groups are left; leave none in flight
 
-  const bool pairs = (g.O & 1) == 0;  // n is even, so n, n+1 is one 8-byte store
+  // n is even, and with O even so is every element offset (the transposed
+  // conv's phase rows included): n, n+1 is one 8-byte (4-byte bf16) store
+  const bool pairs = (g.O & 1) == 0;
   const int hw = g.Ho * g.Wo;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
@@ -455,14 +523,14 @@ int8_tc(const int* __restrict__ qx, const int* __restrict__ wq,
         if (n >= g.O) continue;
         const int v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
         if (splits == 1) {
-          float* const row = out + out_offset<MODE>(g, p, m, 0);
+          TO* const row = out + out_offset<MODE>(g, p, m, 0);
           const float f0 = epilogue(v0, a, ks[n], scale[n], shift[n], relu);
           if (pairs) {
-            const float f1 = epilogue(v1, a, ks[n + 1], scale[n + 1], shift[n + 1], relu);
-            *reinterpret_cast<float2*>(row + n) = make_float2(f0, f1);
+            store2(row + n, f0, epilogue(v1, a, ks[n + 1], scale[n + 1], shift[n + 1], relu));
           } else {
-            row[n] = f0;
-            if (n + 1 < g.O) row[n + 1] = epilogue(v1, a, ks[n + 1], scale[n + 1], shift[n + 1], relu);
+            store1(row + n, f0);
+            if (n + 1 < g.O)
+              store1(row + n + 1, epilogue(v1, a, ks[n + 1], scale[n + 1], shift[n + 1], relu));
           }
         } else {
           int* const row = ws + (((int64_t)s * g.phases + p) * g.M + m) * g.O;
@@ -484,9 +552,9 @@ int8_tc(const int* __restrict__ qx, const int* __restrict__ wq,
 //   2 narrow: BM=128 BN=16  warps 8x1 of 16x16, 4 stages  (N <= 16; with four
 //             warps of 32x16, eight A rows a thread, ptxas spilled at 64 registers)
 //   3 thin:   BM=32  BN=128 warps 1x4 of 32x32, 4 stages  (M <= 64 per phase)
-template <int MODE, int BM, int BN, int WM, int WN, int STAGES>
+template <typename TO, int MODE, int BM, int BN, int WM, int WN, int STAGES>
 cudaError_t launch_tc(const int* qx, const int* wq, const float* ks, const float* scale,
-                      const float* shift, const float* amax, float* out, int* ws,
+                      const float* shift, const float* amax, TO* out, int* ws,
                       const Geo& g, int relu, int splits, int kchunk, cudaStream_t st) {
   constexpr int NT = (BM / WM) * (BN / WN) * 32;
   constexpr int SMEM = tc_smem_bytes<BM, BN, STAGES>();
@@ -498,28 +566,28 @@ cudaError_t launch_tc(const int* qx, const int* wq, const float* ks, const float
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(int8_tc<MODE, BM, BN, WM, WN, STAGES>,
+    err = cudaFuncSetAttribute(int8_tc<TO, MODE, BM, BN, WM, WN, STAGES>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
   }
   const int vec_b = g.O % 4 == 0 && (reinterpret_cast<uintptr_t>(wq) & 15) == 0;
   dim3 grid((g.M + BM - 1) / BM, (g.O + BN - 1) / BN, g.phases * splits);
-  int8_tc<MODE, BM, BN, WM, WN, STAGES><<<grid, NT, SMEM, st>>>(
+  int8_tc<TO, MODE, BM, BN, WM, WN, STAGES><<<grid, NT, SMEM, st>>>(
       qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, vec_b);
-  return reduce_splits<MODE>(ks, scale, shift, amax, out, ws, g, relu, splits, st);
+  return reduce_splits<TO, MODE>(ks, scale, shift, amax, out, ws, g, relu, splits, st);
 }
 
-template <int MODE>
+template <typename TO, int MODE>
 cudaError_t launch_tc_cfg(int cfg, const int* qx, const int* wq, const float* ks,
                           const float* scale, const float* shift, const float* amax,
-                          float* out, int* ws, const Geo& g, int relu, int splits, int kchunk,
+                          TO* out, int* ws, const Geo& g, int relu, int splits, int kchunk,
                           cudaStream_t st) {
   switch (cfg) {
-    case 0: return launch_tc<MODE, 128, 128, 64, 32, 3>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
-    case 1: return launch_tc<MODE, 128, 64, 32, 32, 3>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
-    case 2: return launch_tc<MODE, 128, 16, 16, 16, 4>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
-    case 3: return launch_tc<MODE, 32, 128, 32, 32, 4>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 0: return launch_tc<TO, MODE, 128, 128, 64, 32, 3>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 1: return launch_tc<TO, MODE, 128, 64, 32, 32, 3>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 2: return launch_tc<TO, MODE, 128, 16, 16, 16, 4>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
+    case 3: return launch_tc<TO, MODE, 32, 128, 32, 32, 4>(qx, wq, ks, scale, shift, amax, out, ws, g, relu, splits, kchunk, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -559,20 +627,21 @@ struct OnDevice {
   }
 };
 
-// Per-group absmax of x (svrs_act_absmax), group g = floats
+// Per-group absmax of x (svrs_act_absmax), group g = elements
 // [g * per_group, min(numel, (g + 1) * per_group)).
 //
 // What bounds it: bytes. It reads x once and writes one float per group, so
-// its bound is numel * 4 bytes over 3.35 TB/s (78 us for the 262 MB input of
-// a 1000-draw decode layer). To stream at that rate each SM needs tens of KB
-// of reads in flight: a thread here issues AMAX_UNROLL independent 16-byte
-// loads a loop trip (4 KB a warp), and the grid (ops/fused_int8.absmax_plan)
-// gives every group enough blocks that all of them together fill the SMs,
-// each block with at least 32 KB to read. The body of a group is the 16-byte
-// words that lie wholly inside it; the up to 3 floats before its first word
-// (the head) and after its last (the tail) are read as scalars by block 0 of
-// the group, so a group whose float count is not a multiple of 4, or a word
-// that straddles two groups, stays exact. Each element is read once.
+// its bound is numel * sizeof(T) bytes over 3.35 TB/s (78 us for the 262 MB
+// float32 input of a 1000-draw decode layer). To stream at that rate each SM
+// needs tens of KB of reads in flight: a thread here issues AMAX_UNROLL
+// independent 16-byte loads a loop trip (4 KB a warp), and the grid
+// (ops/fused_int8.absmax_plan) gives every group enough blocks that all of
+// them together fill the SMs, each block with at least 32 KB to read. The
+// body of a group is the 16-byte words that lie wholly inside it; the up to
+// kVec - 1 elements before its first word (the head) and after its last (the
+// tail) are read alone by block 0 of the group, so a group whose element
+// count is not a multiple of the word, or a word that straddles two groups,
+// stays exact. Each element is read once.
 //
 // A block's maximum is combined across blocks with one atomicMax on the bit
 // pattern of |x|, which orders like the value for non-negative floats, so the
@@ -584,32 +653,38 @@ struct OnDevice {
 // counter all the same).
 constexpr int AMAX_THREADS = 256, AMAX_UNROLL = 4;
 
+template <typename T>
 __global__ void __launch_bounds__(AMAX_THREADS)
-act_absmax(const float* __restrict__ x, float* __restrict__ amax, int64_t per_group,
+act_absmax(const T* __restrict__ x, float* __restrict__ amax, int64_t per_group,
            int64_t numel) {
+  constexpr int V = kVec<T>;
   const int64_t s = (int64_t)blockIdx.x * per_group;  // blockIdx.x: the group
   const int64_t e = min(numel, s + per_group);
-  const int64_t a = min((s + 3) & ~(int64_t)3, e);    // start of its first whole word
-  const int64_t z = max(e & ~(int64_t)3, a);          // end of its last whole word
+  const int64_t a = min((s + V - 1) & ~(int64_t)(V - 1), e);  // start of its first whole word
+  const int64_t z = max(e & ~(int64_t)(V - 1), a);            // end of its last whole word
   const int tid = threadIdx.x;
   float m = 0.0f;
   if (blockIdx.y == 0) {
-    if (tid < a - s) m = fabsf(__ldg(x + s + tid));                    // head
-    else if (tid >= 4 && tid - 4 < e - z) m = fabsf(__ldg(x + z + tid - 4));  // tail
+    if (tid < a - s) m = fabsf(load_f(x + s + tid));                       // head
+    else if (tid >= V && tid - V < e - z) m = fabsf(load_f(x + z + tid - V));  // tail
   }
-  const float4* const v = reinterpret_cast<const float4*>(x + a);
-  const int64_t nv = (z - a) >> 2;
+  const uint4* const v = reinterpret_cast<const uint4*>(x + a);
+  const int64_t nv = (z - a) / V;
   const int64_t trip = (int64_t)gridDim.y * AMAX_THREADS * AMAX_UNROLL;
   for (int64_t i = (int64_t)blockIdx.y * AMAX_THREADS * AMAX_UNROLL + tid; i < nv; i += trip) {
-    float4 r[AMAX_UNROLL];
+    uint4 r[AMAX_UNROLL];
 #pragma unroll
     for (int u = 0; u < AMAX_UNROLL; ++u) {
       const int64_t j = i + u * AMAX_THREADS;
-      r[u] = j < nv ? __ldg(v + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[u] = j < nv ? __ldg(v + j) : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
-    for (int u = 0; u < AMAX_UNROLL; ++u)
-      m = fmaxf(m, fmaxf(fmaxf(fabsf(r[u].x), fabsf(r[u].y)), fmaxf(fabsf(r[u].z), fabsf(r[u].w))));
+    for (int u = 0; u < AMAX_UNROLL; ++u) {
+      float f[V];
+      unpack(r[u], x, f);
+#pragma unroll
+      for (int k = 0; k < V; ++k) m = fmaxf(m, fabsf(f[k]));
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -626,34 +701,85 @@ act_absmax(const float* __restrict__ x, float* __restrict__ amax, int64_t per_gr
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// x must be 16-byte aligned and numel > 0; amax gets one float per group.
-int svrs_act_absmax(int device, const void* x, void* amax, long long per_group,
-                    long long numel, int groups, int blocks_per_group, void* stream) {
+template <typename T>
+int absmax_call(int device, const void* x, void* amax, long long per_group, long long numel,
+                int groups, int blocks_per_group, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const OnDevice on(device);
   if (on.err != cudaSuccess) return (int)on.err;
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)groups, st);
   if (err == cudaSuccess) {
-    act_absmax<<<dim3(groups, blocks_per_group), AMAX_THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(amax), (int64_t)per_group,
+    act_absmax<T><<<dim3(groups, blocks_per_group), AMAX_THREADS, 0, st>>>(
+        static_cast<const T*>(x), static_cast<float*>(amax), (int64_t)per_group,
         (int64_t)numel);
     err = cudaGetLastError();
   }
   return (int)err;
 }
 
-// qx: B * H * W * round_up(C, 16) bytes, 16-byte aligned, fewer than 2^31.
-int svrs_act_quant(int device, const void* x, const void* amax, void* qx, int B, int H, int W,
-                   int C, int act_group, void* stream) {
+template <typename T>
+int quant_call(int device, const void* x, const void* amax, void* qx, int B, int H, int W, int C,
+               int act_group, void* stream) {
   const OnDevice on(device);
   if (on.err != cudaSuccess) return (int)on.err;
   const Geo g = make_geo(B, H, W, C, 0, act_group, kConv3);
-  return (int)launch_act_quant(static_cast<const float*>(x), static_cast<const float*>(amax),
-                               qx, g, static_cast<cudaStream_t>(stream));
+  return (int)launch_act_quant(static_cast<const T*>(x), static_cast<const float*>(amax), qx, g,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// T: the type of x and of out (float, or bf16).
+template <typename T>
+int int8_tc_call(int device, int mode, int cfg, const void* x, const void* wq, const void* ks,
+                 const void* scale, const void* shift, const void* amax, void* qx, void* out,
+                 void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
+                 int splits, int kchunk, void* stream) {
+  if (mode != kConv3 && mode != kConv4 && mode != kConvT) return (int)cudaErrorInvalidValue;
+  const OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(B, H, W, C, O, act_group, mode);
+  const float* af = static_cast<const float*>(amax);
+  cudaError_t err = launch_act_quant(static_cast<const T*>(x), af, qx, g, st);
+  if (err != cudaSuccess) return (int)err;
+  const int* q = static_cast<const int*>(qx);
+  const int* w = static_cast<const int*>(wq);
+  const float* kf = static_cast<const float*>(ks);
+  const float* sf = static_cast<const float*>(scale);
+  const float* tf = static_cast<const float*>(shift);
+  T* of = static_cast<T*>(out);
+  int* wsi = static_cast<int*>(ws);
+  if (mode == kConv3)
+    return (int)launch_tc_cfg<T, kConv3>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+  if (mode == kConv4)
+    return (int)launch_tc_cfg<T, kConv4>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+  return (int)launch_tc_cfg<T, kConvT>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x must be 16-byte aligned and numel > 0; amax gets one float per group.
+// The _bf16 entry points take x (and give out) in bf16.
+int svrs_act_absmax(int device, const void* x, void* amax, long long per_group,
+                    long long numel, int groups, int blocks_per_group, void* stream) {
+  return absmax_call<float>(device, x, amax, per_group, numel, groups, blocks_per_group, stream);
+}
+
+int svrs_act_absmax_bf16(int device, const void* x, void* amax, long long per_group,
+                         long long numel, int groups, int blocks_per_group, void* stream) {
+  return absmax_call<bf16>(device, x, amax, per_group, numel, groups, blocks_per_group, stream);
+}
+
+// qx: B * H * W * round_up(C, 16) bytes, 16-byte aligned, fewer than 2^31.
+int svrs_act_quant(int device, const void* x, const void* amax, void* qx, int B, int H, int W,
+                   int C, int act_group, void* stream) {
+  return quant_call<float>(device, x, amax, qx, B, H, W, C, act_group, stream);
+}
+
+int svrs_act_quant_bf16(int device, const void* x, const void* amax, void* qx, int B, int H,
+                        int W, int C, int act_group, void* stream) {
+  return quant_call<bf16>(device, x, amax, qx, B, H, W, C, act_group, stream);
 }
 
 // The 3x3 (mode 0), strided 4x4 (mode 1) or transposed (mode 2) W8A8 conv on
@@ -666,26 +792,16 @@ int svrs_int8_tc(int device, int mode, int cfg, const void* x, const void* wq, c
                  const void* scale, const void* shift, const void* amax, void* qx, void* out,
                  void* ws, int B, int H, int W, int C, int O, int act_group, int relu,
                  int splits, int kchunk, void* stream) {
-  if (mode != kConv3 && mode != kConv4 && mode != kConvT) return (int)cudaErrorInvalidValue;
-  const OnDevice on(device);
-  if (on.err != cudaSuccess) return (int)on.err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo g = make_geo(B, H, W, C, O, act_group, mode);
-  const float* af = static_cast<const float*>(amax);
-  cudaError_t err = launch_act_quant(static_cast<const float*>(x), af, qx, g, st);
-  if (err != cudaSuccess) return (int)err;
-  const int* q = static_cast<const int*>(qx);
-  const int* w = static_cast<const int*>(wq);
-  const float* kf = static_cast<const float*>(ks);
-  const float* sf = static_cast<const float*>(scale);
-  const float* tf = static_cast<const float*>(shift);
-  float* of = static_cast<float*>(out);
-  int* wsi = static_cast<int*>(ws);
-  if (mode == kConv3)
-    return (int)launch_tc_cfg<kConv3>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-  if (mode == kConv4)
-    return (int)launch_tc_cfg<kConv4>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
-  return (int)launch_tc_cfg<kConvT>(cfg, q, w, kf, sf, tf, af, of, wsi, g, relu, splits, kchunk, st);
+  return int8_tc_call<float>(device, mode, cfg, x, wq, ks, scale, shift, amax, qx, out, ws, B, H,
+                             W, C, O, act_group, relu, splits, kchunk, stream);
+}
+
+int svrs_int8_tc_bf16(int device, int mode, int cfg, const void* x, const void* wq,
+                      const void* ks, const void* scale, const void* shift, const void* amax,
+                      void* qx, void* out, void* ws, int B, int H, int W, int C, int O,
+                      int act_group, int relu, int splits, int kchunk, void* stream) {
+  return int8_tc_call<bf16>(device, mode, cfg, x, wq, ks, scale, shift, amax, qx, out, ws, B, H,
+                            W, C, O, act_group, relu, splits, kchunk, stream);
 }
 
 }  // extern "C"

@@ -17,9 +17,10 @@ gradient, in both modes:
 
 A conv that carries int8 weights (``kernel_q`` / ``kernel_s``, attached by
 ``ops/quantize.attach_quant``) runs in eval through the W8A8 kernels of
-``ops/fused_int8.py`` with the same ``(scale, shift)``; their presence on the
-module is the only switch, so int8 and float32 models coexist in a process.
-Training never takes that path.
+``ops/fused_int8.py`` with the same ``(scale, shift)``, on its input cast to
+the compute dtype (the JAX blocks' ``x.astype(dtype)``); their presence on
+the module is the only switch, so int8 and float models coexist in a
+process. Training never takes that path.
 
 :func:`use_plain_path` switches a model's convs, float32 and int8, (and its
 ELBO reductions) to the kernels' plain versions: the reference that the
@@ -32,15 +33,18 @@ float32; every conv casts its input and its kernel to the compute dtype per
 call and returns that dtype. BatchNorm in training computes its statistics
 and the normalisation in float32 and rounds once (flax ``BatchNorm(dtype,
 param_dtype=float32)``); the eval tails fold BatchNorm in float32 and cast
-only the kernel. A bfloat16 model has no int8 route (ROADMAP A.3.2b: int8 x
-bf16) and its conv tails never chain (ROADMAP A.3.2c: the bf16 chain instance):
-the tail runs as four bfloat16 3x3 launches, the function the JAX chain
-computes, which rounds each layer to the compute dtype.
+only the kernel. The int8 kernels take a bfloat16 input as they take a
+float32 one and return bfloat16; their int8 weights and scales are the same
+in both dtypes (quantized from the float32 parameters).
 
 :func:`tail_chain` runs an eval-mode tail of 3x3 convs (the four convs that
 end each decoder and encoder) as one launch of the chain kernel of
 ``ops/fused_chain.py`` on a model whose chain is switched on
-(:func:`use_chain`; off by default, as in the JAX package).
+(:func:`use_chain`; off by default, as in the JAX package), in either
+compute dtype: in bfloat16 its kernels are cast per call and each layer is
+rounded to bfloat16 with its bias rounded to bfloat16 first (the JAX chain
+kernel's function). It steps aside on a model that carries any int8 weight,
+as the JAX ``tail_chain`` does.
 """
 
 from __future__ import annotations
@@ -68,10 +72,6 @@ def _uniform_(param: torch.Tensor, rng: np.random.Generator, bound: float) -> No
     vals = rng.uniform(-bound, bound, tuple(param.shape)).astype(np.float32)
     with torch.no_grad():
         param.copy_(torch.from_numpy(vals))
-
-
-BF16_INT8 = ("int8 weights on a bfloat16 model are not ported (ROADMAP A.3.2b: int8 x bf16); "
-             "serve the int8 modes from a float32 model")
 
 
 class Routed(nn.Module):
@@ -139,13 +139,11 @@ class Conv3x3(ConvWeights, Routed):
                          device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
         if self.kernel_q is not None and not self.training:
-            if self.dtype != torch.float32:
-                raise NotImplementedError(BF16_INT8)
-            return f8.int8_conv("int8_conv3x3_bn_relu", x, self.kernel_q, self.kernel_s,
+            return f8.int8_conv("int8_conv3x3_bn_relu", x.to(dt), self.kernel_q, self.kernel_s,
                                 self.unit_scale, self.bias, False, self.plain,
                                 packed=self.kernel_p)
-        dt = self.dtype
         return fc.fused_conv("fused_conv3x3_bn_relu", x.to(dt), self.kernel.to(dt),
                              self.unit_scale, self.bias, False, self.plain)
 
@@ -218,10 +216,8 @@ class _Block(Routed):
             return torch.relu(self.bn(h))
         kernel, s, t = self.bn.fold(tail)  # float32; only the kernel is cast
         if tail.kernel_q is not None and x.shape[3] >= self._int8_min_channels:
-            if dt != torch.float32:
-                raise NotImplementedError(BF16_INT8)
-            return f8.int8_conv(self._int8_kernel, x, tail.kernel_q, tail.kernel_s, s, t, True,
-                                self.plain, packed=tail.kernel_p)
+            return f8.int8_conv(self._int8_kernel, x.to(dt), tail.kernel_q, tail.kernel_s, s, t,
+                                True, self.plain, packed=tail.kernel_p)
         return fc.fused_conv(self._kernel, x, kernel.to(dt), s, t, True, self.plain)
 
 
@@ -295,28 +291,37 @@ def use_chain(model: nn.Module, chain: bool = True) -> None:
             mod.chain = chain
 
 
+def has_int8(model: nn.Module) -> bool:
+    """Whether any conv of ``model`` carries int8 weights (``ops/quantize.
+    has_quant``, which this module cannot import: it imports this one)."""
+    return any(isinstance(mod, ConvWeights) and mod.kernel_q is not None
+               for mod in model.modules())
+
+
 def tail_chain(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor
                ) -> Optional[torch.Tensor]:
     """The linear tail ``convs`` (3x3/s1 + bias each, nothing between) of
     ``owner`` applied to ``h`` in one launch of the chain kernel (its plain
-    version on the plain path), or ``None`` when the caller is to run the
-    convs one by one: when the chain is not switched on, in training mode
-    and wherever a gradient is being recorded (the chain has no backward;
-    the per-layer kernels have theirs), when any of ``convs`` carries
-    int8 weights, so that W8A8 serving keeps its int8 kernels, and on a
-    bfloat16 model (the chain is float32 only: the tail runs as four
-    bfloat16 3x3 launches, each rounded to bfloat16, which is the function
-    the JAX chain computes in bfloat16). (The JAX package steps aside
-    whenever its model holds any int8 weight; a chain of float32 convs
-    computes the same function either way.)"""
-    if not owner.chain or owner.training or owner.dtype != torch.float32:
-        return None
-    if any(conv.kernel_q is not None for conv in convs):
+    version on the plain path) in ``owner``'s compute dtype, or ``None``
+    when the caller is to run the convs one by one: when the chain is not
+    switched on, in training mode and wherever a gradient is being recorded
+    (the chain has no backward; the per-layer kernels have theirs), and when
+    ``owner`` carries any int8 weight, in any of its convs (the JAX
+    ``tail_chain`` steps aside on a model with a ``quant`` collection, so
+    that W8A8 serving keeps its int8 kernels: the float tails of such a
+    model run layer by layer, which in bfloat16 adds each bias in float32
+    where the chain rounds it to bfloat16 first).
+
+    In bfloat16 the kernels are cast to bfloat16 per call and the biases
+    stay float32: the chain rounds them itself, as JAX ``fused_conv3x3_chain``
+    casts them to ``x.dtype``."""
+    if not owner.chain or owner.training or has_int8(owner):
         return None
     if torch.is_grad_enabled() and (h.requires_grad
                                     or any(conv.kernel.requires_grad for conv in convs)):
         return None
-    return fused_chain.fused_conv3x3_chain(h, [conv.kernel for conv in convs],
+    dt = owner.dtype
+    return fused_chain.fused_conv3x3_chain(h.to(dt), [conv.kernel.to(dt) for conv in convs],
                                            [conv.bias for conv in convs], plain=owner.plain)
 
 

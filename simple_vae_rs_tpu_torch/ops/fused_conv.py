@@ -65,8 +65,10 @@ CHAIN = "fused_conv3x3_chain"
 launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, CHAIN: 0}
 role_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for name in _KERNELS}
 # The bfloat16 instances' launches by kernel and role (none of them counts in
-# ``launches`` or ``role_launches``)
-bf16_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for name in _KERNELS}
+# ``launches`` or ``role_launches``); the chain's bfloat16 instance counts
+# under its name, in the forward role (it has no other)
+bf16_launches: Dict[str, Dict[str, int]] = {
+    **{name: dict.fromkeys(ROLES, 0) for name in _KERNELS}, CHAIN: {"forward": 0}}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -74,8 +76,9 @@ def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
     for counts in (role_launches, bf16_launches):
-        for name in counts:
-            counts[name] = dict.fromkeys(ROLES, 0)
+        for roles in counts.values():
+            for role in roles:
+                roles[role] = 0
 
 
 _SMS = 132  # H100 SXM streaming multiprocessors

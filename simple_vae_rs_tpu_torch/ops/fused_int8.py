@@ -15,6 +15,13 @@ HWIO layout, ``kernel_s`` one float32 scale per output channel, from
 - :func:`int8_convT4x4s2_bn_relu`: transposed 4x4, stride 2, pad 1, kernel in
   the input-dilated form (UpBlock tail).
 
+``x`` is float32 or bfloat16 (a bfloat16 model's convs, as the JAX blocks
+hand the kernels ``x.astype(dtype)``); the output has ``x``'s dtype. A
+bfloat16 ``x`` is upcast to float32 (exact), so its scales and quantized
+values are those of the float32 tensor of the same values; the epilogue is
+float32 and rounds once to bfloat16 (the JAX kernels'
+``out.astype(x.dtype)``).
+
 ``act_group`` is the number of consecutive images that share one activation
 scale. The default, the whole batch, is what the JAX package's
 ``int8_reference*`` and its strip kernel compute, and what it runs
@@ -29,7 +36,10 @@ host sync between them) or raises: the absmax pass, then, in one C call, the
 quantize pass (:func:`act_quant`, each activation quantized once into an
 int8 NHWC buffer with 16-channel padding) and the conv on the int8 tensor
 cores (all three convs, :data:`TC_KERNELS`). :data:`launches` counts the
-launches of each. The plain versions accumulate exactly (a float64 conv of
+launches of each on float32 tensors, :data:`bf16_launches` those of the
+bfloat16 instances (``csrc/int8_conv.cu``'s ``*_bf16`` entry points, which
+read and write bfloat16 themselves): a bfloat16 CUDA tensor launches them or
+raises. The plain versions accumulate exactly (a float64 conv of
 integer-valued tensors, every partial sum below 2**53), as the kernels'
 int32 does; the reference's float32 conv rounds once sums pass 2**24, which
 K = 9 * 424 reaches.
@@ -76,13 +86,20 @@ TC_TILES = {
 TC_BKW = fc.TC_BK
 
 # Launches since the last reset_launches(): a wrapper adds one per kernel it
-# launches (the absmax pass, the quantize pass and the conv), and nowhere else.
+# launches (the absmax pass, the quantize pass and the conv), and nowhere else;
+# on float32 tensors in ``launches``, on bfloat16 ones in ``bf16_launches``.
 launches: Dict[str, int] = {**{name: 0 for name in _KERNELS}, ABSMAX: 0, QUANT: 0}
+bf16_launches: Dict[str, int] = dict(launches)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, bf16_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(x: Tensor, name: str) -> None:
+    (bf16_launches if x.dtype == torch.bfloat16 else launches)[name] += 1
 
 
 def float_name(name: str) -> str:
@@ -163,7 +180,8 @@ def _check(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tens
 # ------------------------------------------------------------ plain versions
 def act_absmax_plain(x: Tensor, act_group: Optional[int] = None) -> Tensor:
     """``max |x|`` over each group of ``act_group`` consecutive images
-    (the last group may be short): ``(ceil(B / act_group),)``."""
+    (the last group may be short): ``(ceil(B / act_group),)``, float32."""
+    x = fc._up(x)
     b = x.shape[0]
     group = _group(b, act_group)
     per_image = x.abs().amax(dim=(1, 2, 3))
@@ -180,6 +198,7 @@ def _scale_per_image(amax: Tensor, b: int, act_group: Optional[int]) -> Tensor:
 def quantize_act(x: Tensor, act_group: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """The in-kernel activation quantization (JAX ``_quant_act``):
     integer-valued float32 ``qx`` and the per-image scale ``(B, 1, 1, 1)``."""
+    x = fc._up(x)
     a = _scale_per_image(act_absmax_plain(x, act_group), x.shape[0], act_group)
     return torch.clamp(torch.round(x / a), -QMAX, QMAX), a
 
@@ -188,6 +207,7 @@ def act_quant_plain(x: Tensor, amax: Tensor, act_group: Optional[int] = None) ->
     """Plain version of :func:`act_quant`: :func:`quantize_act` with the
     group absmax ``amax`` given, its channels zero-padded to a multiple of
     16, as int8 ``(B, H, W, round_up(C, 16))``."""
+    x = fc._up(x)
     c = x.shape[-1]
     a = _scale_per_image(amax, x.shape[0], act_group)
     q = torch.clamp(torch.round(x / a), -QMAX, QMAX)
@@ -199,14 +219,14 @@ def _plain(name: str, x, kernel_q, kernel_s, scale, shift, relu, act_group) -> T
     o = kernel_q.shape[-1]
     if x.shape[0] == 0:
         return x.new_empty(output_shape(name, x.shape, o))
-    qx, a = quantize_act(x, act_group)
+    qx, a = quantize_act(x, act_group)  # a bfloat16 x upcast: exact
     one = torch.ones(o, dtype=torch.float64, device=x.device)
     acc = fc.PLAIN[float_name(name)](qx.double(), kernel_q.double(), one, torch.zeros_like(one),
                                      False)
     # every partial sum is an integer below 2**53: the round only removes
     # what a transform-based library algorithm might add
     out = torch.round(acc).to(torch.float32) * ((a * kernel_s) * scale) + shift
-    return out.clamp_min(0.0) if relu else out
+    return (out.clamp_min(0.0) if relu else out).to(x.dtype)  # one rounding
 
 
 def int8_conv3x3_plain(x, kernel_q, kernel_s, scale, shift, relu=True, act_group=None):
@@ -245,37 +265,47 @@ def _library() -> ctypes.CDLL:
 
         lib = _build.load(SOURCE)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.svrs_int8_tc.argtypes = [i32] * 3 + [vp] * 9 + [i32] * 9 + [vp]
-        lib.svrs_act_quant.argtypes = [i32] + [vp] * 3 + [i32] * 5 + [vp]
-        lib.svrs_act_absmax.argtypes = [i32, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
-                                        i32, i32, vp]
-        for fn in (lib.svrs_int8_tc, lib.svrs_act_quant, lib.svrs_act_absmax):
-            fn.restype = ctypes.c_int
+        argtypes = {
+            "svrs_int8_tc": [i32] * 3 + [vp] * 9 + [i32] * 9 + [vp],
+            "svrs_act_quant": [i32] + [vp] * 3 + [i32] * 5 + [vp],
+            "svrs_act_absmax": [i32, vp, vp, ctypes.c_longlong, ctypes.c_longlong, i32, i32, vp],
+        }
+        for sym, types in argtypes.items():
+            for fn in (getattr(lib, sym), getattr(lib, sym + "_bf16")):
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def _cuda_input(name: str, x: Tensor) -> Tensor:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 activations only, got {x.dtype}")
+    if x.dtype not in fc.DTYPES:
+        raise TypeError(f"{name}: float32 or bfloat16 activations only, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous NHWC tensor")
     if x.numel() >= 2**31:
         raise ValueError(f"{name}: tensor too large for 32-bit pixel indices")
-    # the kernels read four channels as one 16-byte word
+    # the kernels read whole 16-byte words (four float32 or eight bfloat16 channels)
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _symbol(fn: str, x: Tensor):
+    """C entry point ``fn`` of the library, its bfloat16 instance for a
+    bfloat16 ``x``."""
+    return getattr(_library(), fn + ("_bf16" if x.dtype == torch.bfloat16 else ""))
 
 
 # The absmax pass's grid: 256-thread blocks (8 resident on an SM), each
 # reading at least 32 KB (``csrc/int8_conv.cu``, ``act_absmax``).
 _ABSMAX_BLOCKS_PER_SM = 8
-_ABSMAX_MIN_FLOATS = 8192
+_ABSMAX_MIN_BYTES = 32768
 
 
-def absmax_plan(per_group: int, groups: int) -> int:
-    """Blocks per group of the absmax pass: enough that all groups' blocks
-    together fill every SM, and no more than gives each block 32 KB to read."""
-    return max(1, min(per_group // _ABSMAX_MIN_FLOATS,
+def absmax_plan(per_group: int, groups: int, itemsize: int = 4) -> int:
+    """Blocks per group of the absmax pass over elements of ``itemsize``
+    bytes: enough that all groups' blocks together fill every SM, and no
+    more than gives each block 32 KB to read."""
+    return max(1, min(per_group * itemsize // _ABSMAX_MIN_BYTES,
                       _cdiv(_ABSMAX_BLOCKS_PER_SM * fc._SMS, groups)))
 
 
@@ -293,19 +323,19 @@ def act_absmax(x: Tensor, act_group: Optional[int] = None) -> Tensor:
     groups = _cdiv(max(b, 1), group)
     numel = x.numel()
     if numel == 0:
-        return x.new_zeros((groups,))
-    amax = x.new_empty((groups,))
+        return x.new_zeros((groups,), dtype=torch.float32)
+    amax = x.new_empty((groups,), dtype=torch.float32)
     per_group = group * (numel // b)
     # a pass of a few microseconds on the card: the host path stays short
     # (the C entry point makes the device current itself; the raw stream
     # handle of the device's current stream, without a Stream object)
     dev = x.get_device()
-    err = _library().svrs_act_absmax(dev, x.data_ptr(), amax.data_ptr(), per_group, numel,
-                                     groups, absmax_plan(per_group, groups),
-                                     torch._C._cuda_getCurrentRawStream(dev))
+    err = _symbol("svrs_act_absmax", x)(
+        dev, x.data_ptr(), amax.data_ptr(), per_group, numel, groups,
+        absmax_plan(per_group, groups, x.element_size()), torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{ABSMAX}: CUDA launch failed with cudaError {err}")
-    launches[ABSMAX] += 1
+    _count(x, ABSMAX)
     return amax
 
 
@@ -337,11 +367,11 @@ def act_quant(x: Tensor, amax: Tensor, act_group: Optional[int] = None) -> Tenso
     if qx.numel() == 0:
         return qx
     dev = x.get_device()
-    err = _library().svrs_act_quant(dev, x.data_ptr(), amax.data_ptr(), qx.data_ptr(),
-                                    b, h, w, c, group, torch._C._cuda_getCurrentRawStream(dev))
+    err = _symbol("svrs_act_quant", x)(dev, x.data_ptr(), amax.data_ptr(), qx.data_ptr(),
+                                       b, h, w, c, group, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{QUANT}: CUDA launch failed with cudaError {err}")
-    launches[QUANT] += 1
+    _count(x, QUANT)
     return qx
 
 
@@ -367,7 +397,7 @@ def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Ten
             raise ValueError(f"{name}: all tensors must be on {dev}, one is on {t.device}")
     if phases * m * n >= 2**31:
         raise ValueError(f"{name}: tensor too large for 32-bit pixel indices")
-    out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=torch.float32)
+    out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
     group = _group(b, act_group)
@@ -379,15 +409,15 @@ def _launch(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Ten
     # quantize pass, conv and K-split reduce in one C call that makes the
     # device current itself, on the raw handle of its current stream
     index = x.get_device()
-    err = _library().svrs_int8_tc(
+    err = _symbol("svrs_int8_tc", x)(
         index, TC_KERNELS[name], cfg, x.data_ptr(), packed.data_ptr(), kernel_s.data_ptr(),
         scale.data_ptr(), shift.data_ptr(), amax.data_ptr(), qx.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, b, h, w, c, n, group, int(relu), splits,
         kchunk, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    launches[QUANT] += 1
-    launches[name] += 1
+    _count(x, QUANT)
+    _count(x, name)
     return out
 
 
@@ -408,7 +438,7 @@ def int8_conv(name: str, x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: T
 def int8_conv3x3_bn_relu(x: Tensor, kernel_q: Tensor, kernel_s: Tensor, scale: Tensor,
                          shift: Tensor, relu: bool = True, act_group: Optional[int] = None,
                          packed: Optional[Tensor] = None) -> Tensor:
-    """``act(conv3x3_int8(x) * scale + shift)``; (B, H, W, O) float32."""
+    """``act(conv3x3_int8(x) * scale + shift)``; (B, H, W, O) in ``x``'s dtype."""
     return int8_conv("int8_conv3x3_bn_relu", x, kernel_q, kernel_s, scale, shift, relu,
                      act_group=act_group, packed=packed)
 

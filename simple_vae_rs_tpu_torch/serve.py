@@ -21,16 +21,21 @@ Two quantized modes, one at most:
   between requests the resolver holds a quarter of the weight bytes.
 
 A bfloat16 model (``CondSRVAE(cfg, dtype=torch.bfloat16)``) is served as
-it is: its convs compute in bfloat16 and every output is float32. Neither
-int8 mode takes one (``NotImplementedError``; ROADMAP A.3.2b), and on a
-bfloat16 model ``chain=True`` changes nothing: the chain steps aside
-(``ops/conv_blocks.tail_chain``).
+it is: its convs compute in bfloat16 and every output is float32. It takes
+every mode a float32 model takes, as the JAX resolver does: with ``int8``
+its decoder's convs run the int8 kernels on bfloat16 activations and return
+bfloat16; with ``int8_weights`` the packed weights dequantize to float32
+parameters, which each conv casts to bfloat16 as it does any parameter
+(both quantizers work on the float32 parameters, in either dtype); with
+``chain`` its tails run the chain kernel's bfloat16 instance.
 
 ``SuperResolver(model, chain=True)`` serves a copy of the model whose
 eval-mode conv tails each run as one launch of the chain kernel
 (``ops/conv_blocks.use_chain``; off by default). It combines with either
-int8 mode: a tail whose convs carry int8 weights keeps the int8 kernels, and
-with ``int8_weights`` the chain runs on the weights unpacked for the request.
+int8 mode: with ``int8`` no tail chains (the model carries int8 weights, on
+which ``ops/conv_blocks.tail_chain`` steps aside, as the JAX package's
+does), and with ``int8_weights`` the chain runs on the weights unpacked for
+the request.
 
 Every endpoint takes ``seed=None``: an unseeded call draws its noise from the
 resolver's rolling generator (fresh draws each call), ``seed=N`` from a
@@ -51,7 +56,7 @@ import torch
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.ops import quantize as qz
-from simple_vae_rs_tpu_torch.ops.conv_blocks import BF16_INT8, use_chain
+from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
 from simple_vae_rs_tpu_torch.utils.image import normalize_image
 
@@ -85,8 +90,6 @@ class SuperResolver:
                 "int8 (W8A8 decoder kernels) and int8_weights (weights only, "
                 "dequantized per request) are different quantization modes: pick one"
             )
-        if (int8 or int8_weights) and model.dtype != torch.float32:
-            raise NotImplementedError(BF16_INT8)
         self.device = resolve_device(device)
         self.int8, self.int8_weights = int8, int8_weights
         self._packed = None

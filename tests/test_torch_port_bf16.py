@@ -37,6 +37,8 @@ from simple_vae_rs_tpu.models import CondSRVAE as JCondSRVAE
 from simple_vae_rs_tpu.models.srvae import SRVAE as JSRVAE
 from simple_vae_rs_tpu.models.vae import VAE as JVAE
 from simple_vae_rs_tpu.ops import pallas_conv as pc
+from simple_vae_rs_tpu.ops import quantize as jq
+from simple_vae_rs_tpu.serve import SuperResolver as JSuperResolver
 from simple_vae_rs_tpu.train.engine import Trainer as JTrainer
 
 from simple_vae_rs_tpu_torch import tasks as ttasks
@@ -44,7 +46,10 @@ from simple_vae_rs_tpu_torch.config import CondSRVAEConfig, TrainConfig, VAEConf
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.models.vae import VAE
+from simple_vae_rs_tpu_torch.ops import conv_blocks as tblocks
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+from simple_vae_rs_tpu_torch.ops import quantize as tq
 from simple_vae_rs_tpu_torch.serve import SuperResolver
 from simple_vae_rs_tpu_torch.train.engine import Trainer
 from simple_vae_rs_tpu_torch.utils.jax_weights import _flatten, load_jax_variables
@@ -302,10 +307,141 @@ def test_bf16_cond_serving_pieces_match_jax_bf16(families):
 
 
 def test_bf16_int8_modes_raise_and_name_the_roadmap_item(families):
-    _, _, _, tmodel = families["cond"]
-    for kw in ({"int8": True}, {"int8_weights": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.3.2b"):
-            SuperResolver(tmodel, device="cpu", **kw)
+    """A bfloat16 model takes both int8 modes, as the JAX resolver does.
+    ``int8``: the quant tree is the float32 model's, byte for byte
+    (quantized from the float32 parameters), and the decoder's int8 convs
+    take bfloat16 input and give bfloat16 output. ``int8_weights``: the packed leaves are the float32
+    model's and unpack to float32 parameters, which the convs cast to
+    bfloat16. Every served output is float32."""
+    _, _, variables, tmodel = families["cond"]
+    y = np.random.default_rng(36).random((2, PS // 2, PS // 2, 4)).astype(np.float32)
+    m32 = CondSRVAE(tmodel.config)
+    load_jax_variables(m32, variables)
+    sr, sr32 = (SuperResolver(m, device="cpu", seed=5, int8=True) for m in (tmodel, m32))
+    assert sr.model.dtype == BF16 and tq.has_quant(sr.model) and not tq.has_quant(tmodel)
+    for a, b in zip(tq._conv_modules(sr.model), tq._conv_modules(sr32.model)):
+        assert (a[1].kernel_q is None) == (b[1].kernel_q is None)
+        if a[1].kernel_q is not None:
+            assert torch.equal(a[1].kernel_q, b[1].kernel_q)
+            assert torch.equal(a[1].kernel_s, b[1].kernel_s)
+    seen = []
+    hooks = [mod.register_forward_hook(lambda m, a, out: seen.append((a[0].dtype, out.dtype)))
+             for mod in sr.model.modules()
+             if isinstance(mod, tblocks.Conv3x3) and mod.kernel_q is not None]
+    out = sr.super_resolve(y, seed=1)
+    for h in hooks:
+        h.remove()
+    assert len(seen) == 7 and all(o == BF16 for _, o in seen)
+    assert out.dtype == torch.float32 and float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    srw, srw32 = (SuperResolver(m, device="cpu", int8_weights=True) for m in (tmodel, m32))
+    assert srw._packed.keys() == srw32._packed.keys() and len(srw._packed) > 20
+    for name, (q, sc) in srw._packed.items():
+        assert torch.equal(q, srw32._packed[name][0]) and torch.equal(sc, srw32._packed[name][1])
+    with tq.unpack_weights(srw.model, srw._packed):
+        params = dict(srw.model.named_parameters())
+        assert all(params[n].dtype == torch.float32 and params[n].numel() > 0
+                   for n in srw._packed)
+    maps = srw.uncertainty(y[0], samples=4, chunk=2, seed=2)
+    assert all(v.dtype == torch.float32 for v in maps.values())
+
+
+def _cond_requests(cfg, samples, seed):
+    """Numpy LR windows and noise: (y, eps_u, eps_z, the draws' eps_z)."""
+    rng = np.random.default_rng(seed)
+    g = PS // 8
+    return (rng.random((2, PS // 2, PS // 2, 4)).astype(np.float32),
+            rng.standard_normal((2, g, g, cfg.u_channels)).astype(np.float32),
+            rng.standard_normal((2, g, g, cfg.z_channels)).astype(np.float32),
+            rng.standard_normal((samples, g, g, cfg.z_channels)).astype(np.float32))
+
+
+def _draws(m, y, eps_u, eps_z):
+    """The N-draw decode of one window (``tasks.sample_chunked``) in JAX."""
+    mu_u, lv_u = m.encode_y(y, train=False)
+    y_feat = m.y_embedding(y, train=False)
+    mu_p, lv_p = m.z_cond(y_feat, mu_u + eps_u * jnp.exp(0.5 * lv_u), train=False)
+    z = mu_p + eps_z * jnp.exp(0.5 * lv_p)
+    yf = jnp.broadcast_to(y_feat, (z.shape[0],) + y_feat.shape[1:])
+    return m.decode_x_from_features(z, yf, train=False)
+
+
+def _int8_requests(jf, jb, jvars, tmodel, reqs, packed=None):
+    """The two requests (``conditional_generation_eps`` on two windows and
+    the one-chunk N-draw decode of the first) through the JAX model in
+    float32 and in bfloat16 on ``jvars`` and through the port's bfloat16
+    model: [(port, JAX bf16, JAX f32)] each."""
+    y, eps_u, eps_z, draws_z = reqs
+    t = torch.from_numpy
+    out = []
+    for fn, jargs in ((JCondSRVAE.conditional_generation_eps, (y, eps_u, eps_z)),
+                      (_draws, (y[:1], eps_u[:1], draws_z))):
+        with torch.no_grad(), tq.unpack_weights(tmodel, packed):
+            if fn is _draws:  # one chunk: a decode chunk's activation scale is its own
+                got = ttasks.sample_chunked(tmodel, t(y[:1]), samples=len(draws_z),
+                                            chunk=len(draws_z), eps_u=t(eps_u[:1]),
+                                            eps_z=t(draws_z))
+            else:
+                got = tmodel.conditional_generation_eps(t(y), t(eps_u), t(eps_z))
+        out.append((got, jb.apply(jvars, *jargs, method=fn), jf.apply(jvars, *jargs, method=fn)))
+    return out
+
+
+def test_bf16_w8a8_resolver_matches_jax_bf16(families):
+    """``SuperResolver(int8=True)`` on the bfloat16 model: the JAX
+    resolver of its bfloat16 model quantizes, the port loads that ``quant``
+    collection (served as it is), and both run the same requests on
+    injected noise; the port's bfloat16 W8A8 against JAX's by the noise
+    rule, JAX float32 being the same W8A8 weights on the float32 model. The
+    int8 kernels' plain versions run, in bfloat16, and the decoder's int8
+    convs really route (the float32 parameters' output differs)."""
+    jf, jb, variables, tmodel = families["cond"]
+    jsr = JSuperResolver(jb, variables, seed=7, int8=True)
+    qvars = jax.device_get(jsr.variables)
+    m = CondSRVAE(tmodel.config, dtype=BF16)
+    load_jax_variables(m, qvars)
+    sr = SuperResolver(m, device="cpu", seed=7, int8=True)
+    assert sr.model is m and tq.has_quant(m)
+    calls = []
+    orig = f8.int8_conv
+
+    def spy(name, x, *args, **kw):
+        calls.append(x.dtype)
+        return orig(name, x, *args, **kw)
+
+    f8.int8_conv = spy
+    try:
+        results = _int8_requests(jf, jb, qvars, sr.model.eval(),
+                                 _cond_requests(m.config, 5, seed=37))
+    finally:
+        f8.int8_conv = orig
+    assert calls and all(dt == BF16 for dt in calls)
+    for i, (got, wb, wf) in enumerate(results):
+        assert got.dtype == torch.float32 and wb.dtype == jnp.float32
+        _noise_rule(got, wb, wf, f"W8A8 request {i}")
+    with torch.no_grad():
+        off = tmodel.eval().conditional_generation_eps(
+            *map(torch.from_numpy, _cond_requests(m.config, 5, seed=37)[:3]))
+    assert float((off - results[0][0]).abs().max()) > 1e-4
+
+
+def test_bf16_int8_weights_resolver_matches_jax_bf16(families):
+    """``SuperResolver(int8_weights=True)`` on the bfloat16 model: both
+    packages dequantize the same bytes to float32 parameters and run the
+    bfloat16 graph; against JAX's bfloat16 model on its unpacked weights by
+    the noise rule, JAX float32 being the float32 model on the same
+    unpacked weights."""
+    jf, jb, variables, tmodel = families["cond"]
+    jsr = JSuperResolver(jb, variables, seed=7, int8_weights=True)
+    jvars = jq.unpack_weights(jsr._payload, jsr._pack_spec)
+    sr = SuperResolver(tmodel, device="cpu", seed=7, int8_weights=True)
+    assert sr.model is not tmodel and sr.model.dtype == BF16
+    results = _int8_requests(jf, jb, jvars, sr.model, _cond_requests(tmodel.config, 4, seed=38),
+                             packed=sr._packed)
+    for i, (got, wb, wf) in enumerate(results):
+        assert got.dtype == torch.float32
+        _noise_rule(got, wb, wf, f"weights-only request {i}")
+    params = dict(sr.model.named_parameters())
+    assert all(params[n].numel() == 0 for n in sr._packed)  # released between requests
 
 
 def test_bf16_vae_sample_chunked_matches_jax_bf16(families):

@@ -14,6 +14,16 @@ quant tree in one call, the int8 resolver against its plain path
 2e-3 absolute (a float32 layer above an int8 conv may move an activation
 across a rounding boundary). The chain kernel 1e-4 * max|plain| as the other
 float32 kernels; chained against unchained served outputs 1e-4 absolute.
+
+The bfloat16 instances: the int8 absmax and quantize passes and the three
+int8 convs bit for bit (the upcast is exact; the one rounding to bfloat16 is
+the plain version's); #1, #5 and #6 and each layer of the chain within one
+bfloat16 ulp at the element plus 1e-4 of max|plain| (``fc.compare_bf16``:
+each side rounds a float32 sum taken in another order once). A whole chain
+rounds each layer to bfloat16, so a layer one ulp apart carries that on:
+the chain's output is held to the noise rule of the CPU parity tests
+against its plain version (2x the plain bfloat16 chain's own distance from
+the float32 chain, plus 1e-4 of max|plain|), each of its layers to one ulp.
 """
 
 import copy
@@ -557,10 +567,10 @@ def test_chained_cuda_serving_matches_unchained_and_plain_path(cuda):
         sr = SuperResolver(model, device="cuda", seed=0, chain=True, **mode)
         fc.reset_launches()
         got = sr.super_resolve(y, seed=1)
-        # ey and dx tails; with W8A8 the decoder tail keeps its int8 kernels
-        assert fc.launches[fc.CHAIN] == (1 if mode.get("int8") else 2)
+        # ey and dx tails; a W8A8 model (any int8 weight) chains no tail
+        assert fc.launches[fc.CHAIN] == (0 if mode.get("int8") else 2)
         maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
-        assert fc.launches[fc.CHAIN] == (2 if mode.get("int8") else 2 + 1 + 3)
+        assert fc.launches[fc.CHAIN] == (0 if mode.get("int8") else 2 + 1 + 3)
         if not mode:
             assert float((got - want).abs().max()) <= 1e-4
             assert float((maps["std"] - want_maps["std"]).abs().max()) <= 1e-4
@@ -569,7 +579,7 @@ def test_chained_cuda_serving_matches_unchained_and_plain_path(cuda):
         plain = sr.super_resolve(y, seed=1)
         assert fc.launches[fc.CHAIN] == count
         assert float((got - plain).abs().max()) <= (2e-3 if mode.get("int8") else 1e-4)
-    assert not model.chain and fc.launches[fc.CHAIN] > 0
+    assert not model.chain
 
 
 @pytest.mark.gpu
@@ -694,17 +704,56 @@ def test_bf16_serving_matches_plain_path(cuda):
     got = sr.super_resolve(y, seed=1)
     maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
     torch.cuda.synchronize()
+    # every bfloat16 instance, the chain's included; no float32 kernel
     assert all(v["forward"] > 0 for v in fc.bf16_launches.values())
-    assert sum(fc.launches.values()) == 0  # no float32 kernel, no chain: it steps aside
+    assert fc.bf16_launches[fc.CHAIN]["forward"] == 2 + 1 + 3
+    assert sum(fc.launches.values()) == 0
     want = sr_p.super_resolve(y, seed=1)
     want_maps = sr_p.uncertainty(y[0], samples=20, chunk=8, seed=2)
     assert got.dtype == maps["std"].dtype == torch.float32
     # outputs in [0, 1] through ~25 bfloat16 layers: a few bfloat16 ulps of 1
     assert float((got - want).abs().max()) <= 2e-2
     assert float((maps["mean"] - want_maps["mean"]).abs().max()) <= 2e-2
-    for kw in ({"int8": True}, {"int8_weights": True}):
-        with pytest.raises(NotImplementedError):
-            SuperResolver(model, device="cuda", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "int8_weights", "chain"])
+def test_bf16_quantized_and_chained_serving_match_plain_path(cuda, mode):
+    """A bfloat16 model in each mode the JAX resolver serves it in: W8A8
+    through the bfloat16 int8 instances (no float32 int8 launch), weights
+    only through the bfloat16 #1/#5/#6 on the unpacked float32 parameters,
+    chained through the chain's bfloat16 instance; against the plain path of
+    the same resolver within the bfloat16 serving bound, and the int8 modes
+    above 30 dB against the float32 resolver."""
+    model, _ = _bf16_pair(cuda)
+    y = np.random.default_rng(17).random((3, 8, 8, 4)).astype(np.float32)
+    m32 = copy.deepcopy(model)
+    blocks.set_dtype(m32, torch.float32)
+    f32 = SuperResolver(m32, device="cuda").super_resolve(y, seed=1)
+    sr = SuperResolver(model, device="cuda", seed=0, **{mode: True})
+    fc.reset_launches()
+    f8.reset_launches()
+    got = sr.super_resolve(y, seed=1)
+    maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
+    torch.cuda.synchronize()
+    assert sum(fc.launches.values()) == 0 and sum(f8.launches.values()) == 0
+    if mode == "int8":
+        assert all(f8.bf16_launches[k] > 0 for k in ("int8_conv3x3_bn_relu",
+                                                     "int8_convT4x4s2_bn_relu", "act_absmax",
+                                                     "act_quant"))
+        assert fc.bf16_launches[fc.CHAIN]["forward"] == 0
+    else:
+        assert sum(f8.bf16_launches.values()) == 0
+        assert (fc.bf16_launches[fc.CHAIN]["forward"] > 0) == (mode == "chain")
+    blocks.use_plain_path(sr.model)
+    want = sr.super_resolve(y, seed=1)
+    want_maps = sr.uncertainty(y[0], samples=20, chunk=8, seed=2)
+    assert got.dtype == maps["mean"].dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-2
+    assert float((maps["mean"] - want_maps["mean"]).abs().max()) <= 2e-2
+    if mode != "chain":
+        mse = float(((got - f32) ** 2).mean())
+        assert 10 * math.log10(1.0 / max(mse, 1e-12)) > 30.0
 
 
 @pytest.mark.gpu
@@ -729,7 +778,8 @@ def test_bf16_train_step_matches_plain_path(cuda, kind):
     fc.reset_launches()
     grads, terms = kernels.grads_and_terms(batch, eps)
     torch.cuda.synchronize()
-    assert all(v["forward"] > 0 and v["dx"] > 0 for v in fc.bf16_launches.values())
+    assert all(fc.bf16_launches[k]["forward"] > 0 and fc.bf16_launches[k]["dx"] > 0
+               for k in fc.TC_KERNELS)
     assert sum(fc.launches.values()) == 0
     before = {k: dict(v) for k, v in fc.bf16_launches.items()}
     grads_p, terms_p = plain.grads_and_terms(batch, eps)
@@ -750,3 +800,68 @@ def test_bf16_train_step_matches_plain_path(cuda, kind):
         assert err <= 2 * noise + 1e-3 * block_max[name.split(".")[0]], (name, err, noise)
     kernels.apply_grads(grads, 1e-4)
     assert all(m.dtype == torch.bfloat16 for m in kernels.opt.mu)
+
+
+# The bfloat16 int8 instances (the absmax and quantize passes and int8_tc with
+# a bfloat16 output) at the float32 cases' shapes: ragged C on the masked
+# 2-byte loads (3, 5, 7, 130), odd O (element stores), K splits in all three
+# modes (the reduce's stores), the convT's phase rows; bit for bit.
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", INT8_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_int8_cuda_kernel_matches_plain(cuda, case):
+    name, shape, o, relu, group = case
+    x, kern, s, t = _inputs(f8.float_name(name), shape, o, seed=sum(shape) + o + 1, device=cuda)
+    x = (x * torch.linspace(0.3, 2.0, shape[0], device=cuda).view(-1, 1, 1, 1)).bfloat16()
+    kq, ks = qz.quantize_rtn(kern)
+    before, f32_before = dict(f8.bf16_launches), dict(f8.launches)
+    got = f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group)
+    amax = f8.act_absmax(x, group)
+    qx = f8.act_quant(x, amax, group)
+    torch.cuda.synchronize()
+    assert f8.bf16_launches[name] == before[name] + 1
+    assert f8.bf16_launches["act_absmax"] == before["act_absmax"] + 2
+    assert f8.bf16_launches["act_quant"] == before["act_quant"] + 2
+    assert f8.launches == f32_before  # a bfloat16 tensor never reaches a float32 instance
+    want = f8.PLAIN[name](x, kq, ks, s, t, relu, group)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, want)  # exact int32 sums, one rounding of the same epilogue
+    assert amax.dtype == torch.float32 and torch.equal(amax, f8.act_absmax_plain(x, group))
+    assert torch.equal(qx, f8.act_quant_plain(x, amax, group))
+    assert torch.equal(f8.WRAPPERS[name](x, kq, ks, s, t, relu=relu, act_group=group), got)
+
+
+def _bf16_chain_check(x, ks, bs):
+    """The bfloat16 chain against its plain version: each layer (a launch of
+    the chain's first l layers: a layer's sums do not depend on the plan)
+    within one ulp of the plain layer on the kernel's own input, the whole
+    chain by the noise rule; the same bits on a second launch."""
+    xb, kb = x.bfloat16(), [k.bfloat16() for k in ks]
+    before = fc.bf16_launches[fc.CHAIN]["forward"]
+    got = fch.fused_conv3x3_chain(xb, kb, bs)
+    torch.cuda.synchronize()
+    assert fc.bf16_launches[fc.CHAIN]["forward"] == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(fch.fused_conv3x3_chain(xb, kb, bs), got)
+    h = xb
+    for l in range(len(ks)):
+        layer = fch.fused_conv3x3_chain(xb, kb[:l + 1], bs[:l + 1])
+        want_l = fch.conv3x3_chain_plain(h, kb[l:l + 1], bs[l:l + 1])
+        assert fc.compare_bf16(layer, want_l)["of_bound"] <= 1.0, l
+        h = layer
+    assert torch.equal(h, got)
+    want = fch.conv3x3_chain_plain(xb, kb, bs)
+    noise = float((want.float() - fch.conv3x3_chain_plain(x, ks, [b for b in bs])).abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2 * noise + TOL * float(want.float().abs().max()), (err, noise)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_bf16_chain_cuda_kernel_matches_plain(cuda, case):
+    shape, widths = case
+    x, ks, bs = _chain_inputs(shape, widths, seed=sum(shape) + len(widths) + 1, device=cuda)
+    f32_before = dict(fc.launches)
+    got = _bf16_chain_check(x, ks, bs)
+    assert fc.launches == f32_before and got.shape == shape[:3] + (widths[-1],)
+    plan = fch.plan_chain(*shape[:3], (shape[-1],) + widths, 2)
+    assert plan.smem_bytes <= fch.SMEM_BYTES

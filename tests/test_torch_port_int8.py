@@ -156,40 +156,42 @@ def test_act_absmax_groups():
         f8.act_absmax(x, 0)
 
 
-def absmax_replay(x, act_group):
+def absmax_replay(x, act_group, itemsize=4):
     """``act_absmax``'s launch replayed in numpy: the grid of
     :func:`f8.absmax_plan` (group ``blockIdx.x``, block of the group
     ``blockIdx.y``), each group's scalar head and tail read by its block 0,
-    its whole 16-byte words by every block in trips of 4 words a thread, and
-    the blocks' maxima combined by atomicMax on the bit patterns. Returns the
-    result and the number of reads of each element."""
+    its whole 16-byte words (4 float32 or, with ``itemsize`` 2, 8 bfloat16
+    elements: ``x`` then holds bfloat16 values) by every block in trips of 4
+    words a thread, and the blocks' maxima combined by atomicMax on the bit
+    patterns. Returns the result and the number of reads of each element."""
     threads, unroll = 256, 4
+    v = 16 // itemsize
     flat = np.abs(x.reshape(-1))
     numel, b = flat.size, x.shape[0]
     group = b if act_group is None else max(1, min(act_group, b))
     groups, per_group = -(-b // group), group * (numel // b)
-    blocks = f8.absmax_plan(per_group, groups)
+    blocks = f8.absmax_plan(per_group, groups, itemsize)
     reads = np.zeros(numel, np.int64)
     amax = np.zeros(groups, np.uint32)
     tid = np.arange(threads)
     for gx in range(groups):
         s = gx * per_group
         e = min(numel, s + per_group)
-        a = min((s + 3) & ~3, e)
-        z = max(e & ~3, a)
-        nv = (z - a) >> 2
+        a = min((s + v - 1) & ~(v - 1), e)
+        z = max(e & ~(v - 1), a)
+        nv = (z - a) // v
         trip = blocks * threads * unroll
         for by in range(blocks):
             idx = [np.zeros(0, np.int64)]  # a block past the group's words reads nothing
             if by == 0:
                 head = tid < a - s
-                tail = ~head & (tid >= 4) & (tid - 4 < e - z)
-                idx += [s + tid[head], z + tid[tail] - 4]
+                tail = ~head & (tid >= v) & (tid - v < e - z)
+                idx += [s + tid[head], z + tid[tail] - v]
             for base in range(by * threads * unroll, max(nv, 1), trip):
                 for u in range(unroll):
                     j = base + tid + u * threads
                     j = j[j < nv]
-                    idx.append((a + 4 * j[:, None] + np.arange(4)).ravel())
+                    idx.append((a + v * j[:, None] + np.arange(v)).ravel())
             idx = np.concatenate(idx).astype(np.int64)
             assert ((idx >= s) & (idx < e)).all()  # a block reads its own group only
             np.add.at(reads, idx, 1)
@@ -221,6 +223,25 @@ def test_act_absmax_kernel_index_arithmetic_matches_plain(shape, act_group):
     jax_max = [np.asarray(jnp.max(jnp.abs(jnp.asarray(x[i:i + group]))))
                for i in range(0, shape[0], group)]
     np.testing.assert_array_equal(got, np.array(jax_max, np.float32))
+
+
+@pytest.mark.parametrize("shape,act_group", ABSMAX_CASES, ids=str)
+def test_bf16_act_absmax_kernel_index_arithmetic_matches_plain(shape, act_group):
+    """The bfloat16 pass: words of eight elements, heads and tails of up to
+    seven, each element read once; the float32 result equals the plain
+    version's on the bfloat16 tensor and on its exact float32 upcast."""
+    rng = np.random.default_rng(sum(shape) + 2)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x *= rng.uniform(0.25, 2.25, (shape[0], 1, 1, 1)).astype(np.float32)
+    xb = torch.from_numpy(x).bfloat16()
+    x = xb.float().numpy()
+    got, reads = absmax_replay(x, act_group, itemsize=2)
+    assert (reads == 1).all()  # every element once
+    want = f8.act_absmax_plain(xb, act_group)
+    assert want.dtype == torch.float32
+    np.testing.assert_array_equal(got, want.numpy())
+    assert torch.equal(want, f8.act_absmax_plain(torch.from_numpy(x), act_group))
+    assert torch.equal(f8.act_absmax(xb, act_group), want)  # CPU wrapper: the plain version
 
 
 def test_absmax_plan_fills_the_card_with_tens_of_kb_a_block():
@@ -352,6 +373,36 @@ def test_wrappers_reject_bad_inputs():
         f8.int8_conv3x3_bn_relu(*(a.to("meta") for a in (x, kq, ks, s, t)))
     with pytest.raises(ValueError):
         f8.int8_conv3x3_bn_relu(x, kq, ks, s, t, act_group=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_bf16_int8_plain_matches_jax(case):
+    """The plain versions on bfloat16 x against JAX ``int8_reference*`` and
+    the Pallas kernels (interpret mode) on the same bfloat16 x: both upcast
+    x to float32 (exact), quantize with the same scale bits, sum the same
+    integers exactly and round the float32 epilogue once to bfloat16, so
+    where the two float32 epilogues differ in the last bit (the float32
+    test's rtol) the outputs are one bfloat16 ulp apart at most. The output
+    is bfloat16 on both sides, and the port's equals its float32 plain
+    version on the upcast x, rounded."""
+    name, shape, o, relu = case
+    kernel, reference, k = _JAX[name]
+    x, kq, ks, s, t = _data(shape, o, k, seed=sum(shape) + o + 1)
+    xb = torch.from_numpy(x).bfloat16()
+    xj = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    got = f8.PLAIN[name](xb, *_t(kq, ks, s, t), relu)
+    assert got.dtype == torch.bfloat16 and got.shape == f8.output_shape(name, shape, o)
+    assert torch.equal(got, f8.PLAIN[name](xb.float(), *_t(kq, ks, s, t), relu).bfloat16())
+    assert torch.equal(f8.WRAPPERS[name](xb, *_t(kq, ks, s, t), relu=relu), got)
+    bt = _pallas_tile(name, shape, o)[2]
+    tiled = f8.PLAIN[name](xb, *_t(kq, ks, s, t), relu, act_group=bt)
+    for port, want in ((got, reference(xj, kq, ks, s, t, relu)),
+                       (tiled, kernel(xj, kq, ks, s, t, relu=relu, interpret=True))):
+        assert want.dtype == jnp.bfloat16
+        w = torch.from_numpy(np.array(want.astype(jnp.float32)))
+        err = (port.float() - w).abs()
+        assert bool((err <= fc.bf16_ulp(torch.maximum(port.float().abs(), w.abs()))).all()), \
+            float(err.max())
 
 
 # -------------------------------------------------------------- block path

@@ -23,6 +23,17 @@ other int8 tests hold against the JAX package:
   plain version bit for bit, every output element written once, at ragged
   and canonical channel widths and at every tile.
 
+The bfloat16 instances (``x`` and the output bfloat16; ``*_bf16`` entry
+points) replay the same launches with the bfloat16 loaders and store map:
+``act_quant`` reading a pixel's 16 channels as two 16-byte words of eight
+where C % 8 == 0 and one masked 2-byte load a channel otherwise (C = 3 .. 7,
+130: a channel run on a 2-byte boundary), giving the float32 pass's bytes on
+the upcast tensor; ``int8_tc`` storing each epilogue value rounded once to
+bfloat16, a pair of neighbours as one 4-byte store at an even element
+offset where O is even (the transposed conv's phase rows included), element
+by element where O is odd, in the direct epilogue and in the K-split reduce
+alike: equal to the bfloat16 plain version bit for bit.
+
 Inputs come from numpy seeds.
 """
 
@@ -75,11 +86,20 @@ def _act_scale(amax):
     return np.maximum(np.float32(amax) / np.float32(127.0), np.float32(1e-12)).astype(np.float32)
 
 
-def act_quant_replay(x, amax, act_group):
+def _bf16(a):
+    """``a`` rounded to bfloat16 (nearest, ties to even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def act_quant_replay(x, amax, act_group, itemsize=4):
     """``act_quant``'s launch in numpy: thread ``e`` quantizes channels
-    16j .. 16j+15 of pixel ``e // (Cp/16)`` (four float4 reads when C % 4 ==
-    0, else one read a channel) into one 16-byte word. Returns qx as int8
-    ``(B, H, W, Cp)`` and the number of reads of each element of x."""
+    16j .. 16j+15 of pixel ``e // (Cp/16)`` (16-byte reads of four float32
+    or eight bfloat16 channels when C is a multiple of that and x is
+    16-byte aligned, else one read a channel, of 4 or 2 bytes) into one
+    16-byte word. ``x`` holds float32 values, bfloat16 ones for ``itemsize``
+    2 (the kernel upcasts them, exactly). Returns qx as int8 ``(B, H, W,
+    Cp)`` and the number of reads of each element of x."""
+    vec = 16 // itemsize
     b, h, w, c = x.shape
     cp = f8.padded_channels(c)
     c16 = cp // 16
@@ -92,9 +112,11 @@ def act_quant_replay(x, amax, act_group):
     reads = np.zeros(xf.size, np.int64)
     q = np.zeros((e.size, 16), np.int64)
     for i in range(16):
-        # vec: float4 word i // 4 is read when 4 * (i // 4) < live, and C % 4 == 0
-        # makes that the same as i < live
-        rd = (4 * (i // 4) < live) if c % 4 == 0 else (i < live)
+        # vec: 16-byte word i // vec is read when vec * (i // vec) < live, and
+        # C % vec == 0 makes that the same as i < live
+        rd = (vec * (i // vec) < live) if c % vec == 0 else (i < live)
+        if c % vec == 0:  # a word's bytes start 16-byte aligned
+            assert ((pix * c + 16 * j + vec * (i // vec)) * itemsize % 16 == 0).all()
         idx = pix * c + 16 * j + i
         np.add.at(reads, idx[rd], 1)
         v = np.where(rd, xf[np.where(rd, idx, 0)], np.float32(0)).astype(np.float32)
@@ -102,11 +124,14 @@ def act_quant_replay(x, amax, act_group):
     return q.astype(np.int8).reshape(b, h, w, cp), reads
 
 
-def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group):
+def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group, itemsize=4):
     """``svrs_int8_tc`` replayed in numpy: the quantize pass, then the conv's
     launch block by block over ``blockIdx.z = phase * splits + split`` with
     the plan's tile, then the K-split reduce. Shared memory is tracked cell
     by cell: a fragment read of a cell no copy wrote in that step fails.
+    With ``itemsize`` 2 (``svrs_int8_tc_bf16``; ``x`` holds bfloat16
+    values) every stored value is rounded to bfloat16 and each store's
+    element offset is checked: a pair at an even offset where O is even.
     Returns (output, writes per output element, plan)."""
     b, h, w, c = x.shape
     o = kq.shape[-1]
@@ -126,7 +151,7 @@ def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group):
     assert f8.tc_smem_bytes(cfg) == 4 * stages * (bm * a_ld + bk * b_ld)
 
     amax = f8.act_absmax_plain(torch.from_numpy(x), act_group).numpy()
-    qx, _ = act_quant_replay(x, amax, act_group)
+    qx, _ = act_quant_replay(x, amax, act_group, itemsize)
     qw = qx.reshape(-1).view(np.int32)  # words of four channels, C4 a pixel
     wq = f8.pack_kernel_q(torch.from_numpy(kq)).numpy().reshape(-1)  # (rows, O) words
     assert wq.size == kq.shape[0] * kq.shape[1] * c4 * o
@@ -153,7 +178,8 @@ def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group):
         a = _act_scale(amax)[(m // (ho * wo)) // group]
         mult = ((a * ks[n]).astype(np.float32) * scale[n]).astype(np.float32)
         y = (acc.astype(np.float32) * mult).astype(np.float32) + shift[n]
-        return np.maximum(y, np.float32(0)) if relu else y
+        y = np.maximum(y, np.float32(0)) if relu else y
+        return _bf16(y) if itemsize == 2 else y  # the one rounding to the output type
 
     tid = np.arange(nt)
     kq_i = tid % kq_n
@@ -274,6 +300,9 @@ def int8_tc_replay(name, x, kq, ks, scale, shift, relu, act_group):
                                 m = m0 + wmi * wm_t + mi * 16 + gq + 8 * hh
                                 for ni in range(ni_n):
                                     n = n0 + wni * wn_t + ni * 8 + 2 * tq
+                                    if splits == 1 and o % 2 == 0:  # pairs: an aligned store
+                                        ok = (m < m_all) & (n < o)
+                                        assert (out_offset(p, m[ok], n[ok]) % 2 == 0).all()
                                     for col, reg in ((n, 2 * hh), (n + 1, 2 * hh + 1)):
                                         ok = (m < m_all) & (n < o) & (col < o)
                                         val = acc[wmi, wni, mi, ni, :, reg][ok]
@@ -359,6 +388,46 @@ def test_int8_tc_index_arithmetic_matches_plain(case):
     np.testing.assert_array_equal(got, want)
 
 
+# every case above: odd O (5, 9, 13: element stores), even O with the
+# transposed conv's phase rows, K splits (the reduce's stores) in all three
+# modes, C % 8 == 0 and not
+BF16_REPLAY_CASES = REPLAY_CASES
+
+
+@pytest.mark.parametrize("case", BF16_REPLAY_CASES, ids=lambda c: "-".join(map(str, c[:5])))
+def test_bf16_int8_tc_index_arithmetic_matches_plain(case):
+    """The bfloat16 instance's launch against the plain version on bfloat16
+    x, bit for bit: the same scales and integers (the upcast is exact), the
+    same float32 epilogue, one rounding to bfloat16."""
+    name, shape, o, relu, group, cfg = case
+    x, kq, ks, s, t = _data(name, shape, o, seed=sum(shape) + o)
+    x = _bf16(x)
+    got, writes, (plan_cfg, _, _) = int8_tc_replay(name, x, kq, ks, s, t, relu, group, 2)
+    assert plan_cfg == cfg
+    assert (writes == 1).all()  # every output element once
+    xb = torch.from_numpy(x).bfloat16()
+    want = f8.PLAIN[name](xb, *map(torch.from_numpy, (kq, ks, s, t)), relu, group)
+    assert want.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got, want.float().numpy())
+    # the float32 plain version on the upcast x, rounded once: the same bits
+    want32 = f8.PLAIN[name](torch.from_numpy(x), *map(torch.from_numpy, (kq, ks, s, t)), relu,
+                            group)
+    assert torch.equal(want, want32.bfloat16())
+
+
+def test_bf16_int8_replays_cover_the_store_map():
+    """The bfloat16 cases hold odd O, even O in every mode, and K splits in
+    every mode (the reduce's stores), and C on both quantize loaders."""
+    seen = set()
+    for name, shape, o, _, _, _ in BF16_REPLAY_CASES:
+        splits = f8.plan_int8_tc(*f8.geometry(name, shape, o))[1]
+        seen |= {(name, o % 2, splits > 1, shape[-1] % 8 == 0)}
+    for name in f8.TC_KERNELS:
+        assert {(k[1], k[2]) for k in seen if k[0] == name} >= {(0, False), (0, True)}
+        assert any(k[0] == name and k[1] == 1 for k in seen)
+    assert {k[3] for k in seen} == {False, True}
+
+
 def test_int8_tc_replay_splits_k_in_both_modes():
     # the K-split cases above really split, in each mode
     for name, shape, o in (("int8_conv3x3_bn_relu", (1, 4, 4, 424), 424),
@@ -378,6 +447,31 @@ def test_int8_tc_replay_splits_k_in_both_modes():
 # (3, 5, 7, 130), groups smaller than the batch with a short last group
 QUANT_CASES = [((3, 5, 7, 3), None), ((5, 3, 4, 5), 2), ((2, 3, 3, 7), 1), ((3, 4, 4, 16), 2),
                ((2, 3, 5, 64), None), ((2, 2, 3, 130), 1), ((3, 2, 2, 424), 2)]
+
+
+# C % 8 == 0 (16, 64, 424) on the 16-byte path and C % 8 != 0 (3, 5, 7, 12,
+# 130) on the masked 2-byte loads: a channel run on a 2-byte boundary
+BF16_QUANT_CASES = QUANT_CASES + [((2, 3, 3, 12), None)]
+
+
+@pytest.mark.parametrize("shape,act_group", BF16_QUANT_CASES, ids=str)
+def test_bf16_act_quant_replay_gives_the_plain_versions_bytes(shape, act_group):
+    """The bfloat16 pass: every element read once, the bytes of the float32
+    pass on the upcast tensor (the scale from the float32 absmax of the
+    same values)."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x = _bf16(x * rng.uniform(0.25, 2.25, (shape[0], 1, 1, 1)).astype(np.float32))
+    xb = torch.from_numpy(x).bfloat16()
+    amax = f8.act_absmax_plain(xb, act_group)
+    assert amax.dtype == torch.float32
+    assert torch.equal(amax, f8.act_absmax_plain(torch.from_numpy(x), act_group))
+    got, reads = act_quant_replay(x, amax.numpy(), act_group, itemsize=2)
+    assert (reads == 1).all()
+    want = f8.act_quant_plain(xb, amax, act_group)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert torch.equal(want, f8.act_quant_plain(torch.from_numpy(x), amax, act_group))
+    assert torch.equal(f8.act_quant(xb, amax, act_group), want)  # CPU wrapper: the plain version
 
 
 @pytest.mark.parametrize("shape,act_group", QUANT_CASES, ids=str)
