@@ -140,13 +140,20 @@ B1. Each bfloat16 instance against its plain version in both roles (forward
     and input gradient) at the ragged shapes of phase 3 and at C % 8 == 0
     beside C % 8 != 0: within one bfloat16 ulp at the element plus 1e-4 of
     max|plain| (``fused_conv.compare_bf16``; the share bit-equal printed),
-    the same bits on a second launch. Phase 2 prints ``ptxas conv_tc_bf16``
-    and fails on a spill there.
+    the same bits on a second launch. Then ``conv_wg_bf16``
+    (``csrc/conv_wg.cu``, #1 and #6 on wgmma fed by TMA) the same way at
+    ``RAGGED_WG``'s shapes (C % 64 != 0, O = 8, 24 and 136, a batch that is
+    not a multiple of the box's images, a row wider than one box), counted
+    under "wg". Phase 2 prints ``ptxas conv_tc_bf16`` and ``ptxas
+    conv_wg_bf16`` and fails on a spill there.
 B2. The canonical Cond_SRVAE in bfloat16 (phase 4's weights) through
     ``SuperResolver`` (unchained; chained in B9):
     ``super_resolve`` B=16 and ``uncertainty`` N=1000 on phase 4's seeds;
     bfloat16 launches by kernel and role equal the hooks' and no float32
-    kernel launches; outputs float32 in [0, 1], within 2e-2 of the plain
+    kernel launches; by kernel that ran ("wg" or "tc",
+    ``fused_conv.bf16_impl_launches``) they equal the static rule
+    (``fused_conv.wg_route`` of each hooked call; here and in B3 and B4),
+    with #1 and #6 each on "wg"; outputs float32 in [0, 1], within 2e-2 of the plain
     path in bfloat16 on the card, PSNR against phase 4's float32 outputs
     above 40 dB.
 B3. One Cond_SRVAE train step in bfloat16 at B=512, ``bf16_moments`` off
@@ -161,11 +168,16 @@ B4. The canonical VAE and SRVAE in bfloat16: one request (1000 draws of one
     (B9: the chain's bfloat16 instance, C4's chain counts, within 2e-2 of
     the unchained request).
 B5/B6. Every distinct bfloat16 shape of B2 and B3, checked as in B1 and
-    timed: the bfloat16 instance, its plain version, one cuDNN call in
-    bfloat16 and the float32 kernel at the same shape, and the bound (bytes
-    over 3.35 TB/s or operations over the 989 TFLOP/s bf16 tensor-core
-    peak); sums by kernel, path and role. The kernels line gets three more
-    entries, ``<kernel>_bf16``.
+    timed: the bfloat16 instance the shape is routed to, its plain version,
+    one cuDNN call in bfloat16 and the float32 kernel at the same shape,
+    and the bound (bytes over 3.35 TB/s or operations over the 989 TFLOP/s
+    bf16 tensor-core peak); where ``conv_wg_bf16`` takes the shape, both
+    bfloat16 kernels, each checked, timed in turns (tc, wg, wg, tc), and the
+    routed shapes where wg was the slower printed; sums by kernel, kernel
+    that ran, path and role. The kernels line gets five more entries,
+    ``<kernel>_bf16_wg`` and ``<kernel>_bf16_tc`` for #1 and #6 (the wg
+    ones with the parent ``conv_tc_bf16``'s time at the same launches,
+    ``tc_ms``) and ``fused_conv4x4s2_bn_relu_bf16``.
 
 Then the bfloat16 int8 and chain instances (``csrc/int8_conv.cu``'s and
 ``csrc/conv_chain.cu``'s ``*_bf16`` entry points; phase 2 prints their
@@ -2113,6 +2125,27 @@ def families_phase(report):
 # ------------------------------------------------------------------ bfloat16
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 BF16_SOURCE_TAG = "_bf16"  # the kernels line's name of a bfloat16 instance
+WG_SOURCE = "simple_vae_rs_tpu_torch/csrc/conv_wg.cu"
+# conv_wg_bf16 at shapes it takes (C % 8 == 0, O % 8 == 0) with the edges of
+# its plan: C % 64 != 0 (72, 200: zero-filled channels), C = 16 (16-channel
+# k-groups), O = 8 and 24 (a 16-wide and a part-filled 64-wide channel tile),
+# O = 136 (a last 128-wide tile of 8), odd H and W, a batch that is not a
+# multiple of the box's images, a row wider than one 128-pixel box, a box of
+# whole images (4x4, 8x8), both roles
+RAGGED_WG = [
+    ("fused_conv3x3_bn_relu", (3, 9, 11, 72), 24, True),
+    ("fused_conv3x3_bn_relu", (2, 6, 7, 200), 8, False),
+    ("fused_conv3x3_bn_relu", (11, 4, 4, 64), 136, True),
+    ("fused_conv3x3_bn_relu", (3, 8, 8, 128), 64, True),
+    ("fused_conv3x3_bn_relu", (2, 3, 150, 32), 32, True),
+    ("fused_conv3x3_bn_relu", (2, 64, 64, 64), 16, True),
+    ("fused_convT4x4s2_bn_relu", (3, 5, 6, 72), 24, False),
+    ("fused_convT4x4s2_bn_relu", (3, 8, 8, 200), 136, True),
+    ("fused_convT4x4s2_bn_relu", (11, 4, 4, 64), 8, True),
+    ("fused_convT4x4s2_bn_relu", (2, 16, 16, 128), 64, True),
+    ("fused_convT4x4s2_bn_relu", (3, 6, 8, 16), 128, False),
+    ("fused_conv3x3_bn_relu", (3, 8, 8, 16), 64, False),
+]
 # served outputs in [0, 1] through ~25 bfloat16 layers: the kernels and the
 # plain path round float32 sums taken in other orders, so an activation may
 # land one bfloat16 ulp (2^-8 relative) apart and carry that on
@@ -2138,11 +2171,15 @@ BF16_STEP_TOLS = {"terms": 1e-2, "stats": 1e-2, "grad": 1e-3, "noise": 2.0,
                   "params_share": None}
 
 
-def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None):
+def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None, impl=None):
     """The bfloat16 instance vs its plain version at one shape (within one
     bfloat16 ulp plus 1e-4 of max|plain|: ``fc.compare_bf16``; the same bits
-    on a second launch); with ``timing`` also its time, the plain version's,
-    one cuDNN call in bfloat16 and the float32 kernel at the same shape."""
+    on a second launch): through the wrapper's route, or with ``impl`` ("wg"
+    or "tc") through that kernel (``fc.launch_bf16``). With ``timing`` also
+    its time, the plain version's, one cuDNN call in bfloat16 and the float32
+    kernel at the same shape; where ``conv_wg_bf16`` takes the shape, both
+    bfloat16 kernels (each checked too) in turns, tc, wg, wg, tc, and ``ms``
+    is the routed one's."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     k = 3 if name == "fused_conv3x3_bn_relu" else 4
     c = shape[-1]
@@ -2154,17 +2191,24 @@ def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None):
         shift = torch.randn((o,), generator=gen, device="cuda")
     else:
         scale, shift = torch.ones(o, device="cuda"), torch.zeros(o, device="cuda")
-    fn = getattr(fc, name)
-    got = fn(x, kernel, scale, shift, relu=relu)
+
+    def through(which):
+        if which is None:
+            return lambda: getattr(fc, name)(x, kernel, scale, shift, relu=relu)
+        return lambda: fc.launch_bf16(name, which, x, kernel, scale, shift, relu)
+
+    fn = through(impl)
+    got = fn()
     want = fc.PLAIN[name](x, kernel, scale, shift, relu)
     torch.cuda.synchronize()
     cmp = fc.compare_bf16(got, want)
     if got.dtype != torch.bfloat16 or not cmp["of_bound"] <= 1.0 or not torch.isfinite(got).all():
-        raise AssertionError(f"bf16 {name} {shape}->{o}: {cmp}")
-    if not torch.equal(fn(x, kernel, scale, shift, relu=relu), got):
+        raise AssertionError(f"bf16 {name} {shape}->{o} ({impl or 'routed'}): {cmp}")
+    if not torch.equal(fn(), got):
         raise AssertionError(f"bf16 {name} {shape}->{o}: a second launch gave other bits")
+    routed = "wg" if fc.wg_eligible(name, x, kernel) else "tc"
     row = {"name": name, "role": "forward" if site is None else "dx", "x": list(shape), "o": o,
-           "relu": relu, **cmp}
+           "relu": relu, "impl": impl or routed, **cmp}
     if timing:
         if site is None:
             lib = library_fn(name, x, kernel, scale, shift, relu)
@@ -2176,12 +2220,25 @@ def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None):
         if not lib_cmp["max_abs_err"] <= 2.0**-5 * lib_cmp["max_abs_ref"]:
             raise AssertionError(f"bf16 library call disagrees at {name} {shape}: {lib_cmp}")
         xf, kf = x.float(), kernel.float()
-        first = cuda_ms(lambda: fn(x, kernel, scale, shift, relu=relu), 1)
+        first = cuda_ms(fn, 1)
         reps = max(3, min(50, int(30.0 / max(first, 1e-3))))
-        row["ms"] = cuda_ms(lambda: fn(x, kernel, scale, shift, relu=relu), reps)
+        if fc.wg_supported(name, x, kernel):
+            for which in ("tc", "wg"):
+                other = fc.compare_bf16(through(which)(), want)
+                if not other["of_bound"] <= 1.0:
+                    raise AssertionError(f"bf16 {name} {shape}->{o} ({which}): {other}")
+                row[f"{which}_of_bound"] = other["of_bound"]
+            turns = [cuda_ms(through(which), reps) for which in ("tc", "wg", "wg", "tc")]
+            row["turns_ms"] = turns
+            row["tc_ms"], row["wg_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            row["ms"] = row[f"{routed}_ms"]
+        else:
+            row["ms"] = row["tc_ms"] = cuda_ms(fn, reps)
+            row["wg_ms"] = None
         row["plain_ms"] = cuda_ms(lambda: fc.PLAIN[name](x, kernel, scale, shift, relu), reps)
         row["library_ms"] = cuda_ms(lib, reps)
-        row["f32_kernel_ms"] = cuda_ms(lambda: fn(xf, kf, scale, shift, relu=relu), reps)
+        row["f32_kernel_ms"] = cuda_ms(lambda: getattr(fc, name)(xf, kf, scale, shift, relu=relu),
+                                       reps)
         m, n, kk, phases = fc.geometry(name, x, kernel)
         flops = 2.0 * phases * m * n * kk
         nbytes = 2.0 * (x.numel() + kernel.numel() + got.numel()) + 4.0 * 2 * o
@@ -2197,6 +2254,29 @@ def bf16_counts(fc):
         raise AssertionError(f"a float32 kernel launched on a bfloat16 path: {fc.launches}")
     return {(name, role): n for name, roles in fc.bf16_launches.items()
             for role, n in roles.items() if n}
+
+
+def impl_counts(fc):
+    """The bfloat16 #1/#5/#6 launches by (kernel, role, kernel that ran)
+    since the last reset."""
+    return {(name, role, impl): n for name, roles in fc.bf16_impl_launches.items()
+            for role, impls in roles.items() for impl, n in impls.items() if n}
+
+
+def check_impls(fc, what, calls):
+    """The launches by kernel that ran against the static rule
+    (``fc.wg_route`` of each recorded call's shapes; ``fc.plan_wg`` counts
+    its tiles): they must be equal. Returns them."""
+    want = {}
+    for name, role, shape, o, *_ in calls:
+        impl = "wg" if fc.wg_route(name, shape, o) else "tc"
+        want[(name, role, impl)] = want.get((name, role, impl), 0) + 1
+    got = impl_counts(fc)
+    if got != want:
+        raise AssertionError(f"{what}: launches by kernel {got}, the static rule says {want}")
+    log(f"{what} launches by kernel: "
+        + " ".join(f"{k[0]} {k[1]} {k[2]}={v}" for k, v in sorted(got.items())))
+    return got
 
 
 def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
@@ -2229,6 +2309,19 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
         log(f"bf16 ragged {name} x{shape} O={o}: forward {row['of_bound']:.3f} of bound, "
             f"bit-equal {row['share_bit_equal']:.4f}, within 1 ulp {row['share_within_1ulp']:.6f};"
             f" dx {dx['of_bound']:.3f}, bit-equal {dx['share_bit_equal']:.4f}")
+    # B1. conv_wg_bf16 at the ragged shapes it takes, both roles
+    for i, (name, shape, o, relu) in enumerate(RAGGED_WG):
+        fc.reset_launches()
+        row = check_shape_bf16(fc, name, shape, o, relu, seed=750 + i, timing=False, impl="wg")
+        dx = check_shape_bf16(fc, name, shape, o, False, seed=850 + i, timing=False,
+                              site=fc.DX_KERNEL[name], impl="wg")
+        if fc.bf16_impl_launches[name]["forward"] != {"wg": 4, "tc": 0}:
+            raise AssertionError(f"bf16 wg ragged {name} {shape}: launches by kernel "
+                                 f"{fc.bf16_impl_launches[name]}")
+        bf["ragged"] += [row, dx]
+        log(f"bf16 wg ragged {name} x{shape} O={o} plan {tuple(fc.plan_wg(name, *shape, o))}: "
+            f"forward {row['of_bound']:.3f} of bound, bit-equal {row['share_bit_equal']:.4f}; dx "
+            f"{dx['of_bound']:.3f}, bit-equal {dx['share_bit_equal']:.4f}; the same bits twice")
 
     # B2. serving in bfloat16 at full width: the weights of phase 4's model
     cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
@@ -2256,6 +2349,10 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     recorded = counts_by_role(serve_calls)
     if serve_counts != recorded or not serve_counts:
         raise AssertionError(f"bf16 serving launches {serve_counts}, hooks recorded {recorded}")
+    serve_impls = check_impls(fc, "bf16 serving", serve_calls)
+    for name in fc.WG_KERNELS:
+        if not serve_impls.get((name, "forward", "wg")):
+            raise AssertionError(f"bf16 serving: {name} never ran conv_wg_bf16")
     served_ok("bf16 super_resolve", out, (16, 64, 64, 4))
     if out.dtype != torch.float32 or any(v.dtype != torch.float32 for v in uq.values()):
         raise AssertionError("bf16 serving: outputs are not float32")
@@ -2293,7 +2390,8 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
                      "uncertainty_n1000_ms": uq_ms, "uncertainty_n1000_ms_repeats": rep_uq,
                      "peak_memory_gib": serve_peak, "max_abs_err_vs_plain": serve_err,
                      "psnr_db_vs_f32": psnr,
-                     "launches": {" ".join(k): v for k, v in serve_counts.items()}}
+                     "launches": {" ".join(k): v for k, v in serve_counts.items()},
+                     "launches_by_kernel": {" ".join(k): v for k, v in serve_impls.items()}}
     del sr, model, plain_out, plain_uq
 
     # B3. one Cond_SRVAE training step at B=512, bf16_moments off then on
@@ -2319,6 +2417,10 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
                                                        "kl_gen_rows": 1}:
             raise AssertionError(f"bf16 train step launches {counts} {rows}, hooks recorded "
                                  f"{counts_by_role(calls)}")
+        step_impls = check_impls(fc, f"bf16 train step (moments={moments})", calls)
+        for name in fc.WG_KERNELS:
+            if not step_impls.get((name, "forward", "wg")):
+                raise AssertionError(f"bf16 train step: {name} never ran conv_wg_bf16")
         if not all(torch.isfinite(v) for v in terms.values()):
             raise AssertionError(f"bf16 train step: non-finite loss terms {terms}")
         if moments and not all(m.dtype == torch.bfloat16 for m in trainer.opt.mu):
@@ -2339,6 +2441,7 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
                 h.remove()
             if val_counts != counts_by_role(vcalls):
                 raise AssertionError(f"bf16 val step launches {val_counts}")
+            check_impls(fc, "bf16 val step", vcalls)
             if not all(torch.isfinite(v) for v in val.values()):
                 raise AssertionError(f"bf16 val step: non-finite loss terms {val}")
             val_calls = vcalls
@@ -2347,7 +2450,8 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
         steps[moments] = {"step_ms": step_ms, "step_ms_median": med, "peak_memory_gib": peak,
                           "patches_per_s": n / (med / 1e3),
                           "terms": {k: float(v) for k, v in terms.items()},
-                          "launches": {" ".join(k): v for k, v in counts.items()}}
+                          "launches": {" ".join(k): v for k, v in counts.items()},
+                          "launches_by_kernel": {" ".join(k): v for k, v in step_impls.items()}}
         log(f"bf16 train step B={n} bf16_moments={moments}: median {med:.2f} ms over 5 ("
             + ", ".join(f"{t:.2f}" for t in step_ms) + f"), {n / (med / 1e3):.1f} patches/s, "
             f"peak memory {peak:.2f} GiB (float32 step {f32_train_peak_gib:.2f} GiB); launches "
@@ -2370,15 +2474,22 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     vcfg = VAEConfig(cr=1.5, patch_size=32)
     vae = VAE(vcfg, device="cuda", dtype=torch.bfloat16).init_weights(seed=0)
     trainer = Trainer(vae, TrainConfig(learning_rate=LR, use_bfloat16=True), device="cuda")
+    family_calls = []
+    hooks = record_conv_calls(vae, family_calls)
     fc.reset_launches()
     vterms = trainer.train_step(batch)
     vcounts = bf16_counts(fc)
+    check_impls(fc, "bf16 VAE train step", family_calls)
     vae.eval()
     window = batch[0][:1]
+    family_calls.clear()
     fc.reset_launches()
     draws, vae_ms = timed(lambda: sample_chunked(vae, window, torch.Generator(device="cuda")
                                                  .manual_seed(3), samples=1000, chunk=1000))
     vdraw_counts = bf16_counts(fc)
+    check_impls(fc, "bf16 VAE sample_chunked(1000)", family_calls)
+    for h in hooks:
+        h.remove()
     # B9: the same request chained, through the chain's bfloat16 instance
     blocks.use_chain(vae)
     fc.reset_launches()
@@ -2411,9 +2522,14 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     srvae = SRVAE(cfg, device="cuda", dtype=torch.bfloat16).init_weights(seed=0)
     srs = SuperResolver(srvae, device="cuda", seed=0)
     hr = batch[1][:16] * 1000.0
+    family_calls.clear()
+    hooks = record_conv_calls(srvae, family_calls)
     fc.reset_launches()
     s_out, s_ms = timed(lambda: srs.super_resolve(hr, seed=31))
     s_counts = bf16_counts(fc)
+    check_impls(fc, "bf16 SRVAE super_resolve(16)", family_calls)
+    for h in hooks:
+        h.remove()
     served_ok("bf16 SRVAE super_resolve", s_out, (16, 64, 64, 4))
     # B9: the same request chained (the ey and dx tails, as C2's float32 counts)
     srs_c = SuperResolver(srvae, device="cuda", seed=0, chain=True)
@@ -2426,9 +2542,14 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
                              f"max|diff| vs unchained {s_chain_err}")
     del srs_c
     trainer = Trainer(srvae, TrainConfig(learning_rate=LR, use_bfloat16=True), device="cuda")
+    family_calls.clear()
+    hooks = record_conv_calls(srvae, family_calls)
     fc.reset_launches()
     sterms = trainer.train_step(batch)
     st_counts = bf16_counts(fc)
+    check_impls(fc, "bf16 SRVAE train step", family_calls)
+    for h in hooks:
+        h.remove()
     if not all(torch.isfinite(v) for v in sterms.values()):
         raise AssertionError("bf16 SRVAE train step: non-finite loss terms")
     log(f"bf16 SRVAE super_resolve B=16 from HR input: {s_ms:.2f} ms (first call), launches "
@@ -2459,47 +2580,67 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
         per_key[call] = row = check_shape_bf16(fc, name, shape, o, relu, seed=900 + i,
                                                timing=True, site=site)
         bf["shapes"].append(row)
-        log(f"bf16 shape {name} {role} x{shape} O={o}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, cuDNN bf16 {row['library_ms']:.4f} ms, float32 kernel "
-            f"{row['f32_kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"{row['of_bound']:.3f} of the ulp bound, bit-equal {row['share_bit_equal']:.4f}")
-    fields = ("ms", "plain_ms", "library_ms", "f32_kernel_ms", "bound_ms", "flops", "bytes")
+        turns = ("" if row["wg_ms"] is None else
+                 f" [wg {row['wg_ms']:.4f} ms, tc {row['tc_ms']:.4f} ms in turns "
+                 + "/".join(f"{t:.4f}" for t in row["turns_ms"]) + "]")
+        log(f"bf16 shape {name} {role} x{shape} O={o}: kernel ({row['impl']}) {row['ms']:.4f} ms"
+            f"{turns}, plain {row['plain_ms']:.4f} ms, cuDNN bf16 {row['library_ms']:.4f} ms, "
+            f"float32 kernel {row['f32_kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), {row['of_bound']:.3f} of the ulp bound, bit-equal "
+            f"{row['share_bit_equal']:.4f}")
+    slower = [r for r in bf["shapes"] if r["impl"] == "wg" and r["wg_ms"] > r["tc_ms"]]
+    log(f"bf16 shapes routed to conv_wg_bf16: {sum(r['impl'] == 'wg' for r in bf['shapes'])} of "
+        f"{len(bf['shapes'])}; slower there than conv_tc_bf16 in this run: {len(slower)} "
+        + " ".join(f"{r['name']} {r['role']} x{tuple(r['x'])} O={r['o']}" for r in slower))
+    fields = ("ms", "tc_ms", "plain_ms", "library_ms", "f32_kernel_ms", "bound_ms", "flops",
+              "bytes")
     kernels = []
     for name in fc.TC_KERNELS:
-        tot = dict.fromkeys(fields, 0.0)
-        by_path = {}
-        for path, cs in paths:
-            for role in fc.ROLES:
-                mine = [c for c in cs if c[0] == name and c[1] == role]
-                if not mine:
-                    continue
-                d = dict.fromkeys(("launches",) + fields, 0.0)
-                for c in mine:
-                    row = per_key[key_of(c)]
-                    d["launches"] += 1
+        # #1 and #6 once per kernel that ran ("wg": conv_wg_bf16, "tc":
+        # conv_tc_bf16), #5 (conv_tc_bf16 only) once
+        for impl in ("wg", "tc") if name in fc.WG_KERNELS else (None,):
+            tot = dict.fromkeys(fields, 0.0)
+            by_path = {}
+            for path, cs in paths:
+                for role in fc.ROLES:
+                    mine = [c for c in cs if c[0] == name and c[1] == role
+                            and impl in (None, per_key[key_of(c)]["impl"])]
+                    if not mine:
+                        continue
+                    d = dict.fromkeys(("launches",) + fields, 0.0)
+                    for c in mine:
+                        row = per_key[key_of(c)]
+                        d["launches"] += 1
+                        for k in fields:
+                            d[k] += row[k]
+                    by_path[f"{path}_{role}"] = int(d["launches"])
                     for k in fields:
-                        d[k] += row[k]
-                by_path[f"{path}_{role}"] = int(d["launches"])
-                for k in fields:
-                    tot[k] += d[k]
-                log(f"bf16 {path} {name} {role}: launches {int(d['launches'])}, kernel "
-                    f"{d['ms']:.3f} ms, bound {d['bound_ms']:.3f} ms (989 TFLOP/s, 3.35 TB/s), "
-                    f"plain {d['plain_ms']:.3f} ms, cuDNN bf16 {d['library_ms']:.3f} ms, "
-                    f"float32 kernel {d['f32_kernel_ms']:.3f} ms")
-        rows = [r for r in bf["ragged"] + bf["shapes"] if r["name"] == name]
-        kernels.append({
-            "name": name + BF16_SOURCE_TAG, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "max_of_ulp_bound": max(r["of_bound"] for r in rows),
-            "min_share_bit_equal": min(r["share_bit_equal"] for r in rows),
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": ("operations" if tot["flops"] / PEAK_BF16_FLOPS > tot["bytes"] / PEAK_BYTES
-                         else "bytes"),
-            "library_ms": tot["library_ms"], "f32_kernel_ms": tot["f32_kernel_ms"],
-            "share_of_bound": tot["bound_ms"] / tot["ms"],
-        })
+                        tot[k] += d[k]
+                    log(f"bf16 {path} {name} {role}{'' if impl is None else ' ' + impl}: "
+                        f"launches {int(d['launches'])}, kernel {d['ms']:.3f} ms"
+                        + ("" if impl != "wg" else f" (conv_tc_bf16 {d['tc_ms']:.3f} ms)")
+                        + f", bound {d['bound_ms']:.3f} ms (989 TFLOP/s, 3.35 TB/s), plain "
+                        f"{d['plain_ms']:.3f} ms, cuDNN bf16 {d['library_ms']:.3f} ms, float32 "
+                        f"kernel {d['f32_kernel_ms']:.3f} ms")
+            rows = [r for r in bf["ragged"] + bf["shapes"]
+                    if r["name"] == name and impl in (None, r["impl"])]
+            entry = {
+                "name": name + BF16_SOURCE_TAG + ("" if impl is None else "_" + impl),
+                "route": "cuda", "source": WG_SOURCE if impl == "wg" else SOURCE,
+                "replaces": REPLACES[name], "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "max_of_ulp_bound": max(r["of_bound"] for r in rows),
+                "min_share_bit_equal": min(r["share_bit_equal"] for r in rows),
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": ("operations" if tot["flops"] / PEAK_BF16_FLOPS
+                             > tot["bytes"] / PEAK_BYTES else "bytes"),
+                "library_ms": tot["library_ms"], "f32_kernel_ms": tot["f32_kernel_ms"],
+                "share_of_bound": tot["bound_ms"] / tot["ms"] if tot["ms"] else None,
+            }
+            if impl == "wg":  # the parent kernel at the same launches, in turns
+                entry["tc_ms"] = tot["tc_ms"]
+            kernels.append(entry)
     if failures:
         raise AssertionError("bf16 phase: " + "; ".join(failures))
     return kernels, (out, uq), {
@@ -2951,6 +3092,12 @@ def main() -> int:
     log("ptxas conv_tc_bf16: "
         + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"], "conv_tc_bf16I", 12)
         + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes(bf16=True))")
+    # three channel tiles x two k-group widths in each of the two modes
+    log("ptxas conv_wg_bf16: "
+        + tensor_core_ptxas(_build.ptxas_logs[fc.WG_SOURCE], "conv_wg_bf16",
+                            2 * len(fc.WG_STAGES))
+        + " (168 at entry: setmaxnreg gives the producer warpgroup 40, the consumers 232;"
+        + " dynamic shared memory per channel tile: csrc/conv_wg.cu wg_smem_bytes)")
     log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernelIf", 1)
         + " (dynamic shared memory per shape: ops/fused_chain.plan_chain)")
     log("ptxas chain_bf16: "
@@ -3215,7 +3362,7 @@ def main() -> int:
             **({"device_ms": tot["device_ms"] or None} if name != "act_quant" else {}),
         })
     kernels.append(bf16_chain_entry)
-    if len(kernels) != 22 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 24 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was launched no time: "
                              + str({k["name"]: k["launches"] for k in kernels}))
     report["kernels"] = kernels

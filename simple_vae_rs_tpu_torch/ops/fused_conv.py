@@ -19,8 +19,12 @@ kernel in ``csrc/fused_conv.cu`` on the current stream or raises. There is no
 fallback between the two. :data:`launches` counts the float32 kernels'
 launches per wrapper, and :data:`role_launches` splits them into forward
 calls and input gradients; :data:`bf16_launches` counts the bfloat16
-instances' launches the same way, by role. A bfloat16 CUDA tensor launches
-the bfloat16 instance or raises: it never reaches the float32 kernel.
+instances' launches the same way, by role, and :data:`bf16_impl_launches`
+splits those by the kernel that ran ("wg" or "tc"). A bfloat16 CUDA tensor
+launches a bfloat16 kernel or raises: it never reaches the float32 kernel.
+A bfloat16 launch of #1 or #6 that :func:`wg_eligible` admits runs
+``conv_wg_bf16`` (``csrc/conv_wg.cu``: wgmma fed by TMA, launch plan
+:func:`plan_wg`) or raises; every other bfloat16 launch runs ``conv_tc_bf16``.
 
 :func:`fused_conv` is the differentiable form (port of the JAX ``_make_grad``
 VJPs): its backward computes every input gradient with one of the three
@@ -40,7 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +73,12 @@ role_launches: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROLES, 0) for na
 # under its name, in the forward role (it has no other)
 bf16_launches: Dict[str, Dict[str, int]] = {
     **{name: dict.fromkeys(ROLES, 0) for name in _KERNELS}, CHAIN: {"forward": 0}}
+# The same launches of #1, #5 and #6 by the kernel that ran: "wg"
+# (``conv_wg_bf16``) or "tc" (``conv_tc_bf16``); per kernel and role they sum
+# to ``bf16_launches``
+IMPLS = ("wg", "tc")
+bf16_impl_launches: Dict[str, Dict[str, Dict[str, int]]] = {
+    name: {role: dict.fromkeys(IMPLS, 0) for role in ROLES} for name in _KERNELS}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -79,6 +89,10 @@ def reset_launches() -> None:
         for roles in counts.values():
             for role in roles:
                 roles[role] = 0
+    for roles in bf16_impl_launches.values():
+        for impls in roles.values():
+            for impl in impls:
+                impls[impl] = 0
 
 
 _SMS = 132  # H100 SXM streaming multiprocessors
@@ -148,6 +162,125 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# ------------------------------------------------------------ conv_wg_bf16
+# The bfloat16 #1 and #6 on wgmma fed by TMA (``csrc/conv_wg.cu``): a tile is
+# WG_BM output pixels (two consumer warpgroups of 64 rows) x BN channels, K
+# in k-groups of KC channels of one tap (64, or 16 where C <= 16).
+WG_SOURCE = "conv_wg.cu"
+WG_KERNELS = {"fused_conv3x3_bn_relu": "svrs_conv3x3_wg_bf16",
+              "fused_convT4x4s2_bn_relu": "svrs_convT4x4s2_wg_bf16"}
+WG_BM = 128
+# the ring's stages per (KC, BN), one instance each: as deep as one block's
+# 227 KB of shared memory allows with 64-channel k-groups (A 16 KB and B
+# 128 * BN bytes a stage), 8 with 16-channel ones
+WG_STAGES = {(64, 128): 6, (64, 64): 8, (64, 16): 8, (16, 128): 8, (16, 64): 8, (16, 16): 8}
+WG_MAX_W = 256  # a row in at most two 128-pixel boxes
+# The measured cut (chip_smoke.py B6 times both bfloat16 kernels in turns at
+# every #1/#6 shape of the canonical paths; NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md): conv_wg_bf16 was slower than conv_tc_bf16 at some shapes
+# below 6.7 GFLOP (both near their launch floor of 0.02-0.06 ms) and at the
+# prior heads of 7 or 14 tiles (conv_tc_bf16 splits their K over the card),
+# and it tied at 9.7 GFLOP with 36 k-group steps a block (256 tiles of 18):
+# there it took 0.029-0.063 ms from run to run against conv_tc_bf16's steady
+# 0.060, its device time below the host path of a launch from Python; past
+# the three cuts it took 0.30-0.91x conv_tc_bf16's time at every shape.
+WG_MIN_FLOPS = 8e9
+WG_MIN_TILES = 64
+WG_MIN_STEPS = 64  # k-groups the busiest block walks: ceil(tiles / grid) x k-groups a tile
+
+
+class WgPlan(NamedTuple):
+    """Launch plan of ``conv_wg_bf16``: the A box (``wb`` pixels of a row,
+    ``th`` rows, ``nb`` images; wb * th * nb <= WG_BM), the channel tile
+    ``bn``, the k-group's channels ``kc``, the ring's ``stages``, the output
+    ``tiles`` (phases x pixel tiles x channel tiles) and the persistent
+    ``grid`` (one block per SM at most)."""
+    wb: int
+    th: int
+    nb: int
+    bn: int
+    kc: int
+    stages: int
+    tiles: int
+    grid: int
+
+
+def wg_box(b: int, h: int, w: int) -> Tuple[int, int, int]:
+    """The A box ``(wb, th, nb)`` of a (B, H, W) input grid: whole rows when
+    W <= WG_BM (64x64 -> two rows, 8x8 -> two images, 4x4 -> eight), else
+    128-pixel row segments."""
+    if w >= WG_BM:
+        return WG_BM, 1, 1
+    th = min(h, WG_BM // w)
+    nb = max(1, min(b, WG_BM // (w * h))) if th == h else 1
+    return w, th, nb
+
+
+def wg_bn(o: int) -> int:
+    """The channel tile: 128 above 64 outputs, 64 above 16, else 16 (the
+    canonical O <= 64 are 4, 16 and 64)."""
+    return 128 if o > 64 else 64 if o > 16 else 16
+
+
+def wg_kc(c: int) -> int:
+    """The k-group's channels: 16 (32-byte rows) where C <= 16, else 64."""
+    return 16 if c <= 16 else 64
+
+
+def plan_wg(name: str, b: int, h: int, w: int, c: int, o: int) -> WgPlan:
+    """:class:`WgPlan` of kernel ``name`` (#1 or #6) on a (B, H, W, C) input
+    with O outputs (K is taps x ceil(C / kc) k-groups)."""
+    phases = _KERNELS[name][3]
+    wb, th, nb = wg_box(b, h, w)
+    bn, kc = wg_bn(o), wg_kc(c)
+    tiles = phases * _cdiv(w, wb) * _cdiv(h, th) * _cdiv(b, nb) * _cdiv(o, bn)
+    return WgPlan(wb, th, nb, bn, kc, WG_STAGES[kc, bn], tiles, min(tiles, _SMS))
+
+
+def _wg_takes(name: str, x_shape, o: int) -> bool:
+    """The shapes ``conv_wg_bf16`` can run at all: #1 or #6, C % 8 == 0 and
+    O % 8 == 0 (TMA's global strides are whole 16 bytes), W <= 256."""
+    return (name in WG_KERNELS and x_shape[-1] % 8 == 0 and o % 8 == 0
+            and x_shape[2] <= WG_MAX_W)
+
+
+def wg_route(name: str, x_shape, o: int) -> bool:
+    """The shape half of :func:`wg_eligible`: what ``conv_wg_bf16`` takes,
+    with at least :data:`WG_MIN_FLOPS` operations (2 M N K over the phases),
+    :data:`WG_MIN_TILES` output tiles and :data:`WG_MIN_STEPS` k-group steps
+    on the busiest block (:func:`plan_wg`). The last three are the measured
+    cut: below them ``conv_tc_bf16`` was as fast or at some shapes faster."""
+    if not _wg_takes(name, x_shape, o):
+        return False
+    b, h, w, c = x_shape
+    _, taps, _, phases = _KERNELS[name]
+    if 2.0 * phases * b * h * w * o * taps * c < WG_MIN_FLOPS:
+        return False
+    plan = plan_wg(name, b, h, w, c, o)
+    steps = _cdiv(plan.tiles, plan.grid) * taps * _cdiv(c, plan.kc)
+    return plan.tiles >= WG_MIN_TILES and steps >= WG_MIN_STEPS
+
+
+def _wg_operands(x: Tensor, kernel: Tensor) -> bool:
+    return (x.dtype == torch.bfloat16 and kernel.dtype == torch.bfloat16
+            and x.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0)
+
+
+def wg_supported(name: str, x: Tensor, kernel: Tensor) -> bool:
+    """What ``conv_wg_bf16`` can run at all: bfloat16 #1 or #6, C % 8 == 0
+    and O % 8 == 0, x and the weight 16-byte aligned, W <= 256."""
+    return _wg_operands(x, kernel) and _wg_takes(name, x.shape, kernel.shape[-1])
+
+
+def wg_eligible(name: str, x: Tensor, kernel: Tensor) -> bool:
+    """Whether a bfloat16 launch of kernel ``name`` runs ``conv_wg_bf16``; a
+    static rule of shapes, dtypes and alignment, the same on every run:
+    bfloat16 x and weight, both 16-byte aligned, and :func:`wg_route` of the
+    shapes (#1 or #6, C % 8 == 0, O % 8 == 0, W <= 256, and the measured cut
+    on operations, tiles and k-group steps)."""
+    return _wg_operands(x, kernel) and wg_route(name, x.shape, kernel.shape[-1])
+
+
 def geometry(name: str, x: Tensor, kernel: Tensor) -> Tuple[int, int, int, int]:
     """GEMM shape ``(M per phase, N, K, phases)`` of a kernel call."""
     _, taps, stride, phases = _KERNELS[name]
@@ -191,7 +324,12 @@ def _check_dtypes(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Te
 
 
 def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
-            relu: bool, role: str = "forward") -> Tensor:
+            relu: bool, role: str = "forward", impl: Optional[str] = None) -> Tensor:
+    """Launch kernel ``name`` on CUDA tensors. A bfloat16 launch runs
+    ``conv_wg_bf16`` when :func:`wg_eligible` admits it, else
+    ``conv_tc_bf16``; ``impl`` ("wg" or "tc") names the kernel instead, for a
+    measurement that times both at one shape (``chip_smoke.py``), and "wg"
+    still needs :func:`wg_supported`."""
     _check(name, x, kernel, scale, shift)
     _check_dtypes(name, x, kernel, scale, shift)
     dev = x.device
@@ -205,8 +343,17 @@ def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
         raise ValueError(f"{name}: tensor too large for 32-bit pixel indices")
     b, h, w, c = x.shape
     bf16 = x.dtype == torch.bfloat16
+    if impl is None:
+        impl = "wg" if bf16 and wg_eligible(name, x, kernel) else "tc"
+    elif impl not in IMPLS or not bf16 or (impl == "wg" and not wg_supported(name, x, kernel)):
+        raise ValueError(f"{name}: no {impl} kernel for {x.dtype} x{tuple(x.shape)} -> {n}")
     out = torch.empty(output_shape(name, x.shape, n), device=dev, dtype=x.dtype)
     if m == 0 or n == 0:
+        return out
+    if impl == "wg":
+        _launch_wg(name, x, kernel, scale, shift, out, relu)
+        bf16_launches[name][role] += 1
+        bf16_impl_launches[name][role]["wg"] += 1
         return out
     cfg, splits, kchunk = plan_tc(m, n, k, phases, bk=TC_BK_BF16 if bf16 else TC_BK)
     ws = (torch.empty((splits * phases * m * n,), device=dev, dtype=torch.float32)
@@ -221,13 +368,50 @@ def _launch(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     if bf16:
         bf16_launches[name][role] += 1
+        bf16_impl_launches[name][role]["tc"] += 1
     else:
         launches[name] += 1
         role_launches[name][role] += 1
     return out
 
 
+def _launch_wg(name: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
+               out: Tensor, relu: bool) -> None:
+    b, h, w, c = x.shape
+    o = kernel.shape[-1]
+    if out.data_ptr() % 16:
+        raise ValueError(f"{name}: the output is not 16-byte aligned")
+    plan = plan_wg(name, b, h, w, c, o)
+    fn = getattr(_wg_library(), WG_KERNELS[name])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), kernel.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                 out.data_ptr(), b, h, w, c, o, int(relu), plan.wb, plan.th, plan.nb, plan.bn,
+                 plan.kc, plan.stages, plan.grid, stream)
+    if err >= 20000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled is not available")
+    if err >= 10000:
+        raise RuntimeError(f"{name}: a TMA tensor map failed to encode (CUresult {err - 10000})")
+    if err != 0:
+        raise RuntimeError(f"{name}: conv_wg_bf16 launch failed with cudaError {err}")
+
+
 _lib: Optional[ctypes.CDLL] = None
+_wg_lib: Optional[ctypes.CDLL] = None
+
+
+def _wg_library() -> ctypes.CDLL:
+    global _wg_lib
+    if _wg_lib is None:
+        from simple_vae_rs_tpu_torch.ops import _build
+
+        lib = _build.load(WG_SOURCE)
+        for sym in WG_KERNELS.values():
+            fn = getattr(lib, sym)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _wg_lib = lib
+    return _wg_lib
 
 
 def _library() -> ctypes.CDLL:
@@ -262,6 +446,18 @@ def _dispatch(name: str, x, kernel, scale, shift, relu, role: str = "forward"):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA card, not {x.device}")
     return _launch(name, x, kernel, scale, shift, relu, role)
+
+
+def launch_bf16(name: str, impl: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
+                relu: bool = True) -> Tensor:
+    """Kernel ``name`` on bfloat16 CUDA tensors through ``impl`` ("wg":
+    ``conv_wg_bf16``, which needs :func:`wg_supported`; "tc":
+    ``conv_tc_bf16``), whatever :func:`wg_eligible` says: for measurements
+    that hold and time both kernels at one shape. Counted as a forward
+    launch; the model paths never call it."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: launch_bf16 needs CUDA tensors, not {x.device}")
+    return _launch(name, x, kernel, scale, shift, relu, "forward", impl)
 
 
 # ------------------------------------------------------------ plain versions

@@ -670,6 +670,80 @@ def test_bf16_kernel_matches_plain_in_both_roles(cuda, case):
     assert {k: dict(v) for k, v in fc.role_launches.items()} == f32_before
 
 
+# conv_wg_bf16 (csrc/conv_wg.cu, bfloat16 #1 and #6 on wgmma fed by TMA) at
+# the CPU replay's ragged shapes: C % 64 != 0 (72, 200, 8), O = 8, 24 and
+# 136, odd H and W, a batch not a multiple of the box's images, a row wider
+# than one 128-pixel box
+WG_CASES = [
+    ("fused_conv3x3_bn_relu", (3, 9, 11, 72), 24, True),
+    ("fused_conv3x3_bn_relu", (2, 6, 7, 200), 8, False),
+    ("fused_conv3x3_bn_relu", (11, 4, 4, 64), 136, True),
+    ("fused_conv3x3_bn_relu", (3, 8, 8, 16), 64, False),
+    ("fused_conv3x3_bn_relu", (1, 2, 130, 8), 16, True),
+    ("fused_convT4x4s2_bn_relu", (3, 5, 6, 72), 24, False),
+    ("fused_convT4x4s2_bn_relu", (11, 4, 4, 64), 8, True),
+    ("fused_convT4x4s2_bn_relu", (3, 8, 8, 136), 136, True),
+    ("fused_convT4x4s2_bn_relu", (3, 6, 8, 16), 128, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WG_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_wg_kernel_matches_plain(cuda, case):
+    name, shape, o, relu = case
+    x, kern, s, t = _bf16_inputs(name, shape, o, seed=sum(shape) + 5 * o, device=cuda)
+    assert fc.wg_supported(name, x, kern)
+    fc.reset_launches()
+    got = fc.launch_bf16(name, "wg", x, kern, s, t, relu)
+    torch.cuda.synchronize()
+    want = fc.PLAIN[name](x, kern, s, t, relu)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert fc.compare_bf16(got, want)["of_bound"] <= 1.0
+    assert torch.equal(fc.launch_bf16(name, "wg", x, kern, s, t, relu), got)  # the same bits
+    assert fc.bf16_impl_launches[name]["forward"] == {"wg": 2, "tc": 0}
+    assert fc.bf16_launches[name]["forward"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fused_conv3x3_bn_relu", "fused_convT4x4s2_bn_relu"])
+def test_wg_routing_runs_conv_wg_in_both_roles(cuda, name):
+    # a shape past the measured cut (>= 8 GFLOP, >= 64 tiles, >= 64 k-group
+    # steps on the busiest block) goes to conv_wg_bf16 through the wrapper and
+    # through input_grad; one below it to conv_tc_bf16
+    shape, o = ((256, 16, 16, 128), 128) if "3x3" in name else ((128, 16, 16, 128), 64)
+    x, kern, s, t = _bf16_inputs(name, shape, o, seed=3, device=cuda)
+    assert fc.wg_eligible(name, x, kern)
+    fc.reset_launches()
+    got = getattr(fc, name)(x, kern, s, t, relu=True)
+    want = fc.PLAIN[name](x, kern, s, t, True)
+    assert fc.compare_bf16(got, want)["of_bound"] <= 1.0
+    assert fc.bf16_impl_launches[name]["forward"] == {"wg": 1, "tc": 0}
+    site = "fused_conv3x3_bn_relu" if "3x3" in name else "fused_conv4x4s2_bn_relu"
+    in_shape = fc.output_shape(name, shape, o)
+    g = x  # a gradient of the site's pre-affine output has x's shape here
+    got = fc.input_grad(site, g, fc.flip_swap(kern), in_shape)
+    want = fc.input_grad(site, g, fc.flip_swap(kern), in_shape, plain=True)
+    assert fc.compare_bf16(got, want)["of_bound"] <= 1.0
+    assert fc.bf16_impl_launches[name]["dx"] == {"wg": 1, "tc": 0}
+    small = x[:2].contiguous()
+    assert not fc.wg_eligible(name, small, kern)
+    getattr(fc, name)(small, kern, s, t, relu=True)
+    assert fc.bf16_impl_launches[name]["forward"] == {"wg": 1, "tc": 1}
+
+
+@pytest.mark.gpu
+def test_wg_launch_refuses_what_it_does_not_take(cuda):
+    x, kern, s, t = _bf16_inputs("fused_conv3x3_bn_relu", (2, 8, 8, 12), 16, 0, cuda)
+    with pytest.raises(ValueError):  # C % 8 != 0
+        fc.launch_bf16("fused_conv3x3_bn_relu", "wg", x, kern, s, t)
+    x, kern, s, t = _bf16_inputs("fused_conv4x4s2_bn_relu", (2, 8, 8, 16), 16, 0, cuda)
+    with pytest.raises(ValueError):  # not #1 or #6
+        fc.launch_bf16("fused_conv4x4s2_bn_relu", "wg", x, kern, s, t)
+    with pytest.raises(ValueError):  # float32
+        fc.launch_bf16("fused_conv3x3_bn_relu", "wg", x.float(),
+                       kern.float()[:3, :3].contiguous(), s, t)
+
+
 @pytest.mark.gpu
 def test_bf16_wrapper_rejects_mixed_dtypes(cuda):
     x, kern, s, t = _bf16_inputs("fused_conv3x3_bn_relu", (1, 4, 4, 8), 8, 0, cuda)

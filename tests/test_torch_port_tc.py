@@ -800,3 +800,454 @@ def test_bf16_instances_are_mma_bf16_in_all_three_modes():
         threads = (bm // wm) * (bn // wn) * 32
         assert wn % 16 == 0 and (bm * fc.TC_BK_BF16 // 8) % threads == 0
         assert 2 * fc.tc_smem_bytes(cfg, bf16=True) <= 228 * 1024 - 2048
+
+
+# ------------------------------------------ conv_wg_bf16 (wgmma fed by TMA)
+class _Mbar:
+    """An mbarrier: ``count`` arrivals and the bytes announced by
+    ``expect_tx`` complete a phase; ``try_wait(parity)`` passes once the
+    phase of that parity has completed (the current phase's parity differs),
+    so a fresh barrier passes a wait on parity 1 at once."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def _flip(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def arrive(self):
+        assert self.pending > 0
+        self.pending -= 1
+        self._flip()
+
+    def expect_tx(self, nbytes):
+        self.tx += nbytes
+        self.arrive()
+
+    def complete_tx(self, nbytes):
+        self.tx -= nbytes
+        assert self.tx >= 0, "more bytes landed than expect_tx announced"
+        self._flip()
+
+    def try_wait(self, parity):
+        return (self.phase & 1) != parity
+
+
+def _swizzle(addr, sw_bytes):
+    """TMA's and wgmma's swizzle of a shared-memory byte address: bits
+    [7, 7 + b) XORed into bits [4, 4 + b), b = log2(sw_bytes / 16)."""
+    b = {128: 3, 32: 1}[sw_bytes]
+    return addr ^ (((addr >> 7) & ((1 << b) - 1)) << 4)
+
+
+def _desc(addr, lbo, sbo, layout):
+    """The kernel's smem_desc: start, leading and stride byte offsets >> 4
+    and the swizzle code (1: 128-byte rows, 3: 32-byte rows)."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32) | (layout << 62)
+
+
+def _undesc(d):
+    sw = {1: 128, 3: 32}[d >> 62]
+    return ((d & 0x3FFF) << 4, ((d >> 16) & 0x3FFF) << 4, ((d >> 32) & 0x3FFF) << 4, sw)
+
+
+def _a_operand_addrs(d):
+    """Byte addresses of wgmma's 64 x 16 A operand (K-major) under
+    descriptor ``d``: rows 8 to a core group of 128-byte... rows of the
+    swizzle width, 8-row groups SBO apart, 16-byte k chunks side by side
+    (the leading offset is unused when swizzled)."""
+    start, _, sbo, sw = _undesc(d)
+    m, k = np.arange(64)[:, None], np.arange(16)[None, :]
+    return _swizzle(start + (m % 8) * sw + (m // 8) * sbo + (k // 8) * 16 + (k % 8) * 2, sw)
+
+
+def _b_operand_addrs(d, n):
+    """Byte addresses of wgmma's 16 x n B operand (MN-major, "transposed")
+    under descriptor ``d``: n contiguous within a row of the swizzle width,
+    the next row's worth of n (an atom) LBO on, k rows of the swizzle width,
+    8-row groups SBO apart."""
+    start, lbo, sbo, sw = _undesc(d)
+    k, nn = np.arange(16)[:, None], np.arange(n)[None, :]
+    per_row = sw // 2
+    return _swizzle(start + (nn % per_row) * 2 + (nn // per_row) * lbo + (k % 8) * sw
+                    + (k // 8) * sbo, sw)
+
+
+def _ring(n, stages):
+    """(stage, parity) of the n k-groups a block walks: the consumers wait on
+    full[stage] with the parity, the producer on empty[stage] with its
+    complement."""
+    return [(it % stages, (it // stages) & 1) for it in range(n)]
+
+
+def conv_wg_replay(name, x, kern, scale, shift, relu, schedule="producer_first"):
+    """``conv_wg_bf16``'s launch replayed block by block in numpy: the plan
+    (box, BN, stages, persistent grid), the tile order, the producer and the
+    two consumer warpgroups as coroutines over the mbarrier ring (full and
+    empty barriers, parities), TMA boxes with per-dimension zero fill landing
+    under the 128- or 32-byte swizzle with the bytes counted against
+    expect_tx, the wgmma operands read back through their descriptors,
+    each 64-deep k-group summed before the float32 running sum, the m64nNk16
+    fragment map and the epilogue (pixels of the box, the transposed conv's
+    strided pixels, rows past the box, the image or the batch not stored).
+    Shared memory is NaN before the launch. Returns (output as float32,
+    writes per output element, TMA loads as (stage, kind, coordinates))."""
+    b, h, w, c = x.shape
+    o = kern.shape[-1]
+    taps, phases = (9, 1) if name == "fused_conv3x3_bn_relu" else (4, 4)
+    plan = fc.plan_wg(name, b, h, w, c, o)
+    wb, th, nb, bn, kc, stages = plan.wb, plan.th, plan.nb, plan.bn, plan.kc, plan.stages
+    assert 1 <= wb * th * nb <= fc.WG_BM and max(wb, th, nb) <= 256 and kc in (16, 64)
+    xs, ys = _cdiv(w, wb), _cdiv(h, th)
+    mtiles, ntiles = xs * ys * _cdiv(b, nb), _cdiv(o, bn)
+    assert plan.tiles == phases * mtiles * ntiles and plan.grid == min(plan.tiles, SMS)
+    chunks = _cdiv(c, kc)
+    kgroups = taps * chunks
+    ar, rb = 2 * kc, min(bn, 64) * 2      # A's and B's row bytes, each its swizzle
+    code = {128: 1, 32: 3}
+    a_bytes, b_bytes, b_box = 128 * ar, kc * bn * 2, kc * rb
+    smem_bytes = 1024 + stages * (a_bytes + b_bytes) + 2 * stages * 8
+    assert smem_bytes <= SMEM_LIMIT
+    a_box_bytes = kc * wb * th * nb * 2
+    w_taps = kern.reshape(-1, c, o)       # (taps, C, O): the B tensor map's view
+    out_shape = fc.output_shape(name, x.shape, o)
+    out = np.full(int(np.prod(out_shape)), np.nan, np.float32)
+    writes = np.zeros(out.size, np.int64)
+    loads = []
+
+    def tile_of(t):
+        nt, q = t % ntiles, t // ntiles
+        mt, p = q % mtiles, q // mtiles
+        seg, q = mt % xs, mt // xs
+        return p, seg * wb, (q % ys) * th, (q // ys) * nb, nt * bn
+
+    for bid in range(plan.grid):
+        sm = np.full((stages * (a_bytes + b_bytes)) // 2, np.nan, np.float32)  # bf16 cells
+        full = [_Mbar(1) for _ in range(stages)]
+        empty = [_Mbar(8) for _ in range(stages)]
+        my_tiles = list(range(bid, plan.tiles, plan.grid))
+
+        def tma_a(s, c0, x0, y0, n0):
+            ci, xi, yi, ni = np.meshgrid(np.arange(kc), np.arange(wb), np.arange(th),
+                                         np.arange(nb), indexing="ij")
+            cc, xx, yy, nn = c0 + ci, x0 + xi, y0 + yi, n0 + ni
+            ok = (cc >= 0) & (cc < c) & (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h) & (nn < b)
+            val = np.where(ok, x[np.where(ok, nn, 0), np.where(ok, yy, 0), np.where(ok, xx, 0),
+                                 np.where(ok, cc, 0)], np.float32(0))
+            row = (ni * th + yi) * wb + xi
+            addr = _swizzle(s * a_bytes + row * ar + ci * 2, ar)
+            sm[addr.ravel() // 2] = val.ravel()
+            loads.append((s, "A", (c0, x0, y0, n0)))
+            return val.size * 2
+
+        def tma_b(s, j, o0, c0, wtap):
+            oi, ci = np.meshgrid(np.arange(rb // 2), np.arange(kc), indexing="ij")
+            oo, cc = o0 + oi, c0 + ci
+            ok = (oo < o) & (cc < c)
+            val = np.where(ok, w_taps[wtap, np.where(ok, cc, 0), np.where(ok, oo, 0)],
+                           np.float32(0))
+            addr = _swizzle(stages * a_bytes + s * b_bytes + j * b_box + ci * rb + oi * 2, rb)
+            sm[addr.ravel() // 2] = val.ravel()
+            loads.append((s, "B", (o0, c0, wtap)))
+            return val.size * 2
+
+        def producer():
+            ring = iter(_ring(len(my_tiles) * kgroups, stages))
+            for t in my_tiles:
+                p, x0, y0, n0, o0 = tile_of(t)
+                for tap in range(taps):
+                    dy, dx, wtap = _tap(name, tap, p)
+                    for ch in range(chunks):
+                        s, ph = next(ring)
+                        while not empty[s].try_wait(ph ^ 1):
+                            yield
+                        full[s].expect_tx(a_box_bytes + b_bytes)
+                        landed = tma_a(s, ch * kc, x0 + dx, y0 + dy, n0)
+                        for j in range(max(1, bn // 64)):
+                            landed += tma_b(s, j, o0 + 64 * j, ch * kc, wtap)
+                        assert landed == a_box_bytes + b_bytes  # whole boxes, zero fill too
+                        full[s].complete_tx(landed)
+
+        lane = np.arange(128) % 32
+        wq = np.arange(128) // 32
+
+        def consumer():
+            ring = iter(_ring(len(my_tiles) * kgroups, stages))
+            nr = bn // 2
+            for t in my_tiles:
+                p, x0, y0, n0, o0 = tile_of(t)
+                acc = np.zeros((2, 128, nr), np.float32)
+                for _ in range(kgroups):
+                    s, ph = next(ring)
+                    while not full[s].try_wait(ph):
+                        yield
+                    for wg in range(2):
+                        da = _desc(s * a_bytes + wg * 64 * ar, 16, 8 * ar, code[ar])
+                        db = _desc(stages * a_bytes + s * b_bytes, b_box, 8 * rb, code[rb])
+                        part = np.zeros((64, bn), np.float64)
+                        for k in range(kc // 16):
+                            a_op = sm[_a_operand_addrs(da + (32 * k >> 4)) // 2]
+                            b_op = sm[_b_operand_addrs(db + (16 * rb * k >> 4), bn) // 2]
+                            assert not np.isnan(b_op).any()
+                            part += a_op.astype(np.float64) @ b_op.astype(np.float64)
+                        # the m64nNk16 fragment: d[4j + 2h + e] of thread (wq, lane)
+                        # is row 16 wq + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
+                        j, hh, e = np.meshgrid(np.arange(bn // 8), np.arange(2), np.arange(2),
+                                               indexing="ij")
+                        reg = (4 * j + 2 * hh + e).ravel()
+                        rows = 16 * wq[:, None] + lane[:, None] // 4 + 8 * hh.ravel()[None, :]
+                        cols = 8 * j.ravel()[None, :] + 2 * (lane[:, None] % 4) + e.ravel()[None, :]
+                        frag = np.zeros((128, nr), np.float32)
+                        frag[:, reg] = part.astype(np.float32)[rows, cols]
+                        acc[wg] = (acc[wg] + frag).astype(np.float32)
+                    for _ in range(8):  # lane 0 of each consumer warp
+                        empty[s].arrive()
+                # epilogue
+                for wg in range(2):
+                    for hh in range(2):
+                        r = 64 * wg + 16 * wq + lane // 4 + 8 * hh
+                        xi, q = r % wb, r // wb
+                        yi, ni = q % th, q // th
+                        xx, yy, nn = x0 + xi, y0 + yi, n0 + ni
+                        keep = (ni < nb) & (xx < w) & (yy < h) & (nn < b)
+                        if phases == 1:
+                            pix = (nn * h + yy) * w + xx
+                        else:
+                            pix = (nn * 2 * h + 2 * yy + (p >> 1)) * (2 * w) + 2 * xx + (p & 1)
+                        for j in range(bn // 8):
+                            col = o0 + 8 * j + 2 * (lane % 4)
+                            ok = keep & (col < o)
+                            for e in range(2):
+                                n = np.minimum(col + e, o - 1)
+                                v = acc[wg][:, 4 * j + 2 * hh + e] * scale[n] + shift[n]
+                                v = np.maximum(v, 0) if relu else v
+                                dst = (pix * o + col + e)[ok]
+                                assert not np.isnan(v[ok]).any()
+                                out[dst] = _bf16(v[ok])
+                                np.add.at(writes, dst, 1)
+
+        roles = {"producer_first": [producer(), consumer()],
+                 "consumer_first": [consumer(), producer()]}[schedule]
+        live = list(roles)
+        while live:  # each role runs until it would wait, then the other
+            for role in list(live):
+                try:
+                    next(role)
+                except StopIteration:
+                    live.remove(role)
+        assert all(f.pending == 1 and f.tx == 0 for f in full)
+    return out.reshape(out_shape), writes.reshape(out_shape), loads
+
+
+# (name, x shape, O, relu): C % 64 != 0 (72, 200: zero-filled channels), C =
+# 16 and 8 (16-channel k-groups in 32-byte rows), O = 8, 24 and 136 (a
+# 16-wide, a part-filled 64-wide and a last 8-wide 128 channel tile), odd H
+# and W, a batch that is not a multiple of the box's images (11 in boxes of
+# 8 at 4x4, 3 in boxes of 2 at 8x8), a row wider than one 128-pixel box, and
+# both convs
+WG_REPLAY_CASES = [
+    ("fused_conv3x3_bn_relu", (3, 9, 11, 72), 24, True),
+    ("fused_conv3x3_bn_relu", (2, 6, 7, 200), 8, False),
+    ("fused_conv3x3_bn_relu", (11, 4, 4, 64), 136, True),
+    ("fused_conv3x3_bn_relu", (3, 8, 8, 16), 64, False),
+    ("fused_conv3x3_bn_relu", (1, 2, 130, 8), 16, True),
+    ("fused_convT4x4s2_bn_relu", (3, 5, 6, 72), 24, False),
+    ("fused_convT4x4s2_bn_relu", (11, 4, 4, 64), 8, True),
+    ("fused_convT4x4s2_bn_relu", (3, 8, 8, 136), 136, True),
+    ("fused_convT4x4s2_bn_relu", (3, 6, 8, 16), 128, False),
+]
+
+
+@pytest.mark.parametrize("case", WG_REPLAY_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_conv_wg_bf16_index_arithmetic_matches_plain(case):
+    name, shape, o, relu = case
+    x, kern, s, t = _data(shape, o, 4 if "4x4" in name else 3, seed=sum(shape) + 3 * o)
+    x, kern = _bf16(x), _bf16(kern)
+    xb, kb = torch.from_numpy(x).bfloat16(), torch.from_numpy(kern).bfloat16()
+    assert fc.wg_supported(name, xb, kb)
+    got, writes, _ = conv_wg_replay(name, x, kern, s, t, relu)
+    assert (writes == 1).all()
+    want = fc.PLAIN[name](xb, kb, *map(torch.from_numpy, (s, t)), relu)
+    assert fc.compare_bf16(torch.from_numpy(got).bfloat16(), want)["of_bound"] <= 1.0
+
+
+def test_conv_wg_bf16_ring_order_does_not_change_the_result():
+    # the consumers running ahead (waiting at once) and the producer running
+    # ahead (filling every free slot first) give the same bits, over a block
+    # that walks several tiles (the ring wraps across tiles)
+    name, shape, o = "fused_conv3x3_bn_relu", (5, 4, 4, 72), 136
+    x, kern, s, t = _data(shape, o, 3, seed=5)
+    x, kern = _bf16(x), _bf16(kern)
+    a, wa, _ = conv_wg_replay(name, x, kern, s, t, True, "producer_first")
+    b, wb_, _ = conv_wg_replay(name, x, kern, s, t, True, "consumer_first")
+    assert (wa == 1).all() and (wb_ == 1).all()
+    np.testing.assert_array_equal(a, b)
+
+
+def test_conv_wg_bf16_tma_boxes_and_zero_fill():
+    """The A box of tile 0 walks the taps at (c0, x0 + dx, y0 + dy, n0) with
+    negative and past-the-end coordinates (zero filled), 64-channel chunks
+    of C = 72 (the second one 8 channels, 56 zero filled); the transposed
+    conv's phases read their four live taps and weight taps (_T_TAPS)."""
+    name, shape, o = "fused_conv3x3_bn_relu", (1, 4, 4, 72), 8
+    x, kern, s, t = _data(shape, o, 3, seed=1)
+    _, _, loads = conv_wg_replay(name, _bf16(x), _bf16(kern), s, t, False)
+    a_coords = [cd for _, kind, cd in loads if kind == "A"]
+    want = [(64 * ch, dx, dy, 0) for dy in (-1, 0, 1) for dx in (-1, 0, 1) for ch in (0, 1)]
+    assert a_coords == want
+    b_coords = [cd for _, kind, cd in loads if kind == "B"]
+    assert b_coords == [(0, 64 * ch, tap) for tap in range(9) for ch in (0, 1)]
+    # the transposed conv: phase (u, v) reads rows i + u - 1 + ta and columns
+    # j + v - 1 + tb against weight tap (2 ta + u) * 4 + 2 tb + v
+    name, shape, o = "fused_convT4x4s2_bn_relu", (2, 4, 4, 64), 8
+    x, kern, s, t = _data(shape, o, 4, seed=2)
+    _, writes, loads = conv_wg_replay(name, _bf16(x), _bf16(kern), s, t, False)
+    assert (writes == 1).all()
+    a_coords = [cd for _, kind, cd in loads if kind == "A"]
+    b_coords = [cd for _, kind, cd in loads if kind == "B"]
+    assert len(a_coords) == 16  # four phases x four live taps, one chunk
+    for p in range(4):
+        u, v = p >> 1, p & 1
+        for tap in range(4):
+            ta, tb = tap >> 1, tap & 1
+            assert a_coords[4 * p + tap] == (0, tb + v - 1, ta + u - 1, 0)
+            assert b_coords[4 * p + tap] == (0, 0, (2 * ta + u) * 4 + 2 * tb + v)
+            # the JAX kernel's table: phase row u reads kernel row dy + u, dy of _T_TAPS[0]
+            assert (2 * ta + u) == pc._T_TAPS[0][ta][1] + u
+            assert (2 * tb + v) == pc._T_TAPS[v][tb][1]
+
+
+def test_conv_wg_bf16_swizzle_and_descriptors():
+    """The 128-byte swizzle TMA writes is the one the descriptors read: A's
+    K-major operand of consumer warpgroup wg at k step k is rows 64 wg..
+    of the box, channels 16 k.., and B's MN-major operand is weight rows
+    16 k.. (k), outputs 0..n across both 64-wide boxes; every 8-row group of
+    A and of B sits on 8 distinct 16-byte bank groups per k chunk."""
+    # A: row r, channel c of a slot landed at swizzle(r * ar + 2 c), ar the
+    # k-group's row bytes (64 channels: 128, 16 channels: 32)
+    for ar, code in ((128, 1), (32, 3)):
+        for wg in range(2):
+            for k in range(ar // 32):
+                d = _desc(wg * 64 * ar + 32 * k, 16, 8 * ar, code)
+                assert d >> 62 == code and (d >> 16) & 0x3FFF == 1
+                assert (d >> 32) & 0x3FFF == 8 * ar // 16
+                addr = _a_operand_addrs(d)
+                m, kk = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+                np.testing.assert_array_equal(
+                    addr, _swizzle((64 * wg + m) * ar + 2 * (16 * k + kk), ar))
+                if ar == 128:  # rows 8g..8g+7 of one 16-byte chunk: 8 bank groups
+                    for g in range(8):
+                        assert len(np.unique((addr[8 * g: 8 * g + 8, 0] // 16) % 8)) == 8
+    # B: box j holds outputs 64 j.., weight row c at c * rb, under rb's swizzle
+    for bn in (16, 64, 128):
+        rb = min(bn, 64) * 2
+        layout = {128: 1, 32: 3}[rb]
+        for k in range(4):
+            d = _desc(16 * rb * k, 64 * rb, 8 * rb, layout)
+            addr = _b_operand_addrs(d, bn)
+            kk, n = np.meshgrid(np.arange(16), np.arange(bn), indexing="ij")
+            landed = (n // 64) * 64 * rb + (16 * k + kk) * rb + (n % 64) * 2
+            np.testing.assert_array_equal(addr, _swizzle(landed, rb))
+    # the descriptor's fields do not overflow: 14 bits of address >> 4
+    assert (1024 + 6 * (16384 + 16384) + 96) >> 4 < (1 << 14)
+
+
+def test_conv_wg_bf16_ring_stage_parity_sequence():
+    stages = 6
+    seq = _ring(20, stages)
+    assert seq[:7] == [(0, 0), (1, 0), (2, 0), (3, 0), (4, 0), (5, 0), (0, 1)]
+    assert seq[12] == (0, 0) and seq[19] == (1, 1)
+    # a fresh barrier: the producer's first wait (parity 1) passes, the
+    # consumers' (parity 0) waits for the data
+    full, empty = _Mbar(1), _Mbar(8)
+    assert empty.try_wait(1) and not full.try_wait(0)
+    full.expect_tx(100)
+    assert not full.try_wait(0)  # arrived, bytes outstanding
+    full.complete_tx(100)
+    assert full.try_wait(0) and not full.try_wait(1)
+    for _ in range(7):
+        empty.arrive()
+    assert not empty.try_wait(0)  # seven of eight consumer warps
+    empty.arrive()
+    assert empty.try_wait(0) and not empty.try_wait(1)
+    with pytest.raises(AssertionError):
+        _Mbar(1).complete_tx(1)  # more bytes than announced
+
+
+def test_conv_wg_bf16_epilogue_map_skips_rows_past_the_batch():
+    # 11 images in boxes of 8 (4x4): rows 48.. of the second tile are images
+    # 11..15, past the batch: stored nowhere, and every real output element
+    # once, through the transposed conv's strided pixels too
+    for name, o in (("fused_conv3x3_bn_relu", 8), ("fused_convT4x4s2_bn_relu", 24)):
+        shape = (11, 4, 4, 64)
+        plan = fc.plan_wg(name, *shape, o)
+        assert (plan.wb, plan.th, plan.nb) == (4, 4, 8)
+        x, kern, s, t = _data(shape, o, 3 if "3x3" in name else 4, seed=9)
+        got, writes, _ = conv_wg_replay(name, _bf16(x), _bf16(kern), s, t, False)
+        assert (writes == 1).all() and not np.isnan(got).any()
+
+
+# which canonical bf16 #1/#6 launches run conv_wg_bf16, per batch: none at
+# B = 1 and 16 (below the measured cut), and at B = 512 and 1000 these
+# (kernel, H = W, C, O); every other canonical shape runs conv_tc_bf16
+_WG_ROUTED = {
+    512: {("3x3", 4, 128, 848), ("3x3", 4, 848, 848), ("3x3", 4, 1696, 848),
+          ("3x3", 4, 848, 128), ("3x3", 4, 848, 1696), ("3x3", 8, 128, 424),
+          ("3x3", 8, 424, 424), ("3x3", 8, 424, 128), ("3x3", 16, 64, 64),
+          ("3x3", 16, 128, 128), ("3x3", 16, 256, 256), ("3x3", 32, 16, 64),
+          ("3x3", 32, 64, 16), ("3x3", 32, 64, 64), ("3x3", 32, 128, 128), ("3x3", 64, 16, 16),
+          ("3x3", 64, 16, 64), ("3x3", 64, 64, 16), ("3x3", 64, 64, 64), ("T", 16, 128, 64),
+          ("T", 8, 424, 256), ("T", 16, 256, 128), ("T", 32, 128, 64), ("T", 8, 128, 64)},
+}
+_WG_ROUTED[1000] = _WG_ROUTED[512] | {("3x3", 8, 128, 128), ("3x3", 8, 128, 64),
+                                      ("T", 16, 64, 16)}
+
+
+@pytest.mark.parametrize("batch", [1, 16, 512, 1000])
+def test_plan_wg_and_routing_at_every_canonical_shape(batch):
+    """Serving (B = 1 and 16), training (B = 512) and the 1000-draw decode,
+    forward and input-gradient shapes: the plan's box holds at most 128
+    pixels, in whole rows when W <= 128, the ring fits in shared memory, the
+    grid is persistent; the routing is the table above."""
+    routed = set()
+    for name, h, w, c, o in _CANONICAL:
+        if name not in fc.WG_KERNELS:
+            assert not fc.wg_route(name, (batch, h, w, c), o)
+            continue
+        plan = fc.plan_wg(name, batch, h, w, c, o)
+        assert plan.wb * plan.th * plan.nb <= fc.WG_BM and plan.wb == min(w, fc.WG_BM)
+        assert plan.nb == 1 or plan.th == h
+        assert plan.kc == (16 if c <= 16 else 64)
+        slot = 128 * 2 * plan.kc + plan.kc * plan.bn * 2
+        assert 1024 + plan.stages * slot + 16 * plan.stages <= SMEM_LIMIT
+        assert plan.bn >= min(o, 128) or o > 128
+        assert plan.grid == min(plan.tiles, SMS)
+        x = torch.empty((batch, h, w, c), dtype=torch.bfloat16)
+        kern = torch.empty((3 if "3x3" in name else 4,) * 2 + (c, o), dtype=torch.bfloat16)
+        assert fc.wg_eligible(name, x, kern) == fc.wg_route(name, x.shape, o)
+        assert fc.wg_supported(name, x, kern) == (c % 8 == 0 and o % 8 == 0)
+        if fc.wg_route(name, x.shape, o):
+            routed.add(("3x3" if "3x3" in name else "T", h, c, o))
+    assert routed == _WG_ROUTED.get(batch, set())
+    # a float32 launch never does
+    x = torch.empty((batch, 16, 16, 256))
+    assert not fc.wg_eligible("fused_conv3x3_bn_relu", x, torch.empty((3, 3, 256, 256)))
+
+
+def test_conv_wg_bf16_source_is_wgmma_fed_by_tma():
+    src = (Path(fc.__file__).resolve().parent.parent / "csrc" / fc.WG_SOURCE).read_text()
+    for needle in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes",
+                   "mbarrier.try_wait.parity", "setmaxnreg.inc.sync.aligned.u32 232",
+                   "setmaxnreg.dec.sync.aligned.u32 40", "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE",
+                   "__launch_bounds__(NTHREADS, 1)"):
+        assert needle in src
+    # one instance per (KC, BN) of the plan, with its stage count
+    for (kc, bn), stages in fc.WG_STAGES.items():
+        if kc == 64:
+            assert f"if (bn == {bn} && stages == {stages}) return launch_wg<MODE, {bn}, 64, " \
+                   f"{stages}>" in src
+        else:
+            assert stages == 8 and f"if (bn == {bn}) return launch_wg<MODE, {bn}, 16, 8>" in src
