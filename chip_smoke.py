@@ -141,11 +141,14 @@ B1. Each bfloat16 instance against its plain version in both roles (forward
     beside C % 8 != 0: within one bfloat16 ulp at the element plus 1e-4 of
     max|plain| (``fused_conv.compare_bf16``; the share bit-equal printed),
     the same bits on a second launch. Then ``conv_wg_bf16``
-    (``csrc/conv_wg.cu``, #1 and #6 on wgmma fed by TMA) the same way at
+    (``csrc/conv_wg.cu``, #1, #5 and #6 on wgmma fed by TMA) the same way at
     ``RAGGED_WG``'s shapes (C % 64 != 0, O = 8, 24 and 136, a batch that is
-    not a multiple of the box's images, a row wider than one box), counted
-    under "wg". Phase 2 prints ``ptxas conv_tc_bf16`` and ``ptxas
-    conv_wg_bf16`` and fails on a spill there.
+    not a multiple of the box's images, a row wider than one box; #5 on 8x8,
+    4x4 and odd output grids and a 128-wide output row), the dx role also
+    through ``input_grad`` (the flip-swapped weight it makes), counted under
+    "wg". Phase 2 prints ``ptxas conv_tc_bf16`` and ``ptxas conv_wg_bf16``
+    and fails on a spill there, or on a ``conv_wg_bf16`` instance at another
+    register count than 168.
 B2. The canonical Cond_SRVAE in bfloat16 (phase 4's weights) through
     ``SuperResolver`` (unchained; chained in B9):
     ``super_resolve`` B=16 and ``uncertainty`` N=1000 on phase 4's seeds;
@@ -153,7 +156,8 @@ B2. The canonical Cond_SRVAE in bfloat16 (phase 4's weights) through
     kernel launches; by kernel that ran ("wg" or "tc",
     ``fused_conv.bf16_impl_launches``) they equal the static rule
     (``fused_conv.wg_route`` of each hooked call; here and in B3 and B4),
-    with #1 and #6 each on "wg"; outputs float32 in [0, 1], within 2e-2 of the plain
+    with #1 and #6 forward on "wg" (``WG_SERVING_ROLES``; in B3 also #5 in
+    both roles, ``WG_STEP_ROLES``); outputs float32 in [0, 1], within 2e-2 of the plain
     path in bfloat16 on the card, PSNR against phase 4's float32 outputs
     above 40 dB.
 B3. One Cond_SRVAE train step in bfloat16 at B=512, ``bf16_moments`` off
@@ -174,10 +178,11 @@ B5/B6. Every distinct bfloat16 shape of B2 and B3, checked as in B1 and
     bf16 tensor-core peak); where ``conv_wg_bf16`` takes the shape, both
     bfloat16 kernels, each checked, timed in turns (tc, wg, wg, tc), and the
     routed shapes where wg was the slower printed; sums by kernel, kernel
-    that ran, path and role. The kernels line gets five more entries,
-    ``<kernel>_bf16_wg`` and ``<kernel>_bf16_tc`` for #1 and #6 (the wg
-    ones with the parent ``conv_tc_bf16``'s time at the same launches,
-    ``tc_ms``) and ``fused_conv4x4s2_bn_relu_bf16``.
+    that ran, path and role, and #5's per role over all three paths (the
+    routed kernels, ``conv_tc_bf16`` at every launch, cuDNN bfloat16, the
+    bound). The kernels line gets six more entries, ``<kernel>_bf16_wg`` and
+    ``<kernel>_bf16_tc`` for #1, #5 and #6 (the wg ones with the parent
+    ``conv_tc_bf16``'s time at the same launches, ``tc_ms``).
 
 Then the bfloat16 int8 and chain instances (``csrc/int8_conv.cu``'s and
 ``csrc/conv_chain.cu``'s ``*_bf16`` entry points; phase 2 prints their
@@ -2131,7 +2136,9 @@ WG_SOURCE = "simple_vae_rs_tpu_torch/csrc/conv_wg.cu"
 # k-groups), O = 8 and 24 (a 16-wide and a part-filled 64-wide channel tile),
 # O = 136 (a last 128-wide tile of 8), odd H and W, a batch that is not a
 # multiple of the box's images, a row wider than one 128-pixel box, a box of
-# whole images (4x4, 8x8), both roles
+# whole images (4x4, 8x8), both roles; #5 on an 8x8 and a 4x4 output grid, an
+# odd output grid and a 128-wide output row (its strided box at TMA's
+# 256-element limit), with C = 72, 424 and 16 and O = 8, 24 and 136
 RAGGED_WG = [
     ("fused_conv3x3_bn_relu", (3, 9, 11, 72), 24, True),
     ("fused_conv3x3_bn_relu", (2, 6, 7, 200), 8, False),
@@ -2145,6 +2152,12 @@ RAGGED_WG = [
     ("fused_convT4x4s2_bn_relu", (2, 16, 16, 128), 64, True),
     ("fused_convT4x4s2_bn_relu", (3, 6, 8, 16), 128, False),
     ("fused_conv3x3_bn_relu", (3, 8, 8, 16), 64, False),
+    ("fused_conv4x4s2_bn_relu", (3, 16, 16, 72), 24, True),
+    ("fused_conv4x4s2_bn_relu", (11, 8, 8, 64), 136, True),
+    ("fused_conv4x4s2_bn_relu", (2, 6, 10, 16), 8, False),
+    ("fused_conv4x4s2_bn_relu", (2, 4, 256, 32), 24, True),
+    ("fused_conv4x4s2_bn_relu", (3, 16, 16, 424), 136, False),
+    ("fused_conv4x4s2_bn_relu", (5, 32, 32, 128), 64, True),
 ]
 # served outputs in [0, 1] through ~25 bfloat16 layers: the kernels and the
 # plain path round float32 sums taken in other orders, so an activation may
@@ -2169,6 +2182,13 @@ MIN_PSNR_BF16_DB = 40.0
 # bfloat16 spread of 0 may take either sign)
 BF16_STEP_TOLS = {"terms": 1e-2, "stats": 1e-2, "grad": 1e-3, "noise": 2.0,
                   "params_share": None}
+# (kernel, role) that must run conv_wg_bf16 in the serving run and in the
+# bfloat16 train step: #1 and #6 forward; #5 only in the step (the serving
+# run's DownBlock tails are below its cut), in both roles: the input
+# gradients of the UpBlocks' transposed convs and the HR DownBlock ex_down3
+WG_SERVING_ROLES = (("fused_conv3x3_bn_relu", "forward"), ("fused_convT4x4s2_bn_relu", "forward"))
+WG_STEP_ROLES = WG_SERVING_ROLES + (("fused_conv4x4s2_bn_relu", "forward"),
+                                    ("fused_conv4x4s2_bn_relu", "dx"))
 
 
 def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None, impl=None):
@@ -2247,6 +2267,30 @@ def check_shape_bf16(fc, name, shape, o, relu, seed, timing: bool, site=None, im
     return row
 
 
+def check_input_grad_wg(fc, name, shape, o, seed):
+    """``conv_wg_bf16`` in the dx role as the model paths reach it: kernel
+    ``name`` run by ``fc.input_grad`` of the conv whose adjoint it is, on a
+    bfloat16 gradient of that conv's output with ``shape``, the weight
+    flip-swapped there into a fresh tensor, held to the plain route within
+    ``fc.compare_bf16``'s bound, the same bits on a second launch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = 3 if name == "fused_conv3x3_bn_relu" else 4
+    g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    kernel = (torch.randn((k, k, shape[-1], o), generator=gen, device="cuda")
+              / math.sqrt(k * k * shape[-1])).bfloat16()
+    site, in_shape = fc.DX_KERNEL[name], fc.output_shape(name, shape, o)
+    w_site = fc.flip_swap(kernel)  # input_grad flips it back into a new tensor
+    got = fc.input_grad(site, g, w_site, in_shape, impl="wg")
+    want = fc.input_grad(site, g, w_site, in_shape, plain=True)
+    torch.cuda.synchronize()
+    cmp = fc.compare_bf16(got, want)
+    if tuple(got.shape) != tuple(in_shape) or not cmp["of_bound"] <= 1.0:
+        raise AssertionError(f"bf16 wg input_grad of {site} via {name} {shape}->{o}: {cmp}")
+    if not torch.equal(fc.input_grad(site, g, w_site, in_shape, impl="wg"), got):
+        raise AssertionError(f"bf16 wg input_grad {name} {shape}: a second launch gave other bits")
+    return cmp
+
+
 def bf16_counts(fc):
     """The bfloat16 launches by (kernel, role) since the last reset, and a
     check that no float32 conv kernel and no chain launched."""
@@ -2279,6 +2323,31 @@ def check_impls(fc, what, calls):
     return got
 
 
+def conv4_by_role(fc, paths, per_key, key_of):
+    """#5's bfloat16 launches of the serving run and the steps summed per
+    role: launches by the kernel that ran, the routed kernels' time (and the
+    part of it on each kernel), conv_tc_bf16's at every launch (the route
+    before #5 moved to conv_wg_bf16), one cuDNN bfloat16 call's and the
+    bound. Logged; returned for the report."""
+    name = "fused_conv4x4s2_bn_relu"
+    out = {}
+    for role in fc.ROLES:
+        rows = [per_key[key_of(c)] for _, cs in paths for c in cs if c[0] == name and c[1] == role]
+        if not rows:
+            continue
+        d = {"launches": {impl: sum(r["impl"] == impl for r in rows) for impl in fc.IMPLS},
+             **{f"{impl}_routed_ms": sum(r["ms"] for r in rows if r["impl"] == impl)
+                for impl in fc.IMPLS},
+             **{k: sum(r[k] for r in rows) for k in ("ms", "tc_ms", "library_ms", "bound_ms")}}
+        out[role] = d
+        log(f"bf16 {name} {role} role, serving + train step + val step: launches "
+            + " ".join(f"{k}={v}" for k, v in d["launches"].items())
+            + f"; kernels as routed {d['ms']:.3f} ms (on wg {d['wg_routed_ms']:.3f}, on tc "
+            f"{d['tc_routed_ms']:.3f}), conv_tc_bf16 at every launch {d['tc_ms']:.3f} ms, cuDNN "
+            f"bf16 {d['library_ms']:.3f} ms, bound {d['bound_ms']:.3f} ms (989 TFLOP/s, 3.35 TB/s)")
+    return out
+
+
 def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     """Phase B: bfloat16 compute. Returns the kernels line's three bfloat16
     entries. Failures of the comparisons are collected and raised at the
@@ -2309,19 +2378,23 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
         log(f"bf16 ragged {name} x{shape} O={o}: forward {row['of_bound']:.3f} of bound, "
             f"bit-equal {row['share_bit_equal']:.4f}, within 1 ulp {row['share_within_1ulp']:.6f};"
             f" dx {dx['of_bound']:.3f}, bit-equal {dx['share_bit_equal']:.4f}")
-    # B1. conv_wg_bf16 at the ragged shapes it takes, both roles
+    # B1. conv_wg_bf16 at the ragged shapes it takes, both roles: through the
+    # wrapper's operands and through input_grad's (the flip-swapped weight)
     for i, (name, shape, o, relu) in enumerate(RAGGED_WG):
         fc.reset_launches()
         row = check_shape_bf16(fc, name, shape, o, relu, seed=750 + i, timing=False, impl="wg")
         dx = check_shape_bf16(fc, name, shape, o, False, seed=850 + i, timing=False,
                               site=fc.DX_KERNEL[name], impl="wg")
-        if fc.bf16_impl_launches[name]["forward"] != {"wg": 4, "tc": 0}:
+        via = check_input_grad_wg(fc, name, shape, o, seed=950 + i)
+        if (fc.bf16_impl_launches[name]["forward"] != {"wg": 4, "tc": 0}
+                or fc.bf16_impl_launches[name]["dx"] != {"wg": 2, "tc": 0}):
             raise AssertionError(f"bf16 wg ragged {name} {shape}: launches by kernel "
                                  f"{fc.bf16_impl_launches[name]}")
-        bf["ragged"] += [row, dx]
+        bf["ragged"] += [row, dx, {**dx, **via, "role": "dx", "via": "input_grad"}]
         log(f"bf16 wg ragged {name} x{shape} O={o} plan {tuple(fc.plan_wg(name, *shape, o))}: "
             f"forward {row['of_bound']:.3f} of bound, bit-equal {row['share_bit_equal']:.4f}; dx "
-            f"{dx['of_bound']:.3f}, bit-equal {dx['share_bit_equal']:.4f}; the same bits twice")
+            f"{dx['of_bound']:.3f}, bit-equal {dx['share_bit_equal']:.4f}; through input_grad "
+            f"{via['of_bound']:.3f}, bit-equal {via['share_bit_equal']:.4f}; the same bits twice")
 
     # B2. serving in bfloat16 at full width: the weights of phase 4's model
     cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
@@ -2350,9 +2423,9 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
     if serve_counts != recorded or not serve_counts:
         raise AssertionError(f"bf16 serving launches {serve_counts}, hooks recorded {recorded}")
     serve_impls = check_impls(fc, "bf16 serving", serve_calls)
-    for name in fc.WG_KERNELS:
-        if not serve_impls.get((name, "forward", "wg")):
-            raise AssertionError(f"bf16 serving: {name} never ran conv_wg_bf16")
+    for name, role in WG_SERVING_ROLES:
+        if not serve_impls.get((name, role, "wg")):
+            raise AssertionError(f"bf16 serving: {name} {role} never ran conv_wg_bf16")
     served_ok("bf16 super_resolve", out, (16, 64, 64, 4))
     if out.dtype != torch.float32 or any(v.dtype != torch.float32 for v in uq.values()):
         raise AssertionError("bf16 serving: outputs are not float32")
@@ -2418,9 +2491,9 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
             raise AssertionError(f"bf16 train step launches {counts} {rows}, hooks recorded "
                                  f"{counts_by_role(calls)}")
         step_impls = check_impls(fc, f"bf16 train step (moments={moments})", calls)
-        for name in fc.WG_KERNELS:
-            if not step_impls.get((name, "forward", "wg")):
-                raise AssertionError(f"bf16 train step: {name} never ran conv_wg_bf16")
+        for name, role in WG_STEP_ROLES:
+            if not step_impls.get((name, role, "wg")):
+                raise AssertionError(f"bf16 train step: {name} {role} never ran conv_wg_bf16")
         if not all(torch.isfinite(v) for v in terms.values()):
             raise AssertionError(f"bf16 train step: non-finite loss terms {terms}")
         if moments and not all(m.dtype == torch.bfloat16 for m in trainer.opt.mu):
@@ -2596,8 +2669,8 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
               "bytes")
     kernels = []
     for name in fc.TC_KERNELS:
-        # #1 and #6 once per kernel that ran ("wg": conv_wg_bf16, "tc":
-        # conv_tc_bf16), #5 (conv_tc_bf16 only) once
+        # #1, #5 and #6 once per kernel that ran ("wg": conv_wg_bf16, "tc":
+        # conv_tc_bf16)
         for impl in ("wg", "tc") if name in fc.WG_KERNELS else (None,):
             tot = dict.fromkeys(fields, 0.0)
             by_path = {}
@@ -2641,6 +2714,7 @@ def bf16_phase(report, f32_out, f32_uq, f32_train_peak_gib):
             if impl == "wg":  # the parent kernel at the same launches, in turns
                 entry["tc_ms"] = tot["tc_ms"]
             kernels.append(entry)
+    bf["conv4x4s2_by_role"] = conv4_by_role(fc, paths, per_key, key_of)
     if failures:
         raise AssertionError("bf16 phase: " + "; ".join(failures))
     return kernels, (out, uq), {
@@ -3092,10 +3166,14 @@ def main() -> int:
     log("ptxas conv_tc_bf16: "
         + tensor_core_ptxas(_build.ptxas_logs["fused_conv.cu"], "conv_tc_bf16I", 12)
         + " (dynamic shared memory per tile: ops/fused_conv.tc_smem_bytes(bf16=True))")
-    # three channel tiles x two k-group widths in each of the two modes
-    log("ptxas conv_wg_bf16: "
-        + tensor_core_ptxas(_build.ptxas_logs[fc.WG_SOURCE], "conv_wg_bf16",
-                            2 * len(fc.WG_STAGES))
+    # three channel tiles x two k-group widths in each of the three modes, each
+    # at 168 registers: setmaxnreg gives the producer warpgroup 40 and the
+    # consumers 232, which another count at entry would not add up to
+    wg_regs = tensor_core_ptxas(_build.ptxas_logs[fc.WG_SOURCE], "conv_wg_bf16",
+                                len(fc.WG_KERNELS) * len(fc.WG_STAGES))
+    if ", 168-168 registers," not in wg_regs:
+        raise AssertionError(f"ptxas conv_wg_bf16: {wg_regs}, expected 168 registers each")
+    log("ptxas conv_wg_bf16: " + wg_regs
         + " (168 at entry: setmaxnreg gives the producer warpgroup 40, the consumers 232;"
         + " dynamic shared memory per channel tile: csrc/conv_wg.cu wg_smem_bytes)")
     log("ptxas chain: " + tensor_core_ptxas(_build.ptxas_logs["conv_chain.cu"], "chain_kernelIf", 1)
@@ -3362,7 +3440,7 @@ def main() -> int:
             **({"device_ms": tot["device_ms"] or None} if name != "act_quant" else {}),
         })
     kernels.append(bf16_chain_entry)
-    if len(kernels) != 24 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 25 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was launched no time: "
                              + str({k["name"]: k["launches"] for k in kernels}))
     report["kernels"] = kernels

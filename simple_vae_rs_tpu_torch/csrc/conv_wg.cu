@@ -1,19 +1,21 @@
-// The bf16 3x3 conv (#1) and the bf16 transposed conv (#6) for Hopper
-// (sm_90a) on wgmma fed by TMA.
+// The bf16 3x3 conv (#1), the bf16 4x4/s2 conv (#5) and the bf16 transposed
+// conv (#6) for Hopper (sm_90a) on wgmma fed by TMA.
 //
 // Replaces, for bfloat16 operands, the Pallas TPU kernels
 // (simple_vae_rs_tpu/ops/pallas_conv.py):
 //   svrs_conv3x3_wg_bf16     <- fused_conv3x3_bn_relu     (:128; 3x3, stride 1, SAME)
+//   svrs_conv4x4s2_wg_bf16   <- fused_conv4x4s2_bn_relu   (:682; 4x4, stride 2, pad 1)
 //   svrs_convT4x4s2_wg_bf16  <- fused_convT4x4s2_bn_relu  (:792; transposed 4x4,
 //                                stride 2, pad 1, input-dilated form, _T_TAPS)
 // Each computes out = act(conv(x, W) * scale + shift) with x and out NHWC
 // bfloat16, W HWIO (kh, kw, C, O) bfloat16, scale and shift float32: the
 // products in the bf16 tensor cores with float32 accumulation, the affine
 // and the ReLU in float32, one round to nearest even to bf16. The same
-// kernels compute the 3x3 conv's input gradient and the 4x4/s2 conv's (the
-// flip-swapped weight, scale 1, shift 0), and ops/fused_conv routes every
-// bf16 launch of #1 and #6 that qualifies here (wg_eligible); everything
-// else stays on conv_tc_bf16 in fused_conv.cu.
+// kernels compute the input gradients (the flip-swapped weight, scale 1,
+// shift 0): the 3x3 conv's on #1, the 4x4/s2 conv's on #6 and the
+// transposed conv's on #5. ops/fused_conv routes every bf16 launch of #1,
+// #5 and #6 that qualifies here (wg_eligible); everything else stays on
+// conv_tc_bf16 in fused_conv.cu.
 //
 // What bounds it: the wide shapes of the canonical model (C and O of 128 to
 // 1696 at 1000 draws or a 512-patch batch) are operations-bound, at 989
@@ -45,10 +47,28 @@
 // The transposed conv's output phase (u, v), a tile coordinate beside the pixels,
 // takes the same box at its four live taps (dy = ta + u - 1, dx = tb + v - 1,
 // fused_conv.cu's tap_geometry), weight tap (2 ta + u) * 4 + 2 tb + v, and
-// stores pixel (2 i + u, 2 j + v). The box lands in shared memory as rows of
-// one pixel's KC channels (128 or 32 bytes) under the swizzle of that width:
-// wgmma reads it K-major (leading offset unused, stride offset 8 rows between
-// 8-row groups, +32 bytes per 16-deep step). The B operand is the HWIO weight
+// stores pixel (2 i + u, 2 j + v).
+//
+// The 4x4/s2 conv's tile is in output pixels too, and tap (ky, kx) reads
+// input pixel (2 i + ky - 1, 2 j + kx - 1): a stride-2 gather in H and W. Its
+// A tensor map traverses the input with element strides {1, 2, 2, 1} in a
+// box of (KC, 2 wb, 2 th, nb), so one load lands KC x wb x th x nb elements,
+// the same box in shared memory as the other two modes, and tap (ky, kx)
+// loads it at (c0, 2 x0 + kx - 1, 2 y0 + ky - 1, n0). That keeps TMA's
+// per-dimension zero fill: the pad of 1 (a start of -1 at the first row or
+// column, W at the last) and channels >= C where C % 64 != 0. The other
+// design, JAX #5's phase-plane view of x as (2 C, W / 2, 2, H / 2, B), would
+// read the other phase's channels past C inside a k-group and cancel them
+// only through the weight box's zero rows (a NaN there would poison the
+// sum), so it needs KC | C or a channel tail of its own. A box dimension is at
+// most 256 elements, so 2 wb <= 256 (wb <= 128, as for the other modes); the
+// bytes one load lands, which expect_tx counts, are the strided count
+// KC wb th nb 2. H and W must be even, as JAX #5 requires.
+//
+// In every mode the box lands in shared memory as rows of one pixel's KC
+// channels (128 or 32 bytes) under the swizzle of that width: wgmma reads
+// it K-major (leading offset unused, stride offset 8 rows between 8-row
+// groups, +32 bytes per 16-deep step). The B operand is the HWIO weight
 // viewed as (taps, C, O), a box of KC channels x min(BN, 64) outputs per
 // load (two loads for BN = 128): O is contiguous, so wgmma reads it MN-major
 // ("transposed" B, which bf16 allows) under the 128- or 32-byte swizzle of
@@ -84,7 +104,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-enum Mode { kConv3 = 0, kConvT = 2 };  // fused_conv.cu's numbering
+enum Mode { kConv3 = 0, kConv4 = 1, kConvT = 2 };  // fused_conv.cu's numbering
+
+// Per mode: live taps a tile walks, taps of the HWIO weight, output phases,
+// and input pixels per output pixel (the A box's element stride in H and W)
+__host__ __device__ constexpr int mode_taps(int m) {
+  return m == kConv3 ? 9 : m == kConv4 ? 16 : 4;
+}
+__host__ __device__ constexpr int weight_taps(int m) { return m == kConv3 ? 9 : 16; }
+__host__ __device__ constexpr int mode_phases(int m) { return m == kConvT ? 4 : 1; }
+__host__ __device__ constexpr int mode_stride(int m) { return m == kConv4 ? 2 : 1; }
 
 constexpr int BM = 128;          // pixels of a tile: two consumer warpgroups of 64 rows
 constexpr int NTHREADS = 384;    // warps 0-7 consume, warps 8-11 hold the producer thread
@@ -92,6 +121,7 @@ constexpr int CONSUMER_WARPS = 8;
 
 struct WgGeo {
   int B, H, W, C, O;      // input batch/height/width/channels, output channels
+  int oh, ow;             // the tiles' pixel grid: the output's (of one phase for kConvT)
   int wb, th, nb;         // the A box: pixels of a row, rows, images
   int xs, ys;             // row segments per row, row groups per image
   int mtiles, ntiles;     // pixel tiles per phase, channel tiles
@@ -293,6 +323,8 @@ __device__ __forceinline__ void wg_tap(int t, int p, int& dy, int& dx, int& wtap
   if constexpr (MODE == kConv3) {
     const int ky = t / 3, kx = t - 3 * (t / 3);
     dy = ky - 1; dx = kx - 1; wtap = t;
+  } else if constexpr (MODE == kConv4) {
+    dy = (t >> 2) - 1; dx = (t & 3) - 1; wtap = t;  // from (2 i, 2 j)
   } else {
     const int ta = t >> 1, tb = t & 1, u = p >> 1, v = p & 1;
     dy = ta + u - 1; dx = tb + v - 1;
@@ -351,7 +383,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 conv_wg_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
              const float* __restrict__ scale, const float* __restrict__ shift,
              bf16* __restrict__ out, const WgGeo g) {
-  constexpr int TAPS = MODE == kConv3 ? 9 : 4;
+  constexpr int TAPS = mode_taps(MODE);
+  constexpr int S = mode_stride(MODE);
   constexpr int A_BYTES = a_bytes<KC>();
   constexpr int AR = KC * 2;                  // A's row bytes: one pixel's KC channels
   constexpr int RB = b_row_bytes<BN>();
@@ -393,8 +426,8 @@ conv_wg_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
           const uint32_t s = it % STAGES, ph = (it / STAGES) & 1;
           mbar_wait(empty + 8 * s, ph ^ 1);  // the consumers released the slot
           mbar_expect_tx(full + 8 * s, tx);
-          tma_load_4d(a_base + s * A_BYTES, &tm_x, full + 8 * s, ch * KC, tl.x0 + dx,
-                      tl.y0 + dy, tl.n0);
+          tma_load_4d(a_base + s * A_BYTES, &tm_x, full + 8 * s, ch * KC, S * tl.x0 + dx,
+                      S * tl.y0 + dy, tl.n0);
 #pragma unroll
           for (int j = 0; j < B_BOXES; ++j)
             tma_load_3d(b_base + s * B_BYTES + j * B_BOX, &tm_w, full + 8 * s,
@@ -450,10 +483,10 @@ conv_wg_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
       const int xi = r % g.wb, q = r / g.wb;
       const int yi = q % g.th, ni = q / g.th;
       const int x = tl.x0 + xi, y = tl.y0 + yi, n = tl.n0 + ni;
-      if (ni >= g.nb || x >= g.W || y >= g.H || n >= g.B) continue;
-      const int64_t pix = MODE == kConv3
-          ? ((int64_t)n * g.H + y) * g.W + x
-          : ((int64_t)n * 2 * g.H + 2 * y + (tl.p >> 1)) * (2 * g.W) + 2 * x + (tl.p & 1);
+      if (ni >= g.nb || x >= g.ow || y >= g.oh || n >= g.B) continue;
+      const int64_t pix = MODE == kConvT
+          ? ((int64_t)n * 2 * g.oh + 2 * y + (tl.p >> 1)) * (2 * g.ow) + 2 * x + (tl.p & 1)
+          : ((int64_t)n * g.oh + y) * g.ow + x;
       bf16* const row = out + pix * g.O;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -497,20 +530,21 @@ constexpr int kNoEncoder = 20000;
 constexpr int kEncodeFailed = 10000;
 
 // The input as a 4-D tensor (C, W, H, B), innermost first, in boxes of
-// (KC, wb, th, nb) under the swizzle of a KC-channel row; out-of-bounds
-// elements read 0.
-template <int KC>
+// (KC, S wb, S th, nb) traversed with element strides (1, S, S, 1), so that
+// a box lands (KC, wb, th, nb) elements, under the swizzle of a KC-channel
+// row; out-of-bounds elements read 0.
+template <int KC, int S>
 int encode_x(CUtensorMap* map, const void* x, const WgGeo& g) {
   const auto enc = encode_fn();
   if (!enc) return kNoEncoder;
   const cuuint64_t dims[4] = {(cuuint64_t)g.C, (cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.B};
   const cuuint64_t strides[3] = {(cuuint64_t)g.C * 2, (cuuint64_t)g.W * g.C * 2,
                                  (cuuint64_t)g.H * g.W * g.C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)KC, (cuuint32_t)g.wb, (cuuint32_t)g.th,
+  const cuuint32_t box[4] = {(cuuint32_t)KC, (cuuint32_t)(S * g.wb), (cuuint32_t)(S * g.th),
                              (cuuint32_t)g.nb};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const cuuint32_t step[4] = {1, (cuuint32_t)S, (cuuint32_t)S, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(KC * 2),
+                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(KC * 2),
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
 }
@@ -552,9 +586,9 @@ int launch_wg(const void* x, const void* w, const float* scale, const float* shi
   g.chunks = (g.C + KC - 1) / KC;
   g.a_box_bytes = KC * g.wb * g.th * g.nb * 2;
   CUtensorMap tm_x, tm_w;
-  int rc = encode_x<KC>(&tm_x, x, g);
+  int rc = encode_x<KC, mode_stride(MODE)>(&tm_x, x, g);
   if (rc) return rc;
-  rc = encode_w<BN, KC>(&tm_w, w, g, MODE == kConv3 ? 9 : 16);
+  rc = encode_w<BN, KC>(&tm_w, w, g, weight_taps(MODE));
   if (rc) return rc;
   kernel<<<grid, NTHREADS, SMEM, st>>>(tm_x, tm_w, scale, shift, out, g);
   return cudaGetLastError();
@@ -567,17 +601,20 @@ template <int MODE>
 int launch(const void* x, const void* w, const void* scale, const void* shift, void* out,
            int B, int H, int W, int C, int O, int relu, int wb, int th, int nb, int bn, int kc,
            int stages, int grid, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 8 || O < 8 || C % 8 || O % 8 || wb < 1 || th < 1 ||
-      nb < 1 || wb > 128 || wb * th * nb > BM || th > H || nb > B || grid < 1)
+  constexpr int S = mode_stride(MODE);
+  if (B < 1 || H < S || W < S || H % S || W % S || C < 8 || O < 8 || C % 8 || O % 8 ||
+      wb < 1 || th < 1 || nb < 1 || wb > 128 || wb * th * nb > BM || th > H / S || nb > B ||
+      grid < 1)
     return (int)cudaErrorInvalidValue;
   WgGeo g;
   g.B = B; g.H = H; g.W = W; g.C = C; g.O = O;
+  g.oh = H / S; g.ow = W / S;
   g.wb = wb; g.th = th; g.nb = nb;
-  g.xs = (W + wb - 1) / wb;
-  g.ys = (H + th - 1) / th;
+  g.xs = (g.ow + wb - 1) / wb;
+  g.ys = (g.oh + th - 1) / th;
   g.mtiles = g.xs * g.ys * ((B + nb - 1) / nb);
   g.ntiles = (O + bn - 1) / bn;
-  g.tiles = (MODE == kConv3 ? 1 : 4) * g.mtiles * g.ntiles;
+  g.tiles = mode_phases(MODE) * g.mtiles * g.ntiles;
   g.relu = relu;
   const float* sf = static_cast<const float*>(scale);
   const float* tf = static_cast<const float*>(shift);
@@ -603,6 +640,13 @@ int svrs_conv3x3_wg_bf16(const void* x, const void* w, const void* scale, const 
                          void* out, int B, int H, int W, int C, int O, int relu, int wb, int th,
                          int nb, int bn, int kc, int stages, int grid, void* stream) {
   return launch<kConv3>(x, w, scale, shift, out, B, H, W, C, O, relu, wb, th, nb, bn, kc, stages,
+                        grid, stream);
+}
+
+int svrs_conv4x4s2_wg_bf16(const void* x, const void* w, const void* scale, const void* shift,
+                           void* out, int B, int H, int W, int C, int O, int relu, int wb, int th,
+                           int nb, int bn, int kc, int stages, int grid, void* stream) {
+  return launch<kConv4>(x, w, scale, shift, out, B, H, W, C, O, relu, wb, th, nb, bn, kc, stages,
                         grid, stream);
 }
 

@@ -22,9 +22,10 @@ calls and input gradients; :data:`bf16_launches` counts the bfloat16
 instances' launches the same way, by role, and :data:`bf16_impl_launches`
 splits those by the kernel that ran ("wg" or "tc"). A bfloat16 CUDA tensor
 launches a bfloat16 kernel or raises: it never reaches the float32 kernel.
-A bfloat16 launch of #1 or #6 that :func:`wg_eligible` admits runs
-``conv_wg_bf16`` (``csrc/conv_wg.cu``: wgmma fed by TMA, launch plan
-:func:`plan_wg`) or raises; every other bfloat16 launch runs ``conv_tc_bf16``.
+A bfloat16 launch of #1, #5 or #6 that :func:`wg_eligible` admits, in
+either role, runs ``conv_wg_bf16`` (``csrc/conv_wg.cu``: wgmma fed by TMA,
+launch plan :func:`plan_wg`) or raises; every other bfloat16 launch runs
+``conv_tc_bf16``.
 
 :func:`fused_conv` is the differentiable form (port of the JAX ``_make_grad``
 VJPs): its backward computes every input gradient with one of the three
@@ -163,30 +164,38 @@ def _cdiv(a: int, b: int) -> int:
 
 
 # ------------------------------------------------------------ conv_wg_bf16
-# The bfloat16 #1 and #6 on wgmma fed by TMA (``csrc/conv_wg.cu``): a tile is
-# WG_BM output pixels (two consumer warpgroups of 64 rows) x BN channels, K
-# in k-groups of KC channels of one tap (64, or 16 where C <= 16).
+# The bfloat16 #1, #5 and #6 on wgmma fed by TMA (``csrc/conv_wg.cu``): a
+# tile is WG_BM output pixels (two consumer warpgroups of 64 rows) x BN
+# channels, K in k-groups of KC channels of one tap (64, or 16 where C <= 16).
 WG_SOURCE = "conv_wg.cu"
 WG_KERNELS = {"fused_conv3x3_bn_relu": "svrs_conv3x3_wg_bf16",
+              "fused_conv4x4s2_bn_relu": "svrs_conv4x4s2_wg_bf16",
               "fused_convT4x4s2_bn_relu": "svrs_convT4x4s2_wg_bf16"}
 WG_BM = 128
 # the ring's stages per (KC, BN), one instance each: as deep as one block's
 # 227 KB of shared memory allows with 64-channel k-groups (A 16 KB and B
 # 128 * BN bytes a stage), 8 with 16-channel ones
 WG_STAGES = {(64, 128): 6, (64, 64): 8, (64, 16): 8, (16, 128): 8, (16, 64): 8, (16, 16): 8}
-WG_MAX_W = 256  # a row in at most two 128-pixel boxes
-# The measured cut (chip_smoke.py B6 times both bfloat16 kernels in turns at
-# every #1/#6 shape of the canonical paths; NVIDIA H100 80GB HBM3 at 700 W,
-# PERF.md): conv_wg_bf16 was slower than conv_tc_bf16 at some shapes
-# below 6.7 GFLOP (both near their launch floor of 0.02-0.06 ms) and at the
-# prior heads of 7 or 14 tiles (conv_tc_bf16 splits their K over the card),
-# and it tied at 9.7 GFLOP with 36 k-group steps a block (256 tiles of 18):
+WG_MAX_W = 256  # input pixels of a row: at most two 128-pixel boxes
+# The measured cut per kernel, (operations, output tiles, k-group steps on
+# the busiest block) of :func:`wg_route` (chip_smoke.py B6 times both
+# bfloat16 kernels in turns at every shape of the canonical paths; NVIDIA
+# H100 80GB HBM3 at 700 W, PERF.md). #1 and #6: conv_wg_bf16 was slower than
+# conv_tc_bf16 at some shapes below 6.7 GFLOP (both near their launch floor
+# of 0.02-0.06 ms) and at the prior heads of 7 or 14 tiles (conv_tc_bf16
+# splits their K over the card), and it tied at 9.7 GFLOP with 36 k-group
+# steps a block (256 tiles of 18):
 # there it took 0.029-0.063 ms from run to run against conv_tc_bf16's steady
 # 0.060, its device time below the host path of a launch from Python; past
 # the three cuts it took 0.30-0.91x conv_tc_bf16's time at every shape.
-WG_MIN_FLOPS = 8e9
-WG_MIN_TILES = 64
-WG_MIN_STEPS = 64  # k-groups the busiest block walks: ceil(tiles / grid) x k-groups a tile
+# #5, measured on its own: below 8 GFLOP conv_wg_bf16 was slower at the
+# 16-channel inputs (1.04-1.19x) and within the launch floor (0.03-0.05 ms)
+# at the others; [512, 16, 16, 64] -> 128 (8.6 GFLOP, 256 tiles, 32 k-group
+# steps) took 0.031 ms against 0.055, and the input-gradient launches past
+# 34 GFLOP 0.38-0.49x conv_tc_bf16's time, so its step cut is 32.
+WG_CUTS = {"fused_conv3x3_bn_relu": (8e9, 64, 64),
+           "fused_conv4x4s2_bn_relu": (8e9, 64, 32),
+           "fused_convT4x4s2_bn_relu": (8e9, 64, 64)}
 
 
 class WgPlan(NamedTuple):
@@ -228,37 +237,42 @@ def wg_kc(c: int) -> int:
 
 
 def plan_wg(name: str, b: int, h: int, w: int, c: int, o: int) -> WgPlan:
-    """:class:`WgPlan` of kernel ``name`` (#1 or #6) on a (B, H, W, C) input
-    with O outputs (K is taps x ceil(C / kc) k-groups)."""
-    phases = _KERNELS[name][3]
-    wb, th, nb = wg_box(b, h, w)
+    """:class:`WgPlan` of kernel ``name`` (#1, #5 or #6) on a (B, H, W, C)
+    input with O outputs (K is taps x ceil(C / kc) k-groups). The box is in
+    output pixels (of one phase for #6): (H/2, W/2) for #5."""
+    _, _, stride, phases = _KERNELS[name]
+    oh, ow = h // stride, w // stride
+    wb, th, nb = wg_box(b, oh, ow)
     bn, kc = wg_bn(o), wg_kc(c)
-    tiles = phases * _cdiv(w, wb) * _cdiv(h, th) * _cdiv(b, nb) * _cdiv(o, bn)
+    tiles = phases * _cdiv(ow, wb) * _cdiv(oh, th) * _cdiv(b, nb) * _cdiv(o, bn)
     return WgPlan(wb, th, nb, bn, kc, WG_STAGES[kc, bn], tiles, min(tiles, _SMS))
 
 
 def _wg_takes(name: str, x_shape, o: int) -> bool:
-    """The shapes ``conv_wg_bf16`` can run at all: #1 or #6, C % 8 == 0 and
-    O % 8 == 0 (TMA's global strides are whole 16 bytes), W <= 256."""
-    return (name in WG_KERNELS and x_shape[-1] % 8 == 0 and o % 8 == 0
-            and x_shape[2] <= WG_MAX_W)
+    """The shapes ``conv_wg_bf16`` can run at all: #1, #5 or #6, C % 8 == 0
+    and O % 8 == 0 (TMA's global strides are whole 16 bytes), W <= 256, and
+    for #5 even H and W (as JAX #5 requires)."""
+    if name not in WG_KERNELS or x_shape[-1] % 8 or o % 8 or x_shape[2] > WG_MAX_W:
+        return False
+    return _KERNELS[name][2] == 1 or (x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0)
 
 
 def wg_route(name: str, x_shape, o: int) -> bool:
     """The shape half of :func:`wg_eligible`: what ``conv_wg_bf16`` takes,
-    with at least :data:`WG_MIN_FLOPS` operations (2 M N K over the phases),
-    :data:`WG_MIN_TILES` output tiles and :data:`WG_MIN_STEPS` k-group steps
-    on the busiest block (:func:`plan_wg`). The last three are the measured
-    cut: below them ``conv_tc_bf16`` was as fast or at some shapes faster."""
+    with at least the operations (2 M N K over the phases), output tiles and
+    k-group steps on the busiest block (:func:`plan_wg`) of the kernel's
+    :data:`WG_CUTS`, the measured cut: below it ``conv_tc_bf16`` was as fast
+    or at some shapes faster."""
     if not _wg_takes(name, x_shape, o):
         return False
     b, h, w, c = x_shape
-    _, taps, _, phases = _KERNELS[name]
-    if 2.0 * phases * b * h * w * o * taps * c < WG_MIN_FLOPS:
+    _, taps, stride, phases = _KERNELS[name]
+    min_flops, min_tiles, min_steps = WG_CUTS[name]
+    if 2.0 * phases * b * (h // stride) * (w // stride) * o * taps * c < min_flops:
         return False
     plan = plan_wg(name, b, h, w, c, o)
     steps = _cdiv(plan.tiles, plan.grid) * taps * _cdiv(c, plan.kc)
-    return plan.tiles >= WG_MIN_TILES and steps >= WG_MIN_STEPS
+    return plan.tiles >= min_tiles and steps >= min_steps
 
 
 def _wg_operands(x: Tensor, kernel: Tensor) -> bool:
@@ -267,8 +281,9 @@ def _wg_operands(x: Tensor, kernel: Tensor) -> bool:
 
 
 def wg_supported(name: str, x: Tensor, kernel: Tensor) -> bool:
-    """What ``conv_wg_bf16`` can run at all: bfloat16 #1 or #6, C % 8 == 0
-    and O % 8 == 0, x and the weight 16-byte aligned, W <= 256."""
+    """What ``conv_wg_bf16`` can run at all: bfloat16 #1, #5 or #6, C % 8
+    == 0 and O % 8 == 0, x and the weight 16-byte aligned, W <= 256, even H
+    and W for #5."""
     return _wg_operands(x, kernel) and _wg_takes(name, x.shape, kernel.shape[-1])
 
 
@@ -276,8 +291,9 @@ def wg_eligible(name: str, x: Tensor, kernel: Tensor) -> bool:
     """Whether a bfloat16 launch of kernel ``name`` runs ``conv_wg_bf16``; a
     static rule of shapes, dtypes and alignment, the same on every run:
     bfloat16 x and weight, both 16-byte aligned, and :func:`wg_route` of the
-    shapes (#1 or #6, C % 8 == 0, O % 8 == 0, W <= 256, and the measured cut
-    on operations, tiles and k-group steps)."""
+    shapes (#1, #5 or #6, C % 8 == 0, O % 8 == 0, W <= 256, even H and W for
+    #5, and the kernel's measured cut on operations, tiles and k-group
+    steps)."""
     return _wg_operands(x, kernel) and wg_route(name, x.shape, kernel.shape[-1])
 
 
@@ -439,13 +455,15 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def _dispatch(name: str, x, kernel, scale, shift, relu, role: str = "forward"):
-    if x.device.type == "cpu":
+def _dispatch(name: str, x, kernel, scale, shift, relu, role: str = "forward",
+              impl: Optional[str] = None):
+    if x.device.type == "cpu" and impl is None:
         _check_dtypes(name, x, kernel, scale, shift)
         return PLAIN[name](x, kernel, scale, shift, relu)
     if x.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA card, not {x.device}")
-    return _launch(name, x, kernel, scale, shift, relu, role)
+        where = "a CUDA card" if impl else "the CPU or a CUDA card"
+        raise ValueError(f"{name}: tensors must be on {where}, not {x.device}")
+    return _launch(name, x, kernel, scale, shift, relu, role, impl)
 
 
 def launch_bf16(name: str, impl: str, x: Tensor, kernel: Tensor, scale: Tensor, shift: Tensor,
@@ -560,12 +578,14 @@ def flip_swap(kernel: Tensor) -> Tensor:
 
 
 def input_grad(name: str, g_conv: Tensor, kernel: Tensor, in_shape,
-               plain: bool = False) -> Tensor:
+               plain: bool = False, impl: Optional[str] = None) -> Tensor:
     """Gradient of conv ``name`` with respect to its input ``(B, H, W, C)``,
     given the gradient ``g_conv`` of its pre-affine output: the
     :data:`DX_KERNEL` kernel on the flip-swapped weight, scale 1, shift 0,
     no ReLU (the plain version of that kernel with ``plain``), in
-    ``g_conv``'s dtype."""
+    ``g_conv``'s dtype. ``impl`` names the bfloat16 kernel on CUDA tensors
+    as :func:`launch_bf16` does, for measurements; the model paths never
+    pass it."""
     b, h, w, c = in_shape
     if name == "fused_conv4x4s2_bn_relu" and (h, w) != (2 * g_conv.shape[1], 2 * g_conv.shape[2]):
         raise ValueError(f"{name}: the input gradient needs an even input, got {tuple(in_shape)}")
@@ -574,7 +594,7 @@ def input_grad(name: str, g_conv: Tensor, kernel: Tensor, in_shape,
     args = (g_conv, flip_swap(kernel), ones, torch.zeros_like(ones), False)
     if plain:
         return PLAIN[dx_name](*args)
-    return _dispatch(dx_name, *args, role="dx")
+    return _dispatch(dx_name, *args, role="dx", impl=impl)
 
 
 def weight_grad(name: str, x: Tensor, g_conv: Tensor, kernel: Tensor) -> Tensor:

@@ -110,7 +110,10 @@ _PALLAS = {"fused_conv3x3_bn_relu": pc.fused_conv3x3_bn_relu,
            "fused_conv4x4s2_bn_relu": pc.fused_conv4x4s2_bn_relu,
            "fused_convT4x4s2_bn_relu": pc.fused_convT4x4s2_bn_relu}
 
-# C % 8 == 0 beside C % 8 != 0, odd O, and for each conv its own shape
+# C % 8 == 0 beside C % 8 != 0, odd O, and for each conv its own shape; the
+# last one's input gradient is a #5 launch that conv_wg_bf16 takes on the card
+# (C = 16, O = 24, even H and W)
+_WG_DX_CASE = ("fused_convT4x4s2_bn_relu", (2, 4, 4, 24), 16, False)
 KERNEL_CASES = [
     ("fused_conv3x3_bn_relu", (2, 8, 8, 16), 8, True),
     ("fused_conv3x3_bn_relu", (2, 7, 9, 5), 13, False),
@@ -119,6 +122,7 @@ KERNEL_CASES = [
     ("fused_conv4x4s2_bn_relu", (2, 8, 6, 5), 9, False),
     ("fused_convT4x4s2_bn_relu", (2, 4, 4, 16), 8, True),
     ("fused_convT4x4s2_bn_relu", (2, 3, 5, 7), 13, False),
+    _WG_DX_CASE,
 ]
 
 
@@ -156,6 +160,8 @@ def test_bf16_input_gradients_match_the_pallas_kernels(case):
                                            relu=False, interpret=True)
     got = fc.input_grad(name, g, kern, shape, plain=True)
     assert want.dtype == jnp.bfloat16 and got.dtype == BF16 and got.shape == shape
+    if case == _WG_DX_CASE:  # a shape conv_wg_bf16 takes on the card
+        assert fc._wg_takes(fc.DX_KERNEL[name], tuple(g.shape), c)
     assert torch.equal(fc.input_grad(name, g, kern, shape), got)  # CPU: the plain route
     wb = torch.from_numpy(np.array(want.astype(jnp.float32))).bfloat16()
     assert fc.compare_bf16(got, wb)["of_bound"] <= 1.0

@@ -670,10 +670,11 @@ def test_bf16_kernel_matches_plain_in_both_roles(cuda, case):
     assert {k: dict(v) for k, v in fc.role_launches.items()} == f32_before
 
 
-# conv_wg_bf16 (csrc/conv_wg.cu, bfloat16 #1 and #6 on wgmma fed by TMA) at
-# the CPU replay's ragged shapes: C % 64 != 0 (72, 200, 8), O = 8, 24 and
-# 136, odd H and W, a batch not a multiple of the box's images, a row wider
-# than one 128-pixel box
+# conv_wg_bf16 (csrc/conv_wg.cu, bfloat16 #1, #5 and #6 on wgmma fed by TMA)
+# at the CPU replay's ragged shapes: C % 64 != 0 (72, 200, 8, 424), O = 8, 24
+# and 136, odd H and W (#5: an odd output grid), a batch not a multiple of
+# the box's images, a row wider than one 128-pixel box (#5: a 128-wide
+# output row, its strided box at TMA's 256-element limit)
 WG_CASES = [
     ("fused_conv3x3_bn_relu", (3, 9, 11, 72), 24, True),
     ("fused_conv3x3_bn_relu", (2, 6, 7, 200), 8, False),
@@ -684,6 +685,11 @@ WG_CASES = [
     ("fused_convT4x4s2_bn_relu", (11, 4, 4, 64), 8, True),
     ("fused_convT4x4s2_bn_relu", (3, 8, 8, 136), 136, True),
     ("fused_convT4x4s2_bn_relu", (3, 6, 8, 16), 128, False),
+    ("fused_conv4x4s2_bn_relu", (3, 16, 16, 72), 24, True),
+    ("fused_conv4x4s2_bn_relu", (11, 8, 8, 64), 136, True),
+    ("fused_conv4x4s2_bn_relu", (2, 6, 10, 16), 8, False),
+    ("fused_conv4x4s2_bn_relu", (1, 4, 256, 8), 16, True),
+    ("fused_conv4x4s2_bn_relu", (3, 8, 8, 424), 8, False),
 ]
 
 
@@ -705,12 +711,16 @@ def test_wg_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["fused_conv3x3_bn_relu", "fused_convT4x4s2_bn_relu"])
+@pytest.mark.parametrize("name", ["fused_conv3x3_bn_relu", "fused_convT4x4s2_bn_relu",
+                                  "fused_conv4x4s2_bn_relu"])
 def test_wg_routing_runs_conv_wg_in_both_roles(cuda, name):
-    # a shape past the measured cut (>= 8 GFLOP, >= 64 tiles, >= 64 k-group
-    # steps on the busiest block) goes to conv_wg_bf16 through the wrapper and
-    # through input_grad; one below it to conv_tc_bf16
-    shape, o = ((256, 16, 16, 128), 128) if "3x3" in name else ((128, 16, 16, 128), 64)
+    # a shape past the kernel's measured cut (operations, tiles, k-group
+    # steps on the busiest block: fc.WG_CUTS) goes to conv_wg_bf16 through the
+    # wrapper and through input_grad (of the conv whose adjoint it is: #5 is
+    # the transposed conv's); one below it to conv_tc_bf16
+    shape, o = {"fused_conv3x3_bn_relu": ((256, 16, 16, 128), 128),
+                "fused_convT4x4s2_bn_relu": ((128, 16, 16, 128), 64),
+                "fused_conv4x4s2_bn_relu": ((256, 32, 32, 64), 128)}[name]
     x, kern, s, t = _bf16_inputs(name, shape, o, seed=3, device=cuda)
     assert fc.wg_eligible(name, x, kern)
     fc.reset_launches()
@@ -718,7 +728,7 @@ def test_wg_routing_runs_conv_wg_in_both_roles(cuda, name):
     want = fc.PLAIN[name](x, kern, s, t, True)
     assert fc.compare_bf16(got, want)["of_bound"] <= 1.0
     assert fc.bf16_impl_launches[name]["forward"] == {"wg": 1, "tc": 0}
-    site = "fused_conv3x3_bn_relu" if "3x3" in name else "fused_conv4x4s2_bn_relu"
+    site = fc.DX_KERNEL[name]  # the conv whose input gradient runs kernel `name`
     in_shape = fc.output_shape(name, shape, o)
     g = x  # a gradient of the site's pre-affine output has x's shape here
     got = fc.input_grad(site, g, fc.flip_swap(kern), in_shape)
@@ -736,8 +746,8 @@ def test_wg_launch_refuses_what_it_does_not_take(cuda):
     x, kern, s, t = _bf16_inputs("fused_conv3x3_bn_relu", (2, 8, 8, 12), 16, 0, cuda)
     with pytest.raises(ValueError):  # C % 8 != 0
         fc.launch_bf16("fused_conv3x3_bn_relu", "wg", x, kern, s, t)
-    x, kern, s, t = _bf16_inputs("fused_conv4x4s2_bn_relu", (2, 8, 8, 16), 16, 0, cuda)
-    with pytest.raises(ValueError):  # not #1 or #6
+    x, kern, s, t = _bf16_inputs("fused_conv4x4s2_bn_relu", (2, 9, 8, 16), 16, 0, cuda)
+    with pytest.raises(ValueError):  # #5 at an odd H (JAX #5 requires even H and W)
         fc.launch_bf16("fused_conv4x4s2_bn_relu", "wg", x, kern, s, t)
     with pytest.raises(ValueError):  # float32
         fc.launch_bf16("fused_conv3x3_bn_relu", "wg", x.float(),

@@ -892,15 +892,20 @@ def conv_wg_replay(name, x, kern, scale, shift, relu, schedule="producer_first")
     each 64-deep k-group summed before the float32 running sum, the m64nNk16
     fragment map and the epilogue (pixels of the box, the transposed conv's
     strided pixels, rows past the box, the image or the batch not stored).
+    The 4x4/s2 conv's A box is traversed with element strides (1, 2, 2, 1):
+    a (KC, 2 wb, 2 th, nb) box that lands KC wb th nb elements, every second
+    input pixel from (c0, 2 x0 + kx - 1, 2 y0 + ky - 1, n0).
     Shared memory is NaN before the launch. Returns (output as float32,
     writes per output element, TMA loads as (stage, kind, coordinates))."""
     b, h, w, c = x.shape
     o = kern.shape[-1]
-    taps, phases = (9, 1) if name == "fused_conv3x3_bn_relu" else (4, 4)
+    _, taps, stride, phases = fc._KERNELS[name]  # stride: the A box's element stride
+    oh, ow = h // stride, w // stride  # the tiles' pixel grid (one phase's for #6)
     plan = fc.plan_wg(name, b, h, w, c, o)
     wb, th, nb, bn, kc, stages = plan.wb, plan.th, plan.nb, plan.bn, plan.kc, plan.stages
-    assert 1 <= wb * th * nb <= fc.WG_BM and max(wb, th, nb) <= 256 and kc in (16, 64)
-    xs, ys = _cdiv(w, wb), _cdiv(h, th)
+    assert 1 <= wb * th * nb <= fc.WG_BM and kc in (16, 64)
+    assert max(stride * wb, stride * th, nb) <= 256  # TMA's boxDim limit, strided
+    xs, ys = _cdiv(ow, wb), _cdiv(oh, th)
     mtiles, ntiles = xs * ys * _cdiv(b, nb), _cdiv(o, bn)
     assert plan.tiles == phases * mtiles * ntiles and plan.grid == min(plan.tiles, SMS)
     chunks = _cdiv(c, kc)
@@ -932,7 +937,7 @@ def conv_wg_replay(name, x, kern, scale, shift, relu, schedule="producer_first")
         def tma_a(s, c0, x0, y0, n0):
             ci, xi, yi, ni = np.meshgrid(np.arange(kc), np.arange(wb), np.arange(th),
                                          np.arange(nb), indexing="ij")
-            cc, xx, yy, nn = c0 + ci, x0 + xi, y0 + yi, n0 + ni
+            cc, xx, yy, nn = c0 + ci, x0 + stride * xi, y0 + stride * yi, n0 + ni
             ok = (cc >= 0) & (cc < c) & (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h) & (nn < b)
             val = np.where(ok, x[np.where(ok, nn, 0), np.where(ok, yy, 0), np.where(ok, xx, 0),
                                  np.where(ok, cc, 0)], np.float32(0))
@@ -964,7 +969,7 @@ def conv_wg_replay(name, x, kern, scale, shift, relu, schedule="producer_first")
                         while not empty[s].try_wait(ph ^ 1):
                             yield
                         full[s].expect_tx(a_box_bytes + b_bytes)
-                        landed = tma_a(s, ch * kc, x0 + dx, y0 + dy, n0)
+                        landed = tma_a(s, ch * kc, stride * x0 + dx, stride * y0 + dy, n0)
                         for j in range(max(1, bn // 64)):
                             landed += tma_b(s, j, o0 + 64 * j, ch * kc, wtap)
                         assert landed == a_box_bytes + b_bytes  # whole boxes, zero fill too
@@ -1011,11 +1016,11 @@ def conv_wg_replay(name, x, kern, scale, shift, relu, schedule="producer_first")
                         xi, q = r % wb, r // wb
                         yi, ni = q % th, q // th
                         xx, yy, nn = x0 + xi, y0 + yi, n0 + ni
-                        keep = (ni < nb) & (xx < w) & (yy < h) & (nn < b)
+                        keep = (ni < nb) & (xx < ow) & (yy < oh) & (nn < b)
                         if phases == 1:
-                            pix = (nn * h + yy) * w + xx
+                            pix = (nn * oh + yy) * ow + xx
                         else:
-                            pix = (nn * 2 * h + 2 * yy + (p >> 1)) * (2 * w) + 2 * xx + (p & 1)
+                            pix = (nn * 2 * oh + 2 * yy + (p >> 1)) * (2 * ow) + 2 * xx + (p & 1)
                         for j in range(bn // 8):
                             col = o0 + 8 * j + 2 * (lane % 4)
                             ok = keep & (col < o)
@@ -1046,7 +1051,8 @@ def conv_wg_replay(name, x, kern, scale, shift, relu, schedule="producer_first")
 # 16-wide, a part-filled 64-wide and a last 8-wide 128 channel tile), odd H
 # and W, a batch that is not a multiple of the box's images (11 in boxes of
 # 8 at 4x4, 3 in boxes of 2 at 8x8), a row wider than one 128-pixel box, and
-# both convs
+# all three convs (#5 on an 8x8 and a 4x4 output grid, an odd output grid and
+# a 128-wide output row: its strided box at TMA's 256-element limit)
 WG_REPLAY_CASES = [
     ("fused_conv3x3_bn_relu", (3, 9, 11, 72), 24, True),
     ("fused_conv3x3_bn_relu", (2, 6, 7, 200), 8, False),
@@ -1057,6 +1063,10 @@ WG_REPLAY_CASES = [
     ("fused_convT4x4s2_bn_relu", (11, 4, 4, 64), 8, True),
     ("fused_convT4x4s2_bn_relu", (3, 8, 8, 136), 136, True),
     ("fused_convT4x4s2_bn_relu", (3, 6, 8, 16), 128, False),
+    ("fused_conv4x4s2_bn_relu", (3, 16, 16, 72), 24, True),
+    ("fused_conv4x4s2_bn_relu", (11, 8, 8, 64), 136, True),
+    ("fused_conv4x4s2_bn_relu", (2, 6, 10, 16), 8, False),
+    ("fused_conv4x4s2_bn_relu", (1, 4, 256, 8), 16, True),
 ]
 
 
@@ -1073,17 +1083,50 @@ def test_conv_wg_bf16_index_arithmetic_matches_plain(case):
     assert fc.compare_bf16(torch.from_numpy(got).bfloat16(), want)["of_bound"] <= 1.0
 
 
+# (name, x shape, O) of the transposed convs whose input gradient #5
+# computes: C = 24 and 16 of the convT (the gradient's O), O = 72 and 64 of
+# the convT (the gradient's C, 72 with a zero-filled channel tail)
+WG_DX_CASES = [
+    ("fused_convT4x4s2_bn_relu", (3, 4, 4, 24), 72),
+    ("fused_convT4x4s2_bn_relu", (2, 3, 5, 16), 64),
+]
+
+
+@pytest.mark.parametrize("case", WG_DX_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_conv_wg_bf16_replays_the_transposed_convs_input_gradient(case):
+    """#5's dx role: ``input_grad`` of a transposed conv runs #5 on the
+    flip-swapped weight (a fresh contiguous tensor), scale 1, shift 0, no
+    ReLU; the replay of that launch against the plain route."""
+    name, shape, o = case
+    x, kern, _, _ = _data(shape, o, 4, seed=sum(shape) + o)
+    kern = _bf16(kern)
+    out_shape = fc.output_shape(name, shape, o)
+    g = _bf16(np.random.default_rng(o).standard_normal(out_shape).astype(np.float32))
+    dx_name, c = fc.DX_KERNEL[name], shape[-1]
+    assert dx_name == "fused_conv4x4s2_bn_relu"
+    kf = fc.flip_swap(torch.from_numpy(kern).bfloat16())
+    assert fc.wg_supported(dx_name, torch.from_numpy(g).bfloat16(), kf)
+    ones, zeros = np.ones(c, np.float32), np.zeros(c, np.float32)
+    got, writes, _ = conv_wg_replay(dx_name, g, kf.float().numpy(), ones, zeros, False)
+    assert (writes == 1).all() and got.shape == shape
+    want = fc.input_grad(name, torch.from_numpy(g).bfloat16(), torch.from_numpy(kern).bfloat16(),
+                         shape, plain=True)
+    assert fc.compare_bf16(torch.from_numpy(got).bfloat16(), want)["of_bound"] <= 1.0
+
+
 def test_conv_wg_bf16_ring_order_does_not_change_the_result():
     # the consumers running ahead (waiting at once) and the producer running
     # ahead (filling every free slot first) give the same bits, over a block
-    # that walks several tiles (the ring wraps across tiles)
-    name, shape, o = "fused_conv3x3_bn_relu", (5, 4, 4, 72), 136
-    x, kern, s, t = _data(shape, o, 3, seed=5)
-    x, kern = _bf16(x), _bf16(kern)
-    a, wa, _ = conv_wg_replay(name, x, kern, s, t, True, "producer_first")
-    b, wb_, _ = conv_wg_replay(name, x, kern, s, t, True, "consumer_first")
-    assert (wa == 1).all() and (wb_ == 1).all()
-    np.testing.assert_array_equal(a, b)
+    # that walks several tiles (the ring wraps across tiles); the 3x3 conv
+    # and the 4x4/s2 conv (16 taps of two chunks, the ring wrapping in a tile)
+    for name, shape, o in (("fused_conv3x3_bn_relu", (5, 4, 4, 72), 136),
+                           ("fused_conv4x4s2_bn_relu", (9, 8, 8, 72), 136)):
+        x, kern, s, t = _data(shape, o, 3 if "3x3" in name else 4, seed=5)
+        x, kern = _bf16(x), _bf16(kern)
+        a, wa, _ = conv_wg_replay(name, x, kern, s, t, True, "producer_first")
+        b, wb_, _ = conv_wg_replay(name, x, kern, s, t, True, "consumer_first")
+        assert (wa == 1).all() and (wb_ == 1).all()
+        np.testing.assert_array_equal(a, b)
 
 
 def test_conv_wg_bf16_tma_boxes_and_zero_fill():
@@ -1117,6 +1160,24 @@ def test_conv_wg_bf16_tma_boxes_and_zero_fill():
             # the JAX kernel's table: phase row u reads kernel row dy + u, dy of _T_TAPS[0]
             assert (2 * ta + u) == pc._T_TAPS[0][ta][1] + u
             assert (2 * tb + v) == pc._T_TAPS[v][tb][1]
+    # the 4x4/s2 conv: output pixel (i, j) reads input (2 i + ky - 1, 2 j + kx - 1)
+    # through a box of every second pixel, started at (2 x0 + kx - 1, 2 y0 + ky - 1):
+    # tile 0 at -1 (zero filled) and past the end (W = 4: column 4 at kx = 3),
+    # two 64-channel chunks of C = 72, 16 weight taps in HWIO order
+    name, shape, o = "fused_conv4x4s2_bn_relu", (1, 4, 4, 72), 8
+    x, kern, s, t = _data(shape, o, 4, seed=3)
+    got, writes, loads = conv_wg_replay(name, _bf16(x), _bf16(kern), s, t, False)
+    assert (writes == 1).all() and fc.plan_wg(name, *shape, o)[:3] == (2, 2, 1)
+    a_coords = [cd for _, kind, cd in loads if kind == "A"]
+    assert a_coords == [(64 * ch, kx - 1, ky - 1, 0)
+                        for ky in range(4) for kx in range(4) for ch in (0, 1)]
+    b_coords = [cd for _, kind, cd in loads if kind == "B"]
+    assert b_coords == [(0, 64 * ch, tap) for tap in range(16) for ch in (0, 1)]
+    # a box of NaN outside the image would make the output NaN: the pad of 1
+    # reads 0 (the output's corner takes 9 of its 16 taps from inside)
+    want = fc.PLAIN[name](*(torch.from_numpy(a).bfloat16() for a in (_bf16(x), _bf16(kern))),
+                          torch.from_numpy(s), torch.from_numpy(t), False)
+    assert fc.compare_bf16(torch.from_numpy(got).bfloat16(), want)["of_bound"] <= 1.0
 
 
 def test_conv_wg_bf16_swizzle_and_descriptors():
@@ -1199,10 +1260,14 @@ _WG_ROUTED = {
           ("3x3", 16, 128, 128), ("3x3", 16, 256, 256), ("3x3", 32, 16, 64),
           ("3x3", 32, 64, 16), ("3x3", 32, 64, 64), ("3x3", 32, 128, 128), ("3x3", 64, 16, 16),
           ("3x3", 64, 16, 64), ("3x3", 64, 64, 16), ("3x3", 64, 64, 64), ("T", 16, 128, 64),
-          ("T", 8, 424, 256), ("T", 16, 256, 128), ("T", 32, 128, 64), ("T", 8, 128, 64)},
+          ("T", 8, 424, 256), ("T", 16, 256, 128), ("T", 32, 128, 64), ("T", 8, 128, 64),
+          # #5 as the input gradient of the UpBlocks' transposed convs (dx_up1..3,
+          # dy_up2), and forward in the HR DownBlock ex_down3
+          ("4x4s2", 16, 256, 424), ("4x4s2", 32, 64, 128), ("4x4s2", 32, 128, 256),
+          ("4x4s2", 64, 64, 128), ("4x4s2", 16, 64, 128)},
 }
 _WG_ROUTED[1000] = _WG_ROUTED[512] | {("3x3", 8, 128, 128), ("3x3", 8, 128, 64),
-                                      ("T", 16, 64, 16)}
+                                      ("T", 16, 64, 16), ("4x4s2", 32, 16, 64)}
 
 
 @pytest.mark.parametrize("batch", [1, 16, 512, 1000])
@@ -1217,8 +1282,9 @@ def test_plan_wg_and_routing_at_every_canonical_shape(batch):
             assert not fc.wg_route(name, (batch, h, w, c), o)
             continue
         plan = fc.plan_wg(name, batch, h, w, c, o)
-        assert plan.wb * plan.th * plan.nb <= fc.WG_BM and plan.wb == min(w, fc.WG_BM)
-        assert plan.nb == 1 or plan.th == h
+        ow, oh = (w // 2, h // 2) if name == "fused_conv4x4s2_bn_relu" else (w, h)
+        assert plan.wb * plan.th * plan.nb <= fc.WG_BM and plan.wb == min(ow, fc.WG_BM)
+        assert plan.nb == 1 or plan.th == oh
         assert plan.kc == (16 if c <= 16 else 64)
         slot = 128 * 2 * plan.kc + plan.kc * plan.bn * 2
         assert 1024 + plan.stages * slot + 16 * plan.stages <= SMEM_LIMIT
@@ -1229,11 +1295,31 @@ def test_plan_wg_and_routing_at_every_canonical_shape(batch):
         assert fc.wg_eligible(name, x, kern) == fc.wg_route(name, x.shape, o)
         assert fc.wg_supported(name, x, kern) == (c % 8 == 0 and o % 8 == 0)
         if fc.wg_route(name, x.shape, o):
-            routed.add(("3x3" if "3x3" in name else "T", h, c, o))
+            routed.add(({"fused_conv3x3_bn_relu": "3x3", "fused_conv4x4s2_bn_relu": "4x4s2"}
+                        .get(name, "T"), h, c, o))
     assert routed == _WG_ROUTED.get(batch, set())
     # a float32 launch never does
     x = torch.empty((batch, 16, 16, 256))
     assert not fc.wg_eligible("fused_conv3x3_bn_relu", x, torch.empty((3, 3, 256, 256)))
+
+
+def test_wg_route_of_the_4x4s2_conv_at_the_training_steps_shapes():
+    """B = 512: #5's input-gradient launch of dx_up3 (the gradient of the
+    last UpBlock's convT, 137 GFLOP) goes to conv_wg_bf16; dy_up1's (O = 53)
+    and the 4-channel inputs of the *_down1 DownBlocks stay on conv_tc_bf16,
+    which takes any C and O, and so do the DownBlocks' small forward launches
+    below the cut."""
+    name = "fused_conv4x4s2_bn_relu"
+    assert fc.wg_route(name, (512, 64, 64, 64), 128)            # dx_up3
+    assert not fc.wg_route(name, (512, 16, 16, 128), 53)        # dy_up1: O % 8 != 0
+    assert not fc._wg_takes(name, (512, 16, 16, 128), 53)
+    for hw in (32, 64):                                         # ey_down1, ex_down1: C = 4
+        assert not fc._wg_takes(name, (512, hw, hw, 4), 16)
+        assert not fc.wg_route(name, (512, hw, hw, 4), 16)
+    assert not fc.wg_route(name, (512, 8, 8, 64), 128)          # below the cut
+    # odd H or W: the kernel does not take it (JAX #5 requires even ones)
+    assert not fc._wg_takes(name, (512, 65, 64, 64), 128)
+    assert not fc._wg_takes(name, (512, 64, 63, 64), 128)
 
 
 def test_conv_wg_bf16_source_is_wgmma_fed_by_tma():
@@ -1242,7 +1328,8 @@ def test_conv_wg_bf16_source_is_wgmma_fed_by_tma():
                    "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes",
                    "mbarrier.try_wait.parity", "setmaxnreg.inc.sync.aligned.u32 232",
                    "setmaxnreg.dec.sync.aligned.u32 40", "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE",
-                   "__launch_bounds__(NTHREADS, 1)"):
+                   "__launch_bounds__(NTHREADS, 1)", "int svrs_conv4x4s2_wg_bf16(",
+                   "const cuuint32_t step[4] = {1, (cuuint32_t)S, (cuuint32_t)S, 1};"):
         assert needle in src
     # one instance per (KC, BN) of the plan, with its stage count
     for (kc, bn), stages in fc.WG_STAGES.items():
