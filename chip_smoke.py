@@ -216,6 +216,37 @@ B9. The chain's bfloat16 instance at C1's ragged shapes (one to eight
     chain=True)``: C2's chain counts, outputs within 2e-2 of B2's unchained
     ones; with ``int8=True`` no chain launches.
 
+After the kernels line's counts are taken, phase F, the training run end to
+end on the canonical Cond_SRVAE (cr=1.2, ps=64) at full width, on batches
+of 512 pairs from ``grid_sr_batch`` on the card (3 train, 1 val):
+
+F1. The launches of one step of each kind (pre-training, train, val, eval
+    metrics, eval images) on a probe trainer; then ``pretrain_lr_branch``
+    for 1 pre-epoch and ``fit`` for 2 epochs at ``val_metrics_every=1`` with
+    ``ModelCheckpoint``, ``EarlyStopping`` and a ``JsonlLogger`` in a
+    temporary directory under ``build/``. The launches by kernel and role
+    must equal the per-step counts times the steps, the logged keys the
+    JAX fit's (``engine.FIT_KEYS``), every loss finite.
+F2. ``SuperResolver.from_checkpoint`` of the best checkpoint serves
+    ``super_resolve`` B=16 and ``uncertainty`` N=1000 to the same bits as a
+    resolver over the model state the checkpoint was written from;
+    ``from_checkpoint(int8=True)`` above 30 dB against it.
+F3. Resume: 1 epoch, save, and epoch 2 in a fresh trainer loaded from the
+    checkpoint against the first trainer going on, both with
+    ``cudnn.deterministic`` (cuDNN's weight gradients are the one
+    library call whose algorithm may not be deterministic): the parameters,
+    statistics, moments and logged metrics the same bits.
+F4. One step with ``remat`` against one without from one state and noise:
+    the forward role's conv launches double (the forward is recomputed in
+    the backward), the gradients within phase 8's noise rule, the
+    BatchNorm statistics the same bits (updated once); peak memory of both.
+F5. A bfloat16 model with ``bf16_moments``: 1 epoch, save, load: ``mu``
+    back in bfloat16, parameters and moments the same bits.
+
+F prints the epoch seconds, the checkpoint save and load ms, the
+``from_checkpoint`` build ms and the peak memory, each beside the card's
+name and power limit; the temporary directory is removed at the end.
+
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
 one val step; for the int8 kernels over the int8 serving run and the block
@@ -252,9 +283,11 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -813,12 +846,12 @@ def kernels_vs_plain(make_model, init_state, batch, label="train step", chain=Fa
     return cmp
 
 
-def training_batch():
+def training_batch(seed: int = 0):
     """512 (LR 32x32x4, HR 64x64x4) pairs cut on the card by the port's
-    ``grid_sr_batch`` from 32 synthetic tiles (values x1000, numpy seed 0)."""
+    ``grid_sr_batch`` from 32 synthetic tiles (values x1000, numpy ``seed``)."""
     from simple_vae_rs_tpu_torch import grid_sr_batch
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     lr_tiles = torch.from_numpy(rng.random((32, 128, 128, 4), dtype=np.float32) * 1000).cuda()
     hr_tiles = torch.from_numpy(rng.random((32, 256, 256, 4), dtype=np.float32) * 1000).cuda()
     y, x = grid_sr_batch(lr_tiles, hr_tiles, 64)
@@ -995,6 +1028,314 @@ def train_phase(report):
     if cmp["failures"]:
         raise AssertionError("kernels vs plain path: " + "; ".join(cmp["failures"]))
     return totals, launches_by
+
+# ------------------------------------------------------------ the training run
+FIT_TRAIN_SEEDS, FIT_VAL_SEEDS = (10, 11, 12), (13,)  # batches of 512 pairs each
+
+
+class RecordLogger:
+    """Keeps every logged record (step, metrics) in memory."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, metrics, step=None):
+        self.records.append((step, {k: float(v) for k, v in metrics.items()}))
+
+    def log_images(self, images, step=None):
+        pass
+
+    def finish(self):
+        pass
+
+
+def path_counts(fc, fe):
+    """The float32 launches by kernel and role, and the row kernels'."""
+    out = {f"{name} {role}": n for name, roles in fc.role_launches.items()
+           for role, n in roles.items()}
+    out.update(fe.launches)
+    out[fc.CHAIN] = fc.launches[fc.CHAIN]
+    return out
+
+
+def reset_path_counts(fc, fe):
+    fc.reset_launches()
+    fe.reset_launches()
+
+
+def fit_phase(report, card):
+    """Phase F: the training run end to end on the canonical Cond_SRVAE at
+    full width (F1-F4) and in bfloat16 (F5); returns the report's "fit"
+    entry. No check's failure is caught."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver, TrainConfig
+    from simple_vae_rs_tpu_torch import Trainer
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.train import engine
+    from simple_vae_rs_tpu_torch.train.callbacks import EarlyStopping, ModelCheckpoint
+    from simple_vae_rs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from simple_vae_rs_tpu_torch.train.state import make_optimizer
+    from simple_vae_rs_tpu_torch.utils.logging import JsonlLogger
+
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    train = [training_batch(s) for s in FIT_TRAIN_SEEDS]
+    val = [training_batch(s) for s in FIT_VAL_SEEDS]
+    out = {"card": card}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fit_", dir=os.path.join(ROOT, "build"))
+    try:
+        # F1. the launches of one step of each kind the run takes, on a probe
+        probe = Trainer(CondSRVAE(cfg, device="cuda").init_weights(1),
+                        TrainConfig(learning_rate=LR), device="cuda")
+        per_step = {}
+        for kind, run in (
+                ("pretrain", lambda: probe.pretrain_step(
+                    train[0], make_optimizer(probe.cfg, list(probe.params.values())), LR)),
+                ("train", lambda: probe.train_step(train[0])),
+                ("val", lambda: probe.val_step(val[0])),
+                ("metrics", lambda: probe.eval_metrics_step(val[0])),
+                ("images", lambda: probe.eval_images_step(val[0]))):
+            reset_path_counts(fc, fe)
+            run()
+            torch.cuda.synchronize()
+            per_step[kind] = path_counts(fc, fe)
+        del probe
+        torch.cuda.empty_cache()
+        log("fit per-step launches: " + " | ".join(
+            f"{kind}: " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            for kind, c in per_step.items()))
+
+        # F1. pre-training 1 pre-epoch, then fit 2 epochs, full evaluation each
+        mc = ModelCheckpoint("job", tmp, monitor="Loss/val_loss")
+        snapshots = {}
+
+        class Snapshot:
+            """The model state at the epoch ModelCheckpoint saved."""
+
+            def on_epoch_begin(self, **kw):
+                return False
+
+            def on_epoch_end(self, **kw):
+                if mc.best_epoch == kw["epoch"]:
+                    snapshots["best"] = {k: v.clone() for k, v in kw["model"].state_dict().items()}
+                return False
+
+        run_dir = os.path.join(tmp, "run")
+        trainer = Trainer(CondSRVAE(cfg, device="cuda").init_weights(0),
+                          TrainConfig(learning_rate=LR, val_metrics_every=1), device="cuda",
+                          callbacks=[mc, EarlyStopping(patience=25, delta=0.01), Snapshot()],
+                          logger=JsonlLogger(run_dir), job_id="job")
+        reset_path_counts(fc, fe)
+        torch.cuda.reset_peak_memory_stats()
+        _, pre_ms = timed(lambda: trainer.pretrain_lr_branch(train, 1))
+        _, fit_ms = timed(lambda: trainer.fit(train, val, epochs=2, val_metrics_every=1))
+        fit_peak = torch.cuda.max_memory_allocated() / 2**30
+        got = path_counts(fc, fe)
+        lpips_on = trainer._lpips_params is not None
+        n = {"pretrain": len(train), "train": 2 * len(train), "val": 2 * len(val),
+             "metrics": 2 * len(val), "images": 2 * len(val) if lpips_on else 1}
+        want = {k: sum(n[kind] * per_step[kind][k] for kind in n) for k in got}
+        if got != want or got[fc.CHAIN]:
+            raise AssertionError(f"fit launches {got}, expected {want} (steps {n})")
+        for k in ("fused_conv3x3_bn_relu forward", "fused_conv3x3_bn_relu dx",
+                  "fused_conv4x4s2_bn_relu forward", "fused_conv4x4s2_bn_relu dx",
+                  "fused_convT4x4s2_bn_relu forward", "fused_convT4x4s2_bn_relu dx",
+                  "sq_rows", "kl_std_rows", "kl_gen_rows"):
+            if got[k] <= 0:
+                raise AssertionError(f"the training run launched {k} no time")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        keys = {k for r in records for k in r} - {"_step", "_time"}
+        want_keys = set(engine.FIT_KEYS["cond"]) | {engine.PRETRAIN_KEY}
+        if lpips_on:
+            want_keys |= set(engine.LPIPS_KEYS["cond"])
+        if keys != want_keys:
+            raise AssertionError(f"logged keys {sorted(keys ^ want_keys)} differ from the JAX "
+                                 "fit's")
+        losses = {(r["_step"], k): v for r in records for k, v in r.items()
+                  if k.startswith("Loss/")}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses {losses}")
+        epoch_s = [r["Perf/train_epoch_seconds"] for r in records
+                   if "Perf/train_epoch_seconds" in r]
+        final = {k: v for r in records if r["_step"] == 2 for k, v in r.items()
+                 if k.startswith(("Loss/", "Metrics/"))}
+        log(f"F1 fit launches (pre-training 3 steps, 6 train, 2 val, 2 metrics, "
+            f"{n['images']} image steps): " + " ".join(f"{k}={v}" for k, v in got.items() if v)
+            + "; equal to the per-step counts times the steps")
+        log(f"F1 pre-training 1 epoch {pre_ms:.1f} ms; fit 2 epochs {fit_ms:.1f} ms "
+            f"(train epochs {', '.join(f'{1e3 * t:.1f}' for t in epoch_s)} ms, 3 steps of 512 "
+            f"each; with the baseline, val, evaluation and best-only checkpoints); peak memory "
+            f"{fit_peak:.2f} GiB; LPIPS {'on' if lpips_on else 'off (no weights on disk)'}; "
+            f"logged keys = the JAX fit's ({len(keys)}); best epoch {mc.best_epoch}; "
+            f"card {card}")
+        log("F1 epoch 2: " + " ".join(f"{k}={v:.6g}" for k, v in sorted(final.items())))
+        out.update({"per_step_launches": per_step, "fit_launches": got, "steps": n,
+                    "pretrain_ms": pre_ms, "fit_ms": fit_ms, "train_epoch_seconds": epoch_s,
+                    "fit_peak_memory_gib": fit_peak, "epoch2": final,
+                    "best_epoch": mc.best_epoch})
+
+        # F2. the best checkpoint served, against the model it was saved from
+        best = os.path.join(tmp, "job")
+        y = np.random.default_rng(2).random((16, 32, 32, 4), dtype=np.float32)
+        sr_c, build_ms = timed(lambda: SuperResolver.from_checkpoint(best, seed=0,
+                                                                         device="cuda"))
+        mem = CondSRVAE(cfg, device="cuda")
+        mem.load_state_dict(snapshots["best"])
+        sr_m = SuperResolver(mem, seed=0, device="cuda")
+        uq_c = sr_c.uncertainty(y[0], samples=1000, seed=12)
+        uq_m = sr_m.uncertainty(y[0], samples=1000, seed=12)
+        for what, a, b in (("super_resolve B=16", sr_c.super_resolve(y, seed=11),
+                            sr_m.super_resolve(y, seed=11)),
+                           ("uncertainty N=1000 mean", uq_c["mean"], uq_m["mean"]),
+                           ("uncertainty N=1000 std", uq_c["std"], uq_m["std"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"F2 {what}: from_checkpoint differs from the in-memory "
+                                     f"model (max|diff| {float((a - b).abs().max())})")
+        sr8, build8_ms = timed(lambda: SuperResolver.from_checkpoint(best, seed=0, int8=True,
+                                                                           device="cuda"))
+        ref = sr_c.super_resolve(y, seed=11)
+        db = psnr_db(sr8.super_resolve(y, seed=11), ref)
+        db_uq = psnr_db(sr8.uncertainty(y[0], samples=1000, seed=12)["mean"], uq_c["mean"])
+        if not (db > MIN_PSNR_DB and db_uq > MIN_PSNR_DB):
+            raise AssertionError(f"F2 int8 from_checkpoint: {db:.2f} / {db_uq:.2f} dB")
+        log(f"F2 from_checkpoint(best, epoch {mc.best_epoch}): build {build_ms:.1f} ms "
+            f"(int8 {build8_ms:.1f} ms); super_resolve B=16 and uncertainty N=1000 the same "
+            f"bits as the in-memory model; int8 {db:.2f} dB / {db_uq:.2f} dB against it "
+            f"(served f32 output mean {float(ref.mean()):.4f}, std {float(ref.std()):.4f}, "
+            f"min {float(ref.min()):.4f}, max {float(ref.max()):.4f}); card {card}")
+        out.update({"from_checkpoint_ms": build_ms, "from_checkpoint_int8_ms": build8_ms,
+                    "int8_psnr_db": [db, db_uq]})
+        del sr_c, sr_m, sr8, mem, trainer, snapshots
+        torch.cuda.empty_cache()
+
+        # F3. resume: epoch 2 in a fresh trainer loaded from epoch 1's
+        # checkpoint against the trainer that goes on; cuDNN's weight
+        # gradients held deterministic, so the two must agree to the bit
+        tcfg = TrainConfig(learning_rate=LR)
+        ta = Trainer(CondSRVAE(cfg, device="cuda").init_weights(2), tcfg, device="cuda",
+                     logger=(log_a := RecordLogger()))
+        ta.fit(train, val, epochs=1, val_metrics_every=1)
+        path = os.path.join(tmp, "resume")
+        extra = {"scheduler": ta.scheduler.state_dict(), "model": ta._model_meta()}
+        _, save_ms = timed(lambda: save_checkpoint(path, ta, epoch=1, extra=extra))
+        tb = Trainer(CondSRVAE(cfg, device="cuda"), tcfg, device="cuda",
+                     logger=(log_b := RecordLogger()))
+        meta, load_ms = timed(lambda: load_checkpoint(path, tb))
+        size_mb = os.path.getsize(path + ".pt") / 2**20
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            ta.fit(train, val, epochs=2, start_epoch=2, val_metrics_every=1)
+            tb.fit(train, val, epochs=2, start_epoch=meta["epoch"] + 1, val_metrics_every=1)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        sa, sb = ta.model.state_dict(), tb.model.state_dict()
+        bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        bad += [f"opt.{key}[{i}]" for key in ("mu", "nu")
+                for i, (a, b) in enumerate(zip(getattr(ta.opt, key), getattr(tb.opt, key)))
+                if not torch.equal(a, b)]
+
+        def epoch2(logger):
+            return {k: v for s, m in logger.records if s == 2 for k, v in m.items()
+                    if k != "Perf/train_epoch_seconds"}
+
+        if bad or epoch2(log_a) != epoch2(log_b) or ta.step != tb.step:
+            raise AssertionError(f"F3 resume differs: {bad[:10]}, logs "
+                                 f"{epoch2(log_a)} vs {epoch2(log_b)}")
+        log(f"F3 resume: save {save_ms:.1f} ms, load {load_ms:.1f} ms ({size_mb:.1f} MiB: "
+            f"parameters, statistics, both moments, generator); epoch 2 resumed the same bits "
+            f"as epoch 2 continued (parameters, statistics, moments, logged metrics; "
+            f"cudnn.deterministic for both); card {card}")
+        out.update({"save_ms": save_ms, "load_ms": load_ms, "checkpoint_mib": size_mb})
+        del ta, tb
+        torch.cuda.empty_cache()
+
+        # F4. one step with remat against one without, from one state and noise
+        init = CondSRVAE(cfg, device="cuda").init_weights(3).state_dict()
+        steps = {}
+        eps = None
+        for label, remat, perm in (("plain", False, None), ("remat", True, None),
+                                   ("permuted", False, True)):
+            m = CondSRVAE(cfg, device="cuda")
+            m.load_state_dict(init)
+            t = Trainer(m, TrainConfig(learning_rate=LR, remat=remat), device="cuda")
+            if eps is None:
+                eps = t.noise(512, (32, 32), torch.Generator(device="cuda").manual_seed(6))
+                order = torch.randperm(512, generator=torch.Generator(device="cuda")
+                                       .manual_seed(7), device="cuda")
+            batch, noise = train[0], eps
+            if perm:
+                batch, noise = tuple(b[order] for b in batch), tuple(e[order] for e in eps)
+            reset_path_counts(fc, fe)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            grads, terms = t.grads_and_terms(batch, noise)
+            torch.cuda.synchronize()
+            steps[label] = (grads, terms, {k: v.clone() for k, v in m.named_buffers()},
+                            path_counts(fc, fe), torch.cuda.max_memory_allocated() / 2**30)
+            del m, t
+        (g0, t0, s0, c0, p0), (g1, t1, s1, c1, p1), (gq, *_) = (
+            steps["plain"], steps["remat"], steps["permuted"])
+        for k, v in c0.items():
+            role = k.split(" ")[-1]
+            want_k = 2 * v if role == "forward" else v
+            if k.startswith("fused_") and c1[k] != want_k:
+                raise AssertionError(f"F4 remat launches {k}: {c1[k]}, expected {want_k}")
+        bad_stats = [k for k in s0 if not torch.equal(s0[k], s1[k])]
+        if bad_stats:
+            raise AssertionError(f"F4 remat BatchNorm statistics differ: {bad_stats[:5]}")
+        block_max = {}
+        for name, g in g0.items():
+            block_max[block_of(name)] = max(block_max.get(block_of(name), 0.0),
+                                            float(g.abs().max()))
+        worst = 0.0
+        for name, g in g0.items():
+            err = float((g1[name] - g).abs().max())
+            limit = NOISE_FACTOR * float((gq[name] - g).abs().max()) \
+                + GRAD_TOL * block_max[block_of(name)]
+            if not err <= limit:
+                raise AssertionError(f"F4 remat gradient {name}: {err} > {limit}")
+            worst = max(worst, err)
+        for key, v in t0.items():
+            if abs(float(t1[key] - v)) > TERMS_TOL * abs(float(v)):
+                raise AssertionError(f"F4 remat loss term {key}: {float(t1[key])} vs {float(v)}")
+        log(f"F4 remat step B=512: conv launches forward x2 ("
+            + " ".join(f"{k}={c1[k]}" for k in c1 if k.startswith("fused_") and c1[k])
+            + "), rows " + " ".join(f"{k}={c1[k]}/{c0[k]}" for k in ROW_OPS)
+            + f" (remat/plain); gradients max|diff| {worst:.3e} within the {NOISE_FACTOR:g}x "
+            f"float32 noise rule; BatchNorm statistics the same bits (updated once); peak "
+            f"memory {p1:.2f} GiB with remat, {p0:.2f} GiB without; card {card}")
+        out.update({"remat_launches": c1, "plain_launches": c0, "remat_peak_gib": p1,
+                    "plain_peak_gib": p0, "remat_grad_max_abs_diff": worst})
+        del steps, g0, g1, gq
+        torch.cuda.empty_cache()
+
+        # F5. bfloat16 with bf16 first moments: one epoch, save, load
+        bcfg = TrainConfig(learning_rate=LR, use_bfloat16=True, bf16_moments=True)
+        tbf = Trainer(CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16).init_weights(4), bcfg,
+                      device="cuda")
+        _, bf_fit_ms = timed(lambda: tbf.fit(train, val, epochs=1, val_metrics_every=1))
+        path = os.path.join(tmp, "bf16")
+        _, bf_save_ms = timed(lambda: save_checkpoint(path, tbf, epoch=1))
+        tld = Trainer(CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16), bcfg, device="cuda")
+        _, bf_load_ms = timed(lambda: load_checkpoint(path, tld))
+        if not all(m.dtype == torch.bfloat16 for m in tld.opt.mu):
+            raise AssertionError("F5: the first moment did not come back in bfloat16")
+        pairs = list(zip(tbf.opt.mu + tbf.opt.nu, tld.opt.mu + tld.opt.nu))
+        pairs += [(p, tld.params[k]) for k, p in tbf.params.items()]
+        if not all(torch.equal(a, b) for a, b in pairs) or tld.step != tbf.step:
+            raise AssertionError("F5: the loaded bfloat16 run differs from the saved one")
+        log(f"F5 bf16 (bf16_moments) 1 epoch {bf_fit_ms:.1f} ms, save {bf_save_ms:.1f} ms "
+            f"({os.path.getsize(path + '.pt') / 2**20:.1f} MiB), load {bf_load_ms:.1f} ms; mu "
+            f"back in bfloat16, parameters and moments the same bits; card {card}")
+        out.update({"bf16_fit_ms": bf_fit_ms, "bf16_save_ms": bf_save_ms,
+                    "bf16_load_ms": bf_load_ms})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["fit"] = out
+    return out
+
 
 def bound_row(row, ops, nbytes, peak_ops):
     row["ops"], row["bytes"] = ops, nbytes
@@ -3443,6 +3784,10 @@ def main() -> int:
     if len(kernels) != 25 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was launched no time: "
                              + str({k["name"]: k["launches"] for k in kernels}))
+    # F1-F5. the training run: fit, evaluation, checkpoints, resume, remat,
+    # serving from the checkpoint (after the kernels line's counts are taken)
+    torch.cuda.empty_cache()
+    fit_phase(report, card)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")

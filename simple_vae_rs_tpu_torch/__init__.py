@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of simple_vae_rs_tpu: the Cond_SRVAE, SRVAE and VAE
-models, serving (float32, int8, chained tails) and the training step.
+models, serving (float32, int8, chained tails; from a checkpoint) and the
+training run (steps, evaluation, checkpoints, the epoch loop).
 
 Imports torch and numpy only; the JAX package is its reference, held against
 it by the tests. Entry points run on a CUDA card unless given device="cpu".

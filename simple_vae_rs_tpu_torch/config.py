@@ -1,6 +1,7 @@
 """Configuration of the PyTorch port: its own copies of the JAX package's
 ``VAEConfig`` and ``CondSRVAEConfig`` (the same latent-size formulas) and of
-the fields of ``TrainConfig`` that a training step reads."""
+the fields of ``TrainConfig`` that the training step and the epoch loop
+read."""
 
 from __future__ import annotations
 
@@ -126,18 +127,28 @@ class CondSRVAEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The training step's hyper-parameters (JAX ``TrainConfig`` defaults).
+    """The training step's and the epoch loop's hyper-parameters (JAX
+    ``TrainConfig`` defaults).
 
     ``use_bfloat16`` is recorded, as in the JAX package: the model's
     ``dtype`` (``CondSRVAE(cfg, dtype=torch.bfloat16)``) is what computes in
     bfloat16, and a caller sets both from one flag. ``bf16_moments`` keeps
     Adam's first moment in bfloat16 (optax ``mu_dtype``). The JAX config's
-    other fields (``remat``, ``zero1``, ``scan_steps``, ``train_elbo``, the
-    epoch loop's) do not exist here.
+    ``zero1``, ``scan_steps`` and ``train_elbo`` do not exist here.
     """
 
+    epochs: int = 200
     learning_rate: float = 1e-4
     grad_clip_norm: float = 1.0
+    # ReduceLROnPlateau on the val loss (reference models/base.py:51-53)
+    plateau_factor: float = 0.5
+    plateau_patience: int = 500
+    # EarlyStopping (reference train.py:32), for a caller that builds one
+    early_stop_patience: int = 25
+    early_stop_delta: float = 0.01
+    # SSIM/PSNR/LPIPS over the val set every this many epochs (and at the
+    # first and the last)
+    val_metrics_every: int = 5
     seed: int = 0
     batch_size: int = 16  # tiles per loader batch; a step takes the batch it is given
     # microbatches per optimizer update: grads and loss terms averaged,
@@ -147,6 +158,12 @@ class TrainConfig:
     use_bfloat16: bool = False
     # Adam's first moment stored in bf16 (second moment float32)
     bf16_moments: bool = False
+    # a torch.profiler trace of the second trained epoch (or the only one)
+    # is written here
+    profile_dir: str = ""
+    # recompute each microbatch's forward during the backward instead of
+    # keeping its activations (torch.utils.checkpoint)
+    remat: bool = False
 
     def __post_init__(self) -> None:
         if self.accum_steps < 1:

@@ -226,6 +226,14 @@ class CondSRVAE(Routed):
                 flatten_map(mu_u), flatten_map(logvar_u),
                 flatten_map(mu_z_uy), flatten_map(logvar_z_uy))
 
+    def lr_autoencode(self, y: Tensor, eps_u: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """The LR branch alone, q(u|y) -> p(y|u): ``(y_hat, mu_u, logvar_u)``,
+        the last two flattened to (B, dim); ``eps_u`` is shaped like the u
+        grid. Staged pre-training runs it (``Trainer.pretrain_lr_branch``)."""
+        mu_u, logvar_u = self.encode_y(y)
+        y_hat = self.decode_y(reparameterize(mu_u, logvar_u, eps_u))
+        return y_hat, flatten_map(mu_u), flatten_map(logvar_u)
+
     # ------------------------------------------------------------ serving
     def generation_noise_shapes(self, batch: int, lr_hw: Tuple[int, int]):
         """Shapes of ``(eps_u, eps_z)`` for an LR batch of spatial ``lr_hw``:

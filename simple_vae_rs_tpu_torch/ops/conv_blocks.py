@@ -49,8 +49,9 @@ as the JAX ``tail_chain`` does.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -158,11 +159,13 @@ class BatchNorm(nn.Module):
     both, and updates the running statistics in place to
     ``0.9 * old + 0.1 * batch`` with that same biased variance (not
     ``nn.BatchNorm2d``, whose running variance is unbiased). In eval it is
-    folded into the conv before it (:meth:`fold`).
+    folded into the conv before it (:meth:`fold`). While ``update_stats`` is
+    False (:func:`frozen_statistics`) the running statistics stay as they are.
     """
 
     eps = 1e-5
     momentum = 0.9
+    update_stats = True
 
     def __init__(self, features: int, device=None) -> None:
         super().__init__()
@@ -186,9 +189,10 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         mean = x32.mean(dim=dims)
         var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
-        with torch.no_grad():
-            self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        if self.update_stats:
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         y = (x32 - mean) * (self.scale * torch.rsqrt(var + self.eps)) + self.bias
         return y.to(x.dtype)
 
@@ -280,6 +284,22 @@ def set_dtype(model: nn.Module, dtype: torch.dtype) -> None:
     for mod in model.modules():
         if isinstance(mod, Routed):
             mod.dtype = dtype
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module) -> Iterator[None]:
+    """Within the block, ``model``'s BatchNorms in training mode normalise
+    with the batch statistics as always but leave their running statistics
+    alone: a forward recomputed during the backward (``TrainConfig.remat``)
+    must not update them a second time."""
+    bns = [mod for mod in model.modules() if isinstance(mod, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
 
 
 def use_chain(model: nn.Module, chain: bool = True) -> None:

@@ -37,6 +37,11 @@ which ``ops/conv_blocks.tail_chain`` steps aside, as the JAX package's
 does), and with ``int8_weights`` the chain runs on the weights unpacked for
 the request.
 
+``SuperResolver.from_checkpoint(path)`` rebuilds the model a checkpoint was
+trained as, from the config in its meta (``train/checkpoint.read_meta``),
+and serves it: the port's own checkpoints and the JAX package's
+``.msgpack`` ones.
+
 Every endpoint takes ``seed=None``: an unseeded call draws its noise from the
 resolver's rolling generator (fresh draws each call), ``seed=N`` from a
 generator of its own seeded with N, so the same input, seed and options
@@ -48,17 +53,27 @@ tensors on the resolver's device.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from simple_vae_rs_tpu_torch.config import CondSRVAEConfig
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
+from simple_vae_rs_tpu_torch.train.checkpoint import (
+    JAX_SUFFIX,
+    SUFFIX,
+    load_state,
+    read_jax_checkpoint,
+    read_meta,
+)
 from simple_vae_rs_tpu_torch.utils.image import normalize_image
+from simple_vae_rs_tpu_torch.utils.jax_weights import load_jax_variables
 
 Tensor = torch.Tensor
 
@@ -105,6 +120,65 @@ class SuperResolver:
         self.normalize = normalize
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(int(seed))
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cr: Optional[float] = None,
+                        patch_size: Optional[int] = None, channels: Optional[int] = None,
+                        latent_size: Optional[int] = None, model_type: Optional[str] = None,
+                        dtype: torch.dtype = torch.float32, seed: int = 0, int8: bool = False,
+                        int8_weights: bool = False, chain: bool = False,
+                        device="cuda") -> "SuperResolver":
+        """Rebuild the model around the checkpoint at ``path`` (the port's
+        ``<path>.pt`` or the JAX package's ``<path>.msgpack``; not both) and
+        serve it on ``device``.
+
+        A config argument left None comes from the model config recorded in
+        the checkpoint's meta, then from the legacy defaults (cr=1.2, ps=64,
+        4 bands, no latent override, Cond_SRVAE). An explicit argument wins,
+        with a warning where it differs from the recorded one (the weights
+        will then most likely not fit). ``torch_regroup`` (the reference's
+        C-major latent wiring of converted checkpoints) is always the
+        recorded one: the weights load under either wiring, only the
+        generation would differ."""
+        recorded = read_meta(path).get("model", {})
+
+        def pick(explicit, key, legacy):
+            saved = recorded.get(key)
+            if explicit is None:
+                return legacy if saved is None else saved
+            if saved is not None and saved != explicit:
+                print(f"warning: {key}={explicit} overrides the checkpoint's recorded "
+                      f"{key}={saved}")
+            return explicit
+
+        cfg = CondSRVAEConfig(cr=float(pick(cr, "cr", 1.2)),
+                              patch_size=int(pick(patch_size, "patch_size", 64)),
+                              channels=int(pick(channels, "channels", 4)),
+                              latent_size_override=int(pick(latent_size, "latent_size_override",
+                                                            0)),
+                              torch_regroup=bool(recorded.get("torch_regroup", False)))
+        model_type = pick(model_type, "type", "Cond_SRVAE")
+        classes = {"Cond_SRVAE": CondSRVAE, "SRVAE": SRVAE}
+        if model_type not in classes:
+            raise ValueError(f"SuperResolver serves Cond_SRVAE/SRVAE checkpoints, not "
+                             f"{model_type!r} (recorded in {path}.meta.json)")
+        dev = resolve_device(device)
+        model = classes[model_type](cfg, device=dev, dtype=dtype)
+        full = os.path.abspath(path)
+        native, from_jax = os.path.exists(full + SUFFIX), os.path.exists(full + JAX_SUFFIX)
+        if native and from_jax:
+            raise ValueError(f"both {full}{SUFFIX} and {full}{JAX_SUFFIX} exist: remove the "
+                             "one that is not meant")
+        if native:
+            model.load_state_dict(load_state(path)["model"])
+        elif from_jax:
+            tree = read_jax_checkpoint(path)
+            load_jax_variables(model, {"params": tree["params"],
+                                       "batch_stats": tree.get("batch_stats", {})})
+        else:
+            raise FileNotFoundError(f"no checkpoint at {full}({SUFFIX}|{JAX_SUFFIX})")
+        return cls(model, device=dev, seed=seed, int8=int8, int8_weights=int8_weights,
+                   chain=chain)
 
     def _generator(self, seed: Optional[int]) -> torch.Generator:
         if seed is None:

@@ -1,1 +1,2 @@
-"""Training step of the port (``Trainer``), its optimizer and configuration."""
+"""The training run of the port: ``Trainer`` (steps, evaluation, the epoch
+loop), its optimizer, schedule, callbacks and checkpoints."""

@@ -87,6 +87,29 @@ class ClipAdam:
             torch._foreach_copy_(self.mu, mu)  # rounded to bfloat16, to nearest even
         return updates
 
+    def state_dict(self) -> dict:
+        """The moments (``mu`` in its ``mu_dtype``), as lists in parameter
+        order, and the step count."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` in, from any device onto this optimizer's.
+        Raises ``ValueError`` when the moments' number, shapes or dtypes
+        differ (a bfloat16 first moment does not load into a float32 one, nor
+        back)."""
+        for key, mine in (("mu", self.mu), ("nu", self.nu)):
+            theirs = state[key]
+            if len(theirs) != len(mine):
+                raise ValueError(f"{key}: {len(theirs)} moments for {len(mine)} parameters")
+            for i, (m, t) in enumerate(zip(mine, theirs)):
+                if t.shape != m.shape or t.dtype != m.dtype:
+                    raise ValueError(f"{key}[{i}]: {tuple(t.shape)} {t.dtype} does not match "
+                                     f"{tuple(m.shape)} {m.dtype}")
+            for m, t in zip(mine, theirs):
+                m.copy_(t)
+        self.count = int(state["count"])
+
 
 def make_optimizer(cfg: TrainConfig, params: Sequence[Tensor]) -> ClipAdam:
     """Global-norm clip ``cfg.grad_clip_norm`` -> Adam (b1 0.9, b2 0.999,

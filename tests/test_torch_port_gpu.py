@@ -949,3 +949,57 @@ def test_bf16_chain_cuda_kernel_matches_plain(cuda, case):
     assert fc.launches == f32_before and got.shape == shape[:3] + (widths[-1],)
     plan = fch.plan_chain(*shape[:3], (shape[-1],) + widths, 2)
     assert plan.smem_bytes <= fch.SMEM_BYTES
+
+
+@pytest.mark.gpu
+def test_cuda_fit_checkpoint_resume_and_serving(cuda, tmp_path):
+    """A short fit on the card through the kernels, with a checkpoint; the
+    checkpoint served by ``from_checkpoint`` gives the trained model's bits;
+    a fresh trainer loaded from it runs epoch 2 to the same bits as the
+    trainer that goes on (cuDNN's weight gradients held deterministic for
+    the comparison); ``remat`` moves the running statistics once."""
+    from simple_vae_rs_tpu_torch.train.callbacks import ModelCheckpoint
+    from simple_vae_rs_tpu_torch.train.checkpoint import load_checkpoint
+
+    rng = np.random.default_rng(21)
+    batches = [(torch.tensor(rng.random((4, 16, 16, 4)), dtype=torch.float32, device=cuda),
+                torch.tensor(rng.random((4, 32, 32, 4)), dtype=torch.float32, device=cuda))
+               for _ in range(2)]
+    cfg = CondSRVAEConfig(cr=2.0, patch_size=32)
+    ckpt = ModelCheckpoint("job", str(tmp_path), monitor="Loss/val_loss")
+    trainer = Trainer(CondSRVAE(cfg, device=cuda).init_weights(0), TrainConfig(), device=cuda,
+                      callbacks=[ckpt])
+    fc.reset_launches()
+    fe.reset_launches()
+    trainer.pretrain_lr_branch(batches, 1)
+    trainer.fit(batches, batches[:1], epochs=1, val_metrics_every=1)
+    torch.cuda.synchronize()
+    assert all(v > 0 for k, v in fc.launches.items() if k != fc.CHAIN)
+    assert all(v > 0 for v in fe.launches.values())
+    assert ckpt.best_epoch == 1
+    y = batches[0][0]
+    served = SuperResolver.from_checkpoint(str(tmp_path / "job"), seed=3)
+    assert served.device.type == "cuda"
+    want = SuperResolver(trainer.model, device=cuda, seed=3)
+    assert torch.equal(served.super_resolve(y, seed=4), want.super_resolve(y, seed=4))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resumed = Trainer(CondSRVAE(cfg, device=cuda), TrainConfig(), device=cuda)
+        meta = load_checkpoint(str(tmp_path / "job"), resumed)
+        resumed.fit(batches, batches[:1], epochs=2, start_epoch=meta["epoch"] + 1)
+        trainer.fit(batches, batches[:1], epochs=2, start_epoch=2)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for name, t in trainer.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[name], t), name
+    assert all(torch.equal(a, b) for a, b in zip(trainer.opt.mu, resumed.opt.mu))
+
+    stats = {}
+    for remat in (False, True):
+        model = CondSRVAE(cfg, device=cuda).init_weights(1)
+        Trainer(model, TrainConfig(remat=remat), device=cuda, seed=2).train_step(batches[0])
+        stats[remat] = dict(model.named_buffers())
+    for name, t in stats[False].items():
+        assert torch.equal(stats[True][name], t), name
