@@ -247,6 +247,42 @@ F prints the epoch seconds, the checkpoint save and load ms, the
 ``from_checkpoint`` build ms and the peak memory, each beside the card's
 name and power limit; the temporary directory is removed at the end.
 
+Then phase G, training from tiles on disk through the command line
+(``simple_vae_rs_tpu_torch.cli.main`` in-process, in a temporary directory
+under ``build/``, where it writes ``ckpt/``, ``runs/`` and ``results/``):
+
+G1. An ARM-shaped tree: 160 tile pairs (HR 256x256x4, LR 128x128x4, int16
+    digital numbers from ``SyntheticHFDataset`` scenes, LZW with the
+    predictor) and its ``index.csv``, written with the port's
+    ``write_tiff``. Every file read back equal; every strip decoded by the
+    native codec, which equals the Python decoder on a strip; the write
+    seconds and the decode rate on one thread.
+G2. ``--dataset s2v --crop grid --batch_size 32 --patch_size 64 -cr 1.2
+    --epochs 2 --pre_epochs 1 --val_metrics_every 1 --samples 1000
+    --tensorboard --workers 4`` (4 steps of 512 pairs an epoch, 1 val
+    batch): the launches by kernel and role equal phase F's per-step counts
+    times the steps plus one ``run_task``'s, the logged keys the JAX fit's,
+    a checkpoint written, the MMSE finite, the tfevents file read back.
+G3. A train epoch from disk against one from the same batches held on the
+    card, in f32 and bf16, at ``--workers`` 1 and 4: the seconds the step
+    waited on the loader's queue (the first batch's apart), how much longer
+    the steps took than from memory besides, the copies' and the crops'
+    time on the card, and which of the loader and the step sets the pace
+    (the loader where either of those two exceeds 5% of the epoch from
+    memory).
+G4. A resume with ``--model_ckpt --epochs 3`` (it starts after the saved
+    epoch, the scheduler's state carried over); ``--test --model_ckpt``
+    with no model flags (they come from the meta; the launches are
+    ``run_task``'s alone); ``--test --int8`` (#8, #9, #12 and the passes
+    launched).
+G5. ``--bf16 --bf16_moments``, one epoch: ``conv_wg_bf16`` launches
+    counted, the first moment in bfloat16.
+G6. ``evaluate`` on a val tile super-resolved by the trained model patch by
+    patch, reassembled with ``grid_unpatchify``, against its HR tile with
+    ``--lr``: in memory and ``--stream`` agree within 1e-4 where one window
+    covers the tile.
+G7. ``doctor`` exits 0 and prints the card's name and power limit.
+
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
 one val step; for the int8 kernels over the int8 serving run and the block
@@ -1334,6 +1370,551 @@ def fit_phase(report, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report["fit"] = out
+    return out
+
+
+# ------------------------------------------------- training from tiles on disk
+# the ARM-shaped tree and the CLI's flags: 160 tile pairs of HR 256 px, 128 of
+# them train (4 steps of 32 tiles = 512 pairs of the canonical model), 32 val
+G_TILES, G_HR, G_BATCH, G_PS, G_CR = 160, 256, 32, 64, 1.2
+
+
+def write_arm_tree(root, n, seed):
+    """An ARM-shaped tree of ``n`` tile pairs (HR G_HR px, LR half), int16
+    digital numbers (the scenes of ``SyntheticHFDataset`` x1000, rounded),
+    LZW with the predictor, interleaved, and the tab-separated
+    ``index.csv``, written with the port's ``write_tiff``. Returns the
+    arrays written and the seconds the writes took (the scenes are rendered
+    first, on every host core)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from simple_vae_rs_tpu_torch.data.datasets import SyntheticHFDataset
+    from simple_vae_rs_tpu_torch.data.tiffio import write_tiff
+
+    ds = SyntheticHFDataset(length=n, hr_size=G_HR, seed=seed)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        pairs = list(pool.map(lambda i: tuple(np.rint(a).astype(np.int16) for a in ds[i]),
+                              range(n)))
+    os.makedirs(root, exist_ok=True)
+    rows = ["b2b3b4b8_10m\tb2b3b4b8_05m"]
+    t0 = time.perf_counter()
+    for i, (lr, hr) in enumerate(pairs):
+        write_tiff(os.path.join(root, f"S2_{i:04d}_10m.tif"), lr, compression="lzw",
+                   predictor=True)
+        write_tiff(os.path.join(root, f"VENUS_{i:04d}_05m.tif"), hr, compression="lzw",
+                   predictor=True)
+        rows.append(f"S2_{i:04d}_10m.tif\tVENUS_{i:04d}_05m.tif")
+    with open(os.path.join(root, "index.csv"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    return pairs, time.perf_counter() - t0
+
+
+def cli_flags(tree, *extra):
+    return cli_args(["--dataset", "s2v", "--data_root", tree, "--crop", "grid",
+                     "--batch_size", str(G_BATCH), "--patch_size", str(G_PS), "-cr", str(G_CR),
+                     *extra])
+
+
+def cli_args(argv):
+    from simple_vae_rs_tpu_torch import cli
+
+    return cli.parse_args(argv)
+
+
+def run_cli(job, args):
+    """``cli.main`` in-process under the job id ``job``; its result."""
+    from simple_vae_rs_tpu_torch import cli
+
+    os.environ["SLURM_JOB_ID"] = job
+    return cli.main(args)
+
+
+def run_records(job):
+    """The metrics.jsonl records of the CLI run ``job`` (in the working
+    directory's ``runs/``) and its run directory."""
+    (name,) = [d for d in os.listdir("runs") if d.endswith(f"-SLURM-{job}")]
+    with open(os.path.join("runs", name, "metrics.jsonl")) as fh:
+        return [json.loads(line) for line in fh], os.path.join("runs", name)
+
+
+def main_output(fn):
+    """Run ``fn`` with its standard output captured: (its result, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return result, text
+
+
+def loader_epoch(trainer, batches, loader=None):
+    """One train epoch over ``batches`` (an iterable of batches on the card),
+    synchronized: its ms, and the loader's timings when it came from one."""
+    torch.cuda.synchronize()
+    if loader is not None:
+        loader.timings(reset=True)
+    t0 = time.perf_counter()
+    n = 0
+    for batch in batches:
+        trainer.train_step(batch)
+        n += 1
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, n, (loader.timings() if loader is not None else None)
+
+
+def decode_split(tree, n, tiffio, lzw_native):
+    """The files of one batch (tile pairs 0..n-1) decoded stage by stage on
+    one thread, each stage timed over the whole batch: opening each file and
+    reading its strip's bytes, the native LZW decode, the predictor's undo
+    (``tiffio._undo_predictor``); then ``read_tiff`` whole over the same
+    files. ms each, the MiB decoded, and the whole less the three stages."""
+    paths = [os.path.join(tree, f"{k}_{i:04d}_{r}.tif") for i in range(n)
+             for k, r in (("S2", "10m"), ("VENUS", "05m"))]
+    t0 = time.perf_counter()
+    raws = []
+    for path in paths:
+        with tiffio.TiffReader(path) as r:
+            if len(r._offsets) != 1 or r.planar != 1:
+                raise AssertionError(f"G1: {path} is not one interleaved strip")
+            r._fh.seek(r._offsets[0])
+            raws.append((r._fh.read(r._counts[0]), r.height, r.width, r.samples_per_pixel,
+                         r._file_dtype))
+    open_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    decoded = [lzw_native.lzw_decode_native(raw, h * w * c * dt.itemsize)
+               for raw, h, w, c, dt in raws]
+    lzw_ms = (time.perf_counter() - t0) * 1e3
+    samples = [np.frombuffer(d, dt)[:h * w * c] for d, (_, h, w, c, dt) in zip(decoded, raws)]
+    t0 = time.perf_counter()
+    undone = [tiffio._undo_predictor(a, h, w, c) for a, (_, h, w, c, _) in zip(samples, raws)]
+    undo_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    whole = [tiffio.read_tiff(path) for path in paths]
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(undone, whole):
+        if not np.array_equal(a, b.reshape(-1)):
+            raise AssertionError("G1: the stage-by-stage decode differs from read_tiff")
+    mib = sum(b.nbytes for b in whole) / 2**20
+    return {"files": len(paths), "mib": mib, "open_read_ms": open_ms, "lzw_ms": lzw_ms,
+            "undo_ms": undo_ms, "read_tiff_ms": whole_ms,
+            "rest_ms": whole_ms - open_ms - lzw_ms - undo_ms}
+
+
+def gpu_busy_us(events, t0, t1):
+    """The union of the card's kernels, copies and sets in a Chrome trace's
+    events, clipped to [t0, t1], in microseconds."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
+def traced_epoch(trainer, batches, path):
+    """One train epoch over ``batches`` under ``torch.profiler`` (host and
+    card), its Chrome trace gzipped to ``path``; ``trace_stats`` of it."""
+    import gzip
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("g3_epoch"):
+            for batch in batches:
+                with record_function("g3_step"):
+                    trainer.train_step(batch)
+            torch.cuda.synchronize()
+    raw = path[:-len(".gz")]
+    prof.export_chrome_trace(raw)
+    with open(raw, "rb") as fh:
+        data = fh.read()
+    with gzip.open(path, "wb") as fh:
+        fh.write(data)
+    os.remove(raw)
+    return trace_stats(json.loads(data)["traceEvents"], path)
+
+
+def trace_stats(events, path):
+    """From the Chrome trace of ``traced_epoch``: the epoch's ms on the
+    host, the card's busy ms in it (kernels and copies) and its idle share;
+    the host ms inside the steps, before the first step (the first batch),
+    between the steps (the queue, the copy, the crop) and after the last
+    (the closing synchronize); the host ms in operators on each thread (the
+    outermost operators only; "main" runs the steps, the autograd engine's
+    thread their backward); the five CUDA runtime calls that took the most
+    host time."""
+    def marks(name):
+        return sorted((e["ts"], e["dur"], e["tid"]) for e in events
+                      if e.get("name") == name and e.get("cat") == "user_annotation")
+
+    ((t0, dur, _),) = marks("g3_epoch")
+    steps = marks("g3_step")
+    if not steps:
+        raise AssertionError(f"G3 trace {path}: no step")
+    busy = gpu_busy_us(events, t0, t0 + dur)
+    if busy <= 0:
+        raise AssertionError(f"G3 trace {path}: the card ran nothing")
+    in_steps = sum(d for _, d, _ in steps)
+    first = steps[0][0] - t0
+    after = t0 + dur - (steps[-1][0] + steps[-1][1])
+    main = steps[0][2]
+    ops = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and "dur" in e and t0 <= e["ts"] <= t0 + dur:
+            ops.setdefault("main" if e["tid"] == main else f"thread {e['tid']}", []).append(
+                (e["ts"], e["dur"]))
+    op_ms = {}
+    for tid, spans in ops.items():
+        total, end = 0.0, -math.inf
+        for ts, d in sorted(spans):
+            if ts >= end:  # an outermost operator
+                total, end = total + d, ts + d
+        op_ms[tid] = total / 1e3
+    runtime = {}  # CUDA runtime calls on every host thread: ms and count by name
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "dur" in e and t0 <= e["ts"] <= t0 + dur:
+            ms, n = runtime.get(e["name"], (0.0, 0))
+            runtime[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return {"epoch_ms": dur / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / dur,
+            "steps": len(steps), "in_steps_ms": in_steps / 1e3, "before_first_ms": first / 1e3,
+            "between_ms": (dur - in_steps - first - after) / 1e3, "after_last_ms": after / 1e3,
+            "op_ms_by_thread": dict(sorted(op_ms.items(), key=lambda kv: -kv[1])[:3]),
+            "runtime_top": dict(sorted(runtime.items(), key=lambda kv: -kv[1][0])[:5])}
+
+
+def cli_phase(report, card):
+    """Phase G: ``python -m simple_vae_rs_tpu_torch.cli``'s ``main`` on an
+    ARM-shaped tree on disk (G1-G5), ``evaluate`` (G6) and ``doctor`` (G7),
+    all in a temporary directory under ``build/``. No check's failure is
+    caught."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver, TrainConfig
+    from simple_vae_rs_tpu_torch import Trainer, doctor
+    from simple_vae_rs_tpu_torch import evaluate as ev
+    from simple_vae_rs_tpu_torch.data import lzw_native, tiffio
+    from simple_vae_rs_tpu_torch.data.loader import init_dataloader
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+    from simple_vae_rs_tpu_torch.ops.patchify import grid_patchify, grid_unpatchify
+    from simple_vae_rs_tpu_torch.tasks import run_task
+    from simple_vae_rs_tpu_torch.train import engine
+    from simple_vae_rs_tpu_torch.utils.tensorboard import read_tfevents
+
+    out = {"card": card}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
+    cwd = os.getcwd()
+    job_env = os.environ.get("SLURM_JOB_ID")
+    os.chdir(tmp)  # the CLI writes ckpt/, runs/ and results/ where it runs
+    try:
+        # G1. the tree, read back, the native codec
+        tree = os.path.join(tmp, "ARM")
+        pairs, write_s = write_arm_tree(tree, G_TILES, seed=5)
+        raw_mb = sum(a.nbytes + b.nbytes for a, b in pairs) / 2**20
+        disk_mb = sum(os.path.getsize(os.path.join(tree, f)) for f in os.listdir(tree)) / 2**20
+        if lzw_native.get_lib() is None:
+            raise AssertionError(f"G1: the native LZW codec did not build: "
+                                 f"{lzw_native.build_error}")
+        tiffio.reset_codec_calls()
+        t0 = time.perf_counter()  # read_tiff alone; the comparison after it
+        back = [(tiffio.read_tiff(os.path.join(tree, f"S2_{i:04d}_10m.tif")),
+                 tiffio.read_tiff(os.path.join(tree, f"VENUS_{i:04d}_05m.tif")))
+                for i in range(G_TILES)]
+        read_s = time.perf_counter() - t0
+        for i, ((lr, hr), (got_lr, got_hr)) in enumerate(zip(pairs, back)):
+            if not (np.array_equal(got_lr, lr) and np.array_equal(got_hr, hr)):
+                raise AssertionError(f"G1: tile pair {i} read back differs from what was written")
+        del back
+        calls = dict(tiffio.CODEC_CALLS)
+        if calls["python_decode"] or calls["native_decode"] != 2 * G_TILES:
+            raise AssertionError(f"G1: the native decoder did not decode every strip: {calls}")
+        with tiffio.TiffReader(os.path.join(tree, "VENUS_0000_05m.tif")) as r:
+            r._fh.seek(r._offsets[0])
+            strip = r._fh.read(r._counts[0])
+        if lzw_native.lzw_decode_native(strip) != tiffio._lzw_decode(strip):
+            raise AssertionError("G1: native and Python LZW decoders differ on a strip")
+        log(f"G1 tree: {G_TILES} tile pairs (HR {G_HR}x{G_HR}x4, LR {G_HR // 2}x{G_HR // 2}x4, "
+            f"int16, LZW + predictor), {raw_mb:.1f} MiB raw, {disk_mb:.1f} MiB on disk; "
+            f"written in {write_s:.2f} s; read back equal in {read_s:.2f} s = "
+            f"{raw_mb / read_s:.1f} MiB/s on one thread ({calls['native_decode']} strips by the "
+            f"native decoder, {calls['python_decode']} by Python; native = Python on a "
+            f"{len(strip)}-byte strip); card {card}")
+        split = decode_split(tree, G_BATCH, tiffio, lzw_native)
+        log(f"G1 one batch's {split['files']} files ({split['mib']:.1f} MiB) stage by stage on "
+            f"one thread: open + read bytes {split['open_read_ms']:.1f} ms, native LZW "
+            f"{split['lzw_ms']:.1f} ms ({split['mib'] / split['lzw_ms'] * 1e3:.1f} MiB/s), "
+            f"predictor undo {split['undo_ms']:.1f} ms "
+            f"({split['mib'] / split['undo_ms'] * 1e3:.1f} MiB/s); read_tiff whole "
+            f"{split['read_tiff_ms']:.1f} ms, {split['rest_ms']:.1f} ms of it outside the three "
+            f"stages; card {card}")
+        out.update({"tiles": G_TILES, "raw_mib": raw_mb, "disk_mib": disk_mb,
+                    "write_s": write_s, "read_s": read_s, "decode_mib_s": raw_mb / read_s,
+                    "decode_split": split})
+        del pairs
+
+        # G2. the f32 CLI: per-step launches from phase F's probe (the same
+        # model and batch shapes), run_task's from a probe of its own
+        per_step = report["fit"]["per_step_launches"]
+        cfg = CondSRVAEConfig(cr=G_CR, patch_size=G_PS)
+        probe = CondSRVAE(cfg, device="cuda").init_weights(1)
+        reset_path_counts(fc, fe)
+        with open(os.devnull, "w") as null:
+            import contextlib
+
+            with contextlib.redirect_stdout(null):
+                run_task(probe, [training_batch(13)], "probe", G_CR, samples=1000,
+                         results_root=os.path.join(tmp, "probe"))
+        torch.cuda.synchronize()
+        task_counts = path_counts(fc, fe)
+        del probe
+        torch.cuda.empty_cache()
+        reset_path_counts(fc, fe)
+        tiffio.reset_codec_calls()
+        args = cli_flags(tree, "--epochs", "2", "--pre_epochs", "1", "--val_metrics_every", "1",
+                         "--samples", "1000", "--tensorboard", "--workers", "4")
+        res, g2_ms = timed(lambda: run_cli("g2", args))
+        got = path_counts(fc, fe)
+        lpips_on = res["trainer"]._lpips_params is not None
+        n = {"pretrain": 4, "train": 8, "val": 2, "metrics": 2, "images": 2 if lpips_on else 1}
+        want = {k: sum(n[kind] * per_step[kind].get(k, 0) for kind in n) + task_counts.get(k, 0)
+                for k in got}
+        if got != want:
+            raise AssertionError(f"G2 CLI launches {got}, expected {want} (steps {n} + run_task)")
+        records, run_dir = run_records("g2")
+        keys = {k for r in records for k in r} - {"_step", "_time"}
+        want_keys = set(engine.FIT_KEYS["cond"]) | {engine.PRETRAIN_KEY}
+        if lpips_on:
+            want_keys |= set(engine.LPIPS_KEYS["cond"])
+        if keys != want_keys:
+            raise AssertionError(f"G2 logged keys {sorted(keys ^ want_keys)} differ from the JAX "
+                                 "fit's")
+        if not os.path.exists(os.path.join("ckpt", "g2.pt")):
+            raise AssertionError("G2: no checkpoint at ckpt/g2")
+        mmse = res["task"]["mmse"]
+        if not math.isfinite(mmse):
+            raise AssertionError(f"G2: MMSE {mmse}")
+        (tb_name,) = os.listdir(os.path.join(run_dir, "tb"))
+        tb = read_tfevents(os.path.join(run_dir, "tb", tb_name))
+        tb_keys = {k for r in tb for k in r} - {"step", "file_version"}
+        if not set(engine.FIT_KEYS["cond"]) <= tb_keys:
+            raise AssertionError(f"G2 tfevents lack {set(engine.FIT_KEYS['cond']) - tb_keys}")
+        epoch_s = [r["Perf/train_epoch_seconds"] for r in records
+                   if "Perf/train_epoch_seconds" in r]
+        pngs = sorted(f for f in os.listdir(res["task"]["results_dir"]) if f.endswith(".png"))
+        log(f"G2 CLI f32 (pre 1 + 2 epochs, 4 steps of {G_BATCH} tiles from disk, --workers 4, "
+            f"run_task N=1000): launches " + " ".join(f"{k}={v}" for k, v in got.items() if v)
+            + f" = per-step counts x (pretrain 4, train 8, val 2, metrics 2, images "
+            f"{n['images']}) + run_task's; train epochs "
+            + ", ".join(f"{1e3 * t:.1f}" for t in epoch_s) + f" ms; whole run {g2_ms:.1f} ms; "
+            f"MMSE {mmse:.6f}; logged keys = the JAX fit's ({len(keys)}); checkpoint "
+            f"ckpt/g2.pt; tfevents {len(tb)} records read back; task PNGs "
+            + (", ".join(pngs) if pngs else "not written (no matplotlib)")
+            + f"; LZW strips native {tiffio.CODEC_CALLS['native_decode']}, Python "
+            f"{tiffio.CODEC_CALLS['python_decode']}; card {card}")
+        if tiffio.CODEC_CALLS["python_decode"]:
+            raise AssertionError("G2: a strip took the Python LZW decoder")
+        out.update({"g2_launches": got, "g2_task_launches": task_counts,
+                    "g2_train_epoch_seconds": epoch_s, "g2_ms": g2_ms, "g2_mmse": mmse,
+                    "task_pngs": pngs})
+        trained = res["trainer"].model
+        del res
+        torch.cuda.empty_cache()
+
+        # G3. the loader's pace: a train epoch from disk against one from the
+        # same batches held on the card, f32 and bf16, 1 and 4 decode threads
+        pace, pace_trace = [], {}
+        for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            bf = dtype == torch.bfloat16
+            tr = Trainer(CondSRVAE(cfg, device="cuda", dtype=dtype).init_weights(0),
+                         TrainConfig(use_bfloat16=bf), device="cuda")
+            held = list(init_dataloader("s2v", G_BATCH, G_PS, crop="grid", data_root=tree,
+                                        seed=0, workers=4)[0])
+            loader_epoch(tr, held)  # warm-up
+            mem_ms, steps, _ = loader_epoch(tr, held)
+            for workers in (1, 4):
+                loader = init_dataloader("s2v", G_BATCH, G_PS, crop="grid", data_root=tree,
+                                         seed=0, workers=workers, timing=True)[0]
+                disk_ms, steps_d, t = loader_epoch(tr, loader, loader)
+                loader.close()
+                rest_ms = 1e3 * (t["wait_s"] - t["wait_first_s"])
+                # the epoch less the first batch's wait (no prefetch hides it)
+                # against the epoch from memory: what is left over either
+                # waits on the queue, or is the steps' host path slowed while
+                # the decode threads run beside it (the GIL, the host's cores)
+                slower_ms = disk_ms - 1e3 * t["wait_first_s"] - mem_ms - rest_ms
+                if rest_ms > 0.05 * mem_ms:
+                    bound = "loader (the step waits on the queue)"
+                elif slower_ms > 0.05 * mem_ms:
+                    bound = "loader (the steps run slower while it decodes; see the trace)"
+                else:
+                    bound = "step"
+                row = {"dtype": label, "workers": workers, "disk_epoch_ms": disk_ms,
+                       "memory_epoch_ms": mem_ms, "steps": steps_d,
+                       "wait_ms": 1e3 * t["wait_s"], "wait_first_ms": 1e3 * t["wait_first_s"],
+                       "wait_after_first_ms": rest_ms, "steps_slower_ms": slower_ms,
+                       "h2d_ms": t["h2d_ms"], "crop_ms": t["crop_ms"], "paced_by": bound}
+                pace.append(row)
+                log(f"G3 {label} --workers {workers}: epoch from disk {disk_ms:.1f} ms vs "
+                    f"{mem_ms:.1f} ms from batches on the card ({steps_d} steps); the "
+                    f"step waited {row['wait_ms']:.1f} ms on the loader's queue "
+                    f"({row['wait_first_ms']:.1f} for the first batch, {rest_ms:.1f} after); "
+                    f"the steps took {slower_ms:.1f} ms more than from memory besides; "
+                    f"copies {t['h2d_ms']:.2f} ms, crops {t['crop_ms']:.2f} ms on the card; "
+                    f"the {bound} sets the pace; card {card}")
+            # where the w4 epoch's extra time goes: the same two epochs traced
+            trace_dir = os.path.join(ROOT, "chiprun_out")
+            os.makedirs(trace_dir, exist_ok=True)
+            traced = {"memory": traced_epoch(
+                tr, held, os.path.join(trace_dir, f"g3_trace_{label}_memory.json.gz"))}
+            loader = init_dataloader("s2v", G_BATCH, G_PS, crop="grid", data_root=tree,
+                                     seed=0, workers=4)[0]
+            traced["disk w4"] = traced_epoch(
+                tr, loader, os.path.join(trace_dir, f"g3_trace_{label}_disk_w4.json.gz"))
+            loader.close()
+            pace_trace[label] = traced
+            log(f"G3 trace {label} (torch.profiler, chiprun_out/g3_trace_{label}_*.json.gz): "
+                + " | ".join(f"{src}: epoch {t['epoch_ms']:.1f} ms, card busy {t['busy_ms']:.1f} "
+                             f"ms (idle {100 * t['idle_share']:.1f}%), host in the "
+                             f"{t['steps']} steps {t['in_steps_ms']:.1f} ms, before the first "
+                             f"{t['before_first_ms']:.1f}, between {t['between_ms']:.1f}, "
+                             f"after the last {t['after_last_ms']:.1f}; operators "
+                             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["op_ms_by_thread"].items())
+                             + "; "
+                             "CUDA runtime " + ", ".join(f"{k} {v[0]:.1f} ms x{v[1]}"
+                                                         for k, v in t["runtime_top"].items())
+                             for src, t in traced.items()) + f"; card {card}")
+            del tr, held
+            torch.cuda.empty_cache()
+        out["pace"] = pace
+        out["pace_trace"] = pace_trace
+
+        # G4. resume, --test with the flags from the checkpoint, --test --int8
+        meta = json.load(open(os.path.join("ckpt", "g2.meta.json")))
+        reset_path_counts(fc, fe)
+        res = run_cli("g2", cli_flags(tree, "--epochs", "3", "--samples", "1000",
+                                      "--workers", "4", "--model_ckpt", "ckpt/g2"))
+        sched = res["trainer"].scheduler.state_dict()
+        if res["start_epoch"] != meta["epoch"] + 1 or \
+                sched["last_epoch"] != meta["scheduler"]["last_epoch"] + 3 - meta["epoch"]:
+            raise AssertionError(f"G4 resume: start {res['start_epoch']}, scheduler {sched}, "
+                                 f"meta {meta}")
+        resumed = path_counts(fc, fe)
+        del res
+        # no model flags: they come from the checkpoint's meta
+        targv = ["--test", "--model_ckpt", "ckpt/g2", "--dataset", "s2v", "--data_root", tree,
+                 "--crop", "grid", "--batch_size", str(G_BATCH), "--samples", "1000"]
+        targs = cli_args(targv)
+        if (targs.model_type, targs.compression_ratio, targs.patch_size) != ("Cond_SRVAE", G_CR,
+                                                                             G_PS):
+            raise AssertionError(f"G4 --test flags from the meta: {vars(targs)}")
+        reset_path_counts(fc, fe)
+        res = run_cli("g4", targs)
+        test_counts = path_counts(fc, fe)
+        if test_counts != task_counts:
+            raise AssertionError(f"G4 --test launches {test_counts}, expected run_task's "
+                                 f"{task_counts}")
+        del res
+        reset_all_counts()
+        reset_path_counts(fc, fe)
+        res = run_cli("g4i", cli_args(targv + ["--int8"]))
+        int8_counts = {**all_counts(), **path_counts(fc, fe)}
+        for k in ("quantize_stochastic", "int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu",
+                  "act_absmax", "act_quant"):
+            if not int8_counts.get(k):
+                raise AssertionError(f"G4 --test --int8 launched {k} no time: {int8_counts}")
+        if not math.isfinite(res["task"]["mmse"]):
+            raise AssertionError(f"G4 --int8 MMSE {res['task']['mmse']}")
+        log(f"G4 resume from ckpt/g2 (epoch {meta['epoch']}): started at epoch "
+            f"{meta['epoch'] + 1}, scheduler carried over ({sched}); launches "
+            + " ".join(f"{k}={v}" for k, v in resumed.items() if v)
+            + f" | --test --model_ckpt: flags from the meta (Cond_SRVAE, cr {G_CR}, ps {G_PS}), "
+            f"launches = run_task's | --test --int8: MMSE {res['task']['mmse']:.6f}, launches "
+            + " ".join(f"{k}={v}" for k, v in int8_counts.items() if v) + f"; card {card}")
+        out.update({"g4_resume_launches": resumed, "g4_test_launches": test_counts,
+                    "g4_int8_launches": int8_counts, "g4_int8_mmse": res["task"]["mmse"]})
+        del res
+        torch.cuda.empty_cache()
+
+        # G5. bf16 with bf16 first moments, one epoch
+        reset_path_counts(fc, fe)
+        res = run_cli("g5", cli_flags(tree, "--epochs", "1", "--samples", "1000", "--bf16",
+                                      "--bf16_moments", "--workers", "4"))
+        wg = {f"{name} {role}": v["wg"] for name, roles in fc.bf16_impl_launches.items()
+              for role, v in roles.items() if v["wg"]}
+        tc = {f"{name} {role}": v["tc"] for name, roles in fc.bf16_impl_launches.items()
+              for role, v in roles.items() if v["tc"]}
+        records, _ = run_records("g5")
+        bf_epoch = [r["Perf/train_epoch_seconds"] for r in records
+                    if "Perf/train_epoch_seconds" in r]
+        if not wg or not all(m.dtype == torch.bfloat16 for m in res["trainer"].opt.mu) \
+                or not math.isfinite(res["task"]["mmse"]):
+            raise AssertionError(f"G5 bf16: wg launches {wg}, MMSE {res['task']['mmse']}")
+        log(f"G5 CLI --bf16 --bf16_moments 1 epoch: train epoch {1e3 * bf_epoch[0]:.1f} ms; "
+            f"conv_wg_bf16 launches " + " ".join(f"{k}={v}" for k, v in wg.items())
+            + "; conv_tc_bf16 " + " ".join(f"{k}={v}" for k, v in tc.items())
+            + f"; mu in bfloat16; MMSE {res['task']['mmse']:.6f}; card {card}")
+        out.update({"g5_wg_launches": wg, "g5_tc_launches": tc, "g5_epoch_seconds": bf_epoch})
+        del res
+        torch.cuda.empty_cache()
+
+        # G6. evaluate: one val tile super-resolved patch by patch by the
+        # trained model, reassembled, against its HR tile, with its LR tile
+        lr_path = os.path.join(tree, f"S2_{G_TILES - 1:04d}_10m.tif")
+        hr_path = os.path.join(tree, f"VENUS_{G_TILES - 1:04d}_05m.tif")
+        lr_tile = torch.from_numpy(tiffio.read_tiff(lr_path).astype(np.float32))[None]
+        patches = grid_patchify(lr_tile, G_PS // 2).cuda()
+        sr = SuperResolver(trained, device="cuda", seed=0).super_resolve(patches, seed=1)
+        # back to digital numbers through each LR patch's per-channel range
+        # (the model's output is in the normalized domain of its input patch)
+        lo = patches.amin(dim=(1, 2), keepdim=True)
+        span = patches.amax(dim=(1, 2), keepdim=True) - lo + 1e-5
+        product = grid_unpatchify(sr * span + lo, G_HR // G_PS)[0].cpu().numpy()
+        prod_path = os.path.join(tmp, "sr.tif")
+        tiffio.write_tiff(prod_path, product)
+        results = {}
+        cover = ["--stream", "--win", str(G_HR)]  # one window over the whole tile
+        for label, extra in (("in memory", []), ("stream covering", cover),
+                             ("stream", ["--stream"])):
+            rc, text = main_output(lambda: ev.main([prod_path, hr_path, "--lr", lr_path]
+                                                   + extra))
+            if rc != 0:
+                raise AssertionError(f"G6 evaluate {label} exited {rc}")
+            results[label] = json.loads(text.strip().splitlines()[-1])
+        a, b = results["in memory"], results["stream covering"]
+        for key in ("psnr", "ssim", "rmse_input_units", "psnr_baseline", "ssim_baseline"):
+            if not abs(a[key] - b[key]) <= 1e-4 * max(abs(a[key]), 1e-6):
+                raise AssertionError(f"G6 {key}: in memory {a[key]} vs streamed {b[key]}")
+        log(f"G6 evaluate (a val tile, {len(patches)} patches super-resolved, reassembled and "
+            f"put back in digital numbers, against its HR tile, --lr): "
+            + " | ".join(f"{k}: " + " ".join(f"{m}={v}" for m, v in r.items() if m != "metric")
+                         for k, r in results.items())
+            + f"; in memory = streamed with one window within 1e-4; card {card}")
+        out["g6"] = results
+
+        # G7. doctor
+        rc, text = main_output(lambda: doctor.main([]))
+        if rc != 0 or card not in text:
+            raise AssertionError(f"G7 doctor exited {rc}, the card's line {card!r} "
+                                 f"{'printed' if card in text else 'missing'}")
+        log(f"G7 doctor: exit {rc}, printed {card}")
+        out["g7_doctor_rc"] = rc
+    finally:
+        os.chdir(cwd)
+        if job_env is None:
+            os.environ.pop("SLURM_JOB_ID", None)
+        else:
+            os.environ["SLURM_JOB_ID"] = job_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["cli"] = out
     return out
 
 
@@ -3788,6 +4369,10 @@ def main() -> int:
     # serving from the checkpoint (after the kernels line's counts are taken)
     torch.cuda.empty_cache()
     fit_phase(report, card)
+    # G1-G7. training from tiles on disk through the command line, evaluate,
+    # doctor
+    torch.cuda.empty_cache()
+    cli_phase(report, card)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -25,8 +25,12 @@ def _uniform_filter_valid(x: Tensor, win: int) -> Tensor:
 
 def ssim(a: Tensor, b: Tensor, win_size: int = 11, data_range: float = 1.0,
          k1: float = 0.01, k2: float = 0.03) -> Tensor:
-    """Per-image SSIM of (B, H, W, C) images: (B,)."""
+    """Per-image SSIM of (B, H, W, C) images: (B,). An image smaller than the
+    window has no VALID window, and its SSIM is NaN, the mean over none (as
+    the JAX function gives)."""
     a, b = a.float(), b.float()
+    if min(a.shape[1], a.shape[2]) < win_size:
+        return torch.full((a.shape[0],), float("nan"), device=a.device)
     np_ = win_size * win_size
     cov_norm = np_ / (np_ - 1.0)
     c1 = (k1 * data_range) ** 2

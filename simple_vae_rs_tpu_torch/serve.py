@@ -78,6 +78,16 @@ from simple_vae_rs_tpu_torch.utils.jax_weights import load_jax_variables
 Tensor = torch.Tensor
 
 
+def backend_device(backend: str) -> str:
+    """A command line's ``--backend`` as a device name: the card by default
+    (``""`` or ``"cuda"``), the host with ``"cpu"``; anything else raises."""
+    device = backend or "cuda"
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"--backend {backend!r}: the port runs on 'cuda' (the default) or "
+                         "'cpu'")
+    return device
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises if CUDA is asked for and absent."""
     dev = torch.device(device)

@@ -4,8 +4,9 @@
 - ``JsonlLogger``: one JSON object per ``log`` call appended to
   ``<run_dir>/metrics.jsonl``, images as PNG files (where PIL imports; without
   it images are skipped);
-- ``WandbLogger``: where the ``wandb`` package imports;
-- ``NullLogger``: discards everything.
+- ``NullLogger``: discards everything;
+- with ``make_logger(tensorboard=True)`` also a TensorBoard event file
+  (``utils/tensorboard``).
 
 Metric names are the reference's ("Loss/loss", "Metrics/SSIM_SR",
 "HyperParameters/Gamma_X", ...). Values may be Python numbers or 0-dim
@@ -106,34 +107,20 @@ def _save_png(path: str, img: np.ndarray) -> None:
         fh.write(data)
 
 
-class WandbLogger:
-    def __init__(self, project: str, name: str, config: Dict[str, Any]) -> None:
-        import wandb
+def make_logger(project: str, name: str, config: Dict[str, Any], run_dir: str = "runs",
+                tensorboard: bool = False) -> Logger:
+    """JSONL under ``<run_dir>/<project>-<name>``; ``tensorboard=True`` tees
+    the stream into a TensorBoard event file under
+    ``<run_dir>/<project>-<name>/tb`` as well.
 
-        self._wandb = wandb
-        self.run = wandb.init(project=project, name=name, config=config)
+    A deliberate difference from the JAX package's ``make_logger``, which
+    starts a wandb run whenever the package imports: starting one reaches
+    the network (and wandb reports its own failure to an outside host), so
+    the port never starts one. ``config`` is kept for the JAX signature."""
+    out_dir = os.path.join(run_dir, f"{project}-{name}")
+    base = JsonlLogger(out_dir)
+    if tensorboard:
+        from simple_vae_rs_tpu_torch.utils.tensorboard import TeeLogger, TensorBoardLogger
 
-    def log(self, metrics, step=None):
-        self.run.log({k: float(v) for k, v in metrics.items()}, step=step)
-
-    def log_images(self, images, step=None):
-        payload = {}
-        for name, batch in images.items():
-            arr = _numpy(batch)
-            if arr.ndim == 3:
-                arr = arr[None]
-            payload[name] = [self._wandb.Image(np.clip(img[..., [2, 1, 0]], 0, 1))
-                             for img in arr]
-        self.run.log(payload, step=step)
-
-    def finish(self):
-        self.run.finish()
-
-
-def make_logger(project: str, name: str, config: Dict[str, Any], run_dir: str = "runs") -> Logger:
-    """wandb where it imports and starts a run, else JSONL under
-    ``<run_dir>/<project>-<name>`` (as the JAX package's ``make_logger``)."""
-    try:
-        return WandbLogger(project, name, config)
-    except Exception:  # no wandb, or a run it cannot start (no login, no network)
-        return JsonlLogger(os.path.join(run_dir, f"{project}-{name}"))
+        return TeeLogger(base, TensorBoardLogger(os.path.join(out_dir, "tb")))
+    return base
