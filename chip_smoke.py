@@ -283,6 +283,42 @@ G6. ``evaluate`` on a val tile super-resolved by the trained model patch by
     covers the tile.
 G7. ``doctor`` exits 0 and prints the card's name and power limit.
 
+Then phase H, serving a whole raster, in the same temporary directory: the
+scene is an 8x8 mosaic of G1's LR tiles, a 1024x1024x4 int16 LZW GeoTIFF
+(a 10.24 km square of Sentinel-2 10 m bands: 1369 windows of 32 px at
+overlap 4, 86 dispatches of 16). Every path below runs with every counter
+set to 0 just before it and read just after, and its launches must equal
+a probe's per-dispatch counts times its dispatches, with #1, #5 and #6 each
+launched:
+
+H1. Phase 4's weights in float32 and bfloat16 through ``SuperResolver``'s
+    tile endpoints: ``super_resolve_tile`` on a 512x512x4 crop (361
+    windows, 23 dispatches) and ``uncertainty_tile`` with 32 draws on
+    256x256x4 (81 windows, 6 moments dispatches of 32 draws); against the
+    plain path on the same seeds (float32 1e-4, bfloat16 2e-2 and 40 dB
+    against float32; the mean and the variance, the std being the sqrt of
+    the latter), a seeded repeat bit-equal, an ``iter_tile_rows`` sweep
+    resumed at its middle band bit-equal; ms per request, windows/s, the
+    host ms in ``stitch``, and one traced request's card-busy ms.
+H2. ``python -m simple_vae_rs_tpu_torch.raster``'s ``main`` with phase G's
+    checkpoint: in memory (the product equals ``super_resolve_tile``'s to
+    the bit), ``--stream``, ``--stream --resume --request_seed 7`` failing
+    after band 3 and resumed (the uninterrupted sweep's bytes),
+    ``--uncertainty`` (a finite float32 std map), ``--int8`` (#8, #9, #12
+    and the passes launched) and ``--int8_weights``; every output int16 at
+    2048x2048x4 in the input's band layout; the seconds of each run.
+H3. ``make_server`` on a thread, driven by the port's ``Client``: the
+    ``/healthz`` and reply keys the JAX server's; a seeded B=16 request
+    over the float32 npy wire the in-process bits, over the u16 wire within
+    half a step (``wire.py``'s bound, float32's rounding beside); a seeded tile stitched by the server equal to the same request
+    stitched by ``RemoteResolver``; ``raster --url`` (in memory and
+    ``--stream``) equal to the local products; the HTTP round trip against
+    the in-process call for B=16 and for 32-draw moments; at
+    ``--dynamic_batch_ms 2``, 8 concurrent unseeded B=1 requests in whole
+    dispatches, no more than the requests (printed, not bounded in time).
+
+The kernels line's entries carry ``launches_phase_h``, each H path's count.
+
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
 one val step; for the int8 kernels over the int8 serving run and the block
@@ -1590,10 +1626,11 @@ def trace_stats(events, path):
             "runtime_top": dict(sorted(runtime.items(), key=lambda kv: -kv[1][0])[:5])}
 
 
-def cli_phase(report, card):
+def cli_phase(report, card, tmp):
     """Phase G: ``python -m simple_vae_rs_tpu_torch.cli``'s ``main`` on an
     ARM-shaped tree on disk (G1-G5), ``evaluate`` (G6) and ``doctor`` (G7),
-    all in a temporary directory under ``build/``. No check's failure is
+    all in the temporary directory ``tmp`` under ``build/`` (phase H reads
+    its tree and checkpoint; the caller removes it). No check's failure is
     caught."""
     from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver, TrainConfig
     from simple_vae_rs_tpu_torch import Trainer, doctor
@@ -1610,8 +1647,6 @@ def cli_phase(report, card):
     from simple_vae_rs_tpu_torch.utils.tensorboard import read_tfevents
 
     out = {"card": card}
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
     cwd = os.getcwd()
     job_env = os.environ.get("SLURM_JOB_ID")
     os.chdir(tmp)  # the CLI writes ckpt/, runs/ and results/ where it runs
@@ -1913,7 +1948,6 @@ def cli_phase(report, card):
             os.environ.pop("SLURM_JOB_ID", None)
         else:
             os.environ["SLURM_JOB_ID"] = job_env
-        shutil.rmtree(tmp, ignore_errors=True)
     report["cli"] = out
     return out
 
@@ -4056,6 +4090,480 @@ def bf16_chain_phase(report, bf16_out, bf16_uq, family_chains):
     }
 
 
+# ------------------------------------------------------- serving a whole raster
+# H2's scene: an 8x8 mosaic of G1's LR tiles (128 px, int16 digital numbers of
+# SyntheticHFDataset scenes), 1024x1024x4 LR, a 10.24 km square of Sentinel-2
+# 10 m bands; H1 serves crops of it. The canonical window is 32 LR px with the
+# default overlap 4 (stride 28): 1369 windows of the scene (86 dispatches of
+# 16), 361 of H_TILE (23), 81 of H_UQ (6, of 32 draws each)
+H_SCENE, H_TILE, H_UQ, H_UQ_SAMPLES, H_BATCH = 1024, 512, 256, 32, 16
+H_INTERRUPT = 3  # H2: the resumed sweep fails after writing this many bands
+H_REQUESTS = 8  # H3: concurrent B=1 requests to the batching server
+# what the JAX server replies (tests/test_torch_port_server.py holds the port's
+# server to it on the CPU)
+H_HEALTH_KEYS = {"status", "model", "patch_size", "channels", "int8", "int8_weights", "mesh",
+                 "moments", "seed", "wire_u16"}
+H_REPLY_KEYS = {"/v1/super_resolve": {"sr"}, "/v1/super_resolve_moments": {"s1", "s2"},
+                "/v1/super_resolve_tile": {"sr"},
+                "/v1/uncertainty": {"mean", "std", "variance"},
+                "/v1/uncertainty_tile": {"mean", "std", "variance"}}
+
+
+def h_counts():
+    """Every launch counter since the last reset, flat and nonzero, under the
+    kernels line's names: float32 kernels, bfloat16 #1/#5/#6 by the kernel
+    that ran (``<name>_bf16_wg`` / ``_tc``), the bfloat16 chain, the int8
+    kernels and passes (bfloat16 ``<name>_bf16``), the quantizer."""
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+    from simple_vae_rs_tpu_torch.ops import quantize as qz
+
+    out = {**fc.launches, **f8.launches, **qz.launches,
+           **{k + BF16_SOURCE_TAG: v for k, v in f8.bf16_launches.items()},
+           fc.CHAIN + BF16_SOURCE_TAG: fc.bf16_launches[fc.CHAIN]["forward"]}
+    for name, roles in fc.bf16_impl_launches.items():
+        for impls in roles.values():
+            for impl, n in impls.items():
+                key = f"{name}{BF16_SOURCE_TAG}_{impl}"
+                out[key] = out.get(key, 0) + n
+    return {k: v for k, v in out.items() if v}
+
+
+def h_path(fn):
+    """``fn`` run with every counter set to 0 just before and read just after
+    (synchronized): its result, its ms and the counts."""
+    reset_all_counts()
+    out, ms = timed(fn)
+    return out, ms, h_counts()
+
+
+def h_times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def h_expect(what, got, want, paths):
+    """Launches of one path equal ``want``; every conv of the path launched
+    its kernel; the counts kept for the kernels line."""
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    convs = ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu")
+    if not all(any(k.startswith(c) for k in got) for c in convs):
+        raise AssertionError(f"{what}: a conv kernel was launched no time: {got}")
+    paths[what] = got
+
+
+def h_windows(h, w, p, batch, overlap=4):
+    """(windows, dispatches) of a raster's window grid in memory, and the
+    dispatches of its streamed sweep (one window row at a time)."""
+    from simple_vae_rs_tpu_torch.tiling import grid_starts
+
+    rows, cols = (len(grid_starts(n, p, p - overlap)) for n in (h, w))
+    return rows * cols, -(-rows * cols // batch), rows * -(-cols // batch)
+
+
+def h_traced(fn, path):
+    """``fn`` under ``torch.profiler``: its ms on the host and the card's busy
+    ms in it (kernels, copies, sets)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("h_request"):
+            fn()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    ((t0, dur),) = [(e["ts"], e["dur"]) for e in events
+                    if e.get("name") == "h_request" and e.get("cat") == "user_annotation"]
+    return dur / 1e3, gpu_busy_us(events, t0, t0 + dur) / 1e3
+
+
+def h_psnr(a, b) -> float:
+    return float(10 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12)))
+
+
+def h1_tiles(card, scene, dtype, paths, f32_ref, tmp):
+    """H1 in one dtype: per-dispatch launches, the tile and UQ requests
+    (counted, timed, traced), a seeded repeat, a resumed row sweep, and the
+    plain path on the same seeds. Returns the numbers, the per-dispatch
+    counts and the outputs."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver, tiling, warmup
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+
+    label = "bf16" if dtype == torch.bfloat16 else "f32"
+    cfg = CondSRVAEConfig(cr=G_CR, patch_size=G_PS)
+    if dtype == torch.bfloat16:
+        model = bf16_canonical_model(cfg)
+    else:
+        model = CondSRVAE(cfg, device="cuda").init_weights(seed=0)
+        randomize_bn(model, seed=1)
+    sr = SuperResolver(model, device="cuda", seed=0)
+    warmup(sr)  # the window batch and the 32-draw moments request too
+    p = sr.window
+    tile = scene[:H_TILE, :H_TILE].astype(np.float32)
+    uq = scene[:H_UQ, :H_UQ].astype(np.float32)
+    n_tile, d_tile, _ = h_windows(H_TILE, H_TILE, p, H_BATCH)
+    n_uq, d_uq, _ = h_windows(H_UQ, H_UQ, p, H_BATCH)
+    wins = np.random.default_rng(3).random((H_BATCH, p, p, 4), dtype=np.float32)
+    _, disp_ms, per_sr = h_path(lambda: sr.super_resolve(wins, normalize=False, seed=1))
+    _, mom_ms, per_mom = h_path(lambda: sr.super_resolve_moments(wins, H_UQ_SAMPLES, seed=1))
+    if per_mom != h_times(per_sr, H_UQ_SAMPLES):
+        raise AssertionError(f"H1 {label}: a moments dispatch launched {per_mom}, not "
+                             f"{H_UQ_SAMPLES} x {per_sr}")
+    stitch_ms = []
+    real_stitch = tiling.stitch
+
+    def counted_stitch(*a, **k):
+        t0 = time.perf_counter()
+        out = real_stitch(*a, **k)
+        stitch_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    tiling.stitch = counted_stitch
+    try:
+        out, tile_ms, got = h_path(lambda: sr.super_resolve_tile(tile, seed=21))
+        h_expect(f"H1 {label} super_resolve_tile", got, h_times(per_sr, d_tile), paths)
+        tile_stitch = sum(stitch_ms)
+        maps, uq_ms, got = h_path(lambda: sr.uncertainty_tile(uq, samples=H_UQ_SAMPLES, seed=22))
+        h_expect(f"H1 {label} uncertainty_tile", got, h_times(per_mom, d_uq), paths)
+        uq_stitch = sum(stitch_ms) - tile_stitch
+        rep_tile = [timed(lambda: sr.super_resolve_tile(tile, seed=21))[1] for _ in range(3)]
+        rep_uq = [timed(lambda: sr.uncertainty_tile(uq, samples=H_UQ_SAMPLES, seed=22))[1]
+                  for _ in range(3)]
+    finally:
+        tiling.stitch = real_stitch
+    trace = os.path.join(tmp, "h1_trace.json")
+    tile_host, tile_busy = h_traced(lambda: sr.super_resolve_tile(tile, seed=21), trace)
+    uq_host, uq_busy = h_traced(lambda: sr.uncertainty_tile(uq, samples=H_UQ_SAMPLES, seed=22),
+                                trace)
+    if out.shape != (2 * H_TILE, 2 * H_TILE, 4) or not np.isfinite(out).all() \
+            or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"H1 {label}: tile output {out.shape} wrong or outside [0, 1]")
+    if not np.array_equal(out, sr.super_resolve_tile(tile, seed=21)):
+        raise AssertionError(f"H1 {label}: a seeded repeat differs")
+    for k in ("mean", "std", "variance"):
+        if maps[k].shape != (2 * H_UQ, 2 * H_UQ, 4) or not np.isfinite(maps[k]).all():
+            raise AssertionError(f"H1 {label}: uncertainty_tile[{k}] is wrong")
+    if not float(maps["std"].max()) > 0:
+        raise AssertionError(f"H1 {label}: the draws do not differ")
+    # a row sweep resumed at a middle band: the uninterrupted sweep's rows
+    mn, mx = tile.min(axis=(0, 1)), tile.max(axis=(0, 1))
+    norm = (tile - mn) / (mx - mn + 1e-5)
+    sweep = list(sr.iter_tile_rows(lambda a, b: norm[a:b], H_TILE, H_TILE, seed=23))
+    mid = len(sweep) // 2
+    resumed = list(sr.iter_tile_rows(lambda a, b: norm[a:b], H_TILE, H_TILE, seed=23,
+                                     start_band=mid))
+    if [r for r, _ in resumed] != [r for r, _ in sweep[mid:]] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(resumed, sweep[mid:])):
+        raise AssertionError(f"H1 {label}: the sweep resumed at band {mid} differs")
+    # the plain path on the same seeds
+    blocks.use_plain_path(sr.model)
+    reset_all_counts()
+    plain, plain_ms = timed(lambda: sr.super_resolve_tile(tile, seed=21))
+    plain_maps = sr.uncertainty_tile(uq, samples=H_UQ_SAMPLES, seed=22)
+    if h_counts():
+        raise AssertionError(f"H1 {label}: the plain path launched {h_counts()}")
+    blocks.use_plain_path(sr.model, False)
+    err = {"tile": float(np.abs(out - plain).max()),
+           **{f"uq.{k}": float(np.abs(maps[k] - plain_maps[k]).max())
+              for k in ("mean", "variance")}}
+    tol = BF16_SERVE_TOL if label == "bf16" else SERVE_TOL
+    for k, e in err.items():
+        if not e <= tol:
+            raise AssertionError(f"H1 {label} {k}: kernels vs plain path {e} > {tol}")
+    db = None
+    if f32_ref is not None:
+        db = h_psnr(out, f32_ref)
+        if not db >= MIN_PSNR_BF16_DB:
+            raise AssertionError(f"H1 bf16 tile: PSNR {db:.2f} dB against f32")
+    row = {"dtype": label, "per_dispatch": per_sr, "dispatch_ms": disp_ms,
+           "moments_dispatch_ms": mom_ms, "tile_windows": n_tile, "tile_dispatches": d_tile,
+           "tile_ms": tile_ms, "tile_ms_repeats": rep_tile,
+           "tile_windows_per_s": n_tile / statistics.median(rep_tile) * 1e3,
+           "tile_stitch_ms": tile_stitch, "tile_traced_ms": tile_host,
+           "tile_device_ms": tile_busy, "uq_windows": n_uq, "uq_dispatches": d_uq,
+           "uq_ms": uq_ms, "uq_ms_repeats": rep_uq,
+           "uq_windows_per_s": n_uq / statistics.median(rep_uq) * 1e3,
+           "uq_stitch_ms": uq_stitch, "uq_traced_ms": uq_host, "uq_device_ms": uq_busy,
+           "plain_tile_ms": plain_ms, "max_abs_err_vs_plain": err, "psnr_vs_f32_db": db,
+           "sweep_bands": len(sweep), "resumed_at": mid}
+    log(f"H1 {label} super_resolve_tile {H_TILE}x{H_TILE}x4 ({n_tile} windows, {d_tile} "
+        f"dispatches of {H_BATCH}): {tile_ms:.1f} ms first, median "
+        f"{statistics.median(rep_tile):.1f} ms = {row['tile_windows_per_s']:.0f} windows/s; "
+        f"stitch on the host {tile_stitch:.1f} ms; traced {tile_host:.1f} ms with the card "
+        f"busy {tile_busy:.1f} ms; plain path {plain_ms:.1f} ms; launches = {d_tile} x "
+        + " ".join(f"{k}={v}" for k, v in per_sr.items()) + f"; card {card}")
+    log(f"H1 {label} uncertainty_tile {H_UQ}x{H_UQ}x4 samples={H_UQ_SAMPLES} ({n_uq} windows, "
+        f"{d_uq} dispatches of {H_UQ_SAMPLES} draws): {uq_ms:.1f} ms first, median "
+        f"{statistics.median(rep_uq):.1f} ms = {row['uq_windows_per_s']:.1f} windows/s; stitch "
+        f"{uq_stitch:.1f} ms; traced {uq_host:.1f} ms, card busy {uq_busy:.1f} ms; one moments "
+        f"dispatch {mom_ms:.1f} ms against one draw {disp_ms:.2f} ms; card {card}")
+    log(f"H1 {label} checks: kernels vs plain path max|diff| {err} (tolerance {tol})"
+        + ("" if db is None else f", PSNR against f32 {db:.2f} dB")
+        + f"; seeded repeat bit-equal; sweep of {len(sweep)} bands resumed at band {mid} "
+        f"bit-equal")
+    del sr, model
+    torch.cuda.empty_cache()
+    return row, per_sr, per_mom, out
+
+
+def h2_raster(card, tmp, src, ck, per_sr, per_mom, paths):
+    """H2: ``python -m simple_vae_rs_tpu_torch.raster``'s ``main`` in process on
+    the scene with phase G's checkpoint: in memory, ``--stream``, a resumed
+    ``--stream --resume``, ``--uncertainty``, ``--int8``, ``--int8_weights``.
+    Returns the numbers and the in-memory and streamed products' paths."""
+    from simple_vae_rs_tpu_torch import SuperResolver, raster
+    from simple_vae_rs_tpu_torch.data import tiffio
+
+    p = G_PS // 2
+    n_win, d_mem, d_stream = h_windows(H_SCENE, H_SCENE, p, H_BATCH)
+    rows = {}
+
+    def run(label, argv, want):
+        out_path = os.path.join(tmp, f"h2_{label}.tif")  # the journal's output for "resume"
+        _, ms, got = h_path(lambda: raster.main([src, out_path, "--model_ckpt", ck, *argv]))
+        h_expect(f"H2 raster {label}", got, want, paths)
+        with tiffio.TiffReader(out_path) as r, tiffio.TiffReader(src) as s:
+            if (r.height, r.width, r.samples_per_pixel, r.dtype, r.layout) != (
+                    2 * s.height, 2 * s.width, s.samples_per_pixel, s.dtype, s.layout):
+                raise AssertionError(f"H2 {label}: output {r.shape} {r.dtype} {r.layout} "
+                                     f"does not mirror {s.shape} {s.dtype} {s.layout}")
+        rows[label] = {"s": ms / 1e3, "launches": got}
+        log(f"H2 raster {label}: {ms / 1e3:.2f} s, launches "
+            + " ".join(f"{k}={v}" for k, v in got.items()) + f"; card {card}")
+        return out_path
+
+    seed = ["--request_seed", "7"]
+    mem = run("memory", seed, h_times(per_sr, d_mem))
+    # where the in-memory run's seconds go: the model's load and the tile
+    # request, each on its own; the rest is reading, normalizing and writing
+    lr, read_ms = timed(lambda: tiffio.read_tiff(src).astype(np.float32))
+    res, load_ms = timed(lambda: SuperResolver.from_checkpoint(ck, device="cuda"))
+    mn = lr.min(axis=(0, 1), keepdims=True)
+    den = lr.max(axis=(0, 1), keepdims=True) - mn + 1e-5
+    product, tile_ms = timed(lambda: res.super_resolve_tile(lr, seed=7))
+    want = np.clip(np.rint(product * den + mn), -32768, 32767).astype(np.int16)
+    rows["memory"].update({"read_ms": read_ms, "load_ms": load_ms, "tile_ms": tile_ms})
+    if not np.array_equal(tiffio.read_tiff(mem), want):
+        raise AssertionError("H2 in memory: the product differs from super_resolve_tile's")
+    stream = run("stream", ["--stream", *seed], h_times(per_sr, d_stream))
+    # --resume: the sweep fails after H_INTERRUPT bands, then resumes from its
+    # journal; the recomputed windows start at the earliest row reaching in
+    from simple_vae_rs_tpu_torch.tiling import grid_starts
+
+    starts = grid_starts(H_SCENE, p, p - 4)
+    first = H_INTERRUPT
+    while first > 0 and starts[first - 1] + p > starts[H_INTERRUPT]:
+        first -= 1
+    resumed = os.path.join(tmp, "h2_resume.tif")
+    real, calls = tiffio.TiffStripWriter.write_rows, {"n": 0}
+
+    def bomb(self, block):
+        calls["n"] += 1
+        if calls["n"] > H_INTERRUPT:
+            raise RuntimeError("interrupted")
+        return real(self, block)
+
+    tiffio.TiffStripWriter.write_rows = bomb
+    try:
+        t0 = time.perf_counter()
+        try:
+            raster.main([src, resumed, "--model_ckpt", ck, "--stream", "--resume", *seed])
+            raise AssertionError("H2 resume: the sweep was not interrupted")
+        except RuntimeError as e:
+            if str(e) != "interrupted":
+                raise
+        cut_s = time.perf_counter() - t0
+    finally:
+        tiffio.TiffStripWriter.write_rows = real
+    with open(resumed + ".resume.json") as fh:
+        if json.load(fh)["next_band"] != H_INTERRUPT:
+            raise AssertionError("H2 resume: the journal is not at the interrupted band")
+    cols = -(-len(starts) // H_BATCH)
+    run("resume", ["--stream", "--resume", *seed], h_times(per_sr, (len(starts) - first) * cols))
+    with open(resumed, "rb") as a, open(stream, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("H2 --stream --resume: not the uninterrupted sweep's bytes")
+    rows["resume"]["interrupted_s"] = cut_s
+    unc = run("uncertainty", ["--uncertainty", "--samples", str(H_UQ_SAMPLES), *seed],
+              h_times(per_mom, d_mem))
+    std = tiffio.read_tiff(unc[:-4] + "_std.tif")
+    if std.dtype != np.float32 or std.shape != (2 * H_SCENE, 2 * H_SCENE, 4) \
+            or not np.isfinite(std).all() or not std.max() > 0:
+        raise AssertionError(f"H2 --uncertainty: std {std.shape} {std.dtype} is wrong")
+    for mode in ("int8", "int8_weights"):
+        probe, _, build = h_path(lambda: SuperResolver.from_checkpoint(ck, device="cuda",
+                                                                       **{mode: True}))
+        wins = np.random.default_rng(4).random((H_BATCH, p, p, 4), dtype=np.float32)
+        _, _, per = h_path(lambda: probe.super_resolve(wins, normalize=False, seed=1))
+        del probe
+        want = {k: build.get(k, 0) + d_mem * per.get(k, 0) for k in {*build, *per}}
+        run(mode, [f"--{mode}", *seed], want)
+        if mode == "int8":
+            for k in ("quantize_stochastic", "int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu",
+                      "act_absmax", "act_quant"):
+                if not rows[mode]["launches"].get(k):
+                    raise AssertionError(f"H2 --int8 launched {k} no time")
+    del res
+    torch.cuda.empty_cache()
+    log(f"H2 scene {H_SCENE}x{H_SCENE}x4 int16 LZW ({n_win} windows, {d_mem} dispatches in "
+        f"memory, {d_stream} streamed): " + ", ".join(f"{k} {v['s']:.2f} s"
+                                                      for k, v in rows.items())
+        + f" (the interrupted sweep {cut_s:.2f} s; of the in-memory run, alone: read "
+        f"{read_ms:.0f} ms, model load {load_ms:.0f} ms, super_resolve_tile {tile_ms:.0f} ms); "
+        f"outputs int16 "
+        f"{2 * H_SCENE}x{2 * H_SCENE}x4 in the input's layout, in memory = "
+        f"super_resolve_tile's bits, resumed = uninterrupted bytes; card {card}")
+    return rows, mem, stream
+
+
+def h3_server(card, tmp, src, ck, scene, per_sr, mem, stream, paths):
+    """H3: the port's server on a thread, driven by the port's client."""
+    import threading
+
+    from simple_vae_rs_tpu_torch import SuperResolver, raster, warmup
+    from simple_vae_rs_tpu_torch.client import Client
+    from simple_vae_rs_tpu_torch.server import make_server
+
+    res = SuperResolver.from_checkpoint(ck, device="cuda")
+    warmup(res)
+    out = {}
+    srv = make_server(res, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        c = Client(url, timeout=600)
+        health = c.health()
+        if set(health) != H_HEALTH_KEYS or health["status"] != "ok" \
+                or health["patch_size"] != G_PS:
+            raise AssertionError(f"H3 /healthz {health}")
+        y = np.random.default_rng(5).random((H_BATCH, G_PS // 2, G_PS // 2, 4),
+                                            dtype=np.float32)
+        uq = scene[:H_UQ, :H_UQ].astype(np.float32)
+        for path, (arr, opts) in {
+                "/v1/super_resolve": (y, {"seed": 1}),
+                "/v1/super_resolve_moments": (y, {"samples": 2, "seed": 1}),
+                "/v1/super_resolve_tile": (uq, {"seed": 1}),
+                "/v1/uncertainty": (y[0], {"samples": 4, "seed": 1}),
+                "/v1/uncertainty_tile": (uq, {"samples": 2, "seed": 1})}.items():
+            reply = c._post_array(path, arr, **opts)
+            if set(reply) != H_REPLY_KEYS[path] or any(v.dtype != np.float32
+                                                       for v in reply.values()):
+                raise AssertionError(f"H3 {path}: reply keys {sorted(reply)}")
+        local = res.super_resolve(y, seed=5).cpu().numpy()
+        if not np.array_equal(c.super_resolve(y, seed=5), local):
+            raise AssertionError("H3: the f32 npy wire's reply differs from the in-process bits")
+        u16 = Client(url, timeout=600, wire="u16").super_resolve(y, seed=5)
+        # wire.py's bound, half a step of the channel's range, plus float32's
+        # rounding of lo + q * step (the codec tests' slack)
+        step = (local.max(axis=(0, 1, 2)) - local.min(axis=(0, 1, 2))) / 65535
+        u16_err = float(np.abs(u16 - local).max())
+        if not (np.abs(u16 - local) <= 0.5 * step + 1e-6 * np.abs(local) + 1e-9).all():
+            raise AssertionError(f"H3: the u16 wire's reply is {u16_err} off, past half a step")
+        rr = c.resolver()
+        try:
+            if not np.array_equal(rr.super_resolve_tile(uq, seed=6),
+                                  c.super_resolve_tile(uq, seed=6)):
+                raise AssertionError("H3: RemoteResolver's stitch differs from the server's")
+        finally:
+            rr.close()
+        for label, extra, local_out in (("memory", [], mem), ("stream", ["--stream"], stream)):
+            url_out = os.path.join(tmp, f"h3_url_{label}.tif")
+            t0 = time.perf_counter()
+            raster.main([src, url_out, "--url", url, "--request_seed", "7", *extra])
+            out[f"raster_url_{label}_s"] = time.perf_counter() - t0
+            with open(url_out, "rb") as a, open(local_out, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"H3 raster --url ({label}) differs from the local "
+                                         "product")
+        # round trips against the same work in process (its copy to the host included)
+        http = [timed(lambda: c.super_resolve(y, seed=5))[1] for _ in range(5)]
+        proc = [timed(lambda: res.super_resolve(y, seed=5).cpu())[1] for _ in range(5)]
+        http_m = [timed(lambda: c.super_resolve_moments(y, H_UQ_SAMPLES, seed=5))[1]
+                  for _ in range(3)]
+        proc_m = [timed(lambda: [t.cpu() for t in res.super_resolve_moments(
+            y, H_UQ_SAMPLES, seed=5)])[1] for _ in range(3)]
+        out.update({"http_b16_ms": http, "inproc_b16_ms": proc, "http_moments_ms": http_m,
+                    "inproc_moments_ms": proc_m, "u16_max_abs_err": u16_err})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    # --dynamic_batch_ms 2: concurrent unseeded B=1 requests
+    srv = make_server(res, port=0, dynamic_batch_ms=2)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        c = Client(f"http://127.0.0.1:{srv.server_address[1]}", timeout=600)
+        replies = [None] * H_REQUESTS
+
+        def post(i):
+            replies[i] = c.super_resolve(y[i:i + 1])
+
+        reset_all_counts()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(H_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            if t.is_alive():
+                raise AssertionError("H3 batching: a request did not come back")
+        torch.cuda.synchronize()
+        got = h_counts()
+        if any(r is None or r.shape != (1, G_PS, G_PS, 4) for r in replies):
+            raise AssertionError("H3 batching: a reply is missing or of the wrong shape")
+        disp, rem = divmod(got["fused_conv3x3_bn_relu"], per_sr["fused_conv3x3_bn_relu"])
+        batcher = srv.RequestHandlerClass.service.batcher
+        if rem or not 1 <= disp <= H_REQUESTS or got != h_times(per_sr, disp) \
+                or batcher.dispatches != disp:
+            raise AssertionError(f"H3 batching: launches {got} are not whole dispatches "
+                                 f"(batcher: {batcher.dispatches})")
+        paths["H3 server dynamic batching"] = got
+        out.update({"batched_requests": H_REQUESTS, "batched_dispatches": disp,
+                    "batched_padded_rows": batcher.padded_rows})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log(f"H3 server: /healthz and reply keys the JAX server's; B={H_BATCH} seeded over the f32 "
+        f"npy wire = in-process bits, over u16 {out['u16_max_abs_err']:.2e} off (within half "
+        f"a step); RemoteResolver's stitch = the server's; raster --url = local raster (memory "
+        f"{out['raster_url_memory_s']:.2f} s, stream {out['raster_url_stream_s']:.2f} s); "
+        f"HTTP round trip B={H_BATCH} median {statistics.median(out['http_b16_ms']):.2f} ms vs "
+        f"in process {statistics.median(out['inproc_b16_ms']):.2f} ms; moments "
+        f"({H_UQ_SAMPLES} draws) {statistics.median(out['http_moments_ms']):.1f} vs "
+        f"{statistics.median(out['inproc_moments_ms']):.1f} ms; --dynamic_batch_ms 2: "
+        f"{H_REQUESTS} concurrent B=1 requests in {out['batched_dispatches']} dispatches "
+        f"({out['batched_padded_rows']} padded rows); card {card}")
+    return out
+
+
+def raster_phase(report, card, tmp):
+    """Phase H: whole rasters on the card, in process (H1), through the
+    ``raster`` command (H2) and over HTTP (H3). Returns the launches of each
+    path (counted from 0 just before it), by the kernels line's names."""
+    from simple_vae_rs_tpu_torch.data import tiffio
+
+    paths = {}
+    tree = os.path.join(tmp, "ARM")
+    n = H_SCENE // (G_HR // 2)
+    tiles = [tiffio.read_tiff(os.path.join(tree, f"S2_{i:04d}_10m.tif")) for i in range(n * n)]
+    scene = np.concatenate([np.concatenate(tiles[r * n:(r + 1) * n], axis=1) for r in range(n)])
+    src = os.path.join(tmp, "scene_lr.tif")
+    tiffio.write_tiff(src, scene, compression="lzw", predictor=True)
+    log(f"H scene: {n}x{n} of G1's LR tiles, {scene.shape} {scene.dtype}, LZW + predictor, "
+        f"{os.path.getsize(src) / 2**20:.1f} MiB")
+    out = {"scene": list(scene.shape)}
+    out["h1_f32"], per_sr, per_mom, f32_tile = h1_tiles(card, scene, torch.float32, paths, None,
+                                                       tmp)
+    out["h1_bf16"], _, _, _ = h1_tiles(card, scene, torch.bfloat16, paths, f32_tile, tmp)
+    ck = os.path.join(tmp, "ckpt", "g2")
+    out["h2"], mem, stream = h2_raster(card, tmp, src, ck, per_sr, per_mom, paths)
+    out["h3"] = h3_server(card, tmp, src, ck, scene, per_sr, mem, stream, paths)
+    out["launches"] = paths
+    report["raster"] = out
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4370,9 +4878,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     fit_phase(report, card)
     # G1-G7. training from tiles on disk through the command line, evaluate,
-    # doctor
+    # doctor; H1-H3. whole rasters in process, through the raster command and
+    # over HTTP (G's tree and checkpoint)
     torch.cuda.empty_cache()
-    cli_phase(report, card)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
+    try:
+        cli_phase(report, card, tmp)
+        torch.cuda.empty_cache()
+        h_paths = raster_phase(report, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in kernels:
+        k["launches_phase_h"] = {path: counts[k["name"]] for path, counts in h_paths.items()
+                                 if counts.get(k["name"])}
+    for name in ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu",
+                 "quantize_stochastic", "int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu",
+                 "act_absmax", "act_quant"):
+        if not any(name in counts for counts in h_paths.values()):
+            raise AssertionError(f"phase H launched {name} no time")
+    if not any(BF16_SOURCE_TAG + "_" in k for counts in h_paths.values() for k in counts):
+        raise AssertionError("phase H launched no bfloat16 kernel")
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")

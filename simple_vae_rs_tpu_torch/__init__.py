@@ -1,19 +1,31 @@
 """PyTorch/CUDA port of simple_vae_rs_tpu: the Cond_SRVAE, SRVAE and VAE
-models, serving (float32, int8, chained tails; from a checkpoint) and the
-training run (steps, evaluation, checkpoints, the epoch loop).
+models, serving (float32, int8, chained tails; from a checkpoint; whole
+rasters, the ``raster`` command and the HTTP server) and the training run
+(steps, evaluation, checkpoints, the epoch loop).
 
 Imports torch and numpy only; the JAX package is its reference, held against
 it by the tests. Entry points run on a CUDA card unless given device="cpu".
+The names below load on first use, so the numpy-only modules (``client``,
+``tiling``, ``wire``) import without torch.
 """
 
-from simple_vae_rs_tpu_torch.config import CondSRVAEConfig, TrainConfig, VAEConfig
-from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
-from simple_vae_rs_tpu_torch.models.srvae import SRVAE
-from simple_vae_rs_tpu_torch.models.vae import VAE
-from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain, use_plain_path
-from simple_vae_rs_tpu_torch.ops.patchify import grid_sr_batch
-from simple_vae_rs_tpu_torch.serve import SuperResolver, warmup
-from simple_vae_rs_tpu_torch.train.engine import Trainer
+import importlib
 
-__all__ = ["CondSRVAEConfig", "CondSRVAE", "SRVAE", "SuperResolver", "TrainConfig", "Trainer",
-           "VAE", "VAEConfig", "grid_sr_batch", "use_chain", "use_plain_path", "warmup"]
+_EXPORTS = {
+    "CondSRVAEConfig": "config", "TrainConfig": "config", "VAEConfig": "config",
+    "CondSRVAE": "models.cond_vae", "SRVAE": "models.srvae", "VAE": "models.vae",
+    "use_chain": "ops.conv_blocks", "use_plain_path": "ops.conv_blocks",
+    "grid_sr_batch": "ops.patchify",
+    "SuperResolver": "serve", "warmup": "serve",
+    "Trainer": "train.engine",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

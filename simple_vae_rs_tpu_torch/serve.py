@@ -37,6 +37,12 @@ which ``ops/conv_blocks.tail_chain`` steps aside, as the JAX package's
 does), and with ``int8_weights`` the chain runs on the weights unpacked for
 the request.
 
+Whole rasters of any size are served through the ``tiling.TileEndpoints``
+mixin: ``super_resolve_tile``, ``uncertainty_tile`` and the bounded-memory
+``iter_tile_rows`` cover the raster with a grid of ``window``-sized LR
+windows, dispatch them in fixed-size batches and stitch the outputs on the
+host (numpy in, numpy out).
+
 ``SuperResolver.from_checkpoint(path)`` rebuilds the model a checkpoint was
 trained as, from the config in its meta (``train/checkpoint.read_meta``),
 and serves it: the port's own checkpoints and the JAX package's
@@ -65,6 +71,7 @@ from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
+from simple_vae_rs_tpu_torch.tiling import TileEndpoints
 from simple_vae_rs_tpu_torch.train.checkpoint import (
     JAX_SUFFIX,
     SUFFIX,
@@ -101,9 +108,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class SuperResolver:
+class SuperResolver(TileEndpoints):
     """2x super-resolution and uncertainty service for one CondSRVAE or
-    SRVAE (which also takes HR-sized inputs and downsamples them first)."""
+    SRVAE (which also takes HR-sized inputs and downsamples them first),
+    with the whole-raster endpoints of ``TileEndpoints``."""
 
     def __init__(self, model, device="cuda", seed: int = 0,
                  normalize: bool = True, int8: bool = False,
@@ -249,6 +257,11 @@ class SuperResolver:
                 s2 = out * out if s2 is None else s2 + out * out
         return s1, s2
 
+    @property
+    def window(self) -> int:
+        """LR window size of the tile endpoints: one model patch in LR space."""
+        return int(self.model.config.patch_size) // 2
+
     @torch.no_grad()
     def uncertainty(self, y, samples: int = 32, chunk: Optional[int] = None,
                     seed: Optional[int] = None) -> Dict[str, Tensor]:
@@ -272,11 +285,20 @@ class SuperResolver:
         return self.uncertainty(y, samples=samples, chunk=chunk, seed=seed)["mean"]
 
 
-def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4)) -> None:
+def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4), tile_batch: Optional[int] = 16,
+           uq_samples: Optional[int] = 32) -> None:
     """Run each endpoint once ahead of traffic (this builds the CUDA kernels
-    on first use)."""
+    on first use). ``tile_batch`` also runs the window batch the ``*_tile``
+    endpoints dispatch (their default ``batch=16``), and ``uq_samples`` the
+    moments request ``uncertainty_tile`` makes at its default draw count;
+    ``None`` skips either."""
     y = np.zeros(lr_shape, np.float32)
     resolver.super_resolve(y, seed=0)
     resolver.uncertainty(y, samples=2, chunk=2, seed=0)
+    if tile_batch:
+        wins = np.zeros((tile_batch, *lr_shape[1:]), np.float32)
+        resolver.super_resolve(wins, normalize=False, seed=0)
+        if uq_samples:
+            resolver.super_resolve_moments(wins, uq_samples, seed=0)
     if resolver.device.type == "cuda":
         torch.cuda.synchronize(resolver.device)

@@ -1075,3 +1075,110 @@ def test_cli_one_epoch_on_the_card(cuda, tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "ckpt" / "gpu.pt")
     assert all(v > 0 for k, v in fc.launches.items() if k != fc.CHAIN)
     assert all(v > 0 for v in fe.launches.values())
+
+
+@pytest.mark.gpu
+def test_cuda_tile_requests_match_plain_path(cuda):
+    """Whole-raster requests on the card: ``super_resolve_tile`` and
+    ``uncertainty_tile`` through the kernels (every conv kernel launched)
+    against the plain path on the same seed, 1e-4 absolute; a seeded repeat
+    the same bits; a row sweep resumed at a middle band the same bits as
+    the uninterrupted one."""
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16)).init_weights(1)
+    sr = SuperResolver(model, device="cuda", seed=0)
+    raster = np.random.default_rng(13).random((37, 45, 4)).astype(np.float32) * 900
+    fc.reset_launches()
+    got = sr.super_resolve_tile(raster, batch=8, seed=1)
+    maps = sr.uncertainty_tile(raster, samples=4, batch=8, seed=2)
+    assert all(v > 0 for k, v in fc.launches.items() if k != fc.CHAIN)
+    assert got.shape == (74, 90, 4) and isinstance(got, np.ndarray)
+    assert np.array_equal(got, sr.super_resolve_tile(raster, batch=8, seed=1))
+    lr = raster / raster.max()
+    rows = lambda band: np.concatenate([b for _, b in sr.iter_tile_rows(
+        lambda a, b: lr[a:b], 37, 45, batch=8, seed=3, start_band=band)])
+    whole = rows(0)
+    starts = [r for r, _ in sr.iter_tile_rows(lambda a, b: lr[a:b], 37, 45, batch=8, seed=3)]
+    assert np.array_equal(rows(2), whole[starts[2]:])
+    blocks.use_plain_path(sr.model)
+    want = sr.super_resolve_tile(raster, batch=8, seed=1)
+    want_maps = sr.uncertainty_tile(raster, samples=4, batch=8, seed=2)
+    assert float(np.abs(got - want).max()) <= 1e-4
+    for k in ("mean", "variance"):
+        assert float(np.abs(maps[k] - want_maps[k]).max()) <= 1e-4, k
+
+
+@pytest.mark.gpu
+def test_cuda_server_round_trip(cuda):
+    """The port's server on the card, driven by the port's client: a seeded
+    request over the float32 npy wire is the in-process call's bits; over
+    the u16 wire within its step; a tile stitched by the server equals the
+    same request stitched by ``RemoteResolver``."""
+    import threading
+
+    from simple_vae_rs_tpu_torch.client import Client
+    from simple_vae_rs_tpu_torch.server import make_server
+
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16)).init_weights(1)
+    sr = SuperResolver(model, device="cuda", seed=0)
+    srv = make_server(sr, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        y = np.random.default_rng(14).random((16, 8, 8, 4)).astype(np.float32)
+        local = sr.super_resolve(y, seed=5).cpu().numpy()
+        assert np.array_equal(Client(url, timeout=60).super_resolve(y, seed=5), local)
+        u16 = Client(url, timeout=60, wire="u16").super_resolve(y, seed=5)
+        assert np.abs(u16 - local).max() <= 1.0 / 65535
+        c = Client(url, timeout=60)
+        raster = np.random.default_rng(15).random((29, 33, 4)).astype(np.float32)
+        rr = c.resolver()
+        try:
+            assert np.array_equal(rr.super_resolve_tile(raster, batch=8, seed=6),
+                                  c.super_resolve_tile(raster, batch=8, seed=6))
+        finally:
+            rr.close()
+        assert c.health()["status"] == "ok"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_raster_resumes_bit_equal(cuda, tmp_path, monkeypatch):
+    """``python -m simple_vae_rs_tpu_torch.raster --stream --resume`` on the
+    card: a sweep that fails after a few bands, resumed from its journal,
+    writes the bytes of an uninterrupted sweep."""
+    import os
+
+    from simple_vae_rs_tpu_torch import raster
+    from simple_vae_rs_tpu_torch.data import tiffio
+    from simple_vae_rs_tpu_torch.train.checkpoint import save_checkpoint
+
+    tr = Trainer(CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16), device=cuda).init_weights(1),
+                 TrainConfig(), device=cuda)
+    ck = str(tmp_path / "tiny")
+    save_checkpoint(ck, tr, epoch=1, extra={"model": tr._model_meta()})
+    lr = (np.random.default_rng(16).random((60, 44, 4)) * 3000).astype(np.int16)
+    src = str(tmp_path / "lr.tif")
+    tiffio.write_tiff(src, lr, compression="lzw", predictor=True)
+    flags = ["--model_ckpt", ck, "--stream", "--uncertainty", "--samples", "3", "--batch", "8",
+             "--request_seed", "7"]
+    full, part = str(tmp_path / "full.tif"), str(tmp_path / "part.tif")
+    raster.main([src, full, *flags])
+    real, calls = tiffio.TiffStripWriter.write_rows, {"n": 0}
+
+    def bomb(self, block):
+        calls["n"] += 1
+        if calls["n"] > 5:
+            raise RuntimeError("simulated crash")
+        return real(self, block)
+
+    monkeypatch.setattr(tiffio.TiffStripWriter, "write_rows", bomb)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        raster.main([src, part, *flags, "--resume"])
+    monkeypatch.setattr(tiffio.TiffStripWriter, "write_rows", real)
+    assert os.path.exists(part + ".resume.json")
+    raster.main([src, part, *flags, "--resume"])
+    for a, b in ((full, part), (full[:-4] + "_std.tif", part[:-4] + "_std.tif")):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()

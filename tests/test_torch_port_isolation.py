@@ -21,6 +21,8 @@ def test_port_imports_no_jax():
     assert len(mods) >= 15
     for mod in ("fused_conv", "fused_elbo", "fused_int8", "quantize"):
         assert f"simple_vae_rs_tpu_torch.ops.{mod}" in mods
+    for mod in ("tiling", "raster", "wire", "batching", "server", "client"):
+        assert f"simple_vae_rs_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
