@@ -251,12 +251,15 @@ Then phase G, training from tiles on disk through the command line
 (``simple_vae_rs_tpu_torch.cli.main`` in-process, in a temporary directory
 under ``build/``, where it writes ``ckpt/``, ``runs/`` and ``results/``):
 
+G0. ``python -m simple_vae_rs_tpu_torch.make_index ARM --validate`` writes
+    the tree's ``index.csv`` (every pair opened and its 2x geometry
+    checked): its rows must be the pairs the tree was written with.
 G1. An ARM-shaped tree: 160 tile pairs (HR 256x256x4, LR 128x128x4, int16
     digital numbers from ``SyntheticHFDataset`` scenes, LZW with the
-    predictor) and its ``index.csv``, written with the port's
-    ``write_tiff``. Every file read back equal; every strip decoded by the
-    native codec, which equals the Python decoder on a strip; the write
-    seconds and the decode rate on one thread.
+    predictor), written with the port's ``write_tiff``. Every file read
+    back equal; every strip decoded by the native codec, which equals the
+    Python decoder on a strip; the write seconds and the decode rate on one
+    thread.
 G2. ``--dataset s2v --crop grid --batch_size 32 --patch_size 64 -cr 1.2
     --epochs 2 --pre_epochs 1 --val_metrics_every 1 --samples 1000
     --tensorboard --workers 4`` (4 steps of 512 pairs an epoch, 1 val
@@ -317,7 +320,28 @@ H3. ``make_server`` on a thread, driven by the port's ``Client``: the
     ``--dynamic_batch_ms 2``, 8 concurrent unseeded B=1 requests in whole
     dispatches, no more than the requests (printed, not bounded in time).
 
-The kernels line's entries carry ``launches_phase_h``, each H path's count.
+Then phase J, the checkpoint tools and the artifact, on phase G's
+checkpoint (the canonical Cond_SRVAE) in the same temporary directory:
+
+J1. ``convert_checkpoint --to_torch`` (strict and ``--keep_gammas``), each
+    ``.pth`` imported back: the same weights (the strict one's gammas 1.0);
+    ``SuperResolver.from_checkpoint`` of the import serves a seeded B=16
+    request bit-equal to G's weights under the reference's latent wiring
+    (``torch_regroup``, which the import records), #1, #5 and #6 launched;
+    the seconds of each step.
+J2. ``export_checkpoint`` with ``--weights`` f32, bf16 and int8, each loaded
+    on the card: every counter stays 0 through every artifact request (the
+    artifact is the plain graph); a seeded B=16 request off the f32
+    artifact within 1e-4 of the live resolver's plain path on the same
+    seed, bf16 and int8 at 30 dB or more against it; a seeded 512x512x4
+    tile bit-equal on repeat; file MB, export and load seconds, the B=16
+    request's median of 5 beside the live resolver's, the tile's ms.
+J3. ``make_server`` on the f32 artifact: ``/healthz`` holds the JAX artifact
+    branch's keys; a seeded B=16 request over HTTP is the in-process bits;
+    ``raster --url`` on H's scene equals the artifact's own product.
+
+The kernels line's entries carry ``launches_phase_h`` and
+``launches_phase_j``, each H and J path's count.
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -1418,10 +1442,10 @@ G_TILES, G_HR, G_BATCH, G_PS, G_CR = 160, 256, 32, 64, 1.2
 def write_arm_tree(root, n, seed):
     """An ARM-shaped tree of ``n`` tile pairs (HR G_HR px, LR half), int16
     digital numbers (the scenes of ``SyntheticHFDataset`` x1000, rounded),
-    LZW with the predictor, interleaved, and the tab-separated
-    ``index.csv``, written with the port's ``write_tiff``. Returns the
-    arrays written and the seconds the writes took (the scenes are rendered
-    first, on every host core)."""
+    LZW with the predictor, interleaved, written with the port's
+    ``write_tiff`` (``make_index`` writes its ``index.csv``). Returns the
+    arrays written, the seconds the writes took (the scenes are rendered
+    first, on every host core) and the rows its index must hold."""
     from concurrent.futures import ThreadPoolExecutor
 
     from simple_vae_rs_tpu_torch.data.datasets import SyntheticHFDataset
@@ -1432,17 +1456,15 @@ def write_arm_tree(root, n, seed):
         pairs = list(pool.map(lambda i: tuple(np.rint(a).astype(np.int16) for a in ds[i]),
                               range(n)))
     os.makedirs(root, exist_ok=True)
-    rows = ["b2b3b4b8_10m\tb2b3b4b8_05m"]
+    rows = [["b2b3b4b8_10m", "b2b3b4b8_05m"]]
     t0 = time.perf_counter()
     for i, (lr, hr) in enumerate(pairs):
         write_tiff(os.path.join(root, f"S2_{i:04d}_10m.tif"), lr, compression="lzw",
                    predictor=True)
-        write_tiff(os.path.join(root, f"VENUS_{i:04d}_05m.tif"), hr, compression="lzw",
+        write_tiff(os.path.join(root, f"S2_{i:04d}_05m.tif"), hr, compression="lzw",
                    predictor=True)
-        rows.append(f"S2_{i:04d}_10m.tif\tVENUS_{i:04d}_05m.tif")
-    with open(os.path.join(root, "index.csv"), "w") as fh:
-        fh.write("\n".join(rows) + "\n")
-    return pairs, time.perf_counter() - t0
+        rows.append([f"S2_{i:04d}_10m.tif", f"S2_{i:04d}_05m.tif"])
+    return pairs, time.perf_counter() - t0, rows
 
 
 def cli_flags(tree, *extra):
@@ -1509,7 +1531,7 @@ def decode_split(tree, n, tiffio, lzw_native):
     (``tiffio._undo_predictor``); then ``read_tiff`` whole over the same
     files. ms each, the MiB decoded, and the whole less the three stages."""
     paths = [os.path.join(tree, f"{k}_{i:04d}_{r}.tif") for i in range(n)
-             for k, r in (("S2", "10m"), ("VENUS", "05m"))]
+             for k, r in (("S2", "10m"), ("S2", "05m"))]
     t0 = time.perf_counter()
     raws = []
     for path in paths:
@@ -1653,7 +1675,27 @@ def cli_phase(report, card, tmp):
     try:
         # G1. the tree, read back, the native codec
         tree = os.path.join(tmp, "ARM")
-        pairs, write_s = write_arm_tree(tree, G_TILES, seed=5)
+        pairs, write_s, rows = write_arm_tree(tree, G_TILES, seed=5)
+        # G0. make_index --validate writes the index phase G trains from
+        from simple_vae_rs_tpu_torch import make_index
+
+        with open(os.devnull, "w") as null:
+            import contextlib
+
+            with contextlib.redirect_stdout(null):
+                t0 = time.perf_counter()
+                rc = make_index.main([tree, "--validate"])
+                index_s = time.perf_counter() - t0
+        with open(os.path.join(tree, "index.csv"), newline="") as fh:
+            import csv
+
+            got_rows = list(csv.reader(fh, delimiter="\t"))
+        if rc != 0 or got_rows != rows:
+            raise AssertionError(f"G0 make_index --validate: exit {rc}, {len(got_rows)} rows, "
+                                 f"expected the {len(rows)} written beside the tiles")
+        log(f"G0 make_index --validate: {len(rows) - 1} pairs opened and checked, index.csv "
+            f"= the rows the tree was written with, {index_s:.2f} s; card {card}")
+        out["g0_index_s"] = index_s
         raw_mb = sum(a.nbytes + b.nbytes for a, b in pairs) / 2**20
         disk_mb = sum(os.path.getsize(os.path.join(tree, f)) for f in os.listdir(tree)) / 2**20
         if lzw_native.get_lib() is None:
@@ -1662,7 +1704,7 @@ def cli_phase(report, card, tmp):
         tiffio.reset_codec_calls()
         t0 = time.perf_counter()  # read_tiff alone; the comparison after it
         back = [(tiffio.read_tiff(os.path.join(tree, f"S2_{i:04d}_10m.tif")),
-                 tiffio.read_tiff(os.path.join(tree, f"VENUS_{i:04d}_05m.tif")))
+                 tiffio.read_tiff(os.path.join(tree, f"S2_{i:04d}_05m.tif")))
                 for i in range(G_TILES)]
         read_s = time.perf_counter() - t0
         for i, ((lr, hr), (got_lr, got_hr)) in enumerate(zip(pairs, back)):
@@ -1672,7 +1714,7 @@ def cli_phase(report, card, tmp):
         calls = dict(tiffio.CODEC_CALLS)
         if calls["python_decode"] or calls["native_decode"] != 2 * G_TILES:
             raise AssertionError(f"G1: the native decoder did not decode every strip: {calls}")
-        with tiffio.TiffReader(os.path.join(tree, "VENUS_0000_05m.tif")) as r:
+        with tiffio.TiffReader(os.path.join(tree, "S2_0000_05m.tif")) as r:
             r._fh.seek(r._offsets[0])
             strip = r._fh.read(r._counts[0])
         if lzw_native.lzw_decode_native(strip) != tiffio._lzw_decode(strip):
@@ -1904,7 +1946,7 @@ def cli_phase(report, card, tmp):
         # G6. evaluate: one val tile super-resolved patch by patch by the
         # trained model, reassembled, against its HR tile, with its LR tile
         lr_path = os.path.join(tree, f"S2_{G_TILES - 1:04d}_10m.tif")
-        hr_path = os.path.join(tree, f"VENUS_{G_TILES - 1:04d}_05m.tif")
+        hr_path = os.path.join(tree, f"S2_{G_TILES - 1:04d}_05m.tif")
         lr_tile = torch.from_numpy(tiffio.read_tiff(lr_path).astype(np.float32))[None]
         patches = grid_patchify(lr_tile, G_PS // 2).cuda()
         sr = SuperResolver(trained, device="cuda", seed=0).super_resolve(patches, seed=1)
@@ -4564,6 +4606,301 @@ def raster_phase(report, card, tmp):
     return paths
 
 
+# ------------------------------------------- checkpoint tools and the artifact
+J_HEALTH_KEYS = {"status", "model", "patch_size", "channels", "artifact", "batch", "platforms",
+                 "moments", "seed", "wire_u16"}  # the JAX server's artifact branch
+J_TILE = 512  # J2: the artifact's super_resolve_tile, a 512x512x4 crop of H's scene
+# J2: bf16 and int8 artifacts against the f32 one, PSNR at peak 1. The H100
+# reads 97-114 dB on this script's checkpoints: the outputs sit near 0.5
+# with a small spread, so weight rounding moves them by about 1e-5; the
+# floor leaves 17 dB below that, and the rounded weights' own live path
+# holds the artifacts besides
+J_DB_FLOOR = 80.0
+# J2: each artifact against the live plain path on its own weights (f32 as
+# stored, bf16 and int8 rounded as packed): the same aten ops on the same
+# tensors, so the bits agree. The floor is far below SERVE_TOL because the
+# outputs respond weakly to the weights (J2 reports how far zeroing the
+# decoder's kernels moves them): a wrong dequantization can stay inside
+# SERVE_TOL
+J_SAME_TOL = 1e-6
+
+
+def j_all_launches():
+    """Every launch counter of the port, flat: float32 and bfloat16 conv
+    kernels and chain, the int8 kernels and passes (both dtypes), the
+    quantizer, the ELBO rows."""
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+
+    counts = {**h_counts(), **{f"{k} (rows)": v for k, v in fe.launches.items() if v}}
+    return {k: v for k, v in counts.items() if v}
+
+
+def j_no_launch(what, fn):
+    """``fn`` with every counter set to 0 just before: it must launch no
+    hand-written kernel (the artifact is the plain graph). Its result and ms."""
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+
+    reset_all_counts()
+    fe.reset_launches()
+    out, ms = timed(fn)
+    got = j_all_launches()
+    if got:
+        raise AssertionError(f"{what}: the artifact launched hand-written kernels: {got}")
+    return out, ms
+
+
+def j1_convert(card, tmp, ck, paths):
+    """J1: phase G's checkpoint through ``convert_checkpoint --to_torch``
+    (strict and ``--keep_gammas``) and imported back; the re-imported
+    checkpoint served on the card."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver
+    from simple_vae_rs_tpu_torch import convert_checkpoint as conv
+    from simple_vae_rs_tpu_torch.train.checkpoint import load_state, read_meta
+
+    flags = ["-cr", str(G_CR), "--patch_size", str(G_PS)]
+    secs = {}
+
+    def step(label, argv):
+        with open(os.devnull, "w") as null:
+            import contextlib
+
+            with contextlib.redirect_stdout(null):
+                t0 = time.perf_counter()
+                if conv.main(argv) != 0:
+                    raise AssertionError(f"J1 convert_checkpoint {label} failed")
+                secs[label] = time.perf_counter() - t0
+
+    strict, gammas = os.path.join(tmp, "g2.pth"), os.path.join(tmp, "g2_gammas.pth")
+    step("to_torch", [ck, strict, "--to_torch", *flags])
+    step("to_torch --keep_gammas", [ck, gammas, "--to_torch", "--keep_gammas", *flags])
+    back, back_strict = os.path.join(tmp, "ckpt", "j1_back"), os.path.join(tmp, "ckpt", "j1_strict")
+    step("import (gammas)", [gammas, back, *flags])
+    step("import (strict)", [strict, back_strict, *flags])
+    want = load_state(ck)["model"]
+    for path, gammas_back in ((back, True), (back_strict, False)):
+        got = load_state(path)["model"]
+        for k, v in want.items():
+            same = torch.equal(got[k], v) if (gammas_back or not k.startswith("gamma")) \
+                else float(got[k]) == 1.0
+            if not same:
+                raise AssertionError(f"J1 {path}: {k} did not come back")
+    if not read_meta(back)["model"]["torch_regroup"]:
+        raise AssertionError("J1: the imported checkpoint's meta lost torch_regroup")
+    # G's weights under the reference's latent wiring, which the converter
+    # records (torch_regroup) and from_checkpoint rebuilds
+    ref_model = CondSRVAE(CondSRVAEConfig(cr=G_CR, patch_size=G_PS, torch_regroup=True),
+                          device="cuda")
+    ref_model.load_state_dict(want)
+    ref = SuperResolver(ref_model, device="cuda", seed=0)
+    y = np.random.default_rng(31).random((H_BATCH, G_PS // 2, G_PS // 2, 4), dtype=np.float32)
+    want_sr = ref.super_resolve(y, seed=11)
+    served, ms = timed(lambda: SuperResolver.from_checkpoint(back, device="cuda"))
+    secs["from_checkpoint"] = ms / 1e3
+    got_sr, _, counts = h_path(lambda: served.super_resolve(y, seed=11))
+    if not torch.equal(got_sr, want_sr):
+        raise AssertionError("J1: the re-imported checkpoint serves other bits than G's")
+    for name in ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu"):
+        if not counts.get(name):
+            raise AssertionError(f"J1: the re-imported checkpoint's request launched {name} "
+                                 f"no time: {counts}")
+    paths["J1 re-imported super_resolve"] = counts
+    mb = os.path.getsize(strict) / 1e6
+    log(f"J1 convert_checkpoint: G's checkpoint -> .pth (strict, {mb:.1f} MB; --keep_gammas) "
+        f"-> imported back, the same weights (strict: gammas 1.0); "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f"; from_checkpoint of the import serves B={H_BATCH} to the bits of G's weights under "
+        f"the reference's wiring; launches " + " ".join(f"{k}={v}" for k, v in counts.items())
+        + f"; card {card}")
+    del served, ref, ref_model
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "launches": counts}
+
+
+def j_rounded(live, weights):
+    """The live resolver's model with its weights rounded as ``weights``
+    packs them, dequantized here in numpy (apart from the graph's own ops):
+    the float tensors a compressed artifact stands for."""
+    from simple_vae_rs_tpu_torch import export as ex
+
+    tensors = dict([*live.model.named_parameters(), *live.model.named_buffers()])
+    with torch.no_grad():
+        for name, entry in ex._pack_variables(tensors, weights).items():
+            if entry[0] == "bf16":
+                value = entry[1].float().numpy()
+            elif entry[0] == "int8":
+                value = entry[1].numpy().astype(np.float32) * entry[2].numpy()
+            else:
+                continue
+            tensors[name].copy_(torch.from_numpy(value))
+
+
+def j2_export(card, tmp, ck, scene):
+    """J2: G's checkpoint exported in the three weight modes, loaded on the
+    card and served; no hand-written kernel launches. Each artifact is held
+    to the live plain path on its own weights (f32 as stored, bf16 and int8
+    rounded as packed) at J_SAME_TOL. Returns the numbers and the f32
+    artifact's resolver."""
+    from simple_vae_rs_tpu_torch import SuperResolver, warmup
+    from simple_vae_rs_tpu_torch import export as ex
+    from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
+
+    out = {}
+    live = SuperResolver.from_checkpoint(ck, device="cuda", seed=0)
+    warmup(live)
+    y = np.random.default_rng(32).random((H_BATCH, G_PS // 2, G_PS // 2, 4), dtype=np.float32)
+    live_ms = [timed(lambda: live.super_resolve(y, seed=11))[1] for _ in range(5)]
+    n_params = None
+    arts = {}
+    for weights in ex.WEIGHT_MODES:
+        path = os.path.join(tmp, f"g2_{weights}.pt2")
+        _, export_ms = timed(lambda: ex.export_checkpoint(ck, path, batch=H_BATCH,
+                                                          weights=weights))
+        esr, load_ms = timed(lambda: ex.load_exported(path, device="cuda"))
+        n_params = esr.meta["n_params"]
+        sr, first_ms = j_no_launch(f"J2 {weights}", lambda: esr.super_resolve(y, seed=11))
+        if sr.device.type != live.device.type or sr.shape != (H_BATCH, G_PS, G_PS, 4) \
+                or sr.dtype != torch.float32:
+            raise AssertionError(f"J2 {weights}: {sr.device} {tuple(sr.shape)} {sr.dtype}")
+        reps = [j_no_launch(f"J2 {weights}", lambda: esr.super_resolve(y, seed=11))[1]
+                for _ in range(5)]
+        arts[weights] = (esr, sr)
+        out[weights] = {"mb": os.path.getsize(path) / 1e6, "export_s": export_ms / 1e3,
+                        "load_s": load_ms / 1e3, "first_request_ms": first_ms,
+                        "b16_ms": reps}
+    blocks.use_plain_path(live.model)
+    for weights in ex.WEIGHT_MODES:  # f32 first: the stored weights, then rounded in turn
+        if weights != "f32":
+            rounded = SuperResolver.from_checkpoint(ck, device="cuda", seed=0)
+            j_rounded(rounded, weights)
+            blocks.use_plain_path(rounded.model)
+        plain = (live if weights == "f32" else rounded).super_resolve(y, seed=11)
+        err = float((arts[weights][1] - plain).abs().max())
+        if not err <= J_SAME_TOL:
+            raise AssertionError(f"J2: the {weights} artifact is {err} off the live plain path "
+                                 "on the same weights")
+        out[weights]["vs_live_plain"] = err
+    # how far the weights move the outputs at all: the decoder's conv
+    # kernels zeroed in the live plain path
+    zeroed = SuperResolver.from_checkpoint(ck, device="cuda", seed=0)
+    blocks.use_plain_path(zeroed.model)
+    with torch.no_grad():
+        for name, t in zeroed.model.named_parameters():
+            if name.startswith("dx_") and t.dim() >= 2:
+                t.zero_()
+    out["decoder_zeroed_max_diff"] = float(
+        (zeroed.super_resolve(y, seed=11) - arts["f32"][1]).abs().max())
+    f32 = arts["f32"][1].cpu().numpy()
+    out["f32_std"] = float(f32.std())
+    for weights in ("bf16", "int8"):
+        got = arts[weights][1].cpu().numpy()
+        db = h_psnr(got, f32)
+        if not db >= J_DB_FLOOR:
+            raise AssertionError(f"J2 {weights}: {db:.2f} dB against the f32 artifact, below "
+                                 f"{J_DB_FLOOR}")
+        out[weights]["db_vs_f32"] = db
+        # the rounding's error against the outputs' own spread, not peak 1
+        out[weights]["snr_db_vs_spread"] = float(
+            10 * np.log10(f32.var() / max(float(np.mean((got - f32) ** 2)), 1e-30)))
+    esr = arts["f32"][0]
+    tile = scene[:J_TILE, :J_TILE].astype(np.float32)
+    a, tile_ms = j_no_launch("J2 tile", lambda: esr.super_resolve_tile(tile, seed=7))
+    b, _ = j_no_launch("J2 tile", lambda: esr.super_resolve_tile(tile, seed=7))
+    if not np.array_equal(a, b) or a.shape != (2 * J_TILE, 2 * J_TILE, 4):
+        raise AssertionError("J2: a seeded tile off the artifact is not bit-equal on repeat")
+    out.update({"n_params": n_params, "f32_vs_live_plain": out["f32"]["vs_live_plain"],
+                "live_b16_ms": live_ms, "tile_ms": tile_ms})
+    log(f"J2 export of G's checkpoint ({n_params} parameters and statistics), B={H_BATCH}: "
+        + "; ".join(f"{w} {out[w]['mb']:.1f} MB, export {out[w]['export_s']:.2f} s, load "
+                    f"{out[w]['load_s']:.2f} s, request median "
+                    f"{statistics.median(out[w]['b16_ms']):.2f} ms (first "
+                    f"{out[w]['first_request_ms']:.1f}), max|diff| {out[w]['vs_live_plain']:.2e} "
+                    "vs the live plain path on its weights"
+                    + (f", {out[w]['db_vs_f32']:.2f} dB vs f32 (floor {J_DB_FLOOR}; "
+                       f"{out[w]['snr_db_vs_spread']:.2f} dB against the outputs' spread)"
+                       if w != "f32" else "")
+                    for w in ex.WEIGHT_MODES)
+        + f"; f32 outputs' std {out['f32_std']:.4g}, moved at most "
+        f"{out['decoder_zeroed_max_diff']:.3g} by zeroing the decoder's kernels; live resolver "
+        "(kernels) "
+        f"{statistics.median(live_ms):.2f} ms; no kernel launched; seeded {J_TILE}x{J_TILE}x4 "
+        f"tile {tile_ms:.1f} ms, bit-equal on repeat; card {card}")
+    del live, rounded, zeroed, arts
+    torch.cuda.empty_cache()
+    return out, esr
+
+
+def j3_server(card, tmp, src, esr):
+    """J3: the f32 artifact behind ``make_server``: the JAX artifact branch's
+    /healthz keys, the in-process bits over HTTP, ``raster --url`` equal to
+    the artifact's own product."""
+    import threading
+
+    from simple_vae_rs_tpu_torch import raster
+    from simple_vae_rs_tpu_torch.client import Client
+    from simple_vae_rs_tpu_torch.data import tiffio
+    from simple_vae_rs_tpu_torch.server import make_server
+
+    out = {}
+    srv = make_server(esr, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        c = Client(url, timeout=600)
+        health = c.health()
+        if set(health) != J_HEALTH_KEYS or not health["artifact"] \
+                or health["platforms"] != [esr.device.type] or health["batch"] != H_BATCH:
+            raise AssertionError(f"J3 /healthz {health}")
+        y = np.random.default_rng(33).random((H_BATCH, G_PS // 2, G_PS // 2, 4),
+                                             dtype=np.float32)
+        local = esr.super_resolve(y, seed=5).cpu().numpy()
+        if not np.array_equal(c.super_resolve(y, seed=5), local):
+            raise AssertionError("J3: the artifact server's reply differs from the in-process bits")
+        url_out = os.path.join(tmp, "j3_url.tif")
+        with open(os.devnull, "w") as null:
+            import contextlib
+
+            with contextlib.redirect_stdout(null):
+                _, url_ms = j_no_launch("J3 raster --url", lambda: raster.main(
+                    [src, url_out, "--url", url, "--request_seed", "7"]))
+        lr = tiffio.read_tiff(src)
+        f = lr.astype(np.float32)
+        mn = f.min(axis=(0, 1), keepdims=True)
+        denom = f.max(axis=(0, 1), keepdims=True) - mn + raster._EPS
+        sr, local_ms = j_no_launch("J3 local", lambda: esr.super_resolve_tile(f, seed=7))
+        if not np.array_equal(tiffio.read_tiff(url_out), raster._cast_like(sr * denom + mn,
+                                                                           lr.dtype)):
+            raise AssertionError("J3: raster --url against the artifact server differs from the "
+                                 "local artifact product")
+        out.update({"raster_url_s": url_ms / 1e3, "local_tile_s": local_ms / 1e3})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log(f"J3 artifact server: /healthz keys the JAX artifact branch's (platforms "
+        f"{[esr.device.type]}); "
+        f"B={H_BATCH} seeded over HTTP = in-process bits; raster --url on the "
+        f"{H_SCENE}x{H_SCENE} scene {out['raster_url_s']:.2f} s = the local artifact product "
+        f"({out['local_tile_s']:.2f} s in process); no kernel launched; card {card}")
+    return out
+
+
+def export_phase(report, card, tmp):
+    """Phase J: the checkpoint tools (J1) and the artifact (J2, J3) on phase
+    G's checkpoint, in G's temporary directory. Returns J1's launches."""
+    from simple_vae_rs_tpu_torch.data import tiffio
+
+    t0 = time.perf_counter()
+    paths = {}
+    ck = os.path.join(tmp, "ckpt", "g2")
+    src = os.path.join(tmp, "scene_lr.tif")
+    out = {"j1": j1_convert(card, tmp, ck, paths)}
+    out["j2"], esr = j2_export(card, tmp, ck, tiffio.read_tiff(src))
+    out["j3"] = j3_server(card, tmp, src, esr)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"J total {out['seconds']:.1f} s; card {card}")
+    report["export"] = out
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4887,10 +5224,15 @@ def main() -> int:
         cli_phase(report, card, tmp)
         torch.cuda.empty_cache()
         h_paths = raster_phase(report, card, tmp)
+        torch.cuda.empty_cache()
+        # J1-J3. the checkpoint tools and the artifact, on G's checkpoint
+        j_paths = export_phase(report, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         k["launches_phase_h"] = {path: counts[k["name"]] for path, counts in h_paths.items()
+                                 if counts.get(k["name"])}
+        k["launches_phase_j"] = {path: counts[k["name"]] for path, counts in j_paths.items()
                                  if counts.get(k["name"])}
     for name in ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu",
                  "quantize_stochastic", "int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu",

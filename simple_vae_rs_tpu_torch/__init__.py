@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of simple_vae_rs_tpu: the Cond_SRVAE, SRVAE and VAE
 models, serving (float32, int8, chained tails; from a checkpoint; whole
-rasters, the ``raster`` command and the HTTP server) and the training run
-(steps, evaluation, checkpoints, the epoch loop).
+rasters, the ``raster`` command and the HTTP server; ``torch.export``
+artifacts), the training run (steps, evaluation, checkpoints, the epoch
+loop) and the checkpoint and data tools (``make_index``,
+``convert_checkpoint``).
 
 Imports torch and numpy only; the JAX package is its reference, held against
 it by the tests. Entry points run on a CUDA card unless given device="cpu".

@@ -7,7 +7,9 @@
 The flags and their defaults are the JAX CLI's (reference ``train.py:83-148``
 plus the JAX additions). ``main`` runs the JAX sequence: the job id, the
 loaders, the model, ``ModelCheckpoint`` and ``EarlyStopping``, the logger,
-the trainer, the resume from ``--model_ckpt``, LR-branch pre-training and
+the trainer, the resume from ``--model_ckpt`` (a port checkpoint, or a JAX
+``.msgpack`` one: ``train/checkpoint.load_jax_checkpoint``; its generator
+then comes from ``--seed``), LR-branch pre-training and
 ``fit``, ``--int8`` quantization of the trained model, then ``run_task``.
 Everything runs on the CUDA card; ``--backend cpu`` runs the plain CPU path.
 It writes ``ckpt/``, ``runs/`` and ``results/`` under the working directory.
@@ -178,15 +180,12 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
     from simple_vae_rs_tpu_torch.tasks import run_task
     from simple_vae_rs_tpu_torch.train.callbacks import EarlyStopping, ModelCheckpoint
     from simple_vae_rs_tpu_torch.train.checkpoint import (
-        JAX_SUFFIX,
         SUFFIX,
         checkpoint_exists,
         load_checkpoint,
-        read_jax_checkpoint,
-        read_meta,
+        load_jax_checkpoint,
     )
     from simple_vae_rs_tpu_torch.train.engine import Trainer
-    from simple_vae_rs_tpu_torch.utils.jax_weights import load_jax_variables
     from simple_vae_rs_tpu_torch.utils.logging import make_logger
 
     cr = args.compression_ratio
@@ -258,16 +257,10 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
         full = os.path.abspath(args.model_ckpt)
         if os.path.exists(full + SUFFIX):
             meta = load_checkpoint(args.model_ckpt, trainer)  # the scheduler too
-        elif args.test:
-            # a JAX .msgpack: its weights and statistics serve the task; its
-            # optimizer state is not carried over, so it cannot resume training
-            tree = read_jax_checkpoint(args.model_ckpt)
-            load_jax_variables(model, {"params": tree["params"],
-                                       "batch_stats": tree.get("batch_stats", {})})
-            meta = read_meta(args.model_ckpt)
         else:
-            raise ValueError(f"{full}{JAX_SUFFIX} is a JAX checkpoint: the port tests it "
-                             "(--test) but does not resume training from it")
+            # a JAX .msgpack: weights, statistics, Adam state, step and
+            # scheduler; the generator stays the one --seed made
+            meta = load_jax_checkpoint(args.model_ckpt, trainer)
         for line in _config_drift(meta.get("model", {}), trainer._model_meta()):
             print(line)
         start_epoch = int(meta.get("epoch", 0)) + 1

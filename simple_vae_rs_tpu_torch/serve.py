@@ -108,7 +108,74 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class SuperResolver(TileEndpoints):
+class Endpoints(TileEndpoints):
+    """What a resolver serves, over one hook that generates a batch.
+
+    The request paths shared by the live ``SuperResolver`` and the artifact's
+    ``export.ExportedResolver``: the generators (the rolling one, or one of
+    its own for ``seed=N``), the noise drawn for the whole request
+    (``eps_u``, then ``eps_z``), ``super_resolve``, ``super_resolve_moments``
+    and ``mmse_estimate``. A subclass gives ``window``, ``uncertainty`` and
+    the hooks: ``_input(y)`` (the LR batch as a float32 tensor on
+    ``device``), ``_noise_shapes(batch, lr_hw)``, ``_serving()`` (a context
+    that holds for one request) and ``_generate(y, eps_u, eps_z,
+    normalize)`` (one draw of the batch)."""
+
+    def __init__(self, device, seed: int, normalize: bool) -> None:
+        self.device = resolve_device(device)
+        self.normalize = normalize
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(int(seed))
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        if seed is None:
+            return self._rng
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
+    def _noise(self, batch: int, lr_hw: Tuple[int, int],
+               gen: torch.Generator) -> Tuple[Tensor, Tensor]:
+        shape_u, shape_z = self._noise_shapes(batch, lr_hw)
+        eps_u = torch.randn(shape_u, generator=gen, device=self.device)
+        eps_z = torch.randn(shape_z, generator=gen, device=self.device)
+        return eps_u, eps_z
+
+    @torch.no_grad()
+    def super_resolve(self, y, normalize: Optional[bool] = None,
+                      seed: Optional[int] = None) -> Tensor:
+        """LR batch (B, ps/2, ps/2, C) -> one posterior draw (B, ps, ps, C)."""
+        y = self._input(y)
+        eps_u, eps_z = self._noise(int(y.shape[0]), tuple(y.shape[1:3]), self._generator(seed))
+        with self._serving():
+            return self._generate(y, eps_u, eps_z,
+                                  self.normalize if normalize is None else normalize)
+
+    @torch.no_grad()
+    def super_resolve_moments(self, y, samples: int, normalize: bool = False,
+                              seed: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+        """Per-pixel sum and sum of squares over ``samples`` fresh draws of
+        each LR window: ``(s1, s2)``, each (B, ps, ps, C)."""
+        if samples < 1:
+            raise ValueError(f"samples must be >= 1 (got {samples})")
+        y = self._input(y)
+        gen = self._generator(seed)
+        s1 = s2 = None
+        with self._serving():
+            for _ in range(samples):
+                eps_u, eps_z = self._noise(int(y.shape[0]), tuple(y.shape[1:3]), gen)
+                out = self._generate(y, eps_u, eps_z, normalize)
+                s1 = out if s1 is None else s1 + out
+                s2 = out * out if s2 is None else s2 + out * out
+        return s1, s2
+
+    def mmse_estimate(self, y, samples: int = 32, chunk: Optional[int] = None,
+                      seed: Optional[int] = None) -> Tensor:
+        """Posterior-mean SR reconstruction (minimum-MSE estimator)."""
+        return self.uncertainty(y, samples=samples, chunk=chunk, seed=seed)["mean"]
+
+
+class SuperResolver(Endpoints):
     """2x super-resolution and uncertainty service for one CondSRVAE or
     SRVAE (which also takes HR-sized inputs and downsamples them first),
     with the whole-raster endpoints of ``TileEndpoints``."""
@@ -123,7 +190,7 @@ class SuperResolver(TileEndpoints):
                 "int8 (W8A8 decoder kernels) and int8_weights (weights only, "
                 "dequantized per request) are different quantization modes: pick one"
             )
-        self.device = resolve_device(device)
+        super().__init__(device, seed, normalize)
         self.int8, self.int8_weights = int8, int8_weights
         self._packed = None
         if int8_weights or (int8 and not qz.has_quant(model)) or (chain and not model.chain):
@@ -135,9 +202,6 @@ class SuperResolver(TileEndpoints):
             qz.attach_quant(self.model, qz.quantize_params_tree(self.model, seed))
         if int8_weights:
             self._packed = qz.pack_int8_weights(self.model)
-        self.normalize = normalize
-        self._rng = torch.Generator(device=self.device)
-        self._rng.manual_seed(int(seed))
 
     @classmethod
     def from_checkpoint(cls, path: str, cr: Optional[float] = None,
@@ -198,14 +262,7 @@ class SuperResolver(TileEndpoints):
         return cls(model, device=dev, seed=seed, int8=int8, int8_weights=int8_weights,
                    chain=chain)
 
-    def _generator(self, seed: Optional[int]) -> torch.Generator:
-        if seed is None:
-            return self._rng
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return gen
-
-    def _input(self, y, normalize: bool) -> Tensor:
+    def _input(self, y, normalize: bool = False) -> Tensor:
         y = y if isinstance(y, Tensor) else torch.as_tensor(np.asarray(y))
         y = y.to(self.device, torch.float32)
         if y.dim() == 3:
@@ -223,39 +280,17 @@ class SuperResolver(TileEndpoints):
             y = normalize_image(y)
         return y.contiguous()
 
-    def _noise(self, batch: int, lr_hw: Tuple[int, int],
-               gen: torch.Generator) -> Tuple[Tensor, Tensor]:
-        shape_u, shape_z = self.model.generation_noise_shapes(batch, lr_hw)
-        eps_u = torch.randn(shape_u, generator=gen, device=self.device)
-        eps_z = torch.randn(shape_z, generator=gen, device=self.device)
-        return eps_u, eps_z
+    def _noise_shapes(self, batch: int, lr_hw: Tuple[int, int]):
+        return self.model.generation_noise_shapes(batch, lr_hw)
 
-    @torch.no_grad()
-    def super_resolve(self, y, normalize: Optional[bool] = None,
-                      seed: Optional[int] = None) -> Tensor:
-        """LR batch (B, ps/2, ps/2, C) -> one posterior draw (B, ps, ps, C)."""
-        y = self._input(y, self.normalize if normalize is None else normalize)
-        eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), self._generator(seed))
-        with qz.unpack_weights(self.model, self._packed):
-            return self.model.conditional_generation_eps(y, eps_u, eps_z)
+    def _serving(self):
+        """The int8-weights mode's float weights, unpacked for one request."""
+        return qz.unpack_weights(self.model, self._packed)
 
-    @torch.no_grad()
-    def super_resolve_moments(self, y, samples: int, normalize: bool = False,
-                              seed: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-        """Per-pixel sum and sum of squares over ``samples`` fresh draws of
-        each LR window: ``(s1, s2)``, each (B, ps, ps, C)."""
-        if samples < 1:
-            raise ValueError(f"samples must be >= 1 (got {samples})")
-        y = self._input(y, normalize)
-        gen = self._generator(seed)
-        s1 = s2 = None
-        with qz.unpack_weights(self.model, self._packed):
-            for _ in range(samples):
-                eps_u, eps_z = self._noise(y.shape[0], tuple(y.shape[1:3]), gen)
-                out = self.model.conditional_generation_eps(y, eps_u, eps_z)
-                s1 = out if s1 is None else s1 + out
-                s2 = out * out if s2 is None else s2 + out * out
-        return s1, s2
+    def _generate(self, y: Tensor, eps_u: Tensor, eps_z: Tensor, normalize: bool) -> Tensor:
+        if normalize:
+            y = normalize_image(y)
+        return self.model.conditional_generation_eps(y, eps_u, eps_z)
 
     @property
     def window(self) -> int:
@@ -278,11 +313,6 @@ class SuperResolver(TileEndpoints):
             "std": draws.std(dim=0, correction=0),
             "variance": draws.var(dim=0, correction=0),
         }
-
-    def mmse_estimate(self, y, samples: int = 32, chunk: Optional[int] = None,
-                      seed: Optional[int] = None) -> Tensor:
-        """Posterior-mean SR reconstruction (minimum-MSE estimator)."""
-        return self.uncertainty(y, samples=samples, chunk=chunk, seed=seed)["mean"]
 
 
 def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4), tile_batch: Optional[int] = 16,

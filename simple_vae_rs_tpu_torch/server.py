@@ -42,9 +42,10 @@ Launch (the card by default; ``--backend cpu`` runs the plain CPU path)::
     python -m simple_vae_rs_tpu_torch.server --model_ckpt ckpt/job \
         --port 8471 [--int8 | --int8_weights] [--dynamic_batch_ms 2]
 
-Not ported, each raising: ``--artifact`` (export, ROADMAP A.7d),
-``--mesh_data`` above 1 (the mesh, ROADMAP A.8) and ``--pallas_conv``
-(every conv runs its CUDA kernel).
+``--artifact OUT`` serves a ``torch.export`` artifact (``export.py``) instead
+of a checkpoint: ``/healthz`` then answers the JAX server's artifact keys.
+Not ported, each raising: ``--mesh_data`` above 1 (the mesh, ROADMAP A.8)
+and ``--pallas_conv`` (every conv runs its CUDA kernel).
 """
 
 from __future__ import annotations
@@ -366,18 +367,35 @@ class ModelService:
     # ------------------------------------------------------------ endpoints
     def health(self) -> Dict[str, Any]:
         r = self.resolver
-        out: Dict[str, Any] = {
-            "status": "ok",
-            "model": type(r.model).__name__,
-            "patch_size": int(r.model.config.patch_size),
-            "channels": int(r.model.config.channels),
-            "int8": bool(r.int8),
-            "int8_weights": bool(getattr(r, "int8_weights", False)),
-            "mesh": None,  # the port serves one card (the mesh is ROADMAP A.8)
-            "moments": callable(getattr(r, "super_resolve_moments", None)),
-            "seed": True,
-            "wire_u16": True,
-        }
+        moments = callable(getattr(r, "super_resolve_moments", None))
+        if hasattr(r, "meta") and not hasattr(r, "model"):  # export.ExportedResolver
+            out: Dict[str, Any] = {
+                "status": "ok",
+                "model": str(r.meta.get("model_type")),
+                "patch_size": int(r.meta["patch_size"]),
+                "channels": int(r.meta["channels"]),
+                "artifact": True,
+                "batch": int(r.batch),
+                # the JAX server names the artifact's lowering platforms here;
+                # a port artifact is device-neutral and runs where it was loaded
+                "platforms": [r.device.type],
+                "moments": moments,
+                "seed": True,
+                "wire_u16": True,
+            }
+        else:
+            out = {
+                "status": "ok",
+                "model": type(r.model).__name__,
+                "patch_size": int(r.model.config.patch_size),
+                "channels": int(r.model.config.channels),
+                "int8": bool(r.int8),
+                "int8_weights": bool(getattr(r, "int8_weights", False)),
+                "mesh": None,  # the port serves one card (the mesh is ROADMAP A.8)
+                "moments": moments,
+                "seed": True,
+                "wire_u16": True,
+            }
         if self.prober is not None:
             dev = self.prober.status()
             out["device"] = dev
@@ -656,8 +674,9 @@ def main(argv: Optional[list] = None) -> None:
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--model_ckpt", default=None)
     src.add_argument("--artifact", default=None,
-                     help="not ported: serving an exported artifact waits for the port's "
-                     "export (ROADMAP A.7d)")
+                     help="serve a torch.export artifact (export.py output) instead of a "
+                     "checkpoint: kernel, mesh and model-config flags do not apply (the "
+                     "graph is fixed at export time)")
     # model-config flags default to the config recorded in the checkpoint's
     # meta; flags override (see SuperResolver.from_checkpoint)
     p.add_argument("-cr", "--compression_ratio", type=float, default=None)
@@ -703,35 +722,59 @@ def main(argv: Optional[list] = None) -> None:
     args = p.parse_args(argv)
     device = backend_device(args.backend)
     if args.artifact:
-        raise ValueError("--artifact is not ported yet: the port's export is ROADMAP A.7d")
-    if args.mesh_data > 1:
-        raise ValueError(f"--mesh_data {args.mesh_data}: the mesh is not ported yet "
-                         "(ROADMAP A.8)")
-    if args.pallas_conv:
-        raise ValueError("--pallas_conv is not ported, on purpose: every conv runs its CUDA "
-                         "kernel (ROADMAP A.3)")
-    resolver = SuperResolver.from_checkpoint(
-        args.model_ckpt,
-        cr=args.compression_ratio,
-        patch_size=args.patch_size,
-        channels=args.channels,
-        latent_size=args.latent_size,
-        model_type=args.model_type,
-        int8=args.int8,
-        int8_weights=args.int8_weights,
-        device=device,
-    )
-    cfg = resolver.model.config
-    if not args.no_warmup:
-        lr_side = int(cfg.patch_size) // 2
-        warmup(resolver, lr_shape=(1, lr_side, lr_side, int(cfg.channels)))
+        baked = [name for name, val in [
+            ("--int8", args.int8), ("--int8_weights", args.int8_weights),
+            ("--pallas_conv", args.pallas_conv),
+            ("--mesh_data", args.mesh_data > 1),
+            ("-cr", args.compression_ratio is not None),
+            ("--patch_size", args.patch_size is not None),
+            ("--channels", args.channels is not None),
+            ("--latent_size", args.latent_size is not None),
+            ("--model_type", args.model_type is not None),
+        ] if val]
+        if baked:
+            p.error(f"{', '.join(baked)} cannot apply to --artifact serving: the exported "
+                    "graph is fixed at export time")
+        from simple_vae_rs_tpu_torch.export import load_exported
+
+        resolver = load_exported(args.artifact, device=device)
+        if not args.no_warmup:
+            # one dispatch, and a moments request at the tile endpoints'
+            # default draw count
+            w, c = resolver.window, int(resolver.meta["channels"])
+            resolver.super_resolve(np.zeros((1, w, w, c), np.float32))
+            resolver.super_resolve_moments(np.zeros((1, w, w, c), np.float32), 32)
+        served = f"artifact {resolver.meta.get('model_type')}"
+    else:
+        if args.mesh_data > 1:
+            raise ValueError(f"--mesh_data {args.mesh_data}: the mesh is not ported yet "
+                             "(ROADMAP A.8)")
+        if args.pallas_conv:
+            raise ValueError("--pallas_conv is not ported, on purpose: every conv runs its "
+                             "CUDA kernel (ROADMAP A.3)")
+        resolver = SuperResolver.from_checkpoint(
+            args.model_ckpt,
+            cr=args.compression_ratio,
+            patch_size=args.patch_size,
+            channels=args.channels,
+            latent_size=args.latent_size,
+            model_type=args.model_type,
+            int8=args.int8,
+            int8_weights=args.int8_weights,
+            device=device,
+        )
+        cfg = resolver.model.config
+        if not args.no_warmup:
+            lr_side = int(cfg.patch_size) // 2
+            warmup(resolver, lr_shape=(1, lr_side, lr_side, int(cfg.channels)))
+        served = type(resolver.model).__name__
     server = make_server(resolver, args.host, args.port,
                          max_body_mb=args.max_body_mb, token=args.token,
                          access_log=args.access_log,
                          dynamic_batch_ms=args.dynamic_batch_ms,
                          max_batch=args.max_batch,
                          probe_device_s=args.probe_device)
-    print(f"serving {type(resolver.model).__name__} on {device} at "
+    print(f"serving {served} on {device} at "
           f"http://{args.host}:{server.server_address[1]}")
     # SIGTERM (how orchestrators stop a pod) unwinds serve_forever as
     # Ctrl-C does, closing the listener cleanly

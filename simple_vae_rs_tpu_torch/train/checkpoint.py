@@ -29,6 +29,7 @@ first, so a reader always sees finished saves.
 :func:`read_jax_checkpoint` reads the JAX package's ``<path>.msgpack``
 (flax ``serialization.to_bytes``) into nested dicts of numpy arrays, for
 ``utils/jax_weights.load_jax_variables``; its ``.orbax`` trees are not read.
+:func:`load_jax_checkpoint` resumes a trainer from such a file.
 """
 
 from __future__ import annotations
@@ -220,3 +221,64 @@ def read_jax_checkpoint(path: str) -> Dict[str, Any]:
     with open(os.path.abspath(path) + JAX_SUFFIX, "rb") as fh:
         tree = msgpack.unpackb(fh.read(), ext_hook=ext_hook, raw=False)
     return _unchunk(tree)
+
+
+def _adam_state(opt_state) -> Optional[Dict[str, Any]]:
+    """optax ``scale_by_adam``'s state in a serialized chain state: flax
+    writes a chain as nested dicts keyed ``"0"``, ``"1"``, ..., so it is
+    found by its ``count`` / ``mu`` / ``nu`` keys, not by its position."""
+    if not isinstance(opt_state, dict):
+        return None
+    if {"count", "mu", "nu"} <= set(opt_state):
+        return opt_state
+    for value in opt_state.values():
+        found = _adam_state(value)
+        if found is not None:
+            return found
+    return None
+
+
+def load_jax_checkpoint(path: str, trainer) -> Dict[str, Any]:
+    """Resume ``trainer`` from the JAX package's ``<path>.msgpack``: the
+    parameters and BatchNorm statistics (``utils/jax_weights``), optax's
+    ``clip_by_global_norm`` + ``scale_by_adam`` state (count, mu, nu) mapped
+    by leaf name into ``ClipAdam``'s parameter order (a bfloat16 ``mu``,
+    ``bf16_moments``, is read as its exact float32 upcast and rounds back to
+    the same bfloat16), ``step``, and the plateau scheduler from the sidecar
+    meta. Returns the meta (``epoch`` and the rest).
+
+    The JAX run's ``rng`` key has no torch counterpart: the trainer keeps
+    its own generator and seed (the command line's ``--seed``). Needs the
+    ``msgpack`` package, as :func:`read_jax_checkpoint` does."""
+    from simple_vae_rs_tpu_torch.utils.jax_weights import _flatten, load_jax_variables
+
+    tree = read_jax_checkpoint(path)
+    where = os.path.abspath(path) + JAX_SUFFIX
+    load_jax_variables(trainer.model, {"params": tree["params"],
+                                       "batch_stats": tree.get("batch_stats", {})})
+    adam = _adam_state(tree.get("opt_state"))
+    if adam is None:
+        raise ValueError(f"{where}: its opt_state holds no scale_by_adam state (count, mu, nu)")
+    opt = trainer.opt
+    state: Dict[str, Any] = {"count": int(np.asarray(adam["count"]))}
+    for key, mine in (("mu", opt.mu), ("nu", opt.nu)):
+        leaves = _flatten(adam[key])
+        if set(leaves) != set(trainer.params):
+            raise KeyError(f"{where}: {key} leaves differ from the model's parameters: missing "
+                           f"{sorted(set(trainer.params) - set(leaves))}, extra "
+                           f"{sorted(set(leaves) - set(trainer.params))}")
+        moments = []
+        for name, m in zip(trainer.params, mine):
+            f32 = torch.from_numpy(np.array(leaves[name], dtype=np.float32))
+            t = f32.to(m.dtype)
+            if not torch.allclose(t.float(), f32, rtol=0.0, atol=0.0, equal_nan=True):
+                raise ValueError(f"{where}: {key} of {name} is not representable in {m.dtype} "
+                                 "(the JAX run's bf16_moments differs from this trainer's)")
+            moments.append(t)
+        state[key] = moments
+    opt.load_state_dict(state)
+    trainer.step = int(np.asarray(tree["step"]))
+    meta = read_meta(path)
+    if "scheduler" in meta:
+        trainer.scheduler.load_state_dict(meta["scheduler"])
+    return meta

@@ -262,9 +262,28 @@ def save_torch_state_dict(path: str, sd: Tensors) -> None:
     torch.save({k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}, path)
 
 
-def load_torch_state_dict(path: str) -> Tensors:
-    """A ``.pth`` ``state_dict`` of plain tensors as numpy arrays, read with
-    ``torch.load(weights_only=True)`` (never the unpickler that can run
-    code)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+def load_torch_state_dict(path: str, allow_pickle: bool = False) -> Tensors:
+    """A ``.pth`` ``state_dict`` as numpy arrays.
+
+    Read with ``torch.load(weights_only=True)`` first: plain tensor
+    ``state_dict`` files, the reference's format. A file that pickles numpy
+    arrays or other non-tensor leaves needs the legacy unpickler, which runs
+    arbitrary pickle bytecode: only with ``allow_pickle=True`` (command line:
+    ``--allow_pickle``), never as a silent fallback, and with a warning.
+    Without it such a file raises a ``ValueError`` that says so."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as exc:  # torch raises an UnpicklingError subclass, or others
+        if not allow_pickle:
+            raise ValueError(
+                f"{path}: not loadable with weights_only=True (non-tensor pickle content). "
+                "Loading it needs the legacy unpickler, which can execute arbitrary code: "
+                "pass allow_pickle=True (command line: --allow_pickle) only for checkpoints "
+                "you trust.") from exc
+        import warnings
+
+        warnings.warn(f"{path}: not loadable with weights_only=True (non-tensor pickle "
+                      "content); falling back to the legacy unpickler: only convert "
+                      "checkpoints you trust.", stacklevel=2)
+        sd = torch.load(path, map_location="cpu", weights_only=False)
     return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in sd.items()}

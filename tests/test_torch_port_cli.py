@@ -310,7 +310,8 @@ def test_model_flags_resolve_from_a_port_and_a_jax_checkpoint(tmp_path):
 
 def test_test_mode_serves_a_jax_checkpoint_and_refuses_to_resume_it(tmp_path, monkeypatch):
     """``--test --model_ckpt`` on a JAX ``.msgpack``: the task runs on its
-    weights (the flags from its meta); training from it raises."""
+    weights (the flags from its meta); without ``--test`` training resumes
+    from it at ``epoch + 1`` (``train/checkpoint.load_jax_checkpoint``)."""
     jmodel = JVAE(JVAEConfig(cr=2.0, patch_size=8))
     meta = {"type": "VAE", "cr": 2.0, "patch_size": 8, "channels": 4,
             "latent_size_override": 0, "torch_regroup": False}
@@ -322,8 +323,9 @@ def test_test_mode_serves_a_jax_checkpoint_and_refuses_to_resume_it(tmp_path, mo
     out = tcli.main(tcli.parse_args(["--test"] + common))
     assert out["start_epoch"] == 5 and np.isfinite(out["task"]["mmse"])
     assert out["trainer"].step == 0  # nothing trained
-    with pytest.raises(ValueError, match="does not resume training"):
-        tcli.main(tcli.parse_args(common))
+    resumed = tcli.main(tcli.parse_args(common + ["--epochs", "5"]))
+    assert resumed["start_epoch"] == 5
+    assert resumed["trainer"].step == resumed["trainer"].opt.count == 51 // 2
 
 
 @pytest.mark.parametrize("argv, match", [

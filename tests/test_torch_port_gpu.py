@@ -1182,3 +1182,38 @@ def test_cuda_streamed_raster_resumes_bit_equal(cuda, tmp_path, monkeypatch):
     for a, b in ((full, part), (full[:-4] + "_std.tif", part[:-4] + "_std.tif")):
         with open(a, "rb") as fa, open(b, "rb") as fb:
             assert fa.read() == fb.read()
+
+
+def _every_launch():
+    """The sum of every kernel launch counter of the port (float32 and
+    bfloat16 conv kernels, the chain, the int8 kernels and passes, the
+    quantizer, the ELBO rows)."""
+    counts = [*fc.launches.values(), *f8.launches.values(), *f8.bf16_launches.values(),
+              *qz.launches.values(), *fe.launches.values()]
+    counts += [n for roles in fc.bf16_launches.values() for n in roles.values()]
+    return sum(counts)
+
+
+@pytest.mark.gpu
+def test_cuda_artifact_matches_plain_path_and_launches_no_kernel(cuda, tmp_path):
+    """An f32 artifact (``export.py``, traced on the host) loaded on the
+    card: CUDA outputs within 1e-4 of the live resolver's plain path on the
+    same seed, and no hand-written kernel launched (the artifact is the
+    plain graph, as the JAX artifact carries no Pallas call)."""
+    from simple_vae_rs_tpu_torch.export import export_resolver, load_exported
+
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16)).init_weights(1)
+    path = export_resolver(SuperResolver(model, device="cpu"), str(tmp_path / "m.pt2"), batch=8)
+    esr = load_exported(path)  # on the card by default
+    y = np.random.default_rng(17).random((11, 8, 8, 4)).astype(np.float32) * 900
+    fc.reset_launches(), f8.reset_launches(), qz.reset_launches(), fe.reset_launches()
+    got = esr.super_resolve(y, seed=5)
+    moments = esr.super_resolve_moments(y[:8], 3, seed=6)
+    torch.cuda.synchronize()
+    assert _every_launch() == 0
+    assert got.is_cuda and all(m.is_cuda for m in moments)
+    sr = SuperResolver(model, device="cuda", seed=0)
+    blocks.use_plain_path(sr.model)
+    assert float((got - sr.super_resolve(y, seed=5)).abs().max()) <= TOL
+    for g, w in zip(moments, sr.super_resolve_moments(y[:8], 3, seed=6)):
+        assert float((g - w).abs().max()) <= 3 * TOL * max(1.0, float(w.abs().max()))

@@ -423,8 +423,9 @@ def test_dynamic_batching_and_the_device_prober_on_the_port_server():
 
 
 def test_server_main_raises_on_what_is_not_ported_and_without_a_card(tmp_path, monkeypatch):
-    for argv, match in ((["--artifact", "a.hlo"], "A.7d"),
-                        (["--model_ckpt", "ck", "--mesh_data", "2"], "A.8"),
+    with pytest.raises(FileNotFoundError, match="meta.json"):
+        server.main(["--artifact", str(tmp_path / "a.pt2"), "--backend", "cpu"])
+    for argv, match in ((["--model_ckpt", "ck", "--mesh_data", "2"], "A.8"),
                         (["--model_ckpt", "ck", "--pallas_conv"], "pallas_conv"),
                         (["--model_ckpt", "ck", "--backend", "tpu"], "backend")):
         with pytest.raises(ValueError, match=match):
