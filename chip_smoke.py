@@ -340,8 +340,31 @@ J3. ``make_server`` on the f32 artifact: ``/healthz`` holds the JAX artifact
     branch's keys; a seeded B=16 request over HTTP is the in-process bits;
     ``raster --url`` on H's scene equals the artifact's own product.
 
-The kernels line's entries carry ``launches_phase_h`` and
-``launches_phase_j``, each H and J path's count.
+Then phase K, the mesh, on the one card (two ranks or two replicas share
+cuda:0, so it holds the mesh's logic and measures no multi-card scaling):
+
+K1. Two gloo ranks spawned from the script run the canonical Cond_SRVAE's
+    float32 step on their halves of the 512 pairs: each rank's launches by
+    kernel and role equal phase F's one-card step's; rank 0 holds the step
+    (terms, gradients by phase 8's noise rule, parameters by Adam's rule)
+    and the ``accum_steps=2`` step against the one-card steps on the global
+    batch; ZeRO-1 on the same gradient gives the replicated step's
+    parameters bit for bit. A world of one on NCCL is bit-equal to no
+    process group (``cudnn.deterministic`` for that comparison).
+K2. Two replicas on cuda:0: f32 and bf16 ``super_resolve`` B=16 and B=15
+    and ``uncertainty`` N=1000 against the one-card resolver (f32 within
+    1e-6 of the whole batch, bf16 within ``BF16_SERVE_TOL``; both within
+    1e-6 of the one-card resolver run on each replica's rows), one W8A8
+    request (per replica's rows, exact), and ``server --mesh_data 2``
+    raising JAX's message where one card is visible.
+K3. The port CLI on two ranks as torchrun launches it, one epoch on G's
+    tree: rank 0 alone prints, logs, writes the checkpoint and runs the
+    task (its launches are rank 1's plus one ``run_task``'s); the final
+    parameters within 2 lr a step of the one-process CLI; a resume to epoch
+    2 from the 2-rank checkpoint.
+
+The kernels line's entries carry ``launches_phase_h``,
+``launches_phase_j`` and ``launches_phase_k``, each H, J and K path's count.
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -4901,6 +4924,579 @@ def export_phase(report, card, tmp):
     return paths
 
 
+# ------------------------------------------------------------------ phase K
+K_BACKEND_NOTE = ("one H100: the ranks and replicas share cuda:0, so phase K holds the mesh's "
+                  "logic on the card and measures no multi-card scaling")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def k_counts(fc, fe):
+    """A path's launches by kernels-line name and role: the float32 kernels,
+    the row kernels, and the bfloat16 instances by the kernel that ran."""
+    out = path_counts(fc, fe)
+    out.update({f"{name}{BF16_SOURCE_TAG}_{impl} {role}": n
+                for name, roles in fc.bf16_impl_launches.items()
+                for role, impls in roles.items() for impl, n in impls.items()})
+    return out
+
+
+def k_noise(gen, n):
+    """The canonical Cond_SRVAE's training noise for ``n`` pairs, from ``gen``."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig
+
+    shapes = CondSRVAE(CondSRVAEConfig(cr=1.2, patch_size=64),
+                       device="meta").generation_noise_shapes(n, (32, 32))
+    return tuple(torch.randn(s, generator=gen, device="cuda") for s in shapes)
+
+
+def grads_rule(grads, want, noise, factor=NOISE_FACTOR, tol=GRAD_TOL):
+    """The step rule of phase 8 and F4: each gradient leaf within 8x
+    float32's own noise on the leaf (``noise``: the plain step on the
+    permuted batch) + 1e-4 of its block's largest (bfloat16: 2x its own
+    error, ``noise`` the float32 step, + 1e-3); returns (failures, worst
+    share of block max)."""
+    block_max = {}
+    for name, g in want.items():
+        block_max[block_of(name)] = max(block_max.get(block_of(name), 0.0), float(g.abs().max()))
+    failures, worst = [], (0.0, "")
+    for name, g in want.items():
+        err = float((grads[name] - g).abs().max())
+        limit = factor * float((noise[name] - g).abs().max()) + tol * block_max[block_of(name)]
+        worst = max(worst, (err / max(block_max[block_of(name)], 1e-30), name))
+        if not err <= limit:
+            failures.append(f"grad {name}: {err} > {limit}")
+    return failures, worst
+
+
+def terms_rule(terms, want, tol=TERMS_TOL):
+    rel = {k: abs(float(terms[k]) - float(v)) / max(abs(float(v)), 1e-30) for k, v in want.items()}
+    return [f"term {k}: relative {r}" for k, r in rel.items() if not r <= tol], max(rel.values())
+
+
+def k_bf16_counts(fc):
+    """The bfloat16 launches by kernel, role and the kernel that ran."""
+    return {f"{name}{BF16_SOURCE_TAG}_{impl} {role}": n
+            for name, roles in fc.bf16_impl_launches.items()
+            for role, impls in roles.items() for impl, n in impls.items() if n}
+
+
+def params_rule(params, want):
+    """Adam's rule (phase 8): every element within 2 lr, 99% within 1e-2 lr."""
+    diffs = torch.cat([(params[n] - p).detach().abs().flatten() for n, p in want.items()])
+    share = float((diffs <= 1e-2 * LR).float().mean())
+    ok = float(diffs.max()) <= 2 * LR * (1 + 1e-3) and share >= 0.99
+    return ([] if ok else [f"parameters max|diff| {float(diffs.max())}, {share} within 1e-2 lr"],
+            float(diffs.max()), share)
+
+
+def k1_rank(rank: int, port: int, out_path: str) -> None:
+    """One rank of K1 (spawned by ``mesh_phase``; both ranks on cuda:0,
+    gloo): the sharded step of the canonical Cond_SRVAE on its half of 512
+    pairs, counted by kernel and role; the same step under ZeRO-1 and with
+    ``accum_steps=2``; timed steps. Rank 0 then holds them against the
+    one-card steps on the global batch. Writes a JSON summary."""
+    import torch.distributed as dist
+
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, MeshConfig, TrainConfig
+    from simple_vae_rs_tpu_torch import Trainer, make_mesh
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.parallel import mesh as pm
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    out = {"rank": rank}
+    try:
+        mesh = make_mesh(MeshConfig(data=2))
+        cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+        init = CondSRVAE(cfg, device="cuda").init_weights(0).state_dict()
+        batch = training_batch()
+        local = pm.shard_batch(mesh, batch)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        eps, eps2 = k_noise(gen, 512), [k_noise(gen, 256), k_noise(gen, 256)]
+
+        def trainer(on=mesh, **kw):
+            m = CondSRVAE(cfg, device="cuda")
+            m.load_state_dict(init)
+            return Trainer(m, TrainConfig(learning_rate=LR, **kw), device="cuda", mesh=on)
+
+        trainer().grads_and_terms(local, eps)  # the kernels' first launches, gloo's buffers
+        tr = trainer()
+        reset_path_counts(fc, fe)
+        (grads, terms), ms = timed(lambda: tr.grads_and_terms(local, eps))
+        out["launches"] = path_counts(fc, fe)
+        out["grads_and_terms_ms"] = ms
+        tr.apply_grads(grads, LR)
+        after = {n: p.detach().clone() for n, p in tr.params.items()}
+        # ZeRO-1 is a layout of the optimizer: the same global gradient (a
+        # second backward need not give the same bits: cuDNN's weight
+        # gradients) must give the replicated step's parameters bit for bit
+        tz = trainer(zero1=True)
+        tz.apply_grads(grads, LR)
+        out["zero1_sharded_leaves"] = sum(d is not None for d in tz.opt.dims)
+        out["zero1_moment_mib"] = sum(m.numel() * 4 + v.numel() * 4
+                                      for m, v in zip(tz.opt.mu, tz.opt.nu)) / 2**20
+        out["replicated_moment_mib"] = sum(m.numel() * 8 for m in tr.opt.mu) / 2**20
+        out["zero1_vs_replicated_max_diff"] = max(float((tz.params[n].detach() - p).abs().max())
+                                                  for n, p in after.items())
+        out["zero1_elements_differing"] = sum(int((tz.params[n].detach() != p).sum())
+                                              for n, p in after.items())
+        ta = trainer(accum_steps=2)
+        ga, terms_a = ta.grads_and_terms(local, eps2)
+        steps = [timed(lambda: tr.train_step(local, eps=eps))[1] for _ in range(3)]
+        out["train_step_ms"] = steps
+        del ta, tz
+
+        def trainer_bf16(on=mesh):
+            m = CondSRVAE(cfg, device="cuda", dtype=torch.bfloat16)
+            m.load_state_dict(init)
+            return Trainer(m, TrainConfig(learning_rate=LR, use_bfloat16=True), device="cuda",
+                           mesh=on)
+
+        trainer_bf16().grads_and_terms(local, eps)  # the bf16 kernels' first launches
+        tb = trainer_bf16()
+        reset_path_counts(fc, fe)
+        gb, terms_b = tb.grads_and_terms(local, eps)
+        torch.cuda.synchronize()
+        out["bf16_launches"] = {**k_bf16_counts(fc), **dict(fe.launches)}
+        del tb
+        if rank == 0:
+            fails = []
+            ts = trainer(None)
+            gs, terms_s = ts.grads_and_terms(batch, eps)
+            ts.apply_grads(gs, LR)
+            perm = torch.randperm(512, generator=gen, device="cuda")
+            gq, _ = trainer(None).grads_and_terms(tuple(t[perm] for t in batch),
+                                                  tuple(e[perm] for e in eps))
+            f, out["grad_worst_of_block"] = grads_rule(grads, gs, gq)
+            fails += f
+            f, out["terms_rel"] = terms_rule(terms, terms_s)
+            fails += f
+            f, out["param_max_diff"], out["param_share"] = params_rule(after, ts.params)
+            fails += f
+            gsa, terms_sa = trainer(None, accum_steps=2).grads_and_terms(batch, eps2)
+            halves = torch.cat([torch.randperm(256, generator=gen, device="cuda") + 256 * i
+                                for i in range(2)])
+            gqa, _ = trainer(None, accum_steps=2).grads_and_terms(
+                tuple(t[halves] for t in batch),
+                [tuple(e[halves[256 * i:256 * (i + 1)] - 256 * i] for e in eps2[i])
+                 for i in range(2)])
+            f, out["accum_grad_worst_of_block"] = grads_rule(ga, gsa, gqa)
+            fails += f
+            f, out["accum_terms_rel"] = terms_rule(terms_a, terms_sa)
+            fails += f
+            single = trainer(None)
+            out["single_train_step_ms"] = [timed(lambda: single.train_step(batch, eps=eps))[1]
+                                           for _ in range(3)]
+            del single
+            # bf16: rank 0's launches are a one-card step's on its own half
+            # (the bf16 kernels' route follows the batch), and the sharded
+            # step holds against the one-card bf16 step by the bf16 rule
+            rows = pm.shard_rows(mesh, 512)
+            reset_path_counts(fc, fe)
+            trainer_bf16(None).grads_and_terms(local, tuple(e[rows] for e in eps))
+            torch.cuda.synchronize()
+            want_b = {**k_bf16_counts(fc), **dict(fe.launches)}
+            if out["bf16_launches"] != want_b:
+                fails.append(f"bf16 launches {out['bf16_launches']}, one card's {want_b}")
+            gsb, terms_sb = trainer_bf16(None).grads_and_terms(batch, eps)
+            f, out["bf16_grad_worst_of_block"] = grads_rule(
+                gb, gsb, gs, BF16_STEP_TOLS["noise"], BF16_STEP_TOLS["grad"])
+            fails += f
+            f, out["bf16_terms_rel"] = terms_rule(terms_b, terms_sb, BF16_STEP_TOLS["terms"])
+            fails += f
+            out["failures"] = fails
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def k1_world_one(card):
+    """K1, a world of one on NCCL: the meshed step (its gradient reduce and
+    terms through NCCL) is bit-equal to no process group at all (cuDNN's
+    weight gradients made deterministic for the comparison)."""
+    import torch.distributed as dist
+
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, MeshConfig, TrainConfig
+    from simple_vae_rs_tpu_torch import Trainer, make_mesh
+
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    init = CondSRVAE(cfg, device="cuda").init_weights(0).state_dict()
+    batch = training_batch()
+    eps = k_noise(torch.Generator(device="cuda").manual_seed(5), 512)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig())
+        states = []
+        for on in (mesh, None):
+            m = CondSRVAE(cfg, device="cuda")
+            m.load_state_dict(init)
+            tr = Trainer(m, TrainConfig(learning_rate=LR), device="cuda", mesh=on)
+            grads, terms = tr.grads_and_terms(batch, eps)
+            tr.apply_grads(grads, LR)
+            states.append((grads, terms, {k: v.clone() for k, v in m.state_dict().items()}))
+            del m, tr
+        backend = str(dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = det
+    (g1, t1, s1), (g0, t0, s0) = states
+    bad = ([k for k in g0 if not torch.equal(g1[k], g0[k])]
+           + [k for k in t0 if not torch.equal(t1[k], t0[k])]
+           + [k for k in s0 if not torch.equal(s1[k], s0[k])])
+    if bad or backend != "nccl" or mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"K1 world of one on {backend}: not bit-equal to no group: {bad[:5]}")
+    log(f"K1 world of one on NCCL (mesh {mesh.shape}): gradients, terms, parameters and "
+        f"statistics after one step bit-equal to no process group ({len(g0)} leaves); "
+        f"card {card}")
+    return {"backend": backend, "leaves": len(g0)}
+
+
+def per_replica_rows(resolver, y, seed, n):
+    """The one-card ``resolver`` run on each of ``n`` replicas' rows (the
+    batch padded as ``parallel/mesh.Replicas.map`` pads it), with the noise
+    it draws for the whole batch; normalization off."""
+    y = torch.as_tensor(y, device="cuda")
+    b = y.shape[0]
+    eps = resolver._noise(b, tuple(y.shape[1:3]),
+                          torch.Generator(device="cuda").manual_seed(seed))
+    pad = (-b) % n
+    rows = [torch.cat([t, t[-1:].expand((pad,) + tuple(t.shape[1:]))]) for t in (y, *eps)]
+    m = (b + pad) // n
+    with torch.no_grad():
+        return torch.cat([resolver.model.conditional_generation_eps(
+            *(t[k * m:(k + 1) * m] for t in rows)) for k in range(n)])[:b]
+
+
+def k2_serving(card, tmp, counts_out):
+    """K2: two replicas on cuda:0 against the one-card resolver. A request's
+    float32 bits hardly depend on its batch; bfloat16's do (which conv
+    kernel and tile a launch takes follows the batch, ``fc.wg_route``), and
+    W8A8's (one activation scale per call), so those two are held exactly
+    against the one-card resolver run on each replica's rows, and the bf16
+    whole batch by the bf16 serving tolerance."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, MeshConfig, SuperResolver
+    from simple_vae_rs_tpu_torch import make_mesh, server
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+
+    cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+    base = CondSRVAE(cfg, device="cuda").init_weights(0)
+    randomize_bn(base, seed=1)
+    mesh = make_mesh(MeshConfig(data=2), ["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(21)
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = base
+        if dtype != torch.float32:
+            model = CondSRVAE(cfg, device="cuda", dtype=dtype)
+            model.load_state_dict(base.state_dict())
+        whole_tol = 1e-6 if dtype == torch.float32 else BF16_SERVE_TOL
+        single = SuperResolver(model, device="cuda", seed=0, normalize=False)
+        meshed = SuperResolver(model, seed=0, mesh=mesh, normalize=False)
+        row = {}
+        for b in (16, 15):
+            y = rng.random((b, 32, 32, 4), dtype=np.float32)
+            single.super_resolve(y, seed=11)
+            meshed.super_resolve(y, seed=11)
+            reset_path_counts(fc, fe)
+            got, ms_m = timed(lambda: meshed.super_resolve(y, seed=11))
+            counts_out[f"K2 {label} super_resolve B={b} (2 replicas)"] = k_counts(fc, fe)
+            want, ms_s = timed(lambda: single.super_resolve(y, seed=11))
+            served_ok(f"K2 {label} B={b}", got, (b, 64, 64, 4))
+            rows = per_replica_rows(single, y, 11, 2)
+            r = {"max_abs_diff": float((got - want).abs().max()),
+                 "bit_equal": bool(torch.equal(got, want)),
+                 "per_replica_rows_max_abs_diff": float((got - rows).abs().max()),
+                 "meshed_ms": ms_m, "single_ms": ms_s}
+            row[f"b{b}"] = r
+            if not (r["max_abs_diff"] <= whole_tol and r["per_replica_rows_max_abs_diff"] <= 1e-6):
+                raise AssertionError(f"K2 {label} super_resolve B={b}: {r}")
+        y0 = rng.random((32, 32, 4), dtype=np.float32)
+        meshed.uncertainty(y0, samples=1000, seed=12)
+        reset_path_counts(fc, fe)
+        got, ms_m = timed(lambda: meshed.uncertainty(y0, samples=1000, seed=12))
+        counts_out[f"K2 {label} uncertainty N=1000 (2 replicas)"] = k_counts(fc, fe)
+        want, ms_s = timed(lambda: single.uncertainty(y0, samples=1000, seed=12))
+        err = max(float((got[k] - want[k]).abs().max()) for k in ("mean", "std"))
+        row["uncertainty"] = {"max_abs_diff": err, "meshed_ms": ms_m, "single_ms": ms_s,
+                              "bit_equal": all(torch.equal(got[k], want[k]) for k in got)}
+        if not err <= whole_tol:
+            raise AssertionError(f"K2 {label} uncertainty: max|diff| {err} > {whole_tol}")
+        out[label] = row
+        log(f"K2 {label} two replicas on cuda:0 against one card (whole batch within "
+            f"{whole_tol:g}; each replica's rows within 1e-6): super_resolve B=16 max|diff| "
+            f"{row['b16']['max_abs_diff']:.2e} (bit-equal {row['b16']['bit_equal']}; per "
+            f"replica's rows {row['b16']['per_replica_rows_max_abs_diff']:.2e}), "
+            f"{row['b16']['meshed_ms']:.2f} vs {row['b16']['single_ms']:.2f} ms; B=15 (ragged) "
+            f"{row['b15']['max_abs_diff']:.2e} (bit-equal {row['b15']['bit_equal']}; per "
+            f"replica's rows {row['b15']['per_replica_rows_max_abs_diff']:.2e}); uncertainty "
+            f"N=1000 {err:.2e} (bit-equal {row['uncertainty']['bit_equal']}), {ms_m:.2f} vs "
+            f"{ms_s:.2f} ms; {K_BACKEND_NOTE}; card {card}")
+        del single, meshed
+    # one W8A8 request: each replica quantizes its own rows' activations
+    single8 = SuperResolver(base, device="cuda", seed=0, int8=True, normalize=False)
+    meshed8 = SuperResolver(base, seed=0, int8=True, mesh=mesh, normalize=False)
+    y = rng.random((16, 32, 32, 4), dtype=np.float32)
+    meshed8.super_resolve(y, seed=13)
+    reset_path_counts(fc, fe)
+    f8.reset_launches()
+    got = meshed8.super_resolve(y, seed=13)
+    torch.cuda.synchronize()
+    counts_out["K2 W8A8 super_resolve B=16 (2 replicas)"] = {**path_counts(fc, fe),
+                                                            **dict(f8.launches)}
+    err = float((got - per_replica_rows(single8, y, 13, 2)).abs().max())
+    if not err <= 1e-6 or f8.launches["int8_conv3x3_bn_relu"] <= 0:
+        raise AssertionError(f"K2 W8A8: max|diff| {err} against the one-card resolver per "
+                             f"replica's rows; launches {dict(f8.launches)}")
+    out["w8a8"] = {"max_abs_diff_per_replica_rows": err, "launches": dict(f8.launches)}
+    log(f"K2 W8A8 B=16 on two replicas: max|diff| {err:.2e} against the one-card resolver run "
+        f"on each replica's 8 rows (one activation scale per replica, as JAX's shard_map); "
+        f"int8 launches " + " ".join(f"{k}={v}" for k, v in f8.launches.items() if v)
+        + f"; card {card}")
+    del single8, meshed8
+    try:
+        server.main(["--model_ckpt", os.path.join(tmp, "ckpt", "g2"), "--mesh_data", "2"])
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("K2: server --mesh_data 2 did not raise with one card visible")
+    want_msg = f"mesh 1x2x1 needs 2 devices, have {torch.cuda.device_count()}"
+    if msg != want_msg:
+        raise AssertionError(f"K2: server --mesh_data 2 raised {msg!r}, expected {want_msg!r}")
+    out["server_mesh_data_2"] = msg
+    log(f"K2 server --mesh_data 2 with {torch.cuda.device_count()} card(s) visible: ValueError "
+        f"{msg!r} (JAX's message); card {card}")
+    return out
+
+
+K3_RUNNER = (
+    "import json, sys\n"
+    "from simple_vae_rs_tpu_torch import cli\n"
+    "from simple_vae_rs_tpu_torch.ops import fused_conv as fc, fused_elbo as fe\n"
+    "cli.entrypoint(sys.argv[1:])\n"
+    "counts = {f'{n} {r}': c for n, rs in fc.role_launches.items() for r, c in rs.items()}\n"
+    "counts.update(fe.launches)\n"
+    "print('K3_LAUNCHES ' + json.dumps(counts))\n"
+)
+
+
+def k3_run(argv, cwd, job, tag):
+    """The port CLI on two ranks sharing cuda:0, launched as torchrun
+    launches it (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)."""
+    port = free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   SLURM_JOB_ID=job, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                                                   ""))
+        procs.append(subprocess.Popen([sys.executable, "-c", K3_RUNNER, *argv], cwd=cwd, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    t0 = time.perf_counter()
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        finally:
+            p.kill()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "chiprun_out", f"k3_{tag}.log"), "w") as fh:
+        fh.write("\n\n".join(outs))
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"K3 {tag}: rank exit codes {[p.returncode for p in procs]}: "
+                             + outs[0][-2000:] + outs[1][-2000:])
+    counts = [json.loads(o.split("K3_LAUNCHES ")[-1].splitlines()[0]) for o in outs]
+    return outs, counts, seconds
+
+
+def k3_task_counts(tmp):
+    """The launches of one ``run_task`` at K3's draw count, on a probe."""
+    import contextlib
+
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.tasks import run_task
+
+    probe = CondSRVAE(CondSRVAEConfig(cr=G_CR, patch_size=G_PS), device="cuda").init_weights(1)
+    reset_path_counts(fc, fe)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        run_task(probe, [training_batch(13)], "probe", G_CR, samples=16,
+                 results_root=os.path.join(tmp, "k3_probe"))
+    torch.cuda.synchronize()
+    counts = path_counts(fc, fe)
+    counts.pop(fc.CHAIN)
+    return counts
+
+
+def k3_cli(card, tmp, counts_out):
+    """K3: the 2-rank CLI for one epoch on phase G's tile tree against the
+    one-process CLI; then a resume from the 2-rank checkpoint."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig
+    from simple_vae_rs_tpu_torch.train.checkpoint import load_state
+
+    tree = os.path.join(tmp, "ARM")
+    flags = ["--dataset", "s2v", "--data_root", tree, "--crop", "grid", "--batch_size",
+             str(G_BATCH), "--patch_size", str(G_PS), "-cr", str(G_CR), "--samples", "16",
+             "--workers", "4"]
+    one, two = os.path.join(tmp, "k3_one"), os.path.join(tmp, "k3_two")
+    os.makedirs(one)
+    os.makedirs(two)
+    cwd, job_env = os.getcwd(), os.environ.get("SLURM_JOB_ID")
+    os.chdir(one)
+    try:
+        with open(os.devnull, "w") as null:
+            import contextlib
+
+            with contextlib.redirect_stdout(null):
+                res, one_ms = timed(lambda: run_cli("k3one", cli_args(flags + ["--epochs", "1"])))
+    finally:
+        os.chdir(cwd)
+        if job_env is None:
+            os.environ.pop("SLURM_JOB_ID", None)
+        else:
+            os.environ["SLURM_JOB_ID"] = job_env
+    single = {k: v.detach() for k, v in res["trainer"].params.items()}
+    steps = res["trainer"].step
+    del res
+    torch.cuda.empty_cache()
+    outs, counts, two_s = k3_run(flags + ["--epochs", "1", "--multihost"], two, "k3", "run")
+    for r, o in enumerate(outs):
+        for line in ("Mesh: {'data': 2, 'model': 1} over 2 device(s)",
+                     f"rank {r} of 2, backend gloo"):
+            if line not in o:
+                raise AssertionError(f"K3 rank {r} did not print {line!r}")
+    if "Epoch 1/1" not in outs[0] or "MMSE" not in outs[0] or "Epoch 1/1" in outs[1] \
+            or "MMSE" in outs[1]:
+        raise AssertionError("K3: rank 0 alone prints the epoch and runs the task")
+    if sorted(os.listdir(os.path.join(two, "ckpt"))) != ["k3.meta.json", "k3.pt"] \
+            or len(os.listdir(os.path.join(two, "runs"))) != 1:
+        raise AssertionError("K3: rank 0 alone writes one checkpoint and one run")
+    # rank 0's launches are rank 1's and one run_task's (rank 0 alone runs it)
+    task = {k: counts[0][k] - counts[1][k] for k in counts[0]}
+    if task != k3_task_counts(tmp) or not all(counts[1][k] > 0 for k in ROW_OPS):
+        raise AssertionError(f"K3: rank 0's launches {counts[0]} are not rank 1's "
+                             f"{counts[1]} and one run_task's")
+    counts_out["K3 2-rank CLI epoch + run_task, rank 0"] = counts[0]
+    counts_out["K3 2-rank CLI epoch, rank 1"] = counts[1]
+    state = load_state(os.path.join(two, "ckpt", "k3"))["model"]
+    got = {k: state[k].to("cuda") for k in single}
+    diffs = torch.cat([(got[k] - v).abs().flatten() for k, v in single.items()])
+    share = float((diffs <= 1e-2 * 1e-4).float().mean())
+    lr = 1e-4  # the CLI's learning rate (TrainConfig's default)
+    if not float(diffs.max()) <= 2 * lr * steps * (1 + 1e-3):
+        raise AssertionError(f"K3 final parameters: max|diff| {float(diffs.max())} > 2 lr x "
+                             f"{steps} steps")
+    del state, got
+    outs_r, counts_r, resume_s = k3_run(flags + ["--epochs", "2", "--multihost", "--model_ckpt",
+                                                 "ckpt/k3"], two, "k3", "resume")
+    if "Epoch 2/2" not in outs_r[0] or "Model loaded successfully." not in outs_r[1]:
+        raise AssertionError("K3 resume: epoch 2 from the 2-rank checkpoint did not run")
+    out = {"one_process_ms": one_ms, "two_ranks_s": two_s, "resume_s": resume_s, "steps": steps,
+           "param_max_diff": float(diffs.max()), "param_share_within_1e-2_lr": share}
+    log(f"K3 CLI one epoch of {steps} steps ({G_BATCH} tiles from G's tree, --workers 4, "
+        f"run_task N=16): two ranks on cuda:0 {two_s:.1f} s (processes included) against "
+        f"{one_ms / 1e3:.1f} s in one process; rank 0 alone printed, logged and wrote "
+        f"ckpt/k3; launches rank 1 " + " ".join(f"{k}={v}" for k, v in counts[1].items() if v)
+        + ", rank 0 these and one run_task's"
+        + f"; final parameters max|diff| {float(diffs.max()):.3e} against the one-process run "
+        f"(bound 2 lr x {steps} steps = {2 * lr * steps:.1e}; {share:.4f} within 1e-2 lr); "
+        f"resume to epoch 2 from the 2-rank checkpoint in {resume_s:.1f} s; {K_BACKEND_NOTE}; "
+        f"card {card}")
+    return out
+
+
+def mesh_phase(report, card, tmp):
+    """Phase K: the mesh on the one card (K1 the sharded step, K2 meshed
+    serving, K3 the 2-rank CLI), in G's temporary directory. Returns each
+    path's launches."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    counts = {}
+    out = {"note": K_BACKEND_NOTE}
+    torch.cuda.empty_cache()
+    port = free_port()
+    paths = [os.path.join(tmp, f"k1_rank{r}.json") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=k1_rank, args=(r, port, paths[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    if any(p.is_alive() or p.exitcode for p in procs):
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"K1: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in paths:
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    r0, r1 = ranks
+    if r0["failures"]:
+        raise AssertionError("K1 two ranks against one card: " + "; ".join(r0["failures"][:10]))
+    want_launches = report["fit"]["per_step_launches"]["train"]
+    for r in ranks:
+        same = {k: v for k, v in r["launches"].items() if v or want_launches.get(k)}
+        if same != {k: v for k, v in want_launches.items() if v}:
+            raise AssertionError(f"K1 rank {r['rank']} launches {r['launches']}, the one-card "
+                                 f"step's {want_launches}")
+        if r["zero1_vs_replicated_max_diff"] != 0.0 or r["zero1_sharded_leaves"] <= 0:
+            raise AssertionError(f"K1 ZeRO-1 rank {r['rank']}: max|diff| "
+                                 f"{r['zero1_vs_replicated_max_diff']}, "
+                                 f"{r['zero1_sharded_leaves']} sharded leaves")
+    counts["K1 sharded train step, rank 0"] = r0["launches"]
+    counts["K1 sharded train step, rank 1"] = r1["launches"]
+    counts["K1 sharded bf16 train step, rank 0"] = r0["bf16_launches"]
+    out["k1"] = ranks
+    log(f"K1 two gloo ranks on cuda:0, canonical Cond_SRVAE f32, global B=512 (256 a rank): "
+        f"launches per rank = the one-card step's ("
+        + " ".join(f"{k}={v}" for k, v in r0["launches"].items() if v)
+        + f"); against the one-card step: terms rel {r0['terms_rel']:.2e}, gradients worst "
+        f"{r0['grad_worst_of_block'][0]:.2e} of block max ({r0['grad_worst_of_block'][1]}) "
+        f"within {NOISE_FACTOR:g}x float32 noise + {GRAD_TOL:g}, parameters max|diff| "
+        f"{r0['param_max_diff']:.3e} ({r0['param_share']:.4f} within 1e-2 lr); accum_steps=2 "
+        f"against one-card accumulation: terms rel {r0['accum_terms_rel']:.2e}, gradients worst "
+        f"{r0['accum_grad_worst_of_block'][0]:.2e} of block max; bf16 (launches by kernel "
+        f"and route = a one-card step's on the rank's half: "
+        + " ".join(f"{k}={v}" for k, v in r0["bf16_launches"].items())
+        + f") against the one-card bf16 step: terms rel {r0['bf16_terms_rel']:.2e}, gradients "
+        f"worst {r0['bf16_grad_worst_of_block'][0]:.2e} of block max within "
+        f"{BF16_STEP_TOLS['noise']:g}x their bf16 error + {BF16_STEP_TOLS['grad']:g}; ZeRO-1 "
+        f"({r0['zero1_sharded_leaves']} leaves sharded, moments {r0['zero1_moment_mib']:.1f} "
+        f"MiB a rank against {r0['replicated_moment_mib']:.1f}) bit-equal to the replicated "
+        f"step; train step median {statistics.median(r0['train_step_ms']):.1f} ms a rank "
+        f"(both ranks share the card) against one card's "
+        f"{statistics.median(r0['single_train_step_ms']):.1f} ms; {K_BACKEND_NOTE}; card {card}")
+    out["k1_world_one"] = k1_world_one(card)
+    torch.cuda.empty_cache()
+    out["k2"] = k2_serving(card, tmp, counts)
+    torch.cuda.empty_cache()
+    out["k3"] = k3_cli(card, tmp, counts)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = counts
+    log(f"K total {out['seconds']:.1f} s; card {card}")
+    report["mesh"] = out
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5227,6 +5823,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # J1-J3. the checkpoint tools and the artifact, on G's checkpoint
         j_paths = export_phase(report, card, tmp)
+        torch.cuda.empty_cache()
+        # K1-K3. the mesh: the sharded step, meshed serving, the 2-rank CLI
+        k_paths = mesh_phase(report, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
@@ -5234,6 +5833,10 @@ def main() -> int:
                                  if counts.get(k["name"])}
         k["launches_phase_j"] = {path: counts[k["name"]] for path, counts in j_paths.items()
                                  if counts.get(k["name"])}
+        k["launches_phase_k"] = {path: n for path, counts in k_paths.items()
+                                 if (n := sum(v for key, v in counts.items()
+                                              if key.split(" ")[0] == k["name"]
+                                              and isinstance(v, int)))}
     for name in ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu",
                  "quantize_stochastic", "int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu",
                  "act_absmax", "act_quant"):

@@ -2,8 +2,8 @@
 models, serving (float32, int8, chained tails; from a checkpoint; whole
 rasters, the ``raster`` command and the HTTP server; ``torch.export``
 artifacts), the training run (steps, evaluation, checkpoints, the epoch
-loop) and the checkpoint and data tools (``make_index``,
-``convert_checkpoint``).
+loop), data-parallel training and meshed serving (``parallel/mesh``), and
+the checkpoint and data tools (``make_index``, ``convert_checkpoint``).
 
 Imports torch and numpy only; the JAX package is its reference, held against
 it by the tests. Entry points run on a CUDA card unless given device="cpu".
@@ -15,6 +15,7 @@ import importlib
 
 _EXPORTS = {
     "CondSRVAEConfig": "config", "TrainConfig": "config", "VAEConfig": "config",
+    "MeshConfig": "config", "make_mesh": "parallel.mesh",
     "CondSRVAE": "models.cond_vae", "SRVAE": "models.srvae", "VAE": "models.vae",
     "use_chain": "ops.conv_blocks", "use_plain_path": "ops.conv_blocks",
     "grid_sr_batch": "ops.patchify",

@@ -14,9 +14,23 @@ then comes from ``--seed``), LR-branch pre-training and
 Everything runs on the CUDA card; ``--backend cpu`` runs the plain CPU path.
 It writes ``ckpt/``, ``runs/`` and ``results/`` under the working directory.
 
+Data-parallel training runs one process per card, launched by torchrun:
+
+    torchrun --nproc_per_node 4 -m simple_vae_rs_tpu_torch.cli --multihost \
+        --dataset s2v --data_root ARM --crop grid --batch_size 32 [--zero1]
+
+``--multihost`` (or a ``WORLD_SIZE`` above 1) starts the process group from
+torchrun's environment (``parallel/mesh.init_distributed``: NCCL with a card
+per rank, gloo where ranks share a card) and ``--mesh_data`` /
+``--mesh_dcn`` lay the ranks out (``parallel/mesh.make_mesh``; the default
+uses them all). ``--batch_size`` stays the global batch in tiles: each rank
+loads, trains on and evaluates its slice, and rank 0 alone logs, writes the
+checkpoints and runs the task.
+
 Flags that are not ported raise a ``ValueError`` at any value but their
-default: the mesh and multi-host flags (ROADMAP A.8), and ``--scan_steps``,
-``--train_elbo`` and ``--pallas_conv``, left out on purpose (ROADMAP A.3).
+default: ``--mesh_model`` (the model axis, ROADMAP A.8c), and
+``--scan_steps``, ``--train_elbo`` and ``--pallas_conv``, left out on
+purpose (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -28,11 +42,8 @@ from typing import Any, Dict, Optional, Sequence
 
 # flag: (its default, why it raises at another value)
 UNPORTED = {
-    "mesh_data": (-1, "the mesh is not ported yet (ROADMAP A.8)"),
-    "mesh_model": (1, "the mesh is not ported yet (ROADMAP A.8)"),
-    "mesh_dcn": (1, "the mesh is not ported yet (ROADMAP A.8)"),
-    "multihost": (False, "multi-host training is not ported yet (ROADMAP A.8)"),
-    "zero1": (False, "ZeRO-1 is not ported yet (ROADMAP A.8)"),
+    "mesh_model": (1, "the mesh's model axis (channel-sharded heads) is not ported yet "
+                      "(ROADMAP A.8c)"),
     "scan_steps": (0, "scan_steps is not ported, on purpose (ROADMAP A.3)"),
     "train_elbo": ("xla", "train_elbo is not ported, on purpose: the row kernels always run "
                           "(ROADMAP A.3)"),
@@ -74,10 +85,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--workers", type=int, default=1,
                         help="Tile-decode threads per loader; the batches are the same at "
                         "any count.")
-    parser.add_argument("--mesh_data", type=int, default=-1, help="Not ported (ROADMAP A.8).")
-    parser.add_argument("--mesh_model", type=int, default=1, help="Not ported (ROADMAP A.8).")
-    parser.add_argument("--mesh_dcn", type=int, default=1, help="Not ported (ROADMAP A.8).")
-    parser.add_argument("--multihost", action="store_true", help="Not ported (ROADMAP A.8).")
+    parser.add_argument("--mesh_data", type=int, default=-1,
+                        help="Mesh data-axis size (-1 = every rank the other axes leave).")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="Mesh model-axis size; above 1 not ported (ROADMAP A.8c).")
+    parser.add_argument("--mesh_dcn", type=int, default=1,
+                        help="Mesh dcn-axis size (another factor of the ranks; same numbers).")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Start the process group from torchrun's environment (one "
+                        "process per card; also when WORLD_SIZE > 1).")
     parser.add_argument("--seed", type=int, default=0, help="Global RNG seed.")
     parser.add_argument("--bf16", action="store_true",
                         help="Compute the convs in bfloat16 (the model's dtype and "
@@ -99,7 +115,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="Not ported, on purpose (ROADMAP A.3).")
     parser.add_argument("--bf16_moments", action="store_true",
                         help="Keep Adam's first moment in bf16.")
-    parser.add_argument("--zero1", action="store_true", help="Not ported (ROADMAP A.8).")
+    parser.add_argument("--zero1", action="store_true",
+                        help="ZeRO-1: shard the large Adam moments over the mesh's ranks.")
     parser.add_argument("--backend", default="",
                         help="'cpu' runs on the host (the plain CPU path); the default runs "
                         "on the CUDA card.")
@@ -171,11 +188,12 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
     task. Returns ``{"trainer", "start_epoch", "task", "job_id"}``."""
     import torch
 
-    from simple_vae_rs_tpu_torch.config import CondSRVAEConfig, TrainConfig, VAEConfig
+    from simple_vae_rs_tpu_torch.config import CondSRVAEConfig, MeshConfig, TrainConfig, VAEConfig
     from simple_vae_rs_tpu_torch.data.loader import init_dataloader
     from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
     from simple_vae_rs_tpu_torch.models.srvae import SRVAE
     from simple_vae_rs_tpu_torch.models.vae import VAE
+    from simple_vae_rs_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from simple_vae_rs_tpu_torch.serve import backend_device
     from simple_vae_rs_tpu_torch.tasks import run_task
     from simple_vae_rs_tpu_torch.train.callbacks import EarlyStopping, ModelCheckpoint
@@ -186,7 +204,7 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
         load_jax_checkpoint,
     )
     from simple_vae_rs_tpu_torch.train.engine import Trainer
-    from simple_vae_rs_tpu_torch.utils.logging import make_logger
+    from simple_vae_rs_tpu_torch.utils.logging import NullLogger, make_logger
 
     cr = args.compression_ratio
     if cr <= 0:
@@ -197,11 +215,17 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
         raise ValueError("--test requires --model_ckpt (nothing to test otherwise).")
     _refuse_unported(args)
     device = backend_device(args.backend)
+    if args.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_distributed(device)  # one process per card: this rank's
+    mesh = make_mesh(MeshConfig(data=args.mesh_data, model=args.mesh_model, dcn=args.mesh_dcn))
+    print(f"Mesh: {dict(mesh.shape)} over {mesh.size} device(s)")
+    # one process alone trains as it always has; ranks shard every batch
+    dp = mesh if mesh.distributed else None
 
     job_id = os.environ.get("SLURM_JOB_ID", f"local_{time.strftime('%Y%m%d-%H%M%S')}")
     train_loader, val_loader = init_dataloader(
         args.dataset, args.batch_size, args.patch_size, crop=args.crop,
-        data_root=args.data_root, seed=args.seed, workers=args.workers, device=device)
+        data_root=args.data_root, seed=args.seed, workers=args.workers, device=device, mesh=dp)
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.model_type == "VAE":
@@ -224,13 +248,15 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
                             val_metrics_every=args.val_metrics_every, seed=args.seed,
                             use_bfloat16=args.bf16, profile_dir=args.profile_dir,
                             remat=args.remat, bf16_moments=args.bf16_moments,
-                            accum_steps=args.accum_steps)
+                            accum_steps=args.accum_steps, zero1=args.zero1)
     callbacks = [
         ModelCheckpoint(job_id, "ckpt", monitor="Loss/val_loss", mode="min",
                         async_save=args.async_ckpt),
         EarlyStopping(patience=train_cfg.early_stop_patience, delta=train_cfg.early_stop_delta),
     ]
-    logger = make_logger(
+    # one metrics stream per job: the other ranks train and evaluate alike
+    # but log nowhere
+    logger = NullLogger() if mesh.rank != 0 else make_logger(
         args.model_type,
         f"Latent-{cfg.latent_size}-Patch-{cfg.patch_size}-SLURM-{job_id}",
         config={"latent_size": cfg.latent_size, "patch_size": cfg.patch_size,
@@ -241,7 +267,7 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     trainer = Trainer(model, train_cfg, device=device, seed=args.seed, callbacks=callbacks,
-                      logger=logger, job_id=job_id)
+                      logger=logger, job_id=job_id, mesh=dp)
     # The JAX CLI builds its state from one train batch
     # (``trainer.init_state(next(iter(train_loader)))``), and that iter()
     # advances the loader's epoch counter, which seeds the shuffle and the
@@ -279,8 +305,9 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
 
         qz.attach_quant(model, qz.quantize_params_tree(model, args.seed))
     gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
-    task = run_task(model, val_loader, job_id, cr, generator=gen, samples=args.samples)
-    return {"trainer": trainer, "start_epoch": start_epoch, "task": task, "job_id": job_id}
+    task = run_task(model, val_loader, job_id, cr, generator=gen, samples=args.samples, mesh=dp)
+    return {"trainer": trainer, "start_epoch": start_epoch, "task": task, "job_id": job_id,
+            "mesh": mesh}
 
 
 def entrypoint(argv: Optional[Sequence[str]] = None) -> None:
@@ -299,7 +326,13 @@ def entrypoint(argv: Optional[Sequence[str]] = None) -> None:
     print("Device:", "cpu" if backend_device(arguments.backend) == "cpu" else
           (torch.cuda.get_device_name(0) if torch.cuda.is_available() else "no CUDA card"))
     print("==========================")
-    main(arguments)
+    try:
+        main(arguments)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@ read."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 def _vae_latent_size(patch_size: int, cr: float) -> int:
@@ -126,6 +127,25 @@ class CondSRVAEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh layout: ``dcn`` x ``data`` x ``model`` (the JAX package's
+    ``MeshConfig``). The batch shards over ``(dcn, data)``; ``dcn`` only
+    factors the world differently (JAX: slices over the data-center network)
+    and changes no number. ``model`` above 1 (channel-sharded heads) is not
+    ported yet (ROADMAP A.8c): ``parallel/mesh.make_mesh`` raises on it."""
+
+    data: int = -1  # -1: every device (rank) the other axes leave
+    model: int = 1
+    dcn: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int, int]:
+        dcn = max(1, self.dcn)
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else n_devices // (model * dcn)
+        return dcn, data, model
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The training step's and the epoch loop's hyper-parameters (JAX
     ``TrainConfig`` defaults).
@@ -133,8 +153,11 @@ class TrainConfig:
     ``use_bfloat16`` is recorded, as in the JAX package: the model's
     ``dtype`` (``CondSRVAE(cfg, dtype=torch.bfloat16)``) is what computes in
     bfloat16, and a caller sets both from one flag. ``bf16_moments`` keeps
-    Adam's first moment in bfloat16 (optax ``mu_dtype``). The JAX config's
-    ``zero1``, ``scan_steps`` and ``train_elbo`` do not exist here.
+    Adam's first moment in bfloat16 (optax ``mu_dtype``). ``zero1`` shards
+    the large Adam moments over the mesh's ``data`` axis
+    (``parallel/mesh.shard_state``; nothing on one process). The JAX
+    config's ``scan_steps`` and ``train_elbo`` are left out on purpose
+    (ROADMAP A.3).
     """
 
     epochs: int = 200
@@ -158,6 +181,10 @@ class TrainConfig:
     use_bfloat16: bool = False
     # Adam's first moment stored in bf16 (second moment float32)
     bf16_moments: bool = False
+    # ZeRO-1: each rank of a mesh keeps and advances only its shard of every
+    # large Adam moment, updates that shard of the parameter and all-gathers
+    # it (parallel/mesh._zero1_spec picks the dim); no effect on one process
+    zero1: bool = False
     # a torch.profiler trace of the second trained epoch (or the only one)
     # is written here
     profile_dir: str = ""

@@ -18,6 +18,13 @@ they are drawn.
 A pinned buffer is never refilled while its copy may be in flight: every
 batch takes a new one, and PyTorch's pinned-memory cache hands a block out
 again only once the copy that read it has completed.
+
+On a process mesh (``mesh=``, ``parallel/mesh.make_mesh``) each rank yields
+its contiguous slice of every global batch (JAX ``loader.py:164-167``) and
+decodes only its own tiles: the order, the split and the random crops'
+offsets are drawn for the global batch from the shared epoch generator and
+sliced, so every rank's generator advances alike. A mesh needs
+``drop_last`` and a ``batch_size`` (in tiles) that the ranks divide.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from simple_vae_rs_tpu_torch.ops.patchify import crop_offsets, grid_sr_batch, random_sr_crop_batch
+from simple_vae_rs_tpu_torch.parallel.mesh import shard_rows
 from simple_vae_rs_tpu_torch.serve import resolve_device
 
 Tensor = torch.Tensor
@@ -48,15 +56,22 @@ class DeviceLoader:
 
     With ``timing=True`` each batch records the seconds the consumer waited
     on the prefetch queue and, on the card, CUDA events around the copy and
-    the crop; :meth:`timings` sums them."""
+    the crop; :meth:`timings` sums them. With a process ``mesh`` each batch
+    is this rank's slice of the global one."""
 
     def __init__(self, dataset, batch_size: int, patch_size: int, crop: str = "random",
                  shuffle: bool = False, seed: int = 0, device="cuda", drop_last: bool = True,
-                 workers: int = 1, timing: bool = False) -> None:
+                 workers: int = 1, timing: bool = False, mesh=None) -> None:
         if crop not in ("random", "grid"):
             raise ValueError("Crop must be 'grid' or 'random'")
         if workers < 1:
             raise ValueError(f"workers must be >= 1 (got {workers})")
+        self.mesh = mesh
+        self._rows = slice(None)  # this rank's tiles of a global batch
+        if mesh is not None:
+            if not mesh.is_process or not drop_last:
+                raise ValueError("a loader shards over a process mesh, with drop_last")
+            self._rows = shard_rows(mesh, batch_size)
         self.dataset = dataset
         self.batch_size = batch_size
         self.patch_size = patch_size
@@ -127,7 +142,7 @@ class DeviceLoader:
         return self._stack([p[0] for p in pairs]), self._stack([p[1] for p in pairs])
 
     def _host_batches(self) -> Iterator[Tuple[Tensor, Tensor]]:
-        batches = self._index_batches()
+        batches = [idxs[self._rows] for idxs in self._index_batches()]
         q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         sentinel = object()
@@ -189,7 +204,10 @@ class DeviceLoader:
             if self.crop == "grid":
                 out = grid_sr_batch(lr, hr, self.patch_size)
             else:
-                offsets = self.crop_offsets(step, lr.shape[0], tuple(lr.shape[1:3]), gen)
+                # drawn for the global batch, this rank's rows taken
+                n = lr.shape[0] if self.mesh is None else self.batch_size
+                offsets = self.crop_offsets(step, n, tuple(lr.shape[1:3]), gen)
+                offsets = tuple(o[self._rows] for o in offsets)
                 out = random_sr_crop_batch(lr, hr, self.patch_size, offsets=offsets)
             if "events" in rec:
                 rec["events"][2].record()
@@ -231,10 +249,11 @@ class _Subset:
 
 def init_dataloader(dataset: str, batch_size: int = 16, patch_size: int = 256,
                     crop: str = "random", data_root: Optional[str] = None, seed: int = 0,
-                    workers: int = 1, device="cuda", timing: bool = False
+                    workers: int = 1, device="cuda", timing: bool = False, mesh=None
                     ) -> Tuple[DeviceLoader, DeviceLoader]:
     """(train_loader, val_loader) on ``device`` (the card unless "cpu" is
-    asked for). Dataset names as the reference's ``dataset.py:23-29``:
+    asked for), each yielding this rank's slices on a process ``mesh``.
+    Dataset names as the reference's ``dataset.py:23-29``:
     "Sen2Venus"/"sen2venus"/"s2v", "Floods"/"floods", plus "synthetic"
     (smooth fields) and "synthetic_hf" (high-frequency scenes)."""
     from simple_vae_rs_tpu_torch.data.datasets import (
@@ -260,10 +279,12 @@ def init_dataloader(dataset: str, batch_size: int = 16, patch_size: int = 256,
     train_ds = _Subset(ds, range(train_size))
     val_ds = _Subset(ds, range(train_size, len(ds)))
     train_loader = DeviceLoader(train_ds, batch_size, patch_size, crop=crop, shuffle=True,
-                                seed=seed, device=device, workers=workers, timing=timing)
+                                seed=seed, device=device, workers=workers, timing=timing,
+                                mesh=mesh)
     # val keeps the loader's crop mode, unshuffled, with its own seed
     val_loader = DeviceLoader(val_ds, batch_size, patch_size, crop=crop, shuffle=False,
-                              seed=seed + 1, device=device, workers=workers, timing=timing)
+                              seed=seed + 1, device=device, workers=workers, timing=timing,
+                              mesh=mesh)
     # batches of a fixed size drop the ragged tail, so a split smaller than
     # one batch would give no batch at all: fail here, with what to change
     for split, ldr, n_items in (("train", train_loader, len(train_ds)),

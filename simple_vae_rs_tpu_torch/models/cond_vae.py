@@ -264,22 +264,28 @@ class CondSRVAE(Routed):
     @torch.no_grad()
     def sample(self, y: Tensor, generator: Optional[torch.Generator] = None,
                samples: int = 1000, chunk: int = 128, eps_u: Optional[Tensor] = None,
-               eps_z: Optional[Tensor] = None) -> Tensor:
+               eps_z: Optional[Tensor] = None, replicas=None) -> Tensor:
         """``samples`` posterior-prior draws of one LR image ``y``
         (1, ps/2, ps/2, C), decoded in chunks: (samples, ps, ps, C)
         (reference ``cond_vae.py:299-318``). The conditioning pass (q(u|y),
         the y-embedding and the prior) runs once, with one ``u`` draw shared
         by all samples; only the decoder runs per chunk. Noise comes from
         ``generator`` unless injected: ``eps_u`` shaped like the u grid,
-        ``eps_z`` (samples, z grid)."""
+        ``eps_z`` (samples, z grid). ``replicas`` (``parallel/mesh.Replicas``
+        of this model) splits each chunk's decode over a device mesh."""
         mu_u, logvar_u = self.encode_y(y)
         u = reparameterize(mu_u, logvar_u, eps_u, generator)
         y_feat = self.y_embedding(y)
         mu_p, logvar_p = self.z_cond(y_feat, u)
 
+        def decode_on(m, z: Tensor) -> Tensor:
+            yf = y_feat.to(z.device).expand((z.shape[0],) + tuple(y_feat.shape[1:]))
+            return m.decode_x_from_features(z, yf)
+
         def decode(z: Tensor) -> Tensor:
-            yf = y_feat.expand((z.shape[0],) + tuple(y_feat.shape[1:]))
-            return self.decode_x_from_features(z, yf)
+            if replicas is not None:
+                return replicas.map(decode_on, z)
+            return decode_on(self, z)
 
         return decode_draws(decode, mu_p, torch.exp(0.5 * logvar_p), samples, chunk, eps_z,
                             generator)

@@ -72,10 +72,13 @@ class SRVAE(Routed):
 
     def sample(self, y: Tensor, generator: Optional[torch.Generator] = None,
                samples: int = 1000, chunk: int = 128, eps_u: Optional[Tensor] = None,
-               eps_z: Optional[Tensor] = None) -> Tensor:
+               eps_z: Optional[Tensor] = None, replicas=None) -> Tensor:
         """Posterior-prior draws given an image, HR (downsampled first) or
-        LR; then :meth:`CondSRVAE.sample`."""
-        return self.core.sample(self.lr_view(y), generator, samples, chunk, eps_u, eps_z)
+        LR; then :meth:`CondSRVAE.sample` (on the replicas' cores)."""
+        if replicas is not None:
+            replicas = type(replicas)(replicas.mesh, [m.core for m in replicas])
+        return self.core.sample(self.lr_view(y), generator, samples, chunk, eps_u, eps_z,
+                                replicas)
 
     def generation(self, generator: Optional[torch.Generator] = None
                    ) -> Tuple[Tensor, Tensor]:

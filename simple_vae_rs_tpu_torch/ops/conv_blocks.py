@@ -4,6 +4,12 @@
 - :class:`DownBlock`: conv3x3 -> conv4x4/s2/p1 -> BatchNorm -> ReLU.
 - :class:`UpBlock`: conv3x3 -> convT4x4/s2/p1 -> BatchNorm -> ReLU.
 
+Either block takes ``with_bn`` and ``with_relu`` (JAX ``conv_blocks.py:388-389``,
+``:447-448``): without BatchNorm the tail is the conv with its bias, and its
+eval kernel runs with ``(scale, shift) = (1, bias)``; without ReLU the
+kernel's ``relu`` is off (``ops/sequences.py`` turns both off at the last
+stage).
+
 Weights keep the JAX layouts: conv kernels HWIO ``(kh, kw, C, O)`` and the
 transposed-conv kernel in its input-dilated, spatially flipped form. Every
 conv runs through a fused kernel (``ops/fused_conv.py``), forward and input
@@ -11,7 +17,10 @@ gradient, in both modes:
 
 - training (``module.train()``): the strided conv runs with its bias as the
   shift, then :class:`BatchNorm` normalises with the batch statistics and
-  updates the running ones, then ReLU;
+  updates the running ones, then ReLU. On a mesh (:func:`sync_batchnorm`)
+  the statistics are those of the global batch: the per-channel sums, sums
+  of squares and the count are all-reduced, the gradient flowing back
+  through the all-reduce;
 - eval: the strided tail of a block folds BatchNorm's running statistics
   into ``(scale, shift)`` and runs as one fused kernel with the ReLU.
 
@@ -60,6 +69,7 @@ from torch import nn
 from simple_vae_rs_tpu_torch.ops import fused_chain
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+from simple_vae_rs_tpu_torch.parallel.mesh import all_reduce_sum
 
 # The reference quantizes an UpBlock's transposed conv only from this many
 # input channels up; below it the tail runs in float32 on the float weights
@@ -161,11 +171,16 @@ class BatchNorm(nn.Module):
     ``nn.BatchNorm2d``, whose running variance is unbiased). In eval it is
     folded into the conv before it (:meth:`fold`). While ``update_stats`` is
     False (:func:`frozen_statistics`) the running statistics stay as they are.
+    With a process ``group`` (:func:`sync_batchnorm`) the batch is the
+    global one: the sums over (B, H, W) of ``x`` and ``x^2`` and the count
+    are all-reduced (``parallel/mesh.all_reduce_sum``, whose backward sums
+    the gradients), and the running statistics move alike on every rank.
     """
 
     eps = 1e-5
     momentum = 0.9
     update_stats = True
+    group = None
 
     def __init__(self, features: int, device=None) -> None:
         super().__init__()
@@ -187,8 +202,16 @@ class BatchNorm(nn.Module):
         float32 (a bfloat16 ``x`` is upcast, and the result rounded once)."""
         dims = (0, 1, 2)
         x32 = x.float()
-        mean = x32.mean(dim=dims)
-        var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean, 0.0)
+        if self.group is None:
+            mean = x32.mean(dim=dims)
+            ex2 = (x32 * x32).mean(dim=dims)
+        else:
+            c = x32.shape[-1]
+            count = x32.new_full((1,), float(x32.numel() // c))
+            sums = all_reduce_sum(torch.cat([x32.sum(dim=dims), (x32 * x32).sum(dim=dims),
+                                             count]), self.group)
+            mean, ex2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
         if self.update_stats:
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
@@ -203,12 +226,21 @@ class BatchNorm(nn.Module):
 
 
 class _Block(Routed):
-    """conv3x3 -> strided tail conv -> BN -> ReLU; subclasses name the tail."""
+    """conv3x3 -> strided tail conv -> BN -> ReLU (each of the last two where
+    ``with_bn`` / ``with_relu``); subclasses name the tail."""
 
     _kernel = ""  # fused_conv kernel of the tail
     _int8_kernel = ""  # fused_int8 kernel of the tail
     _int8_min_channels = 0  # the tail is W8A8 from this many input channels up
     _tail_name = ""  # flax name of the tail conv
+
+    def _build(self, conv: "Conv3x3", tail: ConvWeights, features: int, with_relu: bool,
+               with_bn: bool, device) -> None:
+        self.with_relu, self.with_bn = bool(with_relu), bool(with_bn)
+        self.conv = conv
+        setattr(self, self._tail_name, tail)
+        if self.with_bn:
+            self.bn = BatchNorm(features, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -217,12 +249,17 @@ class _Block(Routed):
         if self.training:
             h = fc.fused_conv(self._kernel, x, tail.kernel.to(dt), tail.unit_scale, tail.bias,
                               False, self.plain)
-            return torch.relu(self.bn(h))
-        kernel, s, t = self.bn.fold(tail)  # float32; only the kernel is cast
+            if self.with_bn:
+                h = self.bn(h)
+            return torch.relu(h) if self.with_relu else h
+        if self.with_bn:
+            kernel, s, t = self.bn.fold(tail)  # float32; only the kernel is cast
+        else:
+            kernel, s, t = tail.kernel, tail.unit_scale, tail.bias
         if tail.kernel_q is not None and x.shape[3] >= self._int8_min_channels:
             return f8.int8_conv(self._int8_kernel, x.to(dt), tail.kernel_q, tail.kernel_s, s, t,
-                                True, self.plain, packed=tail.kernel_p)
-        return fc.fused_conv(self._kernel, x, kernel.to(dt), s, t, True, self.plain)
+                                self.with_relu, self.plain, packed=tail.kernel_p)
+        return fc.fused_conv(self._kernel, x, kernel.to(dt), s, t, self.with_relu, self.plain)
 
 
 class DownBlock(_Block):
@@ -233,12 +270,12 @@ class DownBlock(_Block):
     _int8_kernel = "int8_conv4x4s2_bn_relu"
     _tail_name = "downsample"
 
-    def __init__(self, in_features: int, features: int, device=None) -> None:
+    def __init__(self, in_features: int, features: int, device=None, with_relu: bool = True,
+                 with_bn: bool = True) -> None:
         super().__init__()
-        self.conv = Conv3x3(in_features, in_features, device=device)
-        self.downsample = ConvWeights(4, in_features, features, in_features * 16,
-                                      self._int8_kernel, device=device)
-        self.bn = BatchNorm(features, device=device)
+        self._build(Conv3x3(in_features, in_features, device=device),
+                    ConvWeights(4, in_features, features, in_features * 16, self._int8_kernel,
+                                device=device), features, with_relu, with_bn, device)
 
 
 class UpBlock(_Block):
@@ -250,13 +287,13 @@ class UpBlock(_Block):
     _int8_min_channels = INT8_CONVT_MIN_CHANNELS
     _tail_name = "upsample"
 
-    def __init__(self, in_features: int, features: int, device=None) -> None:
+    def __init__(self, in_features: int, features: int, device=None, with_relu: bool = True,
+                 with_bn: bool = True) -> None:
         super().__init__()
-        self.conv = Conv3x3(in_features, in_features, device=device)
         # torch's init fan for a transposed conv is out * kh * kw
-        self.upsample = ConvWeights(4, in_features, features, features * 16,
-                                    self._int8_kernel, device=device)
-        self.bn = BatchNorm(features, device=device)
+        self._build(Conv3x3(in_features, in_features, device=device),
+                    ConvWeights(4, in_features, features, features * 16, self._int8_kernel,
+                                device=device), features, with_relu, with_bn, device)
 
 
 def reset_parameters(model: nn.Module, rng: np.random.Generator) -> None:
@@ -300,6 +337,14 @@ def frozen_statistics(model: nn.Module) -> Iterator[None]:
     finally:
         for bn in bns:
             bn.update_stats = True
+
+
+def sync_batchnorm(model: nn.Module, group=None) -> None:
+    """Make every BatchNorm of ``model`` normalise over the global batch of
+    the process ``group`` in training (None: each process's own batch)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.group = group
 
 
 def use_chain(model: nn.Module, chain: bool = True) -> None:

@@ -17,6 +17,16 @@ backward is jnp and not Pallas. :data:`launches` counts kernel launches.
 
 :func:`fused_cond_loss` and :func:`fused_base_loss` assemble the loss terms
 from the row sums; they equal ``ops/losses.cond_loss``/``base_loss``.
+
+On a mesh each rank runs the row kernels on its own rows, as JAX runs them
+under ``shard_map`` (``pallas_elbo.py:101-120``), and passes
+``global_rows``, the global batch's row count: its terms are then its exact
+share of the global ones. The squared-error terms are sums over every
+element plus ``numel * log(gamma)``, so a share is the local sums plus
+``numel_local * log(gamma)``; the KL terms are means over rows, so a share
+is the local row sums over the global row count. The shares, and their
+gradients, sum over the ranks to the global values (not an average: a
+DDP-style mean would give 1/R of the squared-error gradient).
 """
 
 from __future__ import annotations
@@ -222,31 +232,39 @@ def _flat(t: Tensor) -> Tensor:
     return t.reshape(t.shape[0], -1)
 
 
+def _row_mean(rows: Tensor, global_rows: Optional[int]) -> Tensor:
+    return torch.mean(rows) if global_rows is None else torch.sum(rows) / global_rows
+
+
 def fused_base_loss(recon_x: Tensor, x: Tensor, mu: Tensor, logvar: Tensor,
-                    gamma: Tensor, plain: bool = False) -> Tuple[Tensor, Tensor]:
+                    gamma: Tensor, plain: bool = False, global_rows: Optional[int] = None
+                    ) -> Tuple[Tensor, Tensor]:
     """Plain-VAE ``(mse, kld)``, equal to ``ops.losses.base_loss``:
-    ``mse = sum_sq / (2 g^2) + d log g``."""
+    ``mse = sum_sq / (2 g^2) + d log g``; with ``global_rows`` this rank's
+    share of the terms of a global batch of that many rows."""
     gamma = gamma.float()
     d = recon_x.numel()
     sum_sq = torch.sum(sq_rows(_flat(recon_x), _flat(x), plain))
     mse = sum_sq / (2.0 * gamma**2) + d * torch.log(gamma)
-    kld = 0.5 * torch.mean(kl_std_rows(mu, logvar, plain))
+    kld = 0.5 * _row_mean(kl_std_rows(mu, logvar, plain), global_rows)
     return mse, kld
 
 
 def fused_cond_loss(recon_x: Tensor, x: Tensor, recon_y: Tensor, y: Tensor,
                     mu_u: Tensor, logvar_u: Tensor, mu_z: Tensor, logvar_z: Tensor,
                     mu_z_uy: Tensor, logvar_z_uy: Tensor, gammax: Tensor,
-                    gammay: Tensor, plain: bool = False
+                    gammay: Tensor, plain: bool = False, global_rows: Optional[int] = None
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Cond_SRVAE ``(mse_x, kld_u, mse_y, kld_z)``, equal to
-    ``ops.losses.cond_loss``; four row reductions."""
+    ``ops.losses.cond_loss``; four row reductions. With ``global_rows``:
+    this rank's share of the terms of a global batch of that many rows."""
     gammax, gammay = gammax.float(), gammay.float()
     nx, ny = recon_x.numel(), recon_y.numel()
     mse_x = (torch.sum(sq_rows(_flat(recon_x), _flat(x), plain)) / (2.0 * gammax**2)
              + nx * torch.log(gammax))
     mse_y = (torch.sum(sq_rows(_flat(recon_y), _flat(y), plain)) / (2.0 * gammay**2)
              + ny * torch.log(gammay))
-    kld_u = 0.5 * torch.mean(kl_std_rows(mu_u, logvar_u, plain))
-    kld_z = 0.5 * torch.mean(kl_gen_rows(mu_z, logvar_z, mu_z_uy, logvar_z_uy, plain))
+    kld_u = 0.5 * _row_mean(kl_std_rows(mu_u, logvar_u, plain), global_rows)
+    kld_z = 0.5 * _row_mean(kl_gen_rows(mu_z, logvar_z, mu_z_uy, logvar_z_uy, plain),
+                            global_rows)
     return mse_x, kld_u, mse_y, kld_z

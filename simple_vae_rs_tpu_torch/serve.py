@@ -43,6 +43,21 @@ mixin: ``super_resolve_tile``, ``uncertainty_tile`` and the bounded-memory
 windows, dispatch them in fixed-size batches and stitch the outputs on the
 host (numpy in, numpy out).
 
+``SuperResolver(model, mesh=make_mesh(MeshConfig(data=N), devices=[...]))``
+serves from one process over a device mesh (``parallel/mesh.py``): one
+replica of the model per device (after the int8 quantization and the chain
+switch, so every replica serves the same weights), each request's batch
+padded to the replica count and split over the replicas, every replica's
+launches issued before the outputs are gathered on the first device. The
+noise is drawn on the first device exactly as the single-card resolver
+draws it for the unpadded batch, then split, so a meshed request is the
+single-card one run on each replica's rows: within 1e-6 of the whole batch
+in float32; in bfloat16 on the card within a bf16 rounding (which kernel a
+launch takes follows its batch, ``ops/fused_conv.wg_route``); in W8A8 with
+one activation scale per replica's rows, as JAX's ``shard_map`` takes one
+per shard. ``uncertainty`` rounds its chunk up to the replica count (JAX
+``serve.py:490-507``).
+
 ``SuperResolver.from_checkpoint(path)`` rebuilds the model a checkpoint was
 trained as, from the config in its meta (``train/checkpoint.read_meta``),
 and serves it: the port's own checkpoints and the JAX package's
@@ -58,6 +73,7 @@ tensors on the resolver's device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 from typing import Dict, Optional, Tuple
@@ -70,6 +86,7 @@ from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
+from simple_vae_rs_tpu_torch.parallel.mesh import Mesh, replicate
 from simple_vae_rs_tpu_torch.tasks import auto_chunk, sample_chunked
 from simple_vae_rs_tpu_torch.tiling import TileEndpoints
 from simple_vae_rs_tpu_torch.train.checkpoint import (
@@ -178,11 +195,14 @@ class Endpoints(TileEndpoints):
 class SuperResolver(Endpoints):
     """2x super-resolution and uncertainty service for one CondSRVAE or
     SRVAE (which also takes HR-sized inputs and downsamples them first),
-    with the whole-raster endpoints of ``TileEndpoints``."""
+    with the whole-raster endpoints of ``TileEndpoints``. With a device
+    ``mesh`` it serves from a replica per device, on ``mesh.devices[0]``
+    (``device`` is then not read)."""
 
     def __init__(self, model, device="cuda", seed: int = 0,
                  normalize: bool = True, int8: bool = False,
-                 int8_weights: bool = False, chain: bool = False) -> None:
+                 int8_weights: bool = False, chain: bool = False,
+                 mesh: Optional[Mesh] = None) -> None:
         if not isinstance(model, (CondSRVAE, SRVAE)):
             raise TypeError("SuperResolver serves CondSRVAE/SRVAE models")
         if int8 and int8_weights:
@@ -190,8 +210,14 @@ class SuperResolver(Endpoints):
                 "int8 (W8A8 decoder kernels) and int8_weights (weights only, "
                 "dequantized per request) are different quantization modes: pick one"
             )
+        if mesh is not None:
+            if mesh.is_process:
+                raise ValueError("a SuperResolver serves over a device mesh "
+                                 "(make_mesh(cfg, devices=[...]))")
+            device = mesh.devices[0]
         super().__init__(device, seed, normalize)
         self.int8, self.int8_weights = int8, int8_weights
+        self.mesh = mesh
         self._packed = None
         if int8_weights or (int8 and not qz.has_quant(model)) or (chain and not model.chain):
             model = copy.deepcopy(model)  # the caller's model stays as it is
@@ -200,8 +226,13 @@ class SuperResolver(Endpoints):
             use_chain(self.model)
         if int8 and not qz.has_quant(self.model):
             qz.attach_quant(self.model, qz.quantize_params_tree(self.model, seed))
+        # one replica per device of the mesh, the first being self.model
+        self._replicas = replicate(mesh, self.model) if mesh is not None else None
+        self._replica_packed = []  # each replica's packed weights (int8_weights)
         if int8_weights:
-            self._packed = qz.pack_int8_weights(self.model)
+            self._replica_packed = [qz.pack_int8_weights(m)
+                                    for m in (self._replicas or [self.model])]
+            self._packed = self._replica_packed[0]
 
     @classmethod
     def from_checkpoint(cls, path: str, cr: Optional[float] = None,
@@ -209,10 +240,10 @@ class SuperResolver(Endpoints):
                         latent_size: Optional[int] = None, model_type: Optional[str] = None,
                         dtype: torch.dtype = torch.float32, seed: int = 0, int8: bool = False,
                         int8_weights: bool = False, chain: bool = False,
-                        device="cuda") -> "SuperResolver":
+                        device="cuda", mesh: Optional[Mesh] = None) -> "SuperResolver":
         """Rebuild the model around the checkpoint at ``path`` (the port's
         ``<path>.pt`` or the JAX package's ``<path>.msgpack``; not both) and
-        serve it on ``device``.
+        serve it on ``device``, or over the device ``mesh``.
 
         A config argument left None comes from the model config recorded in
         the checkpoint's meta, then from the legacy defaults (cr=1.2, ps=64,
@@ -244,7 +275,7 @@ class SuperResolver(Endpoints):
         if model_type not in classes:
             raise ValueError(f"SuperResolver serves Cond_SRVAE/SRVAE checkpoints, not "
                              f"{model_type!r} (recorded in {path}.meta.json)")
-        dev = resolve_device(device)
+        dev = resolve_device(mesh.devices[0] if mesh is not None else device)
         model = classes[model_type](cfg, device=dev, dtype=dtype)
         full = os.path.abspath(path)
         native, from_jax = os.path.exists(full + SUFFIX), os.path.exists(full + JAX_SUFFIX)
@@ -260,7 +291,7 @@ class SuperResolver(Endpoints):
         else:
             raise FileNotFoundError(f"no checkpoint at {full}({SUFFIX}|{JAX_SUFFIX})")
         return cls(model, device=dev, seed=seed, int8=int8, int8_weights=int8_weights,
-                   chain=chain)
+                   chain=chain, mesh=mesh)
 
     def _input(self, y, normalize: bool = False) -> Tensor:
         y = y if isinstance(y, Tensor) else torch.as_tensor(np.asarray(y))
@@ -284,12 +315,19 @@ class SuperResolver(Endpoints):
         return self.model.generation_noise_shapes(batch, lr_hw)
 
     def _serving(self):
-        """The int8-weights mode's float weights, unpacked for one request."""
-        return qz.unpack_weights(self.model, self._packed)
+        """The int8-weights mode's float weights (every replica's), unpacked
+        for one request."""
+        stack = contextlib.ExitStack()
+        for m, packed in zip(self._replicas or [self.model], self._replica_packed):
+            stack.enter_context(qz.unpack_weights(m, packed))
+        return stack
 
     def _generate(self, y: Tensor, eps_u: Tensor, eps_z: Tensor, normalize: bool) -> Tensor:
         if normalize:
             y = normalize_image(y)
+        if self._replicas is not None:
+            return self._replicas.map(lambda m, yy, eu, ez: m.conditional_generation_eps(
+                yy, eu, ez), y, eps_u, eps_z)
         return self.model.conditional_generation_eps(y, eps_u, eps_z)
 
     @property
@@ -302,12 +340,17 @@ class SuperResolver(Endpoints):
                     seed: Optional[int] = None) -> Dict[str, Tensor]:
         """Posterior SR statistics of one LR image: mean/std/variance maps
         over ``samples`` draws, decoded in chunks (``tasks.auto_chunk`` when
-        ``chunk`` is None)."""
+        ``chunk`` is None; on a mesh rounded up to the replica count, each
+        chunk's decode split over the replicas)."""
         y = self._input(y, self.normalize)[:1]
         if chunk is None:
             chunk = auto_chunk(samples, int(y.shape[1]) * 2)
-        draws = sample_chunked(self.model, y, self._generator(seed),
-                               samples=samples, chunk=chunk, packed=self._packed)
+        if self._replicas is not None:
+            n = len(self._replicas)
+            chunk = -(-chunk // n) * n
+        with self._serving():
+            draws = sample_chunked(self.model, y, self._generator(seed), samples=samples,
+                                   chunk=chunk, replicas=self._replicas)
         return {
             "mean": draws.mean(dim=0),
             "std": draws.std(dim=0, correction=0),
@@ -330,5 +373,7 @@ def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4), tile_batch: Optiona
         resolver.super_resolve(wins, normalize=False, seed=0)
         if uq_samples:
             resolver.super_resolve_moments(wins, uq_samples, seed=0)
-    if resolver.device.type == "cuda":
-        torch.cuda.synchronize(resolver.device)
+    mesh = getattr(resolver, "mesh", None)
+    for dev in dict.fromkeys(mesh.devices if mesh is not None else [resolver.device]):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

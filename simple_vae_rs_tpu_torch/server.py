@@ -44,8 +44,11 @@ Launch (the card by default; ``--backend cpu`` runs the plain CPU path)::
 
 ``--artifact OUT`` serves a ``torch.export`` artifact (``export.py``) instead
 of a checkpoint: ``/healthz`` then answers the JAX server's artifact keys.
-Not ported, each raising: ``--mesh_data`` above 1 (the mesh, ROADMAP A.8)
-and ``--pallas_conv`` (every conv runs its CUDA kernel).
+``--mesh_data N`` serves from one replica per card over the first N cards
+(``parallel/mesh``: each request split over them; on ``--backend cpu``, N
+replicas on the host), raising with the JAX message where there are fewer;
+``/healthz`` reports the mesh's shape. Not ported, raising:
+``--pallas_conv`` (every conv runs its CUDA kernel).
 """
 
 from __future__ import annotations
@@ -391,7 +394,7 @@ class ModelService:
                 "channels": int(r.model.config.channels),
                 "int8": bool(r.int8),
                 "int8_weights": bool(getattr(r, "int8_weights", False)),
-                "mesh": None,  # the port serves one card (the mesh is ROADMAP A.8)
+                "mesh": dict(r.mesh.shape) if getattr(r, "mesh", None) is not None else None,
                 "moments": moments,
                 "seed": True,
                 "wire_u16": True,
@@ -697,7 +700,8 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--pallas_conv", action="store_true",
                    help="not ported: every conv runs its CUDA kernel")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="not ported above 1: the mesh waits for ROADMAP A.8")
+                   help="serve from a replica per card over this many cards (the host "
+                   "with --backend cpu), each request split over them")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--max_body_mb", type=int, default=512,
                    help="refuse request bodies over this size with a 413 "
@@ -746,9 +750,16 @@ def main(argv: Optional[list] = None) -> None:
             resolver.super_resolve_moments(np.zeros((1, w, w, c), np.float32), 32)
         served = f"artifact {resolver.meta.get('model_type')}"
     else:
+        mesh = None
         if args.mesh_data > 1:
-            raise ValueError(f"--mesh_data {args.mesh_data}: the mesh is not ported yet "
-                             "(ROADMAP A.8)")
+            import torch
+
+            from simple_vae_rs_tpu_torch.config import MeshConfig
+            from simple_vae_rs_tpu_torch.parallel.mesh import make_mesh
+
+            devices = (["cpu"] * args.mesh_data if device == "cpu" else
+                       [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+            mesh = make_mesh(MeshConfig(data=args.mesh_data, model=1), devices)
         if args.pallas_conv:
             raise ValueError("--pallas_conv is not ported, on purpose: every conv runs its "
                              "CUDA kernel (ROADMAP A.3)")
@@ -762,6 +773,7 @@ def main(argv: Optional[list] = None) -> None:
             int8=args.int8,
             int8_weights=args.int8_weights,
             device=device,
+            mesh=mesh,
         )
         cfg = resolver.model.config
         if not args.no_warmup:

@@ -25,6 +25,7 @@ from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.models.vae import VAE, decode_draws
 from simple_vae_rs_tpu_torch.ops.quantize import unpack_weights
+from simple_vae_rs_tpu_torch.parallel.mesh import first_rows
 
 Tensor = torch.Tensor
 
@@ -42,7 +43,7 @@ def auto_chunk(samples: int, patch_size: int, budget_bytes: int = 1 << 30) -> in
 def sample_chunked(model, y: Tensor, generator: Optional[torch.Generator] = None,
                    samples: int = 1000, chunk: int = 100,
                    eps_u: Optional[Tensor] = None, eps_z: Optional[Tensor] = None,
-                   packed=None) -> Tensor:
+                   packed=None, replicas=None) -> Tensor:
     """``samples`` posterior draws of one image ``y``, decoded in chunks:
     (samples, ps, ps, C).
 
@@ -57,15 +58,25 @@ def sample_chunked(model, y: Tensor, generator: Optional[torch.Generator] = None
     weights-only int8 mode (``ops/quantize.pack_int8_weights``): its weights
     are dequantized for the length of this call. The noise and the draws are
     float32 for a model of either compute dtype (its decoder casts).
+
+    On a device mesh (JAX ``tasks.py:40-100``) each chunk's decode is split
+    over ``replicas`` (``parallel/mesh.replicate(mesh, model)``: one replica
+    of the model per device), the conditioning pass and the noise staying on
+    the first device: the draws are the single-device ones for the same
+    chunk.
     """
     with unpack_weights(model, packed):
         if isinstance(model, (CondSRVAE, SRVAE)):
-            return model.sample(y, generator, samples, chunk, eps_u, eps_z)
+            return model.sample(y, generator, samples, chunk, eps_u, eps_z, replicas)
         if not isinstance(model, VAE):
             raise TypeError(f"sample_chunked takes a CondSRVAE, SRVAE or VAE, not "
                             f"{type(model).__name__}")
         mu, logvar = model.encode(y)
-        return decode_draws(model.decode, mu, torch.exp(0.5 * logvar), samples, chunk, eps_z,
+        decode = model.decode
+        if replicas is not None:
+            def decode(z: Tensor) -> Tensor:
+                return replicas.map(lambda m, zz: m.decode(zz), z)
+        return decode_draws(decode, mu, torch.exp(0.5 * logvar), samples, chunk, eps_z,
                             generator)
 
 
@@ -113,7 +124,8 @@ def _rgb(img) -> np.ndarray:
 
 def run_task(model, val_loader, job_id: str, cr: float,
              generator: Optional[torch.Generator] = None, samples: int = 1000,
-             chunk: Optional[int] = None, results_root: str = "results") -> Dict[str, Any]:
+             chunk: Optional[int] = None, results_root: str = "results",
+             mesh=None) -> Dict[str, Any]:
     """The reference's task: the error and uncertainty report of ``samples``
     posterior draws of one validation image, and the generation panel.
 
@@ -121,12 +133,15 @@ def run_task(model, val_loader, job_id: str, cr: float,
     ``get_task_data``, ``cond_vae.py:594-603``); a VAE reconstructs the LR
     stream it trains on, item 0. Noise comes from ``generator`` (on the
     model's device; default seeded with 0). Prints ``MMSE: ...``; returns
-    ``{"mmse", "results_dir"}``."""
+    ``{"mmse", "results_dir"}``.
+
+    On a process ``mesh`` every rank calls it with its loader (which yields
+    its slices): the global batch's first images are gathered, and rank 0
+    alone decodes, prints and writes; the others return ``{}``."""
     device = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     results_dir = os.path.join(results_root, f"{job_id}_CRx{cr}")
-    os.makedirs(results_dir, exist_ok=True)
 
     batch = next(iter(val_loader), None)
     if batch is None:
@@ -134,6 +149,11 @@ def run_task(model, val_loader, job_id: str, cr: float,
                          "split with drop_last?). Reduce --batch_size.")
     y_b = torch.as_tensor(batch[0]).to(device, torch.float32)
     x_b = torch.as_tensor(batch[1]).to(device, torch.float32)
+    if mesh is not None:
+        y_b, x_b = (first_rows(mesh, t, 2) for t in (y_b, x_b))
+        if mesh.rank != 0:
+            return {}
+    os.makedirs(results_dir, exist_ok=True)
     if isinstance(model, (CondSRVAE, SRVAE)):
         i = min(1, y_b.shape[0] - 1)
         pred, target = y_b[i:i + 1], x_b[i:i + 1]

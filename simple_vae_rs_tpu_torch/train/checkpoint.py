@@ -26,6 +26,13 @@ to one path in order); :func:`wait_for_saves` awaits every pending write and
 re-raises the first error. Every load, meta read and blocking save waits
 first, so a reader always sees finished saves.
 
+On a process mesh (``Trainer(mesh=...)``) every rank calls
+:func:`save_checkpoint`: ZeRO-1 moments are gathered first (a collective)
+and only rank 0 writes, so the file is the replicated one.
+:func:`load_checkpoint` waits at a barrier (after rank 0's pending writes)
+before any rank reads, and a ZeRO-1 optimizer takes its blocks of the
+whole moments it loads (the JAX ``checkpoint.py:49-70``, ``:109-130``).
+
 :func:`read_jax_checkpoint` reads the JAX package's ``<path>.msgpack``
 (flax ``serialization.to_bytes``) into nested dicts of numpy arrays, for
 ``utils/jax_weights.load_jax_variables``; its ``.orbax`` trees are not read.
@@ -95,10 +102,14 @@ def save_checkpoint(path: str, trainer, epoch: int = 0, extra: Optional[Dict] = 
                     block: bool = True) -> None:
     """Write ``trainer``'s state (+ the sidecar meta ``{"epoch": epoch,
     **extra}``) to ``path``. With ``block=False`` the state is copied to the
-    CPU here and written on the writer thread."""
+    CPU here and written on the writer thread. On a mesh every rank calls
+    it and rank 0 alone writes."""
     path = os.path.abspath(path)
+    opt = trainer.opt.state_dict()  # ZeRO-1: gathered on every rank
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    opt = trainer.opt.state_dict()
     meta = {"epoch": int(epoch), **(extra or {})}
     payload = {
         "format": FORMAT,
@@ -163,7 +174,14 @@ def load_checkpoint(path: str, trainer) -> Dict[str, Any]:
     """Restore ``trainer`` from the checkpoint at ``path``: the model's
     parameters and statistics, the optimizer's moments and count, the
     generator state, the seed and the step, and the scheduler where the meta
-    holds one. Returns the meta (``epoch`` and the rest)."""
+    holds one. Returns the meta (``epoch`` and the rest). On a mesh every
+    rank calls it and none reads before rank 0's writes have ended."""
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None:
+        from simple_vae_rs_tpu_torch.parallel.mesh import barrier
+
+        wait_for_saves()
+        barrier(mesh)
     state = load_state(path)
     trainer.model.load_state_dict(state["model"])  # copies onto the model's device
     trainer.opt.load_state_dict(state["optimizer"])

@@ -39,6 +39,23 @@ images), the scheduler, the callbacks' end; SIGTERM finishes the epoch and
 writes ``<save_path>/<job_id>_preempt``. Not ported: ``scan_steps`` and its
 dispatch probe.
 
+On a process mesh (``Trainer(..., mesh=parallel.make_mesh(...))``, one
+process per card) every rank passes its contiguous slice of each global
+batch (``parallel/mesh.shard_batch``; the loader's ``mesh=`` yields it) and
+a step is the single-card step on the global batch: BatchNorm normalises
+over the global batch (``ops/conv_blocks.sync_batchnorm``), each rank's loss
+is its share of the global loss (``ops/fused_elbo``'s ``global_rows``), the
+gradients are summed over the ranks in one flat buffer before the clip and
+Adam (``torch.autograd.grad`` fires no DDP hook), and the terms come back
+all-reduced to the global values. Every rank draws the global noise from
+the shared generator and takes its rows. With ``accum_steps`` the global
+batch is cut into contiguous microbatches and rank r's microbatch i is the
+r-th slice of global microbatch i, as JAX reshapes the global array. The
+evaluation sums and counts are all-reduced; LPIPS runs only where every
+rank has the weights; the eval images are the global batch's first ones on
+every rank; only rank 0 prints; a SIGTERM on any rank makes every rank save
+(collectively: ``train/checkpoint.save_checkpoint``).
+
 Noise: every draw goes through :meth:`Trainer.stream_noise`. Train and
 pre-training steps draw from the trainer's generator (seeded with ``seed``,
 default ``cfg.seed``; saved in a checkpoint); the val, eval-metrics and
@@ -67,10 +84,11 @@ from simple_vae_rs_tpu_torch.config import TrainConfig
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE, box_downsample_2x
 from simple_vae_rs_tpu_torch.models.vae import VAE
-from simple_vae_rs_tpu_torch.ops.conv_blocks import frozen_statistics
+from simple_vae_rs_tpu_torch.ops.conv_blocks import frozen_statistics, sync_batchnorm
 from simple_vae_rs_tpu_torch.ops.fused_elbo import fused_base_loss, fused_cond_loss
 from simple_vae_rs_tpu_torch.ops.metrics import psnr, ssim
 from simple_vae_rs_tpu_torch.ops.resize import bicubic_upsample_2x
+from simple_vae_rs_tpu_torch.parallel import mesh as pm
 from simple_vae_rs_tpu_torch.serve import resolve_device
 from simple_vae_rs_tpu_torch.train.callbacks import Callback, ModelCheckpoint
 from simple_vae_rs_tpu_torch.train.checkpoint import save_checkpoint, wait_for_saves
@@ -134,12 +152,15 @@ class Trainer:
     ``logger`` every metric (``utils/logging``; none by default), ``job_id``
     names the preemption checkpoint. The plateau ``scheduler`` is made from
     the config. ``baseline_metrics`` holds the bicubic baseline once ``fit``
-    has computed it.
+    has computed it. ``mesh`` is a process mesh (``parallel/mesh.make_mesh``)
+    to train data-parallel on, with ``cfg.zero1`` sharding the large Adam
+    moments over it.
     """
 
     def __init__(self, model, cfg: Optional[TrainConfig] = None, device="cuda",
                  seed: Optional[int] = None, callbacks: Sequence[Callback] = (),
-                 logger: Optional[Logger] = None, job_id: str = "local") -> None:
+                 logger: Optional[Logger] = None, job_id: str = "local",
+                 mesh: Optional[pm.Mesh] = None) -> None:
         if type(model) not in KINDS:
             raise TypeError("Trainer trains CondSRVAE, SRVAE and VAE models")
         self.kind = KINDS[type(model)]
@@ -160,6 +181,21 @@ class Trainer:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(self.seed)
         self._preempted = False
+        self.mesh = mesh
+        self._shards = 1
+        if mesh is not None:
+            if not mesh.is_process:
+                raise ValueError("a Trainer trains on a process mesh (make_mesh without "
+                                 "devices); a device mesh serves")
+            self._shards = mesh.n_shards
+            sync_batchnorm(self.model, mesh.group if mesh.distributed and self._shards > 1
+                           else None)
+            pm.shard_state(mesh, self, zero1=cfg.zero1)
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process prints: rank 0, or no mesh."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _model_meta(self) -> Dict[str, Any]:
         """The model config a checkpoint's meta carries, so that a
@@ -217,13 +253,35 @@ class Trainer:
         return self.noise(batch, hw, gen)
 
     # ------------------------------------------------------------------ loss
-    def _loss_and_terms(self, streams: Tuple[Tensor, ...], eps: Noise
+    def _local(self, eps: Noise) -> Noise:
+        """This rank's rows of the noise of a global batch."""
+        if self._shards == 1:
+            return tuple(eps)
+        return tuple(e[pm.shard_rows(self.mesh, e.shape[0])] for e in eps)
+
+    def _global_rows(self, n_global: int) -> Optional[int]:
+        return n_global if self._shards > 1 else None
+
+    def _reduce(self, values: Dict[str, Any]) -> Dict[str, Any]:
+        """``values`` (0-dim tensors or numbers) summed over the mesh's ranks,
+        in one all-reduce; as they are without a process group."""
+        if self.mesh is None or not self.mesh.distributed:
+            return values
+        keys = list(values)
+        flat = torch.stack([torch.as_tensor(values[k], dtype=torch.float32,
+                                            device=self.device).detach() for k in keys])
+        pm.all_reduce_(self.mesh, flat)
+        return dict(zip(keys, flat.unbind()))
+
+    def _loss_and_terms(self, streams: Tuple[Tensor, ...], eps: Noise,
+                        global_rows: Optional[int] = None
                         ) -> Tuple[Tensor, Dict[str, Tensor]]:
         m = self.model
         if self.kind == "vae":
             (x,) = streams
             x_hat, mu, logvar = m(x, *eps)
-            mse, kld = fused_base_loss(x_hat, x, mu, logvar, m.gamma, plain=m.plain)
+            mse, kld = fused_base_loss(x_hat, x, mu, logvar, m.gamma, plain=m.plain,
+                                       global_rows=global_rows)
             loss = mse + kld
             return loss, dict(zip(VAE_TERMS, (loss, mse, kld)))
         if self.kind == "srvae":
@@ -236,7 +294,7 @@ class Trainer:
             core = m
         mse_x, kld_u, mse_y, kld_z = fused_cond_loss(
             x_hat, x, y_hat, y, mu_u, lv_u, mu_z, lv_z, mu_p, lv_p, core.gammax, core.gammay,
-            plain=m.plain)
+            plain=m.plain, global_rows=global_rows)
         loss = mse_x + kld_u + mse_y + kld_z
         return loss, dict(zip(TERMS, (loss, mse_x, kld_u, mse_y, kld_z)))
 
@@ -253,31 +311,48 @@ class Trainer:
         over the microbatches. Updates the BatchNorm running statistics,
         microbatch after microbatch, once each (also under ``cfg.remat``).
         ``eps`` is the noise of one forward pass (a tuple of tensors, see
-        :meth:`noise`), or one such tuple per microbatch."""
+        :meth:`noise`), or one such tuple per microbatch; on a mesh, that of
+        the global (micro)batch, of which each rank takes its rows. On a mesh
+        the gradients and terms are the global ones on every rank."""
         streams = self._batch(batch)
-        n = streams[0].shape[0]
+        k = self._shards
+        n = streams[0].shape[0] * k  # the global batch
         accum = self.cfg.accum_steps
         if n % accum:
             raise ValueError(f"batch size {n} not divisible by accum_steps {accum}")
-        mb = n // accum
+        mbg = n // accum  # a global microbatch
+        if mbg % k:
+            raise ValueError(f"a microbatch of {mbg} does not split into {k} equal shards")
+        mb = mbg // k
+        if accum > 1 and k > 1:
+            # JAX cuts the GLOBAL batch into contiguous microbatches and
+            # shards each: rank r's microbatch i is the r-th slice of global
+            # microbatch i, which other ranks' slices hold
+            streams = tuple(pm.all_gather_rows(self.mesh, t) for t in streams)
+            rows = pm.shard_rows(self.mesh, mbg)
+            micros = [tuple(t[i * mbg:(i + 1) * mbg][rows] for t in streams)
+                      for i in range(accum)]
+        else:
+            micros = [tuple(t[i * mb:(i + 1) * mb] for t in streams) for i in range(accum)]
         if eps is None:
-            eps = [self.stream_noise("train", mb, streams[0].shape[1:3]) for _ in range(accum)]
+            eps = [self.stream_noise("train", mbg, streams[0].shape[1:3]) for _ in range(accum)]
         elif isinstance(eps[0], Tensor):
             eps = [eps]
         if len(eps) != accum:
             raise ValueError(f"eps holds {len(eps)} noise tuples for {accum} microbatches")
+        eps = [self._local(e) for e in eps]
+        global_rows = self._global_rows(mbg)
         self.model.train()
         params = list(self.params.values())
         gsum: Optional[list] = None
         tsum: Dict[str, Tensor] = {}
-        for i in range(accum):
-            micro = tuple(t[i * mb:(i + 1) * mb] for t in streams)
+        for i, micro in enumerate(micros):
             if self.cfg.remat:
-                loss, terms = checkpoint(self._loss_and_terms, micro, tuple(eps[i]),
+                loss, terms = checkpoint(self._loss_and_terms, micro, tuple(eps[i]), global_rows,
                                          use_reentrant=False, preserve_rng_state=False,
                                          context_fn=self._remat_contexts)
             else:
-                loss, terms = self._loss_and_terms(micro, eps[i])
+                loss, terms = self._loss_and_terms(micro, eps[i], global_rows)
             grads = torch.autograd.grad(loss, params)
             if gsum is None:
                 gsum, tsum = list(grads), {k: v.detach() for k, v in terms.items()}
@@ -287,13 +362,16 @@ class Trainer:
         if accum > 1:
             torch._foreach_mul_(gsum, 1.0 / accum)
             tsum = {k: v * (1.0 / accum) for k, v in tsum.items()}
-        return dict(zip(self.params, gsum)), tsum
+        # each rank's loss is its share of the global one: the global
+        # gradient and terms are the sums over the ranks
+        pm.all_reduce_flat_(self.mesh, gsum)
+        return dict(zip(self.params, gsum)), self._reduce(tsum)
 
     @torch.no_grad()
     def apply_grads(self, grads: Dict[str, Tensor], lr: float) -> None:
-        """Clip + Adam on ``grads``, then ``p <- p - lr * u`` for every parameter."""
-        updates = self.opt.update([grads[n] for n in self.params])
-        torch._foreach_add_(list(self.params.values()), updates, alpha=-float(lr))
+        """Clip + Adam on ``grads``, then ``p <- p - lr * u`` for every
+        parameter (under ZeRO-1 per block, then all-gathered)."""
+        self.opt.step(list(self.params.values()), [grads[n] for n in self.params], lr)
         self.step += 1
 
     # ----------------------------------------------------------------- steps
@@ -308,12 +386,15 @@ class Trainer:
     @torch.no_grad()
     def val_step(self, batch, eps: Optional[Noise] = None) -> Dict[str, Tensor]:
         """Loss terms in eval mode (BatchNorm folded from its running
-        statistics); no parameter or statistic changes."""
+        statistics); no parameter or statistic changes. On a mesh: the global
+        batch's terms (``eps`` that of the global batch)."""
         streams = self._batch(batch)
+        n = streams[0].shape[0] * self._shards
         if eps is None:
-            eps = self.stream_noise("val", streams[0].shape[0], streams[0].shape[1:3])
+            eps = self.stream_noise("val", n, streams[0].shape[1:3])
         self.model.eval()
-        return self._loss_and_terms(streams, eps)[1]
+        return self._reduce(self._loss_and_terms(streams, self._local(eps),
+                                                 self._global_rows(n))[1])
 
     # ------------------------------------------------------- LR pre-training
     def pretrain_step(self, batch, opt, lr: float) -> Tensor:
@@ -328,18 +409,21 @@ class Trainer:
             y, core = box_downsample_2x(streams[0]).contiguous(), self.model.core
         else:
             y, core = streams[0], self.model
-        (eps_u,) = self.stream_noise("pretrain", y.shape[0], y.shape[1:3])
+        n = y.shape[0] * self._shards
+        (eps_u,) = self._local(self.stream_noise("pretrain", n, y.shape[1:3]))
         self.model.train()
         y_hat, mu_u, lv_u = core.lr_autoencode(y, eps_u)
-        mse_y, kld_u = fused_base_loss(y_hat, y, mu_u, lv_u, core.gammay, plain=self.model.plain)
+        mse_y, kld_u = fused_base_loss(y_hat, y, mu_u, lv_u, core.gammay, plain=self.model.plain,
+                                       global_rows=self._global_rows(n))
         loss = mse_y + kld_u
         params = list(self.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        pm.all_reduce_flat_(self.mesh, grads)
         with torch.no_grad():
             torch._foreach_add_(params, opt.update(grads), alpha=-float(lr))
         self.step += 1
-        return loss.detach()
+        return self._reduce({"loss": loss.detach()})["loss"]
 
     def pretrain_lr_branch(self, train_loader: Iterable, pre_epochs: int) -> None:
         """Stage 1: ``pre_epochs`` passes of :meth:`pretrain_step` over
@@ -356,7 +440,8 @@ class Trainer:
                 last = self.pretrain_step(batch, opt, lr)
             loss = float(last) if last is not None else float("nan")
             self.logger.log({PRETRAIN_KEY: loss}, step=epoch)
-            print(f"Pre-epoch {epoch}/{pre_epochs}, LR-branch loss: {loss:.4f}")
+            if self.is_main:
+                print(f"Pre-epoch {epoch}/{pre_epochs}, LR-branch loss: {loss:.4f}")
 
     # ------------------------------------------------------------ evaluation
     @torch.no_grad()
@@ -364,27 +449,29 @@ class Trainer:
         """Per-batch sums of the evaluation metrics, in eval mode: SSIM and
         PSNR of the reconstruction (a Cond_SRVAE: SSIM of both
         reconstructions, SSIM and PSNR of the super-resolution) and
-        ``count``, the number of images."""
+        ``count``, the number of images (on a mesh, the global batch's)."""
         streams = self._batch(batch)
         n = streams[0].shape[0]
-        eps = self.stream_noise("metrics", n, streams[0].shape[1:3])
+        eps = self._local(self.stream_noise("metrics", n * self._shards, streams[0].shape[1:3]))
         self.model.eval()
         if self.kind != "cond":
             (x,) = streams
             x_hat = self.model(x, *eps)[0]
-            return {"ssim": ssim(x, x_hat).sum(), "psnr": psnr(x, x_hat).sum(), "count": float(n)}
+            return self._reduce({"ssim": ssim(x, x_hat).sum(), "psnr": psnr(x, x_hat).sum(),
+                                 "count": float(n)})
         y, x = streams
         x_hat, y_hat = self.model(x, y, *eps)[:2]
         x_sr = self.model.conditional_generation_eps(y, *eps)
-        return {"ssim_y": ssim(y, y_hat).sum(), "ssim_x": ssim(x, x_hat).sum(),
-                "ssim_sr": ssim(x, x_sr).sum(), "psnr_sr": psnr(x, x_sr).sum(),
-                "count": float(n)}
+        return self._reduce({"ssim_y": ssim(y, y_hat).sum(), "ssim_x": ssim(x, x_hat).sum(),
+                             "ssim_sr": ssim(x, x_sr).sum(), "psnr_sr": psnr(x, x_sr).sum(),
+                             "count": float(n)})
 
     @torch.no_grad()
     def eval_images_step(self, batch) -> Dict[str, Tensor]:
         """The image panel of the batch's first :data:`EVAL_IMAGES` images,
-        in eval mode, by the reference's names."""
-        streams = tuple(t[:EVAL_IMAGES] for t in self._batch(batch))
+        in eval mode, by the reference's names (on a mesh, the global batch's
+        first images, on every rank)."""
+        streams = tuple(pm.first_rows(self.mesh, t, EVAL_IMAGES) for t in self._batch(batch))
         eps = self.stream_noise("images", streams[0].shape[0], streams[0].shape[1:3])
         self.model.eval()
         if self.kind != "cond":
@@ -400,8 +487,10 @@ class Trainer:
     @functools.cached_property
     def _lpips_params(self) -> Optional[Dict[str, Tensor]]:
         """The LPIPS weights on the trainer's device, read once; None
-        without a weights file (the LPIPS metrics are then absent)."""
-        return lpips_optional.load(self.device)
+        without a weights file (the LPIPS metrics are then absent). On a mesh,
+        None unless every rank has them (they gate collectives)."""
+        params = lpips_optional.load(self.device)
+        return params if pm.agree(self.mesh, params is not None) else None
 
     @torch.no_grad()
     def compute_bicubic_baseline(self, val_loader) -> Dict[str, float]:
@@ -419,12 +508,14 @@ class Trainer:
             sums = _add(sums, {"ssim": ssim(x, up).sum(), "psnr": psnr(x, up).sum(),
                                "count": float(x.shape[0])})
             if lp is not None:
-                vals = lpips_optional.lpips_batch(x[:EVAL_IMAGES], up[:EVAL_IMAGES], lp)
+                # the global batch's first images (the upsample is per image)
+                y4, x4 = (pm.first_rows(self.mesh, t, EVAL_IMAGES) for t in (y, x))
+                vals = lpips_optional.lpips_batch(x4, bicubic_upsample_2x(y4), lp)
                 if vals is not None:
                     lp_sum, lp_n = lp_sum + vals.sum(), lp_n + len(vals)
         if not sums:
             return {}
-        out = _host({**sums, "lpips": lp_sum})
+        out = _host({**self._reduce(sums), "lpips": lp_sum})
         n = max(out["count"], 1.0)
         base = {"ssim_base": out["ssim"] / n, "psnr_base": out["psnr"] / n}
         if lp_n:
@@ -557,15 +648,16 @@ class Trainer:
             self.current_epoch = epoch
             for cb in self.callbacks:
                 if cb.on_epoch_begin(epoch=epoch, model=self.model, trainer=self):
-                    print(f"Stopping training before epoch {epoch} due to "
-                          f"{cb.__class__.__name__} condition.")
+                    if self.is_main:
+                        print(f"Stopping training before epoch {epoch} due to "
+                              f"{cb.__class__.__name__} condition.")
                     return
 
             # ---------------------------------------------------- train loop
             # the second trained epoch is traced (the first pays the kernel
             # builds), or the last when there is no second
             profiler = None
-            if self.cfg.profile_dir and epoch == min(start_epoch + 1, epochs):
+            if self.cfg.profile_dir and self.is_main and epoch == min(start_epoch + 1, epochs):
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -610,12 +702,15 @@ class Trainer:
                 if cb.on_epoch_end(epoch=epoch, model=self.model, trainer=self, logs=val_terms,
                                    extra={"scheduler": self.scheduler.state_dict(),
                                           "model": self._model_meta()}):
-                    print(f"Stopping training after epoch {epoch} due to "
-                          f"{cb.__class__.__name__} condition.")
+                    if self.is_main:
+                        print(f"Stopping training after epoch {epoch} due to "
+                              f"{cb.__class__.__name__} condition.")
                     return
-            print(f"Epoch {epoch}/{epochs}, Train Loss: {train_loss:.4f}, "
-                  f"Val Loss: {val_loss:.4f}")
-            if self._preempted:
+            if self.is_main:
+                print(f"Epoch {epoch}/{epochs}, Train Loss: {train_loss:.4f}, "
+                      f"Val Loss: {val_loss:.4f}")
+            # a SIGTERM to any rank: every rank saves (the save is collective)
+            if pm.agree(self.mesh, self._preempted, "max"):
                 self._save_preempt(epoch)
                 return
 
@@ -628,4 +723,5 @@ class Trainer:
         path = f"{base}_preempt"
         save_checkpoint(path, self, epoch=epoch, extra={
             "scheduler": self.scheduler.state_dict(), "model": self._model_meta()}, block=True)
-        print(f"preemption checkpoint written: {path} (epoch {epoch})")
+        if self.is_main:
+            print(f"preemption checkpoint written: {path} (epoch {epoch})")

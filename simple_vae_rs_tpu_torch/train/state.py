@@ -11,12 +11,13 @@ scheduler). The clip and the step stay on the device: no host sync.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from simple_vae_rs_tpu_torch.config import TrainConfig
+from simple_vae_rs_tpu_torch.parallel import mesh as pm
 
 Tensor = torch.Tensor
 
@@ -28,7 +29,15 @@ class ClipAdam:
     stored in bfloat16 in optax's order: the new moment is computed in
     float32 from the stored one (whose decay term ``b1 * mu`` JAX rounds to
     bfloat16, with ``b1`` itself in bfloat16) and the float32 gradient, the
-    update uses it, and only then is it rounded to bfloat16 and stored."""
+    update uses it, and only then is it rounded to bfloat16 and stored.
+
+    ZeRO-1 (:meth:`shard`, from ``parallel/mesh.shard_state``): each rank of
+    a process mesh keeps only its block of every large moment along the dim
+    the mesh picks; :meth:`step` clips the whole (already reduced) gradient
+    as ever, advances this rank's blocks of the moments, updates that block
+    of the parameter and all-gathers the blocks. :meth:`state_dict` gathers,
+    so a ZeRO-1 checkpoint is the replicated one, and
+    :meth:`load_state_dict` takes this rank's blocks of a whole one."""
 
     def __init__(self, params: Sequence[Tensor], max_norm: float = 1.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -40,6 +49,27 @@ class ClipAdam:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.count = 0
+        self.mesh: Optional[pm.Mesh] = None
+        self.dims: List[Optional[int]] = [None] * len(self.mu)  # ZeRO-1 dim per leaf
+
+    def _block(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's block of leaf ``i``'s whole tensor ``t`` (a view)."""
+        d = self.dims[i]
+        if d is None:
+            return t
+        n = t.shape[d] // self.mesh.n_shards
+        return t.narrow(d, self.mesh.rank * n, n)
+
+    def shard(self, mesh: pm.Mesh, dims: Sequence[Optional[int]]) -> None:
+        """ZeRO-1 over the process mesh ``mesh``: leaf ``i``'s moments keep
+        only this rank's block along ``dims[i]`` (None: whole)."""
+        if len(dims) != len(self.mu):
+            raise ValueError(f"{len(dims)} dims for {len(self.mu)} moments")
+        if self.mesh is not None:
+            raise ValueError("the moments are sharded already")
+        self.mesh, self.dims = mesh, list(dims)
+        self.mu = [self._block(m, i).clone() for i, m in enumerate(self.mu)]
+        self.nu = [self._block(v, i).clone() for i, v in enumerate(self.nu)]
 
     @staticmethod
     def global_norm(grads: Sequence[Tensor]) -> Tensor:
@@ -59,9 +89,28 @@ class ClipAdam:
         return float(np.float32(1.0) - np.float32(decay) ** np.float32(self.count))
 
     @torch.no_grad()
+    def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], lr: float) -> None:
+        """``p <- p - lr * update(grads)`` in place; under ZeRO-1 on this
+        rank's block of each sharded leaf, then all-gathered."""
+        params = list(params)
+        if self.mesh is None:
+            torch._foreach_add_(params, self.update(grads), alpha=-float(lr))
+            return
+        # contiguous blocks: the multi-tensor kernels then take every leaf as
+        # they take the replicated layout's, so ZeRO-1 gives the same bits
+        blocks = [self._block(p, i).contiguous() for i, p in enumerate(params)]
+        torch._foreach_add_(blocks, self.update(grads), alpha=-float(lr))
+        for i, (p, d) in enumerate(zip(params, self.dims)):
+            if d is not None:
+                p.copy_(pm.gather_shards(self.mesh, blocks[i], d))
+
+    @torch.no_grad()
     def update(self, grads: Sequence[Tensor]) -> List[Tensor]:
-        """Clip, advance the moments, and return ``m_hat / (sqrt(v_hat) + eps)``."""
+        """Clip, advance the moments, and return ``m_hat / (sqrt(v_hat) + eps)``
+        (under ZeRO-1, for this rank's block of each sharded leaf)."""
         g = self.clip(grads)
+        if self.mesh is not None:
+            g = [self._block(t, i).contiguous() for i, t in enumerate(g)]
         if self.mu_dtype == torch.float32:
             mu = self.mu
             torch._foreach_mul_(mu, self.b1)
@@ -89,19 +138,30 @@ class ClipAdam:
 
     def state_dict(self) -> dict:
         """The moments (``mu`` in its ``mu_dtype``), as lists in parameter
-        order, and the step count."""
-        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+        order, and the step count. Under ZeRO-1 every rank gathers the whole
+        moments (a collective: every rank calls it)."""
+        if self.mesh is None:
+            return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+        def whole(ts):
+            return [t if d is None else pm.gather_shards(self.mesh, t, d)
+                    for t, d in zip(ts, self.dims)]
+
+        return {"mu": whole(self.mu), "nu": whole(self.nu), "count": self.count}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Copy a :meth:`state_dict` in, from any device onto this optimizer's.
         Raises ``ValueError`` when the moments' number, shapes or dtypes
         differ (a bfloat16 first moment does not load into a float32 one, nor
-        back)."""
+        back). Under ZeRO-1 the moments given are whole and this rank takes
+        its blocks."""
         for key, mine in (("mu", self.mu), ("nu", self.nu)):
             theirs = state[key]
             if len(theirs) != len(mine):
                 raise ValueError(f"{key}: {len(theirs)} moments for {len(mine)} parameters")
+            theirs = [t if self.mesh is None else self._block(t, i)
+                      for i, t in enumerate(theirs)]
             for i, (m, t) in enumerate(zip(mine, theirs)):
                 if t.shape != m.shape or t.dtype != m.dtype:
                     raise ValueError(f"{key}[{i}]: {tuple(t.shape)} {t.dtype} does not match "

@@ -7,7 +7,10 @@ layouts (NHWC activations, HWIO conv kernels, the input-dilated transposed
 conv kernel) and the flax names, so a leaf at path ``a/b/c`` of either
 collection is the port's parameter or buffer ``a.b.c``, with the same shape;
 a ``quant`` node ``a/b/{kernel_q, kernel_s}`` is the int8 weight of the conv
-module ``a.b``. This is the one place where a layout change would go.
+module ``a.b``. This is the one place where a layout change would go. The
+layer API's modules carry the flax names too (``ops/sequences``: ``down{i}``,
+``attn{i}`` with ``query``/``key``/``value``/``out``, ``up{i}``, ``proj``), so
+they load the same way.
 """
 
 from __future__ import annotations

@@ -333,11 +333,14 @@ def test_test_mode_serves_a_jax_checkpoint_and_refuses_to_resume_it(tmp_path, mo
     (["-cr", "-1"], "Compression ratio"),
     (["--dataset", "bogus", "--backend", "cpu"], "Unknown dataset"),
     (["--backend", "tpu"], "--backend"),
-    (["--mesh_data", "1"], "ROADMAP A.8"),
-    (["--mesh_model", "2"], "ROADMAP A.8"),
-    (["--mesh_dcn", "2"], "ROADMAP A.8"),
-    (["--multihost"], "ROADMAP A.8"),
-    (["--zero1"], "ROADMAP A.8"),
+    # the mesh flags are ported: accepted on one process, refused where the
+    # layout needs more ranks or the process group has no environment
+    (["--mesh_data", "1", "--zero1", "--dataset", "bogus", "--backend", "cpu"],
+     "Unknown dataset"),
+    (["--mesh_model", "2"], "ROADMAP A.8"),  # the model axis: ROADMAP A.8c
+    (["--mesh_dcn", "2"], "mesh 2x0x1 needs 2 devices, have 1"),
+    (["--multihost"], "torchrun"),
+    (["--mesh_data", "2", "--backend", "cpu"], "mesh 1x2x1 needs 2 devices, have 1"),
     (["--scan_steps", "2"], "ROADMAP A.3"),
     (["--train_elbo", "pallas"], "ROADMAP A.3"),
     (["--pallas_conv"], "ROADMAP A.3"),

@@ -1217,3 +1217,91 @@ def test_cuda_artifact_matches_plain_path_and_launches_no_kernel(cuda, tmp_path)
     assert float((got - sr.super_resolve(y, seed=5)).abs().max()) <= TOL
     for g, w in zip(moments, sr.super_resolve_moments(y[:8], 3, seed=6)):
         assert float((g - w).abs().max()) <= 3 * TOL * max(1.0, float(w.abs().max()))
+
+
+def _two_ranks_on_the_card(tmp_path, inp):
+    """Run ``tests/torch_mesh_worker.py`` as two gloo ranks sharing cuda:0."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    torch.save(inp, tmp_path / "in.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_mesh_worker.py")
+    procs = [subprocess.Popen([sys.executable, worker, str(tmp_path / "in.pt"), str(tmp_path)],
+                              env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)["card"] for r in range(2)]
+
+
+@pytest.mark.gpu
+def test_cuda_two_rank_step_is_the_one_card_step(cuda, tmp_path):
+    """Two gloo ranks on one card (the mesh's logic; no multi-card scaling):
+    the global gradient and terms of the sharded step against the one-process
+    step on the global batch, and each rank's kernel launches by kernel and
+    role equal to the one-process step's."""
+    cfg = CondSRVAEConfig(cr=2.0, patch_size=16)
+    model = CondSRVAE(cfg).init_weights(0)
+    rng = np.random.default_rng(3)
+    batch = (torch.tensor(rng.random((8, 8, 8, 4)), dtype=torch.float32),
+             torch.tensor(rng.random((8, 16, 16, 4)), dtype=torch.float32))
+    gen = torch.Generator(cuda).manual_seed(1)
+    eps = [tuple(torch.randn(s, generator=gen, device=cuda).cpu()
+                 for s in model.generation_noise_shapes(8, (8, 8)))]
+    ranks = _two_ranks_on_the_card(tmp_path, {"card": True, "ps": 16, "lr": 1e-3,
+                                              "weights": model.state_dict(), "batch": batch,
+                                              "eps1": eps})
+
+    def step(rows):
+        tr = Trainer(copy.deepcopy(model).to(cuda), TrainConfig(learning_rate=1e-3),
+                     device=cuda)
+        return tr.grads_and_terms(tuple(t[rows].to(cuda) for t in batch),
+                                  [tuple(e[rows].to(cuda) for e in eps[0])])
+
+    step(slice(0, 4))  # builds and warms the kernels
+    fc.reset_launches()
+    fe.reset_launches()
+    step(slice(0, 4))  # one rank's half of the batch, alone
+    want_launches = {k: dict(v) for k, v in fc.role_launches.items()}
+    want_rows = dict(fe.launches)
+    grads, terms = step(slice(None))
+    block = {}
+    for name, g in grads.items():
+        b = name.split(".")[0]
+        block[b] = max(block.get(b, 0.0), float(g.abs().max()))
+    for r in ranks:
+        assert r["launches"] == want_launches and r["rows"] == want_rows
+        assert all(v > 0 for v in r["rows"].values())
+        for k, v in terms.items():
+            assert abs(r["terms"][k] - float(v)) <= 1e-4 * abs(float(v)), k
+        for name, g in grads.items():
+            err = float((r["grads"][name] - g.cpu()).abs().max())
+            assert err <= 1e-3 * block[name.split(".")[0]], (name, err)
+
+
+@pytest.mark.gpu
+def test_cuda_meshed_request_is_the_one_card_request(cuda):
+    """Two replicas on cuda:0 (the serving mesh's logic): a ragged request
+    and the draws of ``uncertainty`` equal the one-card resolver's within
+    1e-6, through the kernels."""
+    from simple_vae_rs_tpu_torch.config import MeshConfig
+    from simple_vae_rs_tpu_torch.parallel.mesh import make_mesh
+
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16)).init_weights(0)
+    single = SuperResolver(model, device=cuda, seed=1)
+    meshed = SuperResolver(model, seed=1, mesh=make_mesh(MeshConfig(data=2), ["cuda:0"] * 2))
+    y = np.random.default_rng(4).random((5, 8, 8, 4)).astype(np.float32)
+    fc.reset_launches()
+    got = meshed.super_resolve(y, seed=3)
+    assert fc.launches["fused_conv3x3_bn_relu"] > 0
+    assert float((got - single.super_resolve(y, seed=3)).abs().max()) <= 1e-6
+    a = meshed.uncertainty(y[0], samples=8, chunk=3, seed=2)
+    b = single.uncertainty(y[0], samples=8, chunk=4, seed=2)
+    assert float((a["mean"] - b["mean"]).abs().max()) <= 1e-6

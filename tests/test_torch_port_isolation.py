@@ -19,8 +19,10 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) >= 15
-    for mod in ("fused_conv", "fused_elbo", "fused_int8", "quantize"):
+    for mod in ("fused_conv", "fused_elbo", "fused_int8", "quantize", "attention", "sequences",
+                "tiling"):
         assert f"simple_vae_rs_tpu_torch.ops.{mod}" in mods
+    assert "simple_vae_rs_tpu_torch.parallel.mesh" in mods
     for mod in ("tiling", "raster", "wire", "batching", "server", "client", "make_index",
                 "convert_checkpoint", "export"):
         assert f"simple_vae_rs_tpu_torch.{mod}" in mods
