@@ -363,8 +363,25 @@ K3. The port CLI on two ranks as torchrun launches it, one epoch on G's
     parameters within 2 lr a step of the one-process CLI; a resume to epoch
     2 from the 2-rank checkpoint.
 
+K4. The mesh's ``model`` axis: four gloo ranks on cuda:0 as ``data=2 x
+    model=2`` (the wide heads channel-sharded over each pair of ranks) run
+    the canonical Cond_SRVAE's float32 step on their batch shard's 256
+    pairs and one bfloat16 step: each rank's launches by kernel and role
+    (printed) equal phase F's one-card step's, the bfloat16 step's by kernel
+    and role too (the route per launch may differ: the heads' widths are
+    halved); rank 0 holds both against the one-card steps on the global
+    batch by K1's rules (gradients gathered whole); a ``model=2`` checkpoint
+    written by rank 0 is the one-card layout, loads back at ``model=2`` and
+    on one card with the same bits. Kernel #1 at every shard width the heads
+    give (forward O = 424, 212, 53; input gradient C = 424, 212, 53 against
+    O = 1696, 848, 212, 128), float32 and bfloat16, against its plain
+    version, timed.
+
 The kernels line's entries carry ``launches_phase_h``,
 ``launches_phase_j`` and ``launches_phase_k``, each H, J and K path's count.
+``python3 chip_smoke.py --only-k4`` runs the build and K4 alone; where four
+cards are visible K4 puts a rank on each (NCCL), so the model axis'
+collectives cross cards.
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -5423,10 +5440,243 @@ def k3_cli(card, tmp, counts_out):
     return out
 
 
+# K4: kernel #1 at the widths the model axis gives the canonical heads on a
+# rank (B = 256 pairs of a batch shard): (H, input channels, output shard)
+K4_HEADS = {"pz_*_conv1": (4, 1696, 424), "pz_*_conv2": (4, 848, 424), "uz_conv2": (4, 212, 424),
+            "yz_conv2": (4, 128, 424), "ex_head": (8, 128, 212), "ey_head": (8, 128, 53)}
+K4_ROWS = 256
+
+
+def k4_cards() -> int:
+    """K4's placement: a card per rank (NCCL) where four cards are visible,
+    else the four ranks on cuda:0 (gloo)."""
+    return 4 if torch.cuda.device_count() >= 4 else 1
+
+
+def k4_rank(rank: int, port: int, out_path: str, ckpt_dir: str, cards: int = 1) -> None:
+    """One rank of K4 (spawned by ``k4_model_axis``; ``data=2 x model=2``,
+    the four ranks on cuda:0 over gloo, or with ``cards`` 4 one card each
+    over NCCL): the canonical Cond_SRVAE's float32 step on its batch shard,
+    counted by kernel and role, three timed steps, the ``model=2``
+    checkpoint round trip and one bfloat16 step. Rank 0 then holds the
+    steps against the one-card steps on the global batch and the checkpoint
+    against a one-card load. Writes a JSON summary."""
+    import torch.distributed as dist
+
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, MeshConfig, TrainConfig
+    from simple_vae_rs_tpu_torch import Trainer, make_mesh
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.parallel import mesh as pm
+    from simple_vae_rs_tpu_torch.train.checkpoint import (load_checkpoint, load_state,
+                                                          save_checkpoint)
+
+    torch.cuda.set_device(rank if cards > 1 else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl" if cards > 1 else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=4)
+    out = {"rank": rank, "backend": str(dist.get_backend())}
+    try:
+        mesh = make_mesh(MeshConfig(data=2, model=2))
+        out["shape"], out["shard"], out["model_index"] = mesh.shape, mesh.shard, mesh.model_index
+        cfg = CondSRVAEConfig(cr=1.2, patch_size=64)
+        init = CondSRVAE(cfg, device="cuda").init_weights(0).state_dict()
+        batch = training_batch()
+        local = pm.shard_batch(mesh, batch)
+        eps = k_noise(torch.Generator(device="cuda").manual_seed(5), 512)
+
+        def trainer(on=mesh, dtype=torch.float32):
+            m = CondSRVAE(cfg, device="cuda", dtype=dtype)
+            m.load_state_dict(init)
+            return Trainer(m, TrainConfig(learning_rate=LR,
+                                          use_bfloat16=dtype == torch.bfloat16),
+                           device="cuda", mesh=on)
+
+        def whole(tr):
+            return pm.gather_params(tr.model, {n: p.detach().clone()
+                                               for n, p in tr.params.items()})
+
+        trainer().grads_and_terms(local, eps)  # the kernels at the new widths, gloo's buffers
+        tr = trainer()
+        out["sharded"] = sorted(pm.sharded_convs(tr.model))
+        out["shard_params"] = sum(p.numel() for p in tr.params.values())
+        reset_path_counts(fc, fe)
+        (grads, terms), ms = timed(lambda: tr.grads_and_terms(local, eps))
+        out["launches"] = path_counts(fc, fe)
+        out["grads_and_terms_ms"] = ms
+        whole_grads = pm.gather_params(tr.model, grads)
+        tr.apply_grads(grads, LR)
+        after = whole(tr)
+        out["train_step_ms"] = [timed(lambda: tr.train_step(local, eps=eps))[1]
+                                for _ in range(3)]
+        # the checkpoint: gathered on every rank, written by rank 0, loaded
+        # back at model=2 (each rank its blocks)
+        path = os.path.join(ckpt_dir, "k4")
+        (_, out["save_ms"]) = timed(lambda: save_checkpoint(path, tr, epoch=1))
+        back = trainer()
+        load_checkpoint(path, back)
+        saved, loaded = whole(tr), whole(back)
+        opt_saved, opt_loaded = tr.opt.state_dict(), back.opt.state_dict()
+        out["ckpt_back_equal"] = (all(torch.equal(saved[n], loaded[n]) for n in saved)
+                                  and all(torch.equal(a, b) for key in ("mu", "nu")
+                                          for a, b in zip(opt_saved[key], opt_loaded[key])))
+        del back
+        trainer(dtype=torch.bfloat16).grads_and_terms(local, eps)  # the bf16 kernels' first
+        tb = trainer(dtype=torch.bfloat16)
+        reset_path_counts(fc, fe)
+        gb, terms_b = tb.grads_and_terms(local, eps)
+        torch.cuda.synchronize()
+        out["bf16_launches"] = {**k_bf16_counts(fc), **dict(fe.launches)}
+        out["bf16_by_role"] = {f"{name} {role}": n for name, roles in fc.bf16_launches.items()
+                               for role, n in roles.items() if n}
+        gb = pm.gather_params(tb.model, gb)
+        del tb
+        if rank == 0:
+            fails = []
+            one = trainer(None)
+            load_checkpoint(path, one)
+            state, ref_path = load_state(path), os.path.join(ckpt_dir, "k4_one")
+            save_checkpoint(ref_path, one, epoch=1)
+            ref = load_state(ref_path)
+            layout = ({k: (tuple(v.shape), str(v.dtype)) for k, v in state["model"].items()}
+                      == {k: (tuple(v.shape), str(v.dtype)) for k, v in ref["model"].items()}
+                      and [tuple(t.shape) for t in state["optimizer"]["mu"]]
+                      == [tuple(t.shape) for t in ref["optimizer"]["mu"]])
+            one_equal = all(torch.equal(one.params[n].detach(), saved[n]) for n in saved)
+            if not (layout and one_equal and out["ckpt_back_equal"]):
+                fails.append(f"checkpoint: one-card layout {layout}, one-card load equal "
+                             f"{one_equal}, model=2 load equal {out['ckpt_back_equal']}")
+            out["ckpt_mib"] = os.path.getsize(path + ".pt") / 2**20
+            del one
+            ts = trainer(None)
+            gs, terms_s = ts.grads_and_terms(batch, eps)
+            ts.apply_grads(gs, LR)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            perm = torch.randperm(512, generator=gen, device="cuda")
+            gq, _ = trainer(None).grads_and_terms(tuple(t[perm] for t in batch),
+                                                  tuple(e[perm] for e in eps))
+            f, out["grad_worst_of_block"] = grads_rule(whole_grads, gs, gq)
+            fails += f
+            f, out["terms_rel"] = terms_rule(terms, terms_s)
+            fails += f
+            f, out["param_max_diff"], out["param_share"] = params_rule(after, ts.params)
+            fails += f
+            out["single_train_step_ms"] = [timed(lambda: ts.train_step(batch, eps=eps))[1]
+                                           for _ in range(3)]
+            del ts
+            gsb, terms_sb = trainer(None, torch.bfloat16).grads_and_terms(batch, eps)
+            f, out["bf16_grad_worst_of_block"] = grads_rule(
+                gb, gsb, gs, BF16_STEP_TOLS["noise"], BF16_STEP_TOLS["grad"])
+            fails += f
+            f, out["bf16_terms_rel"] = terms_rule(terms_b, terms_sb, BF16_STEP_TOLS["terms"])
+            fails += f
+            out["failures"] = fails
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def k4_widths(card):
+    """Kernel #1 at each width the sharded heads give a rank, both roles,
+    float32 and bfloat16, against its plain version (``check_shape`` and
+    ``check_shape_bf16``: K1's tolerances), timed."""
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+
+    name, rows = "fused_conv3x3_bn_relu", []
+    for i, (head, (h, c, o)) in enumerate(K4_HEADS.items()):
+        for check, dtype in ((check_shape, "f32"), (check_shape_bf16, "bf16")):
+            fwd = check(fc, name, (K4_ROWS, h, h, c), o, False, 40 + i, True)
+            dx = check(fc, name, (K4_ROWS, h, h, o), c, False, 60 + i, True, site=name)
+            for row in (fwd, dx):
+                row.update({"head": head, "dtype": dtype})
+                rows.append(row)
+                log(f"K4 #1 {dtype} {row['role']} {head}: x {row['x']} -> {row['o']}"
+                    + (f" ({row['impl']})" if dtype == "bf16" else "")
+                    + f", max|diff| {row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
+                    f"{row['plain_ms']:.4f}, cuDNN {row['library_ms']:.4f}, bound "
+                    f"{row['bound_ms']:.4f} by {row['bound_by']}); card {card}")
+    return rows
+
+
+def k4_model_axis(card, tmp, counts, want_launches):
+    """K4: the model axis on four ranks (sharing cuda:0, or a card each
+    where four are visible: ``k4_cards``), and kernel #1 at the heads' shard
+    widths. Returns the report's K4 entry."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    cards = k4_cards()
+    port = free_port()
+    paths = [os.path.join(tmp, f"k4_rank{r}.json") for r in range(4)]
+    ckpt_dir = os.path.join(tmp, "k4_ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=k4_rank, args=(r, port, paths[r], ckpt_dir, cards))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    if any(p.is_alive() or p.exitcode for p in procs):
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"K4: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in paths:
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    r0 = ranks[0]
+    if r0["failures"]:
+        raise AssertionError("K4 data=2 x model=2 against one card: "
+                             + "; ".join(r0["failures"][:10]))
+    want = {k: v for k, v in want_launches.items() if v}
+    heads = ["ex_head", "ey_head", "pz_lv_conv1", "pz_lv_conv2", "pz_mu_conv1", "pz_mu_conv2",
+             "uz_conv2", "yz_conv2"]
+    for r in ranks:
+        same = {k: v for k, v in r["launches"].items() if v or want_launches.get(k)}
+        f32_roles = {k: v for k, v in want.items() if k.startswith("fused_conv")}
+        if same != want or r["bf16_by_role"] != f32_roles or r["sharded"] != heads:
+            raise AssertionError(f"K4 rank {r['rank']}: launches {r['launches']}, bf16 "
+                                 f"{r['bf16_by_role']}, sharded {r['sharded']}; the one-card "
+                                 f"step's {want_launches}")
+        if not r["ckpt_back_equal"]:
+            raise AssertionError(f"K4 rank {r['rank']}: the checkpoint did not load back")
+        log(f"K4 rank {r['rank']} (shard {r['shard']}, model index {r['model_index']}; "
+            f"{r['shard_params']} parameters held) launches: f32 "
+            + " ".join(f"{k}={v}" for k, v in r["launches"].items() if v) + "; bf16 "
+            + " ".join(f"{k}={v}" for k, v in r["bf16_launches"].items()))
+        counts[f"K4 model-axis train step, rank {r['rank']}"] = r["launches"]
+    counts["K4 model-axis bf16 train step, rank 0"] = r0["bf16_launches"]
+    torch.cuda.empty_cache()
+    widths = k4_widths(card)
+    seconds = time.perf_counter() - t0
+    where = ("four gloo ranks on cuda:0" if cards == 1 else
+             f"four {r0['backend']} ranks, a card each")
+    note = (K_BACKEND_NOTE if cards == 1 else
+            "four cards of one host, a rank each: the model axis' collectives cross cards")
+    log(f"K4 {where} as data=2 x model=2, canonical Cond_SRVAE, global "
+        f"B=512 (256 a batch shard), the 8 wide heads channel-sharded over each pair: "
+        f"launches per rank = the one-card step's; against the one-card step: terms rel "
+        f"{r0['terms_rel']:.2e}, gradients (gathered) worst {r0['grad_worst_of_block'][0]:.2e} "
+        f"of block max ({r0['grad_worst_of_block'][1]}) within {NOISE_FACTOR:g}x float32 "
+        f"noise + {GRAD_TOL:g}, parameters max|diff| {r0['param_max_diff']:.3e} "
+        f"({r0['param_share']:.4f} within 1e-2 lr); bf16 terms rel {r0['bf16_terms_rel']:.2e}, "
+        f"gradients worst {r0['bf16_grad_worst_of_block'][0]:.2e} of block max within "
+        f"{BF16_STEP_TOLS['noise']:g}x their bf16 error + {BF16_STEP_TOLS['grad']:g}; the "
+        f"model=2 checkpoint ({r0['ckpt_mib']:.1f} MiB, saved in {r0['save_ms']:.1f} ms) is the "
+        f"one-card layout and loads back at model=2 and on one card bit-equal; train step "
+        f"median {statistics.median(r0['train_step_ms']):.1f} ms a rank against one card's "
+        f"{statistics.median(r0['single_train_step_ms']):.1f} ms; K4 {seconds:.1f} s; {note}; "
+        f"card {card}")
+    return {"ranks": ranks, "widths": widths, "seconds": seconds, "cards": cards}
+
+
 def mesh_phase(report, card, tmp):
     """Phase K: the mesh on the one card (K1 the sharded step, K2 meshed
-    serving, K3 the 2-rank CLI), in G's temporary directory. Returns each
-    path's launches."""
+    serving, K3 the 2-rank CLI, K4 the model axis), in G's temporary
+    directory. Returns each path's launches."""
     import multiprocessing as mp
 
     t0 = time.perf_counter()
@@ -5490,6 +5740,8 @@ def mesh_phase(report, card, tmp):
     out["k2"] = k2_serving(card, tmp, counts)
     torch.cuda.empty_cache()
     out["k3"] = k3_cli(card, tmp, counts)
+    torch.cuda.empty_cache()
+    out["k4"] = k4_model_axis(card, tmp, counts, want_launches)
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = counts
     log(f"K total {out['seconds']:.1f} s; card {card}")
@@ -5497,10 +5749,54 @@ def mesh_phase(report, card, tmp):
     return counts
 
 
+def k4_only() -> int:
+    """``python3 chip_smoke.py --only-k4``: the build, one one-card step's
+    launches by kernel and role, then phase K4 alone (a card per rank where
+    four cards are visible: the model axis across cards)."""
+    from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, TrainConfig, Trainer
+    from simple_vae_rs_tpu_torch.ops import _build
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.device_count()} "
+        f"card(s): {card}")
+    _build.build_all()
+    tr = Trainer(CondSRVAE(CondSRVAEConfig(cr=1.2, patch_size=64), device="cuda").init_weights(0),
+                 TrainConfig(learning_rate=LR))
+    batch = training_batch()
+    eps = k_noise(torch.Generator(device="cuda").manual_seed(5), 512)
+    tr.grads_and_terms(batch, eps)
+    reset_path_counts(fc, fe)
+    tr.grads_and_terms(batch, eps)
+    want = path_counts(fc, fe)
+    del tr
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="k4_", dir=os.path.join(ROOT, "build"))
+    try:
+        out = k4_model_axis(card, tmp, {}, want)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_k4_report.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--only-k4"]:
+        return k4_only()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only-k4)",
+              file=sys.stderr)
+        return 2
     from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver, warmup
     from simple_vae_rs_tpu_torch.ops import _build
     from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
@@ -5824,7 +6120,8 @@ def main() -> int:
         # J1-J3. the checkpoint tools and the artifact, on G's checkpoint
         j_paths = export_phase(report, card, tmp)
         torch.cuda.empty_cache()
-        # K1-K3. the mesh: the sharded step, meshed serving, the 2-rank CLI
+        # K1-K4. the mesh: the sharded step, meshed serving, the 2-rank CLI,
+        # the model axis
         k_paths = mesh_phase(report, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -22,15 +22,23 @@ Data-parallel training runs one process per card, launched by torchrun:
 ``--multihost`` (or a ``WORLD_SIZE`` above 1) starts the process group from
 torchrun's environment (``parallel/mesh.init_distributed``: NCCL with a card
 per rank, gloo where ranks share a card) and ``--mesh_data`` /
-``--mesh_dcn`` lay the ranks out (``parallel/mesh.make_mesh``; the default
-uses them all). ``--batch_size`` stays the global batch in tiles: each rank
-loads, trains on and evaluates its slice, and rank 0 alone logs, writes the
-checkpoints and runs the task.
+``--mesh_model`` / ``--mesh_dcn`` lay the ranks out
+(``parallel/mesh.make_mesh``; the default puts them all on the data axis).
+``--batch_size`` stays the global batch in tiles: each batch shard loads,
+trains on and evaluates its slice, and rank 0 alone logs, writes the
+checkpoints and runs the task. ``--mesh_model N`` channel-shards the wide
+heads over the N consecutive ranks of each batch shard (tensor parallel, as
+JAX's ``model`` axis; the world is ``dcn x data x N`` ranks):
+
+    torchrun --nproc_per_node 4 -m simple_vae_rs_tpu_torch.cli --multihost \
+        --mesh_data 2 --mesh_model 2 --dataset s2v --data_root ARM --batch_size 32
+
+the task then runs on the whole model, gathered from the shards on every
+rank.
 
 Flags that are not ported raise a ``ValueError`` at any value but their
-default: ``--mesh_model`` (the model axis, ROADMAP A.8c), and
-``--scan_steps``, ``--train_elbo`` and ``--pallas_conv``, left out on
-purpose (ROADMAP A.3).
+default: ``--scan_steps``, ``--train_elbo`` and ``--pallas_conv``, left out
+on purpose (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -42,8 +50,6 @@ from typing import Any, Dict, Optional, Sequence
 
 # flag: (its default, why it raises at another value)
 UNPORTED = {
-    "mesh_model": (1, "the mesh's model axis (channel-sharded heads) is not ported yet "
-                      "(ROADMAP A.8c)"),
     "scan_steps": (0, "scan_steps is not ported, on purpose (ROADMAP A.3)"),
     "train_elbo": ("xla", "train_elbo is not ported, on purpose: the row kernels always run "
                           "(ROADMAP A.3)"),
@@ -88,7 +94,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--mesh_data", type=int, default=-1,
                         help="Mesh data-axis size (-1 = every rank the other axes leave).")
     parser.add_argument("--mesh_model", type=int, default=1,
-                        help="Mesh model-axis size; above 1 not ported (ROADMAP A.8c).")
+                        help="Mesh model-axis size (the wide heads channel-sharded over "
+                        "this many ranks of each batch shard).")
     parser.add_argument("--mesh_dcn", type=int, default=1,
                         help="Mesh dcn-axis size (another factor of the ranks; same numbers).")
     parser.add_argument("--multihost", action="store_true",
@@ -193,7 +200,7 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
     from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
     from simple_vae_rs_tpu_torch.models.srvae import SRVAE
     from simple_vae_rs_tpu_torch.models.vae import VAE
-    from simple_vae_rs_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from simple_vae_rs_tpu_torch.parallel.mesh import init_distributed, make_mesh, unshard_model
     from simple_vae_rs_tpu_torch.serve import backend_device
     from simple_vae_rs_tpu_torch.tasks import run_task
     from simple_vae_rs_tpu_torch.train.callbacks import EarlyStopping, ModelCheckpoint
@@ -298,6 +305,9 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
         trainer.fit(train_loader, val_loader, epochs=args.epochs, start_epoch=start_epoch,
                     val_metrics_every=args.val_metrics_every)
 
+    # the task runs on the whole model: heads sharded over the model axis
+    # are gathered (on every rank: a collective)
+    model = unshard_model(model)
     if args.int8:
         # quantize the trained model once; the task's decodes run the W8A8
         # kernels (training above ran in full precision)

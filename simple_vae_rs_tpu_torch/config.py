@@ -131,8 +131,9 @@ class MeshConfig:
     """Mesh layout: ``dcn`` x ``data`` x ``model`` (the JAX package's
     ``MeshConfig``). The batch shards over ``(dcn, data)``; ``dcn`` only
     factors the world differently (JAX: slices over the data-center network)
-    and changes no number. ``model`` above 1 (channel-sharded heads) is not
-    ported yet (ROADMAP A.8c): ``parallel/mesh.make_mesh`` raises on it."""
+    and changes no number. ``model`` above 1 channel-shards the wide heads
+    over that many consecutive ranks of each batch shard
+    (``parallel/mesh.shard_model``)."""
 
     data: int = -1  # -1: every device (rank) the other axes leave
     model: int = 1

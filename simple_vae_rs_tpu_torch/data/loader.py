@@ -20,11 +20,13 @@ batch takes a new one, and PyTorch's pinned-memory cache hands a block out
 again only once the copy that read it has completed.
 
 On a process mesh (``mesh=``, ``parallel/mesh.make_mesh``) each rank yields
-its contiguous slice of every global batch (JAX ``loader.py:164-167``) and
-decodes only its own tiles: the order, the split and the random crops'
-offsets are drawn for the global batch from the shared epoch generator and
-sliced, so every rank's generator advances alike. A mesh needs
-``drop_last`` and a ``batch_size`` (in tiles) that the ranks divide.
+its batch shard's contiguous slice of every global batch (JAX
+``loader.py:164-167``; the ranks of one shard on the ``model`` axis yield
+the same rows) and decodes only its own tiles: the order, the split and
+the random crops' offsets are drawn for the global batch from the shared
+epoch generator and sliced, so every rank's generator advances alike. A
+mesh needs ``drop_last`` and a ``batch_size`` (in tiles) that the batch
+shards divide.
 """
 
 from __future__ import annotations

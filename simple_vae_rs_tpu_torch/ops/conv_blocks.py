@@ -1,6 +1,8 @@
 """NHWC conv building blocks of the port, named as the flax tree.
 
-- :class:`Conv3x3`: 3x3/s1 conv with bias (flax ``PallasCapableConv3x3``).
+- :class:`Conv3x3`: 3x3/s1 conv with bias (flax ``PallasCapableConv3x3``);
+  :class:`ShardedConv3x3` holds its block of output channels on the mesh's
+  ``model`` axis and gathers the output.
 - :class:`DownBlock`: conv3x3 -> conv4x4/s2/p1 -> BatchNorm -> ReLU.
 - :class:`UpBlock`: conv3x3 -> convT4x4/s2/p1 -> BatchNorm -> ReLU.
 
@@ -69,6 +71,7 @@ from torch import nn
 from simple_vae_rs_tpu_torch.ops import fused_chain
 from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
+from simple_vae_rs_tpu_torch.parallel import mesh as pm
 from simple_vae_rs_tpu_torch.parallel.mesh import all_reduce_sum
 
 # The reference quantizes an UpBlock's transposed conv only from this many
@@ -157,6 +160,73 @@ class Conv3x3(ConvWeights, Routed):
                                 packed=self.kernel_p)
         return fc.fused_conv("fused_conv3x3_bn_relu", x.to(dt), self.kernel.to(dt),
                              self.unit_scale, self.bias, False, self.plain)
+
+
+class ShardedConv3x3(Conv3x3):
+    """A :class:`Conv3x3` that holds this rank's block of the output
+    channels (kernel ``(3, 3, C, O / shards)``, bias ``(O / shards,)``) of a
+    head sharded over the mesh's ``model`` axis (``parallel/mesh.
+    shard_model``): column-parallel, the output gathered. The input passes
+    through ``copy_to_model`` (its gradient, a partial sum over this rank's
+    channels, all-reduced over the model ``group``), the block runs through
+    the same fused 3x3 kernel as any conv, and its output through
+    ``gather_channels`` (the whole channels, in rank order; backward, this
+    rank's slice). The gathered output and the reduced input gradient stay
+    in the compute dtype. ``load_state_dict`` takes whole leaves (this
+    rank's block is cut from them) or blocks. Int8 weights are refused: a
+    sharded model trains, and serves whole (``parallel/mesh.unshard_model``)."""
+
+    def __init__(self, conv: Conv3x3, group, index: int, shards: int) -> None:
+        c, o = int(conv.kernel.shape[2]), int(conv.kernel.shape[3])
+        if o % shards:
+            raise ValueError(f"{o} output channels do not divide into {shards} shards")
+        super().__init__(c, o // shards, device=conv.kernel.device)
+        self.group, self.index, self.shards = group, int(index), int(shards)
+        self.fan = conv.fan
+        with torch.no_grad():
+            self.kernel.copy_(self.block("kernel", conv.kernel))
+            self.bias.copy_(self.block("bias", conv.bias))
+        self.plain, self.chain, self.dtype = conv.plain, conv.chain, conv.dtype
+        self.train(conv.training)
+
+    @staticmethod
+    def dim_of(leaf: str) -> Optional[int]:
+        """The dim leaf ``leaf`` is sharded over (None: not a sharded leaf)."""
+        return {"kernel": 3, "bias": 0}.get(leaf)
+
+    def block(self, leaf: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole ``leaf`` (a view)."""
+        d = self.dim_of(leaf)
+        n = whole.shape[d] // self.shards
+        return whole.narrow(d, self.index * n, n)
+
+    def gather(self, block: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole leaf from the group's blocks along ``dim``."""
+        return pm.gather_cat(block.detach(), self.group, self.shards, dim)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for leaf in ("kernel", "bias"):
+            key = prefix + leaf
+            mine = getattr(self, leaf)
+            if key in state_dict and state_dict[key].shape != mine.shape:
+                whole = list(mine.shape)
+                whole[self.dim_of(leaf)] *= self.shards
+                if tuple(state_dict[key].shape) == tuple(whole):
+                    state_dict[key] = self.block(leaf, state_dict[key])
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def set_quant(self, kernel_q, kernel_s) -> None:
+        if kernel_q is not None or kernel_s is not None:
+            raise ValueError("a head sharded over the model axis takes no int8 weights: "
+                             "quantize the whole model (parallel.mesh.unshard_model)")
+        super().set_quant(None, None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = pm.copy_to_model(x.to(dt), self.group)
+        y = fc.fused_conv("fused_conv3x3_bn_relu", x, self.kernel.to(dt), self.unit_scale,
+                          self.bias, False, self.plain)
+        return pm.gather_channels(y, self.group, self.index, self.shards)
 
 
 class BatchNorm(nn.Module):
@@ -375,12 +445,15 @@ def tail_chain(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor
     ``tail_chain`` steps aside on a model with a ``quant`` collection, so
     that W8A8 serving keeps its int8 kernels: the float tails of such a
     model run layer by layer, which in bfloat16 adds each bias in float32
-    where the chain rounds it to bfloat16 first).
+    where the chain rounds it to bfloat16 first), and where a conv of the
+    tail is a head sharded over the model axis (it runs with its
+    collectives).
 
     In bfloat16 the kernels are cast to bfloat16 per call and the biases
     stay float32: the chain rounds them itself, as JAX ``fused_conv3x3_chain``
     casts them to ``x.dtype``."""
-    if not owner.chain or owner.training or has_int8(owner):
+    if (not owner.chain or owner.training or has_int8(owner)
+            or any(isinstance(conv, ShardedConv3x3) for conv in convs)):
         return None
     if torch.is_grad_enabled() and (h.requires_grad
                                     or any(conv.kernel.requires_grad for conv in convs)):

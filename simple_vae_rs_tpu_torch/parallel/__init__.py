@@ -4,6 +4,9 @@ from simple_vae_rs_tpu_torch.parallel.mesh import (
     param_shardings,
     replicate,
     shard_batch,
+    shard_model,
+    unshard_model,
 )
 
-__all__ = ["Mesh", "make_mesh", "replicate", "shard_batch", "param_shardings"]
+__all__ = ["Mesh", "make_mesh", "replicate", "shard_batch", "param_shardings", "shard_model",
+           "unshard_model"]

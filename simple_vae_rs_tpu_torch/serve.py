@@ -45,8 +45,11 @@ host (numpy in, numpy out).
 
 ``SuperResolver(model, mesh=make_mesh(MeshConfig(data=N), devices=[...]))``
 serves from one process over a device mesh (``parallel/mesh.py``): one
-replica of the model per device (after the int8 quantization and the chain
-switch, so every replica serves the same weights), each request's batch
+replica of the model per batch shard (after the int8 quantization and the
+chain switch, so every replica serves the same weights; on a mesh with a
+``model`` axis the parameters are replicated and the request split over the
+batch axes alone, as JAX's resolver does, one replica on each shard's first
+device), each request's batch
 padded to the replica count and split over the replicas, every replica's
 launches issued before the outputs are gathered on the first device. The
 noise is drawn on the first device exactly as the single-card resolver

@@ -27,11 +27,14 @@ re-raises the first error. Every load, meta read and blocking save waits
 first, so a reader always sees finished saves.
 
 On a process mesh (``Trainer(mesh=...)``) every rank calls
-:func:`save_checkpoint`: ZeRO-1 moments are gathered first (a collective)
-and only rank 0 writes, so the file is the replicated one.
-:func:`load_checkpoint` waits at a barrier (after rank 0's pending writes)
-before any rank reads, and a ZeRO-1 optimizer takes its blocks of the
-whole moments it loads (the JAX ``checkpoint.py:49-70``, ``:109-130``).
+:func:`save_checkpoint`: ZeRO-1 moments and the blocks of the heads sharded
+over the ``model`` axis (parameters and moments) are gathered first
+(collectives) and only rank 0 writes, so the file is the replicated one,
+byte for byte the layout of a one-process run's. :func:`load_checkpoint`
+waits at a barrier (after rank 0's pending writes) before any rank reads,
+and each rank takes its blocks of the whole leaves and moments it loads
+(the JAX ``checkpoint.py:49-70``, ``:109-130``): a checkpoint moves between
+layouts.
 
 :func:`read_jax_checkpoint` reads the JAX package's ``<path>.msgpack``
 (flax ``serialization.to_bytes``) into nested dicts of numpy arrays, for
@@ -105,15 +108,20 @@ def save_checkpoint(path: str, trainer, epoch: int = 0, extra: Optional[Dict] = 
     CPU here and written on the writer thread. On a mesh every rank calls
     it and rank 0 alone writes."""
     path = os.path.abspath(path)
-    opt = trainer.opt.state_dict()  # ZeRO-1: gathered on every rank
+    opt = trainer.opt.state_dict()  # ZeRO-1, the model axis: gathered on every rank
     mesh = getattr(trainer, "mesh", None)
-    if mesh is not None and mesh.rank != 0:
-        return
+    model = trainer.model.state_dict()
+    if mesh is not None:
+        from simple_vae_rs_tpu_torch.parallel.mesh import gather_params
+
+        model = gather_params(trainer.model, model)
+        if mesh.rank != 0:
+            return
     os.makedirs(os.path.dirname(path), exist_ok=True)
     meta = {"epoch": int(epoch), **(extra or {})}
     payload = {
         "format": FORMAT,
-        "model": {k: _cpu(v) for k, v in trainer.model.state_dict().items()},
+        "model": {k: _cpu(v) for k, v in model.items()},
         "optimizer": {"mu": [_cpu(t) for t in opt["mu"]], "nu": [_cpu(t) for t in opt["nu"]],
                       "count": int(opt["count"])},
         "rng": _cpu(trainer._rng.get_state()),
@@ -183,7 +191,8 @@ def load_checkpoint(path: str, trainer) -> Dict[str, Any]:
         wait_for_saves()
         barrier(mesh)
     state = load_state(path)
-    trainer.model.load_state_dict(state["model"])  # copies onto the model's device
+    # copies onto the model's device; a sharded head cuts its block
+    trainer.model.load_state_dict(state["model"])
     trainer.opt.load_state_dict(state["optimizer"])
     trainer._rng.set_state(state["rng"])
     trainer.seed = int(state["seed"])

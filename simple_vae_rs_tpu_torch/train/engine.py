@@ -54,7 +54,17 @@ r-th slice of global microbatch i, as JAX reshapes the global array. The
 evaluation sums and counts are all-reduced; LPIPS runs only where every
 rank has the weights; the eval images are the global batch's first ones on
 every rank; only rank 0 prints; a SIGTERM on any rank makes every rank save
-(collectively: ``train/checkpoint.save_checkpoint``).
+(collectively: ``train/checkpoint.save_checkpoint``). With a ``model`` axis
+above 1 the ranks of one batch shard hold the same rows and compute the
+same loss: the wide heads run channel-sharded among them
+(``parallel/mesh.shard_model``), and every batch reduction above (the
+BatchNorm sums, the terms, the rows gathered, a sharded head's gradients)
+runs over the mesh's data group. The replicated parameters' gradients are
+summed over the world and divided by the model axis' size: the mean of the
+model ranks' copies, so every rank holds the same bits (on the card the
+copies differ in the last bits) and the replicas never drift apart.
+Nothing else sums over the model group but the heads' own collectives and
+the clip's norm.
 
 Noise: every draw goes through :meth:`Trainer.stream_noise`. Train and
 pre-training steps draw from the trainer's generator (seeded with ``seed``,
@@ -153,8 +163,9 @@ class Trainer:
     names the preemption checkpoint. The plateau ``scheduler`` is made from
     the config. ``baseline_metrics`` holds the bicubic baseline once ``fit``
     has computed it. ``mesh`` is a process mesh (``parallel/mesh.make_mesh``)
-    to train data-parallel on, with ``cfg.zero1`` sharding the large Adam
-    moments over it.
+    to train on: data-parallel over its batch axes, with ``cfg.zero1``
+    sharding the large Adam moments over them, and with the wide heads
+    channel-sharded over its ``model`` axis (``parallel/mesh.shard_model``).
     """
 
     def __init__(self, model, cfg: Optional[TrainConfig] = None, device="cuda",
@@ -171,8 +182,19 @@ class Trainer:
         self.callbacks = list(callbacks)
         self.logger = logger or NullLogger()
         self.job_id = job_id
+        self.mesh = mesh
+        self._shards = 1
+        if mesh is not None:
+            if not mesh.is_process:
+                raise ValueError("a Trainer trains on a process mesh (make_mesh without "
+                                 "devices); a device mesh serves")
+            self._shards = mesh.n_shards
+            sync_batchnorm(self.model, mesh.data_group if mesh.distributed and self._shards > 1
+                           else None)
+            pm.shard_model(self.model, mesh)  # from rank 0; the heads' blocks on a model axis
         self.params: Dict[str, Tensor] = dict(self.model.named_parameters())
-        self.opt = make_optimizer(cfg, list(self.params.values()))
+        self._model_dims = pm.model_dims(self.model)  # None each without a model axis
+        self.opt = self.make_optimizer()
         self.scheduler = ReduceLROnPlateau(lr=cfg.learning_rate, factor=cfg.plateau_factor,
                                            patience=cfg.plateau_patience)
         self.step = 0
@@ -181,16 +203,17 @@ class Trainer:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(self.seed)
         self._preempted = False
-        self.mesh = mesh
-        self._shards = 1
         if mesh is not None:
-            if not mesh.is_process:
-                raise ValueError("a Trainer trains on a process mesh (make_mesh without "
-                                 "devices); a device mesh serves")
-            self._shards = mesh.n_shards
-            sync_batchnorm(self.model, mesh.group if mesh.distributed and self._shards > 1
-                           else None)
             pm.shard_state(mesh, self, zero1=cfg.zero1)
+
+    def make_optimizer(self):
+        """A fresh clip + Adam over the trainer's parameters (its config's),
+        laid out over the mesh's model axis where the model is sharded on
+        one."""
+        opt = make_optimizer(self.cfg, list(self.params.values()))
+        if self.mesh is not None and self.mesh.model > 1:
+            opt.over_model(self.mesh, self._model_dims)
+        return opt
 
     @property
     def is_main(self) -> bool:
@@ -364,7 +387,7 @@ class Trainer:
             tsum = {k: v * (1.0 / accum) for k, v in tsum.items()}
         # each rank's loss is its share of the global one: the global
         # gradient and terms are the sums over the ranks
-        pm.all_reduce_flat_(self.mesh, gsum)
+        pm.all_reduce_flat_(self.mesh, gsum, self._model_dims)
         return dict(zip(self.params, gsum)), self._reduce(tsum)
 
     @torch.no_grad()
@@ -419,7 +442,7 @@ class Trainer:
         params = list(self.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        pm.all_reduce_flat_(self.mesh, grads)
+        pm.all_reduce_flat_(self.mesh, grads, self._model_dims)
         with torch.no_grad():
             torch._foreach_add_(params, opt.update(grads), alpha=-float(lr))
         self.step += 1
@@ -432,7 +455,7 @@ class Trainer:
         per pre-epoch. A VAE has no LR branch: nothing happens."""
         if self.kind not in ("cond", "srvae") or pre_epochs <= 0:
             return
-        opt = make_optimizer(self.cfg, list(self.params.values()))
+        opt = self.make_optimizer()
         lr = self.cfg.learning_rate
         for epoch in range(1, pre_epochs + 1):
             last = None

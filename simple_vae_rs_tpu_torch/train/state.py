@@ -35,9 +35,17 @@ class ClipAdam:
     a process mesh keeps only its block of every large moment along the dim
     the mesh picks; :meth:`step` clips the whole (already reduced) gradient
     as ever, advances this rank's blocks of the moments, updates that block
-    of the parameter and all-gathers the blocks. :meth:`state_dict` gathers,
-    so a ZeRO-1 checkpoint is the replicated one, and
-    :meth:`load_state_dict` takes this rank's blocks of a whole one."""
+    of the parameter and all-gathers the blocks (over the batch shards: the
+    mesh's data group). :meth:`state_dict` gathers, so a ZeRO-1 checkpoint
+    is the replicated one, and :meth:`load_state_dict` takes this rank's
+    blocks of a whole one.
+
+    The ``model`` axis (:meth:`over_model`, from ``Trainer.make_optimizer``):
+    the leaves of a head sharded over it are this rank's
+    blocks, so are their moments; the clip's global norm sums their squares
+    over the model group once and counts every other leaf once (optax's
+    norm of the whole tree), and :meth:`state_dict` / :meth:`load_state_dict`
+    gather and cut their moments as ZeRO-1's."""
 
     def __init__(self, params: Sequence[Tensor], max_norm: float = 1.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -51,6 +59,8 @@ class ClipAdam:
         self.count = 0
         self.mesh: Optional[pm.Mesh] = None
         self.dims: List[Optional[int]] = [None] * len(self.mu)  # ZeRO-1 dim per leaf
+        self.model_mesh: Optional[pm.Mesh] = None
+        self.model_dims: List[Optional[int]] = [None] * len(self.mu)  # model-axis dim per leaf
 
     def _block(self, t: torch.Tensor, i: int) -> torch.Tensor:
         """This rank's block of leaf ``i``'s whole tensor ``t`` (a view)."""
@@ -58,7 +68,23 @@ class ClipAdam:
         if d is None:
             return t
         n = t.shape[d] // self.mesh.n_shards
-        return t.narrow(d, self.mesh.rank * n, n)
+        return t.narrow(d, self.mesh.shard * n, n)
+
+    def _model_block(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's model-axis block of leaf ``i``'s whole tensor ``t``."""
+        d = self.model_dims[i]
+        if d is None:
+            return t
+        n = t.shape[d] // self.model_mesh.model
+        return t.narrow(d, self.model_mesh.model_index * n, n)
+
+    def over_model(self, mesh: pm.Mesh, dims: Sequence[Optional[int]]) -> None:
+        """The ``model`` axis of the process ``mesh``: leaf ``i`` is this
+        rank's block along ``dims[i]`` (None: whole on every rank). Call it
+        before :meth:`shard`."""
+        if len(dims) != len(self.mu):
+            raise ValueError(f"{len(dims)} dims for {len(self.mu)} moments")
+        self.model_mesh, self.model_dims = mesh, list(dims)
 
     def shard(self, mesh: pm.Mesh, dims: Sequence[Optional[int]]) -> None:
         """ZeRO-1 over the process mesh ``mesh``: leaf ``i``'s moments keep
@@ -71,10 +97,18 @@ class ClipAdam:
         self.mu = [self._block(m, i).clone() for i, m in enumerate(self.mu)]
         self.nu = [self._block(v, i).clone() for i, v in enumerate(self.nu)]
 
-    @staticmethod
-    def global_norm(grads: Sequence[Tensor]) -> Tensor:
-        """``sqrt(sum_leaves sum(g^2))`` as a 0-dim tensor on the grads' device."""
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    def global_norm(self, grads: Sequence[Tensor]) -> Tensor:
+        """``sqrt(sum_leaves sum(g^2))`` of the whole tree as a 0-dim tensor
+        on the grads' device: over the model axis the sharded leaves' squares
+        are summed over the model group, every other leaf counted once."""
+        norms = torch.stack(torch._foreach_norm(list(grads)))
+        if self.model_mesh is None:
+            return torch.linalg.vector_norm(norms)
+        sq = norms.square()
+        mask = torch.tensor([d is not None for d in self.model_dims], device=sq.device)
+        sharded = sq[mask].sum().reshape(1)
+        torch.distributed.all_reduce(sharded, group=self.model_mesh.model_group)
+        return torch.sqrt(sq[~mask].sum() + sharded[0])
 
     def clip(self, grads: Sequence[Tensor]) -> List[Tensor]:
         """optax ``clip_by_global_norm``: ``g * max_norm / |g|`` when
@@ -138,14 +172,21 @@ class ClipAdam:
 
     def state_dict(self) -> dict:
         """The moments (``mu`` in its ``mu_dtype``), as lists in parameter
-        order, and the step count. Under ZeRO-1 every rank gathers the whole
-        moments (a collective: every rank calls it)."""
-        if self.mesh is None:
+        order, and the step count. Under ZeRO-1 and over the model axis
+        every rank gathers the whole moments (a collective: every rank calls
+        it)."""
+        if self.mesh is None and self.model_mesh is None:
             return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
 
         def whole(ts):
-            return [t if d is None else pm.gather_shards(self.mesh, t, d)
-                    for t, d in zip(ts, self.dims)]
+            out = []
+            for t, d, md in zip(ts, self.dims, self.model_dims):
+                if d is not None:
+                    t = pm.gather_shards(self.mesh, t, d)
+                if md is not None:
+                    t = pm.gather_model(self.model_mesh, t, md)
+                out.append(t)
+            return out
 
         return {"mu": whole(self.mu), "nu": whole(self.nu), "count": self.count}
 
@@ -154,12 +195,13 @@ class ClipAdam:
         """Copy a :meth:`state_dict` in, from any device onto this optimizer's.
         Raises ``ValueError`` when the moments' number, shapes or dtypes
         differ (a bfloat16 first moment does not load into a float32 one, nor
-        back). Under ZeRO-1 the moments given are whole and this rank takes
-        its blocks."""
+        back). The moments given are whole: under ZeRO-1 and over the model
+        axis this rank takes its blocks."""
         for key, mine in (("mu", self.mu), ("nu", self.nu)):
             theirs = state[key]
             if len(theirs) != len(mine):
                 raise ValueError(f"{key}: {len(theirs)} moments for {len(mine)} parameters")
+            theirs = [self._model_block(t, i) for i, t in enumerate(theirs)]
             theirs = [t if self.mesh is None else self._block(t, i)
                       for i, t in enumerate(theirs)]
             for i, (m, t) in enumerate(zip(mine, theirs)):

@@ -10,7 +10,9 @@ a ``quant`` node ``a/b/{kernel_q, kernel_s}`` is the int8 weight of the conv
 module ``a.b``. This is the one place where a layout change would go. The
 layer API's modules carry the flax names too (``ops/sequences``: ``down{i}``,
 ``attn{i}`` with ``query``/``key``/``value``/``out``, ``up{i}``, ``proj``), so
-they load the same way.
+they load the same way. Into a model whose heads are sharded over the
+mesh's ``model`` axis (``parallel/mesh.shard_model``) the tree loads whole
+and each sharded leaf takes this rank's block (``parallel/mesh.shard_params``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from simple_vae_rs_tpu_torch.ops.quantize import attach_quant
+from simple_vae_rs_tpu_torch.parallel.mesh import shard_params, whole_shapes
 
 COLLECTIONS = ("params", "batch_stats")
 QUANT = "quant"
@@ -63,12 +66,17 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
     extra = sorted(set(leaves) - set(targets))
     if missing or extra:
         raise KeyError(f"weight trees differ: missing {missing}, extra {extra}")
+    # a head sharded over the mesh's model axis: the tree is whole, checked
+    # whole, and this rank's block copied in
+    whole = {name: tuple(t.shape) for name, t in targets.items()}
+    whole.update(whole_shapes(model))
     for name, dst in targets.items():
         src = leaves[name]
-        if tuple(src.shape) != tuple(dst.shape):
+        if tuple(src.shape) != whole[name]:
             raise ValueError(
-                f"{name}: shape {tuple(src.shape)} does not match {tuple(dst.shape)}"
+                f"{name}: shape {tuple(src.shape)} does not match {whole[name]}"
             )
+        src = torch.from_numpy(np.array(src, dtype=np.float32))
         with torch.no_grad():
-            dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+            dst.copy_(shard_params(model, {name: src})[name])
     return model

@@ -337,7 +337,8 @@ def test_test_mode_serves_a_jax_checkpoint_and_refuses_to_resume_it(tmp_path, mo
     # layout needs more ranks or the process group has no environment
     (["--mesh_data", "1", "--zero1", "--dataset", "bogus", "--backend", "cpu"],
      "Unknown dataset"),
-    (["--mesh_model", "2"], "ROADMAP A.8"),  # the model axis: ROADMAP A.8c
+    # the model axis is ported: one process cannot fill a model axis of 2
+    (["--mesh_model", "2", "--backend", "cpu"], "mesh 1x0x2 needs 2 devices, have 1"),
     (["--mesh_dcn", "2"], "mesh 2x0x1 needs 2 devices, have 1"),
     (["--multihost"], "torchrun"),
     (["--mesh_data", "2", "--backend", "cpu"], "mesh 1x2x1 needs 2 devices, have 1"),

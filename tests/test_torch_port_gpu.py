@@ -1305,3 +1305,42 @@ def test_cuda_meshed_request_is_the_one_card_request(cuda):
     a = meshed.uncertainty(y[0], samples=8, chunk=3, seed=2)
     b = single.uncertainty(y[0], samples=8, chunk=4, seed=2)
     assert float((a["mean"] - b["mean"]).abs().max()) <= 1e-6
+
+
+# The mesh's model axis at model=2 on the canonical Cond_SRVAE: each wide
+# head's conv runs on its block of output channels, forward (H, C -> O / 2)
+# and in the input-gradient role (O / 2 -> C), at 32 rows of a batch shard
+MODEL_AXIS_WIDTHS = [(4, 1696, 424), (4, 848, 424), (4, 212, 424), (4, 128, 424),
+                     (8, 128, 212), (8, 128, 53)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", MODEL_AXIS_WIDTHS, ids=lambda w: "-".join(map(str, w)))
+def test_model_axis_head_widths_match_plain_in_both_roles(cuda, width, dtype):
+    """Kernel #1 at a sharded head's widths through the path the head takes
+    (``fused_conv`` and its backward's ``input_grad``), each launch counted
+    (no plain fallback), against the plain versions: float32 within 1e-4 of
+    max|plain|, bfloat16 within ``fc.compare_bf16``'s bound."""
+    name = "fused_conv3x3_bn_relu"
+    h, c, o = width
+    x, kern, s, t = _inputs(name, (32, h, h, c), o, seed=h + c + o, device=cuda)
+    g = torch.randn((32, h, h, o), generator=torch.Generator(cuda).manual_seed(o), device=cuda)
+    if dtype == "bf16":
+        x, kern, g = x.bfloat16(), kern.bfloat16(), g.bfloat16()
+    counts = fc.bf16_launches[name] if dtype == "bf16" else fc.role_launches[name]
+    before = dict(counts)
+    got = fc.fused_conv(name, x, kern, s, t, False)
+    dx = fc.input_grad(name, g, kern, x.shape)
+    torch.cuda.synchronize()
+    assert counts["forward"] == before.get("forward", 0) + 1
+    assert counts["dx"] == before.get("dx", 0) + 1
+    want = fc.fused_conv(name, x, kern, s, t, False, plain=True)
+    want_dx = fc.input_grad(name, g, kern, x.shape, plain=True)
+    assert got.shape == want.shape == (32, h, h, o) and dx.shape == want_dx.shape == x.shape
+    for a, b in ((got, want), (dx, want_dx)):
+        if dtype == "bf16":
+            assert a.dtype == torch.bfloat16 and fc.compare_bf16(a, b)["of_bound"] <= 1.0
+        else:
+            assert float((a - b).abs().max()) <= TOL * float(b.abs().max())
+

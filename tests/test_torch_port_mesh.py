@@ -205,12 +205,18 @@ def test_make_mesh_refuses_what_jax_refuses_and_the_model_axis():
     assert str(got.value) == str(want.value) == "mesh 1x3x1 needs 3 devices, have 2"
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         make_mesh(MeshConfig(data=2))  # one process, no group
-    with pytest.raises(ValueError, match="ROADMAP A.8c"):
-        make_mesh(MeshConfig(data=1, model=2), ["cpu"] * 2)
+    # the model axis: accepted where the devices fill it, as JAX's
+    two = make_mesh(MeshConfig(data=1, model=2), ["cpu"] * 2)
+    assert two.shape == dict(jmesh.make_mesh(JMeshConfig(data=1, model=2),
+                                             jax.devices()[:2]).shape) == {"data": 1, "model": 2}
+    assert two.n_shards == 1
     one = make_mesh()
     assert one.shape == {"data": 1, "model": 1} and one.is_process and not one.distributed
-    with pytest.raises(ValueError, match="ROADMAP A.8c"):
-        pm.param_shardings(pm.Mesh({"data": 1, "model": 2}), {"w": torch.zeros(2)})
+    # a head whose output channels do not divide by the axis is refused
+    with pytest.raises(ValueError, match=r"ey_head\.kernel: its dim 3 of size 3 does not "
+                                         r"divide by the mesh's model axis of 2"):
+        pm.param_shardings(pm.Mesh({"data": 1, "model": 2}),
+                           {"w": torch.zeros(2), "ey_head.kernel": torch.zeros(3, 3, 4, 3)})
 
 
 # ------------------------------------------------------------------ two ranks
