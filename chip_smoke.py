@@ -284,7 +284,7 @@ G6. ``evaluate`` on a val tile super-resolved by the trained model patch by
     patch, reassembled with ``grid_unpatchify``, against its HR tile with
     ``--lr``: in memory and ``--stream`` agree within 1e-4 where one window
     covers the tile.
-G7. ``doctor`` exits 0 and prints the card's name and power limit.
+G7. ``doctor --budget 60`` exits 0 and prints the card's name and power limit.
 
 Then phase H, serving a whole raster, in the same temporary directory: the
 scene is an 8x8 mosaic of G1's LR tiles, a 1024x1024x4 int16 LZW GeoTIFF
@@ -377,11 +377,44 @@ K4. The mesh's ``model`` axis: four gloo ranks on cuda:0 as ``data=2 x
     O = 1696, 848, 212, 128), float32 and bfloat16, against its plain
     version, timed.
 
+After phase K, ``scan_steps`` (``Trainer.train_multi_step``: k optimizer
+steps as one CUDA graph replay), on the canonical models at B=512 from a
+seeded state (numpy tiles of seeds 0-4 through ``grid_sr_batch``):
+
+S1. The Cond_SRVAE in float32 and bfloat16: 4 eager steps, twice (the
+    spread), against 2 dispatches of k=2 and 1 of k=4 on the same batches,
+    cuDNN held deterministic: each step's terms within 1e-4 relative
+    (bfloat16 1e-2), the generator state after bit-equal, every parameter
+    and statistic within 8x the two eager runs' spread + 4 float32 ulps of
+    the leaf's largest value; a replay's launches by kernel, role and route
+    = the eager step's x k (the first call's x 2k: its warm-up runs k eager
+    steps).
+S2. ``fit`` with ``scan_steps=2`` over 5 batches: 2 dispatches and a tail
+    step, 5 steps in all, the epoch's loss within 1e-4 of the eager fit's.
+S3. The VAE and the SRVAE with ``accum_steps=2`` and with ``remat``, k=2
+    against 2 eager steps, by S1's rules.
+S4. A world of one on NCCL (its collectives captured, cuDNN deterministic):
+    k=2 against its eager steps by S1's rules; on gloo a replay raises.
+S5. In a fresh process: median ms a step over windows of 4 steps (one
+    sync a window), eager against k=2 and k=4, each dtype; one more window
+    of each under ``torch.profiler``: the card's busy share, and the path's
+    kernels that ran on the card as the trace names them (``conv_tc``, ``conv_tc_bf16``,
+    ``conv_wg_bf16`` by mode, ``rows_partial`` by mode), held by kernel and
+    route to the eager step's counts x 4 and to what the wrappers (eager)
+    or the capture's tally (replays) counted: the replays' launches in
+    ``launches_phase_s`` are these traced counts.
+
 The kernels line's entries carry ``launches_phase_h``,
-``launches_phase_j`` and ``launches_phase_k``, each H, J and K path's count.
-``python3 chip_smoke.py --only-k4`` runs the build and K4 alone; where four
-cards are visible K4 puts a rank on each (NCCL), so the model axis'
-collectives cross cards.
+``launches_phase_j``, ``launches_phase_k`` and ``launches_phase_s``, each H,
+J, K and S path's count. ``python3 chip_smoke.py --only-k4`` runs the build
+and K4 alone; where four cards are visible K4 puts a rank on each (NCCL), so
+the model axis' collectives cross cards. ``python3 chip_smoke.py --only-s``
+runs the build and phase S alone (report in
+``chiprun_out/chip_smoke_s_report.json``). With two or more cards visible,
+``--only-k4`` adds S6: two NCCL ranks (``data=2``), a card each, a k=2
+replay against their eager steps by S1's rules, and both timed; with four,
+S6 again on four ranks as ``data=2 x model=2`` with ZeRO-1 (the model axis'
+gathers and ZeRO-1's captured with the batch axis' sums).
 
 Output: per-shape lines, a ``{"kernels": [...]}`` line (each kernel's
 launches, times and bounds summed over the serving run, one train step and
@@ -419,6 +452,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2018,7 +2052,7 @@ def cli_phase(report, card, tmp):
         out["g6"] = results
 
         # G7. doctor
-        rc, text = main_output(lambda: doctor.main([]))
+        rc, text = main_output(lambda: doctor.main(["--budget", "60"]))
         if rc != 0 or card not in text:
             raise AssertionError(f"G7 doctor exited {rc}, the card's line {card!r} "
                                  f"{'printed' if card in text else 'missing'}")
@@ -5752,7 +5786,9 @@ def mesh_phase(report, card, tmp):
 def k4_only() -> int:
     """``python3 chip_smoke.py --only-k4``: the build, one one-card step's
     launches by kernel and role, then phase K4 alone (a card per rank where
-    four cards are visible: the model axis across cards)."""
+    four cards are visible: the model axis across cards); where two or more
+    cards are visible, then S6 (``scan_steps=2`` on two NCCL ranks, a card
+    each)."""
     from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, TrainConfig, Trainer
     from simple_vae_rs_tpu_torch.ops import _build
     from simple_vae_rs_tpu_torch.ops import fused_conv as fc
@@ -5780,10 +5816,593 @@ def k4_only() -> int:
         out = k4_model_axis(card, tmp, {}, want)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    if torch.cuda.device_count() >= 2:
+        # S6: scan_steps over NCCL across two cards, then across four as
+        # data=2 x model=2 with ZeRO-1 (the model axis' and ZeRO-1's
+        # collectives captured)
+        out["s6"] = s6_cards(card)
+    if torch.cuda.device_count() >= 4:
+        out["s6_model_zero1"] = s6_cards(card, world=4, model=2, zero1=True)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_k4_report.json"), "w") as fh:
         json.dump(out, fh, indent=1)
+    return 0
+
+
+# ------------------------------------------------------------------ phase S
+# S1-S4's rules (tests/test_torch_port_gpu.py's too): a replay's terms per step
+# within TERMS_TOL relative of the eager step's (bfloat16: the bf16 step rule's
+# 1e-2); the generator state after bit-equal; every parameter and statistic
+# within S_SPREAD times the spread of two eager runs of the same steps plus
+# S_ULPS float32 ulps of the leaf's largest value; a replay's launches by
+# kernel, role and the kernel that ran = the eager step's x k (the first
+# call's: x 2k, its warm-up's k eager steps besides). The runs compared hold
+# cuDNN deterministic (``s_deterministic``), as K1 and F3 do: in its default
+# mode cuDNN's float32 weight gradients are not bit-reproducible, and a leaf
+# that two eager runs happen to leave equal while a third run moves (an
+# SRVAE bias by 7 ulps after two steps) makes the spread rule fail
+# on right code; held so, both eager runs agree and a replay must equal them
+# within the ulps. The times (S5) run in cuDNN's default mode.
+S_SPREAD = 8.0
+S_ULPS = 4
+S_STEPS = 4  # eager steps against replays of k = 2 and 4 on the same batches
+
+
+class s_deterministic:
+    """cuDNN's deterministic algorithms while open."""
+
+    def __enter__(self):
+        self.prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.prev
+
+
+def s_trainer(kind, dtype, mesh=None, **cfg):
+    """A seeded trainer of the canonical ``kind`` ("cond", "srvae", "vae")."""
+    from simple_vae_rs_tpu_torch import (SRVAE, VAE, CondSRVAE, CondSRVAEConfig, TrainConfig,
+                                         Trainer, VAEConfig)
+
+    if kind == "vae":
+        model = VAE(VAEConfig(cr=1.5, patch_size=32), device="cuda", dtype=dtype)
+    elif kind == "srvae":
+        model = SRVAE(CondSRVAEConfig(cr=1.2, patch_size=64), device="cuda", dtype=dtype)
+    else:
+        model = CondSRVAE(CondSRVAEConfig(cr=1.2, patch_size=64), device="cuda", dtype=dtype)
+    bf16 = dtype == torch.bfloat16
+    return Trainer(model.init_weights(0), TrainConfig(learning_rate=LR, use_bfloat16=bf16, **cfg),
+                   device="cuda", seed=7, mesh=mesh)
+
+
+def s_state(trainer):
+    return {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+
+def s_state_rule(got, e1, e2):
+    """Parameters and statistics against the first eager run ``e1``, within
+    S_SPREAD x their spread to ``e2`` + S_ULPS ulps: (failures, the worst
+    share of its limit and its leaf)."""
+    failures, worst = [], (0.0, "")
+    ulp = torch.finfo(torch.float32).eps
+    for name, v in e1.items():
+        if not v.is_floating_point():
+            continue
+        err = float((got[name].float() - v.float()).abs().max())
+        limit = (S_SPREAD * float((e2[name].float() - v.float()).abs().max())
+                 + S_ULPS * ulp * float(v.float().abs().max()))
+        share = err / limit if limit > 0 else (0.0 if err == 0 else math.inf)
+        worst = max(worst, (share, name))
+        if not err <= limit:
+            failures.append(f"{name}: max|diff| {err} > {limit}")
+    return failures, worst
+
+
+def s_terms_rule(got, want, rel):
+    """Per-step terms: (failures, the worst relative difference)."""
+    failures, worst = [], 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k, v in w.items():
+            r = abs(float(g[k]) - float(v)) / max(abs(float(v)), 1e-30)
+            worst = max(worst, r)
+            if not r <= rel:
+                failures.append(f"step {i} {k}: relative {r}")
+    return failures, worst
+
+
+def s_counts_rule(what, got, per_step, times):
+    want = {k: times * v for k, v in per_step.items() if v}
+    got = {k: v for k, v in got.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, the eager step's x {times}: {want}")
+
+
+def s_eager(kind, dtype, batches, runs=2, mesh=None, **cfg):
+    """``runs`` eager runs of the steps on ``batches`` from one seeded state:
+    per run its terms per step, state and generator state; and the second
+    step's launches by kernel, role and route (the first builds and warms)."""
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+
+    out, per_step = [], None
+    for run in range(runs):
+        tr = s_trainer(kind, dtype, mesh=mesh, **cfg)
+        terms = []
+        for i, b in enumerate(batches):
+            if run == 0 and i == 1:
+                reset_path_counts(fc, fe)
+            terms.append({k: v.clone() for k, v in tr.train_step(b).items()})
+            if run == 0 and i == 1:
+                torch.cuda.synchronize()
+                per_step = k_counts(fc, fe)
+        torch.cuda.synchronize()
+        out.append({"terms": terms, "state": s_state(tr), "rng": tr._rng.get_state(),
+                    "step": tr.step})
+        del tr
+    return out, per_step
+
+
+def s_replays(kind, dtype, batches, k, eager, per_step, mesh=None, **cfg):
+    """A trainer with ``scan_steps=k`` over ``batches`` in dispatches of k,
+    held to the eager runs by S1's rules; then one replay alone, counted.
+    Returns its results and the replay's launches."""
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.train.engine import stack_batches
+
+    tr = s_trainer(kind, dtype, mesh=mesh, scan_steps=k, **cfg)
+    got_terms, first = [], None
+    t0 = time.perf_counter()
+    for j in range(0, len(batches), k):
+        reset_path_counts(fc, fe)
+        tr.train_multi_step(stack_batches(batches[j:j + k]))
+        (g,) = tr.graphs.values()
+        got_terms += [{n: v.clone() for n, v in t.items()} for t in g.step_terms]
+        torch.cuda.synchronize()
+        if j == 0:
+            first = k_counts(fc, fe)
+            capture_s = time.perf_counter() - t0
+    e1, e2 = eager
+    rel = TERMS_TOL if dtype == torch.float32 else BF16_STEP_TOLS["terms"]
+    failures, terms_rel = s_terms_rule(got_terms, e1["terms"], rel)
+    state_failures, worst = s_state_rule(s_state(tr), e1["state"], e2["state"])
+    failures += state_failures
+    if not torch.equal(tr._rng.get_state(), e1["rng"]):
+        failures.append("the generator state differs from the eager run's")
+    if tr.step != e1["step"] or tr.opt.count != e1["step"]:
+        failures.append(f"step {tr.step}, count {tr.opt.count}, eager {e1['step']}")
+    s_counts_rule(f"{kind} k={k} first call (warm-up + replay)", first, per_step, 2 * k)
+    reset_path_counts(fc, fe)
+    tr.train_multi_step(stack_batches(batches[:k]))
+    torch.cuda.synchronize()
+    replay = k_counts(fc, fe)
+    s_counts_rule(f"{kind} k={k} replay", replay, per_step, k)
+    if failures:
+        raise AssertionError(f"S {kind} k={k} against the eager steps: " + "; ".join(failures[:8]))
+    del tr
+    return {"terms_rel": terms_rel, "state_worst_of_limit": worst[0], "state_worst_leaf": worst[1],
+            "first_call_s": capture_s}, replay
+
+
+def s_time(kind, dtype, batches, k, reps=3, mesh=None, busy=True, **cfg):
+    """Median ms a step of ``len(batches)`` steps a window (eager, or
+    dispatches of k), one sync a window, after a warm window; the windows'
+    ms. With ``busy``, one more window under ``torch.profiler``: the card's
+    busy share, and the path's kernels launched in it as the trace counts
+    them (``s_traced_launches``), held to what the wrappers counted (eager)
+    or the capture's tally added (replays), by kernel and route, and how
+    many of those started outside the window's host span."""
+    from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+    from simple_vae_rs_tpu_torch.train.engine import stack_batches
+
+    tr = s_trainer(kind, dtype, mesh=mesh, scan_steps=k, **cfg)
+    stacks = [stack_batches(batches[j:j + k]) for j in range(0, len(batches), k)]
+
+    def window():
+        if k == 1:
+            for b in batches:
+                tr.train_step(b)
+        else:
+            for s in stacks:
+                tr.train_multi_step(s)
+
+    window()
+    ms = [timed(window)[1] / len(batches) for _ in range(reps)]
+    share = traced = outside = None
+    if busy:
+        reset_path_counts(fc, fe)
+        share, traced, seen, outside = s_busy(window)
+        counted = s_by_kernel(k_counts(fc, fe))
+        if traced != counted:
+            raise AssertionError(
+                f"S5 {kind} k={k}: the trace's launches {traced} against the "
+                + ("wrappers' " if k == 1 else "capture's tally, added a replay, ")
+                + f"{counted}; kernels in the trace: {seen}")
+    del tr
+    return statistics.median(ms), ms, share, traced, outside
+
+
+# csrc's conv modes (fused_conv.cu and conv_wg.cu: kConv3, kConv4, kConvT)
+# and row modes (elbo_rows.cu) by the kernels line's name
+S_CONV_MODES = ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu")
+S_TRACE_KERNEL = re.compile(r"(?:^|[\s:])(conv_tc_bf16|conv_tc|conv_wg_bf16|rows_partial)"
+                            r"<(?:\(\w+\))?(\d+)")
+
+
+def s_traced_launches(events, t0, t1):
+    """The path's kernels that ran on the card in a Chrome trace, by the
+    kernels line's name: ``conv_tc`` of mode m as the float32 kernel,
+    ``conv_tc_bf16`` and ``conv_wg_bf16`` as the bfloat16 instance of that
+    route, ``rows_partial`` as the row kernel of its mode (one per launch: a
+    split-K or row-sum pass after it is not counted); and every kernel name
+    seen with its count; and how many of the path's kernels start outside
+    the window's host span [t0, t1]. The whole trace counts (profiling
+    starts after a synchronize): the card's timestamps, mapped onto the
+    host's clock, can fall outside the span in a long process."""
+    from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
+
+    rows = {mode: name for name, (mode, _) in fe.MODES.items()}
+    out, seen, outside = {}, {}, 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        seen[e["name"]] = seen.get(e["name"], 0) + 1
+        m = S_TRACE_KERNEL.search(e["name"])
+        if m is None:
+            continue
+        kernel, mode = m.group(1), int(m.group(2))
+        if kernel == "rows_partial":
+            name = rows[mode]
+        else:
+            name = S_CONV_MODES[mode] + {"conv_tc": "", "conv_tc_bf16": BF16_SOURCE_TAG + "_tc",
+                                         "conv_wg_bf16": BF16_SOURCE_TAG + "_wg"}[kernel]
+        out[name] = out.get(name, 0) + 1
+        outside += not t0 <= e["ts"] <= t1
+    return out, seen, outside
+
+
+def s_by_kernel(counts):
+    """Launch counts by kernel and role (``k_counts``) summed over the roles."""
+    out = {}
+    for key, n in counts.items():
+        if n:
+            out[key.split(" ")[0]] = out.get(key.split(" ")[0], 0) + n
+    return out
+
+
+def s_busy(fn):
+    """One window of ``fn`` under ``torch.profiler``: the card's busy share
+    (kernels, copies and sets over the window's host span; None when the
+    trace holds no device activity), and ``s_traced_launches`` of its
+    trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("s_window"):
+            fn()
+            torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json", dir=os.path.join(ROOT, "build"))
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+    ((t0, dur),) = [(e["ts"], e["dur"]) for e in events
+                    if e.get("name") == "s_window" and e.get("cat") == "user_annotation"]
+    busy = gpu_busy_us(events, t0, t0 + dur)
+    traced, seen, outside = s_traced_launches(events, t0, t0 + dur)
+    return (busy / dur if busy > 0 else None), traced, seen, outside
+
+
+def s_fit(card, batches):
+    """S2: ``fit`` with ``scan_steps=2`` over five batches (two dispatches of
+    two and a ragged tail of one) against the eager fit from the same state:
+    every batch trains once and the epoch's logged mean agrees."""
+    logs = {}
+    calls = {}
+    for k in (1, 2):
+        tr = s_trainer("cond", torch.float32, scan_steps=k)
+        records = []
+        tr.logger.log = lambda m, step=None, records=records: records.append(dict(m))
+        n = {"multi": 0, "single": 0}
+        multi, single = tr.train_multi_step, tr.train_step
+
+        def count(kind, fn, n=n):
+            def wrapped(*a, **kw):
+                n[kind] += 1
+                return fn(*a, **kw)
+            return wrapped
+
+        tr.train_multi_step, tr.train_step = count("multi", multi), count("single", single)
+        val = [tuple(t[:64] for t in batches[0])]
+        tr.fit(batches, val, epochs=1, val_metrics_every=1)
+        torch.cuda.synchronize()
+        (loss,) = [r["Loss/loss"] for r in records if "Loss/loss" in r]
+        logs[k], calls[k] = {"loss": loss, "step": tr.step, "count": tr.opt.count}, dict(n)
+        del tr
+    rel = abs(logs[2]["loss"] - logs[1]["loss"]) / abs(logs[1]["loss"])
+    # the k=2 fit: 2 dispatches (the first warms up and captures) and the
+    # tail's train_step; the eager fit: 5 train_step calls
+    if (logs[2]["step"] != 5 or logs[2]["count"] != 5 or calls[2]["multi"] != 2
+            or calls[2]["single"] != 1 or calls[1] != {"multi": 0, "single": 5}
+            or not rel <= TERMS_TOL):
+        raise AssertionError(f"S2 fit scan_steps=2: {logs}, calls {calls}, loss rel {rel}")
+    log(f"S2 fit scan_steps=2 over 5 batches of 512: 2 dispatches of 2 + a tail of 1, "
+        f"step {logs[2]['step']}, epoch loss {logs[2]['loss']:.6f} against the eager fit's "
+        f"{logs[1]['loss']:.6f} (rel {rel:.2e}); card {card}")
+    return {"logs": logs, "calls": calls, "loss_rel": rel}
+
+
+def s_meshes(card, batches):
+    """S4: a world of one on NCCL, k=2 replayed against its eager steps (the
+    collectives captured), and on gloo, where a replay must raise."""
+    import torch.distributed as dist
+
+    from simple_vae_rs_tpu_torch import MeshConfig, make_mesh
+    from simple_vae_rs_tpu_torch.train.engine import stack_batches
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig())
+        with s_deterministic():
+            eager, per_step = s_eager("cond", torch.float32, batches[:2], runs=2, mesh=mesh)
+            res, replay = s_replays("cond", torch.float32, batches[:2], 2, eager, per_step,
+                                    mesh=mesh)
+        out["nccl"] = {**res, "backend": str(dist.get_backend()), "replay_launches": replay}
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        tr = s_trainer("cond", torch.float32, mesh=make_mesh(MeshConfig()), scan_steps=2)
+        try:
+            tr.train_multi_step(stack_batches(batches[:2]))
+        except ValueError as e:
+            out["gloo_raises"] = str(e)
+        else:
+            raise AssertionError("S4: a k=2 replay on a gloo mesh did not raise")
+        if tr.graphs or tr.step:
+            raise AssertionError("S4: the gloo mesh captured or trained")
+        del tr
+    finally:
+        dist.destroy_process_group()
+    log(f"S4 NCCL world of one, k=2 replay (collectives captured) against its eager steps: "
+        f"terms rel {out['nccl']['terms_rel']:.2e}, state "
+        f"{out['nccl']['state_worst_of_limit']:.3f} of its ulp limit; gloo raises: "
+        f"{out['gloo_raises']!r}; card {card}")
+    return out
+
+
+def s6_rank(rank: int, port: int, out_path: str, world: int = 2, model: int = 1,
+            zero1: bool = False) -> None:
+    """S6, one of ``world`` NCCL ranks on a card each (``data=2``, times
+    ``model``; ZeRO-1's moments with ``zero1``): two steps on its rows of two
+    global batches of 512, eagerly twice and as one k=2 replay, by S1's
+    rules; then eager against k=2 timed."""
+    import torch.distributed as dist
+
+    from simple_vae_rs_tpu_torch import MeshConfig, make_mesh
+    from simple_vae_rs_tpu_torch.parallel import mesh as pm
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    out = {"rank": rank}
+    try:
+        mesh = make_mesh(MeshConfig(data=2, model=model))
+        local = [pm.shard_batch(mesh, training_batch(seed=s)) for s in range(2)]
+        with s_deterministic():
+            eager, per_step = s_eager("cond", torch.float32, local, mesh=mesh, zero1=zero1)
+            res, replay = s_replays("cond", torch.float32, local, 2, eager, per_step,
+                                    mesh=mesh, zero1=zero1)
+        out.update(res, backend=str(dist.get_backend()), per_step=per_step, replay=replay,
+                   shard=mesh.shard, model_index=mesh.model_index)
+        for k in (1, 2):
+            out[f"ms_k{k}"], out[f"ms_k{k}_windows"], _, _, _ = s_time(
+                "cond", torch.float32, local + local, k, mesh=mesh, busy=False, zero1=zero1)
+    except Exception as e:  # reported by the parent with the rank
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as fh:
+        json.dump(out, fh, default=str)
+
+
+def s6_cards(card, world=2, model=1, zero1=False):
+    """S6 on ``world`` visible cards: ``s6_rank`` on each."""
+    import multiprocessing as mp
+
+    layout = f"data=2 x model={model}" if model > 1 else "data=2"
+    layout += ", ZeRO-1" if zero1 else ""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="s6_", dir=os.path.join(ROOT, "build"))
+    try:
+        port = free_port()
+        paths = [os.path.join(tmp, f"s6_rank{r}.json") for r in range(world)]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=s6_rank, args=(r, port, paths[r], world, model, zero1))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        if any(p.is_alive() or p.exitcode for p in procs):
+            for p in procs:
+                p.kill()
+            raise AssertionError(f"S6 {layout}: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for path in paths:
+            with open(path) as fh:
+                ranks.append(json.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"S6 {layout} rank {r['rank']}: {r['error']}")
+        log(f"S6 NCCL rank {r['rank']} of {layout} (a card each; batch shard {r['shard']}, "
+            f"model index {r['model_index']}), 256 pairs a batch shard: a k=2 replay "
+            f"(collectives captured) against 2 eager steps: terms rel {r['terms_rel']:.2e}, "
+            f"state {r['state_worst_of_limit']:.3f} of its limit; launches a replay = eager "
+            f"step x 2; ms a step eager {r['ms_k1']:.3f}, k=2 {r['ms_k2']:.3f}; card {card}")
+    return {"layout": layout, "ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def s5_child(out_path: str) -> None:
+    """S5 in a process of its own (``s5_fresh_process``): per dtype and k in
+    1, 2, 4, ``s_time`` on S1's batches; writes a JSON summary."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        batches = [training_batch(seed=s) for s in range(S_STEPS)]
+        for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for k in (1, 2, 4):
+                med, ms, busy, traced, outside = s_time("cond", dtype, batches, k)
+                out[f"{label} k{k}"] = {"ms": med, "ms_windows": ms, "busy": busy,
+                                        "traced": traced, "traced_outside_span": outside}
+                torch.cuda.empty_cache()
+    except Exception as e:  # reported by the parent
+        out["error"] = f"{type(e).__name__}: {e}"
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def s5_fresh_process():
+    """Run S5 in a fresh process and return its summary. The profiler's
+    device records are whole in a process that has not traced before; in
+    the long ``chip_smoke.py`` process, after phases G and H traced, an
+    eager window's trace lost some of its kernels (11 of 284 #1 launches)."""
+    import multiprocessing as mp
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="s5_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "s5.json")
+        proc = mp.get_context("spawn").Process(target=s5_child, args=(path,))
+        proc.start()
+        proc.join(600)
+        if proc.is_alive() or proc.exitcode:
+            proc.kill()
+            raise AssertionError(f"S5: the process exited {proc.exitcode}")
+        with open(path) as fh:
+            out = json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if "error" in out:
+        raise AssertionError(f"S5: {out['error']}")
+    return out
+
+
+def scan_phase(report, card):
+    """Phase S: ``scan_steps`` (k optimizer steps as one CUDA graph replay) on
+    the canonical models at B=512. Returns each path's launches, all
+    measured: by the wrappers for S1's eager step, and in S5's traces (an
+    eager step, a replay of k=2 and of k=4), each dtype. S1, S3 and S4 hold
+    a replay's tally to the eager step's counts x k; S5 holds the trace to
+    both."""
+    t_phase = time.perf_counter()
+    out = {}
+    paths = {}
+    batches = [training_batch(seed=s) for s in range(5)]
+    # S1: replays against eager steps, both dtypes
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        with s_deterministic():
+            eager, per_step = s_eager("cond", dtype, batches[:S_STEPS])
+            paths[f"S1 {label} eager step"] = per_step
+            row = {"eager_step_launches": per_step}
+            for k in (2, 4):
+                res, replay = s_replays("cond", dtype, batches[:S_STEPS], k, eager, per_step)
+                row[f"k{k}"] = {**res, "replay_launches_tally": replay}
+        torch.cuda.empty_cache()
+        out[label] = row
+        k2 = row["k2"]
+        log(f"S1 {label} Cond_SRVAE B=512, {S_STEPS} eager steps against replays (same state, "
+            f"batches, noise; cuDNN deterministic): k=2 terms rel {k2['terms_rel']:.2e}, state "
+            f"{k2['state_worst_of_limit']:.3f} of its limit ({k2['state_worst_leaf']}); "
+            f"k=4 {row['k4']['terms_rel']:.2e}, {row['k4']['state_worst_of_limit']:.3f}; generator "
+            f"bit-equal; launches a replay = eager step x k ("
+            + " ".join(f"{n}={v}" for n, v in per_step.items() if v) + "); first call (warm-up "
+            f"+ capture + replay) k=2 {row['k2']['first_call_s']:.2f} s, k=4 "
+            f"{row['k4']['first_call_s']:.2f} s; card {card}")
+    # S5: the times and traces, in a fresh process
+    s5 = s5_fresh_process()
+    for label in ("f32", "bf16"):
+        row = out[label]
+        want = s_by_kernel(row["eager_step_launches"])
+        for k in (1, 2, 4):
+            r = s5[f"{label} k{k}"]
+            row.update({f"{key}_k{k}": v for key, v in r.items() if key != "traced"})
+            traced = r["traced"]
+            # the trace's count of a dispatch (a step, or a replay of k)
+            per = {n: v * k // S_STEPS for n, v in traced.items()}
+            if traced != {n: v * S_STEPS for n, v in want.items()} or any(
+                    v * k % S_STEPS for v in traced.values()):
+                raise AssertionError(f"S5 {label} k={k}: the trace's launches over "
+                                     f"{S_STEPS} steps {traced}, the eager step's {want}")
+            row[f"traced_k{k}"] = per
+            paths[f"S5 {label} " + ("eager step" if k == 1 else f"k={k} replay") + ", traced"] = per
+        busy = " ".join(f"k={k} {row[f'busy_k{k}']:.4f}" if row[f"busy_k{k}"] is not None
+                        else f"k={k} none traced" for k in (1, 2, 4))
+        log(f"S5 {label} ms a step (median of 3 windows of {S_STEPS} steps, one sync a "
+            f"window): eager {row['ms_k1']:.3f}, k=2 {row['ms_k2']:.3f}, k=4 {row['ms_k4']:.3f}; "
+            f"card busy share (torch.profiler, one window): {busy}; the path's kernels in the "
+            f"trace of a k=4 replay, by kernel and route (= the eager step's x 4): "
+            + " ".join(f"{n}={v}" for n, v in row["traced_k4"].items()) + f"; card {card}")
+    # S2: the fit
+    out["fit"] = s_fit(card, batches)
+    torch.cuda.empty_cache()
+    # S3: accum_steps and remat with k=2, the VAE and the SRVAE
+    out["families"] = {}
+    for kind in ("vae", "srvae"):
+        for name, cfg in (("accum_steps=2", {"accum_steps": 2}), ("remat", {"remat": True})):
+            with s_deterministic():
+                eager, per_step = s_eager(kind, torch.float32, batches[:2], **cfg)
+                res, replay = s_replays(kind, torch.float32, batches[:2], 2, eager, per_step,
+                                        **cfg)
+            out["families"][f"{kind} {name}"] = {**res, "replay_launches_tally": replay}
+            log(f"S3 {kind} {name}, k=2 replay against 2 eager steps: terms rel "
+                f"{res['terms_rel']:.2e}, state {res['state_worst_of_limit']:.3f} of its limit; "
+                f"launches a replay = eager step x 2 ("
+                + " ".join(f"{n}={v}" for n, v in per_step.items() if v) + f"); card {card}")
+            torch.cuda.empty_cache()
+    # S4: the meshes
+    out["meshes"] = s_meshes(card, batches)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = paths
+    log(f"S total {out['seconds']:.1f} s; card {card}")
+    report["scan"] = out
+    return paths
+
+
+def s_only() -> int:
+    """``python3 chip_smoke.py --only-s``: the build, then phase S alone;
+    its report in ``chiprun_out/chip_smoke_s_report.json``."""
+    from simple_vae_rs_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    report = {"card": card, "torch": torch.__version__}
+    scan_phase(report, card)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_s_report.json"), "w") as fh:
+        json.dump(report["scan"], fh, indent=1, default=str)
     return 0
 
 
@@ -5793,8 +6412,10 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--only-k4"]:
         return k4_only()
+    if sys.argv[1:] == ["--only-s"]:
+        return s_only()
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only-k4)",
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only-k4 or --only-s)",
               file=sys.stderr)
         return 2
     from simple_vae_rs_tpu_torch import CondSRVAE, CondSRVAEConfig, SuperResolver, warmup
@@ -6125,6 +6746,9 @@ def main() -> int:
         k_paths = mesh_phase(report, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # S1-S5. scan_steps: k optimizer steps as one CUDA graph replay
+    torch.cuda.empty_cache()
+    s_paths = scan_phase(report, card)
     for k in kernels:
         k["launches_phase_h"] = {path: counts[k["name"]] for path, counts in h_paths.items()
                                  if counts.get(k["name"])}
@@ -6134,6 +6758,15 @@ def main() -> int:
                                  if (n := sum(v for key, v in counts.items()
                                               if key.split(" ")[0] == k["name"]
                                               and isinstance(v, int)))}
+        k["launches_phase_s"] = {path: n for path, counts in s_paths.items()
+                                 if (n := sum(v for key, v in counts.items()
+                                              if key.split(" ")[0] == k["name"]))}
+    for name in ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu",
+                 "sq_rows", "kl_std_rows", "kl_gen_rows"):
+        if not any(k["launches_phase_s"] for k in kernels if k["name"] == name):
+            raise AssertionError(f"phase S launched {name} no time")
+    if not any(BF16_SOURCE_TAG + "_" in key for c in s_paths.values() for key, v in c.items() if v):
+        raise AssertionError("phase S launched no bfloat16 kernel")
     for name in ("fused_conv3x3_bn_relu", "fused_conv4x4s2_bn_relu", "fused_convT4x4s2_bn_relu",
                  "quantize_stochastic", "int8_conv3x3_bn_relu", "int8_convT4x4s2_bn_relu",
                  "act_absmax", "act_quant"):

@@ -36,9 +36,11 @@ JAX's ``model`` axis; the world is ``dcn x data x N`` ranks):
 the task then runs on the whole model, gathered from the shards on every
 rank.
 
-Flags that are not ported raise a ``ValueError`` at any value but their
-default: ``--scan_steps``, ``--train_elbo`` and ``--pallas_conv``, left out
-on purpose (ROADMAP A.3).
+``--scan_steps k`` runs k optimizer steps a dispatch (one CUDA graph replay
+on the card, ``Trainer.train_multi_step``); the default 0 decides after the
+first epoch (``utils/health``). Flags that are not ported raise a
+``ValueError`` at any value but their default: ``--train_elbo`` and
+``--pallas_conv``, left out on purpose (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ from typing import Any, Dict, Optional, Sequence
 
 # flag: (its default, why it raises at another value)
 UNPORTED = {
-    "scan_steps": (0, "scan_steps is not ported, on purpose (ROADMAP A.3)"),
     "train_elbo": ("xla", "train_elbo is not ported, on purpose: the row kernels always run "
                           "(ROADMAP A.3)"),
     "pallas_conv": (False, "pallas_conv is not ported, on purpose: every conv runs its CUDA "
@@ -117,7 +118,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--accum_steps", type=int, default=1,
                         help="Gradient accumulation over this many microbatches per update.")
     parser.add_argument("--scan_steps", type=int, default=0,
-                        help="Not ported, on purpose (ROADMAP A.3).")
+                        help="Full optimizer steps (each its own batch) per dispatch: one "
+                        "CUDA graph replay on the card; composes with --accum_steps; an "
+                        "epoch's ragged tail runs as single steps. Default 0 = auto: probe "
+                        "a launch's round trip after epoch 1 and fuse 2 steps only where "
+                        "launching rivals computing.")
     parser.add_argument("--train_elbo", default="xla", choices=("xla", "pallas"),
                         help="Not ported, on purpose (ROADMAP A.3).")
     parser.add_argument("--bf16_moments", action="store_true",
@@ -255,7 +260,8 @@ def main(args: argparse.Namespace) -> Dict[str, Any]:
                             val_metrics_every=args.val_metrics_every, seed=args.seed,
                             use_bfloat16=args.bf16, profile_dir=args.profile_dir,
                             remat=args.remat, bf16_moments=args.bf16_moments,
-                            accum_steps=args.accum_steps, zero1=args.zero1)
+                            accum_steps=args.accum_steps, zero1=args.zero1,
+                            scan_steps=args.scan_steps)
     callbacks = [
         ModelCheckpoint(job_id, "ckpt", monitor="Loss/val_loss", mode="min",
                         async_save=args.async_ckpt),

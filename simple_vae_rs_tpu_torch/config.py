@@ -156,9 +156,12 @@ class TrainConfig:
     bfloat16, and a caller sets both from one flag. ``bf16_moments`` keeps
     Adam's first moment in bfloat16 (optax ``mu_dtype``). ``zero1`` shards
     the large Adam moments over the mesh's ``data`` axis
-    (``parallel/mesh.shard_state``; nothing on one process). The JAX
-    config's ``scan_steps`` and ``train_elbo`` are left out on purpose
-    (ROADMAP A.3).
+    (``parallel/mesh.shard_state``; nothing on one process). ``scan_steps``
+    runs that many full optimizer steps, each on its own batch, as one
+    dispatch: one CUDA graph replay on the card, that many eager steps on
+    the CPU (``Trainer.train_multi_step``); 0 is the auto mode (one step a
+    dispatch until the first trained epoch's probe, ``utils/health``). The
+    JAX config's ``train_elbo`` is left out on purpose (ROADMAP A.3).
     """
 
     epochs: int = 200
@@ -192,6 +195,12 @@ class TrainConfig:
     # recompute each microbatch's forward during the backward instead of
     # keeping its activations (torch.utils.checkpoint)
     remat: bool = False
+    # optimizer steps per dispatch (a CUDA graph of that many steps on the
+    # card); 0 = auto: after the first trained epoch, 2 where the probed
+    # launch round trip exceeds a quarter of the step (utils/health), else 1.
+    # An epoch's ragged tail, and a batch whose shape differs, run as single
+    # steps
+    scan_steps: int = 0
 
     def __post_init__(self) -> None:
         if self.accum_steps < 1:

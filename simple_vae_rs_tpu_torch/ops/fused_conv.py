@@ -22,6 +22,9 @@ calls and input gradients; :data:`bf16_launches` counts the bfloat16
 instances' launches the same way, by role, and :data:`bf16_impl_launches`
 splits those by the kernel that ran ("wg" or "tc"). A bfloat16 CUDA tensor
 launches a bfloat16 kernel or raises: it never reaches the float32 kernel.
+A replay of captured launches (a CUDA graph of training steps) runs no
+wrapper: its caller adds the tally of the launches made under capture
+(:func:`counters`), so the counts stay launches made.
 A bfloat16 launch of #1, #5 or #6 that :func:`wg_eligible` admits, in
 either role, runs ``conv_wg_bf16`` (``csrc/conv_wg.cu``: wgmma fed by TMA,
 launch plan :func:`plan_wg`) or raises; every other bfloat16 launch runs
@@ -81,6 +84,14 @@ IMPLS = ("wg", "tc")
 bf16_impl_launches: Dict[str, Dict[str, Dict[str, int]]] = {
     name: {role: dict.fromkeys(IMPLS, 0) for role in ROLES} for name in _KERNELS}
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def counters() -> Dict[str, dict]:
+    """The live launch counters by name: a caller that replays captured
+    launches (a CUDA graph of training steps) adds the tally of one replay
+    to each."""
+    return {"launches": launches, "role_launches": role_launches,
+            "bf16_launches": bf16_launches, "bf16_impl_launches": bf16_impl_launches}
 
 
 def reset_launches() -> None:

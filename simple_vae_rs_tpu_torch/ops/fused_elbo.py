@@ -13,7 +13,8 @@ launches the hand-written kernel in ``csrc/elbo_rows.cu`` on the current
 stream or raises. ``plain=True`` takes the plain version on any device (the
 reference the kernel is held against on the card). The backward is the
 analytic elementwise gradient in plain PyTorch, as in the JAX package, whose
-backward is jnp and not Pallas. :data:`launches` counts kernel launches.
+backward is jnp and not Pallas. :data:`launches` counts kernel launches
+(a replayed CUDA graph's caller adds its tally, :func:`counters`).
 
 :func:`fused_cond_loss` and :func:`fused_base_loss` assemble the loss terms
 from the row sums; they equal ``ops/losses.cond_loss``/``base_loss``.
@@ -44,6 +45,11 @@ MODES = {"sq_rows": (0, 2), "kl_std_rows": (1, 2), "kl_gen_rows": (2, 4)}  # mod
 # Launches of each kernel since the last reset_launches(); the launcher adds
 # one where it launches the kernel and nowhere else.
 launches: Dict[str, int] = {name: 0 for name in MODES}
+
+
+def counters() -> Dict[str, dict]:
+    """The live launch counters by name (see ``fused_conv.counters``)."""
+    return {"launches": launches}
 
 
 def reset_launches() -> None:

@@ -45,6 +45,9 @@ and so does a head whose output channels do not divide by ``model``.
 :func:`init_distributed` starts the process group from torchrun's
 environment: NCCL where every rank has a card of its own, gloo where ranks
 share a card or run on the CPU (the tensors stay where they are either way).
+A training step captured into a CUDA graph (``TrainConfig.scan_steps``)
+captures its NCCL collectives with it; gloo's copy through the host and
+cannot be captured, so on the card ``scan_steps`` above 1 needs NCCL.
 """
 
 from __future__ import annotations
@@ -308,6 +311,15 @@ def agree(mesh: Mesh, flag: bool, op: str = "min") -> bool:
     t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=_collective_device(mesh))
     dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.group)
     return bool(t.item())
+
+
+def broadcast_int(mesh: Mesh, value: int) -> int:
+    """Rank 0's ``value`` on every rank (``value`` itself without collectives)."""
+    if mesh is None or not mesh.distributed:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64, device=_collective_device(mesh))
+    dist.broadcast(t, src=0, group=mesh.group)
+    return int(t.item())
 
 
 def _collective_device(mesh: Mesh) -> torch.device:

@@ -36,8 +36,28 @@ plateau scheduler's lr (terms averaged over the steps, one host sync),
 ``Perf/train_epoch_seconds``, the NaN abort, the gammas and lr, the val loop,
 ``evaluate`` on its cadence (SSIM/PSNR, LPIPS where weights are on disk,
 images), the scheduler, the callbacks' end; SIGTERM finishes the epoch and
-writes ``<save_path>/<job_id>_preempt``. Not ported: ``scan_steps`` and its
-dispatch probe.
+writes ``<save_path>/<job_id>_preempt``.
+
+``TrainConfig.scan_steps`` (JAX ``train_multi_step``): k full optimizer
+steps, each on its own batch, in one dispatch. ``fit`` gathers k batches of
+one shape and hands them to :meth:`Trainer.train_multi_step`; a batch of
+another shape first trains the ones gathered as single steps, and so does an
+epoch's ragged tail; the terms are summed over the steps, so the epoch mean
+is the mean over every step. On the card the k steps are one CUDA graph
+replay: the graph of each (k, batch shapes, dtype, plain path,
+``accum_steps``, ``remat``, mesh) is captured once, after a warm-up on a side
+stream that leaves no trace (the parameters, moments, BatchNorm statistics,
+generator, count and step are restored), and replayed with the batches
+copied into its input stacks, the plateau lr into its lr tensor and the bias
+corrections into its table; the trainer's generator is registered with the
+graph, so step i draws the noise the i-th eager step would. A capture that
+fails raises with its cause (a host sync in the step, gloo collectives): no
+eager loop steps in. The launch counters move by the tally of one replay,
+taken at capture (``ops/fused_conv.counters``). On the CPU the k steps run
+eagerly, with the same semantics. ``scan_steps=0`` (auto) trains single steps
+until the first trained epoch ends, then fuses ``utils/health.AUTO_SCAN_K``
+steps where one launch's probed round trip exceeds a quarter of the step's
+wall time (rank 0 decides for a mesh).
 
 On a process mesh (``Trainer(..., mesh=parallel.make_mesh(...))``, one
 process per card) every rank passes its contiguous slice of each global
@@ -79,14 +99,16 @@ draw for both the forward and the super-resolution pass, as the JAX steps do
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import os
 import signal
 import sys
 import time
 from math import isnan
-from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -94,6 +116,8 @@ from simple_vae_rs_tpu_torch.config import TrainConfig
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE, box_downsample_2x
 from simple_vae_rs_tpu_torch.models.vae import VAE
+from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+from simple_vae_rs_tpu_torch.ops import fused_elbo as fe
 from simple_vae_rs_tpu_torch.ops.conv_blocks import frozen_statistics, sync_batchnorm
 from simple_vae_rs_tpu_torch.ops.fused_elbo import fused_base_loss, fused_cond_loss
 from simple_vae_rs_tpu_torch.ops.metrics import psnr, ssim
@@ -104,7 +128,7 @@ from simple_vae_rs_tpu_torch.train.callbacks import Callback, ModelCheckpoint
 from simple_vae_rs_tpu_torch.train.checkpoint import save_checkpoint, wait_for_saves
 from simple_vae_rs_tpu_torch.train.schedule import ReduceLROnPlateau
 from simple_vae_rs_tpu_torch.train.state import make_optimizer
-from simple_vae_rs_tpu_torch.utils import lpips_optional
+from simple_vae_rs_tpu_torch.utils import health, lpips_optional
 from simple_vae_rs_tpu_torch.utils.logging import Logger, NullLogger
 
 Tensor = torch.Tensor
@@ -152,6 +176,57 @@ def _host(values: Dict[str, Any]) -> Dict[str, float]:
 
 def _add(acc: Dict[str, Any], part: Dict[str, Any]) -> Dict[str, Any]:
     return dict(part) if not acc else {k: acc[k] + v for k, v in part.items()}
+
+
+def _shapes(batch) -> Tuple[Tuple[int, ...], ...]:
+    return tuple(tuple(np.shape(t)) for t in batch)
+
+
+def stack_batches(batches) -> Tuple[Any, ...]:
+    """Same-shape batches as one batch of ``(k, B, ...)`` stacks, each stacked
+    where its parts lie: tensors on their device, anything else as float32
+    numpy on the host (one copy to the card then, not k)."""
+    out = []
+    for parts in zip(*batches):
+        if all(isinstance(p, Tensor) for p in parts):
+            out.append(torch.stack(parts))
+        else:
+            out.append(np.stack([np.asarray(p, dtype=np.float32) for p in parts]))
+    return tuple(out)
+
+
+def _count_cells() -> List[Tuple[dict, str]]:
+    """Every launch counter a training step moves (the conv and row
+    kernels'), as ``(dict, key)`` pairs in a fixed order."""
+    cells: List[Tuple[dict, str]] = []
+
+    def walk(counts: dict) -> None:
+        for key, v in counts.items():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                cells.append((counts, key))
+
+    for counters in (fc.counters(), fe.counters()):
+        walk(counters)
+    return cells
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """k optimizer steps captured as one CUDA graph, and its static tensors:
+    the ``(k, B, ...)`` input stacks it reads, the 0-dim learning rate, the
+    table of bias corrections (a row a step, ``ClipAdam.corrections``),
+    the loss terms it writes (summed over the k steps, and each step's), and
+    the launches one replay makes (a count per :func:`_count_cells` cell)."""
+
+    graph: Any
+    inputs: Tuple[Tensor, ...]
+    lr: Tensor
+    table: Tensor
+    terms: Dict[str, Tensor]
+    step_terms: List[Dict[str, Tensor]]
+    tally: List[int]
 
 
 class Trainer:
@@ -203,6 +278,9 @@ class Trainer:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(self.seed)
         self._preempted = False
+        self.graphs: Dict[tuple, StepGraph] = {}  # the captured k-step graphs by key
+        self._side_stream = None  # the warm-up stream of the captures
+        self._auto_scan_k: Optional[int] = None  # the auto mode's choice, once made
         if mesh is not None:
             pm.shard_state(mesh, self, zero1=cfg.zero1)
 
@@ -236,16 +314,20 @@ class Trainer:
         }
 
     # ---------------------------------------------------------------- inputs
-    def _batch(self, batch) -> Tuple[Tensor, ...]:
-        """The streams the model trains on, on the device: ``(y, x)`` for a
+    def _streams(self, batch) -> Tuple[Any, ...]:
+        """The parts of ``batch`` the model trains on: ``(y, x)`` for a
         Cond_SRVAE, ``(x,)`` (HR) for an SRVAE, ``(y,)`` (LR) for a VAE."""
         batch = tuple(batch)
         if self.kind == "srvae":
-            batch = batch[-1:]
-        elif self.kind == "vae":
-            batch = batch[:1]
+            return batch[-1:]
+        if self.kind == "vae":
+            return batch[:1]
+        return batch
+
+    def _batch(self, batch) -> Tuple[Tensor, ...]:
+        """The streams the model trains on (:meth:`_streams`), on the device."""
         batch = tuple(torch.as_tensor(t).to(self.device, torch.float32).contiguous()
-                      for t in batch)
+                      for t in self._streams(batch))
         if self.kind == "cond" and (len(batch) != 2 or batch[0].shape[0] != batch[1].shape[0]):
             raise ValueError("a Cond_SRVAE batch is (LR, HR) of one length, got shapes "
                              f"{[tuple(t.shape) for t in batch]}")
@@ -394,7 +476,9 @@ class Trainer:
     def apply_grads(self, grads: Dict[str, Tensor], lr: float) -> None:
         """Clip + Adam on ``grads``, then ``p <- p - lr * u`` for every
         parameter (under ZeRO-1 per block, then all-gathered)."""
-        self.opt.step(list(self.params.values()), [grads[n] for n in self.params], lr)
+        lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
+        self.opt.step(list(self.params.values()), [grads[n] for n in self.params], lr_t,
+                      self.opt.corrections()[0])
         self.step += 1
 
     # ----------------------------------------------------------------- steps
@@ -405,6 +489,134 @@ class Trainer:
         grads, terms = self.grads_and_terms(batch, eps)
         self.apply_grads(grads, self.cfg.learning_rate if lr is None else lr)
         return terms
+
+    def train_multi_step(self, batches, lr: Optional[float] = None) -> Dict[str, Tensor]:
+        """``k`` full optimizer steps in one dispatch (JAX ``train_multi_step``):
+        ``batches`` is a batch of ``(k, B, ...)`` stacks, ``(Y, X)`` as a
+        batch is ``(y, x)``; step i trains on the i-th batch at learning rate
+        ``lr`` (default ``cfg.learning_rate``) and draws the noise the i-th of
+        k :meth:`train_step` calls would. Returns the loss terms summed over
+        the k steps; ``step`` advances by k. On the card the k steps are one
+        replay of the CUDA graph captured for them (:meth:`step_graph`); on
+        the CPU, k eager steps."""
+        lr = self.cfg.learning_rate if lr is None else float(lr)
+        stacks = self._streams(batches)
+        k = int(np.shape(stacks[0])[0])
+        if self.device.type != "cuda":
+            sums: Dict[str, Tensor] = {}
+            for i in range(k):
+                sums = _add(sums, self.train_step(tuple(s[i] for s in stacks), lr=lr))
+            return sums
+        stacks = tuple(torch.as_tensor(s) for s in stacks)
+        g = self.step_graph(stacks)
+        for dst, src in zip(g.inputs, stacks):
+            dst.copy_(src)
+        g.lr.fill_(lr)
+        g.table.copy_(self.opt.corrections(k))
+        g.graph.replay()
+        self.opt.count += k
+        self.step += k
+        for (counts, key), n in zip(_count_cells(), g.tally):
+            counts[key] += n
+        return {name: t.clone() for name, t in g.terms.items()}
+
+    def step_graph(self, stacks: Tuple[Tensor, ...]) -> StepGraph:
+        """The graph of ``len(stacks[0])`` steps on batch stacks of these
+        shapes (the streams the model trains on), captured on first use.
+        Raises on a mesh whose collectives run over gloo (they copy through
+        the host), and with the cause where the capture fails."""
+        mesh = self.mesh
+        if mesh is not None and mesh.distributed and mesh.backend != "nccl":
+            raise ValueError(f"scan_steps on the card needs NCCL collectives; this mesh's "
+                             f"run over {mesh.backend}, which copies through the host and "
+                             "cannot be captured into a CUDA graph")
+        k = int(stacks[0].shape[0])
+        key = (k, _shapes(stacks), self.model.dtype, bool(self.model.plain),
+               self.cfg.accum_steps, self.cfg.remat, id(mesh))
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(stacks, k)
+        return self.graphs[key]
+
+    def _capture(self, stacks: Tuple[Tensor, ...], k: int) -> StepGraph:
+        dev = self.device
+        inputs = tuple(torch.empty(s.shape, dtype=torch.float32, device=dev) for s in stacks)
+        for dst, src in zip(inputs, stacks):
+            dst.copy_(src)
+        lr = torch.full((), self.cfg.learning_rate, dtype=torch.float32, device=dev)
+        table = self.opt.corrections(k)
+        params = list(self.params.values())
+
+        def steps() -> List[Dict[str, Tensor]]:
+            out = []
+            for i in range(k):
+                grads, terms = self.grads_and_terms(tuple(t[i] for t in inputs))
+                self.opt.step(params, [grads[n] for n in self.params], lr, table[i])
+                out.append(terms)
+            return out
+
+        # warm-up on a side stream (the kernels built, the library handles and
+        # workspaces made, the collectives' communicators up), then every
+        # tensor a step writes, the generator, the count and the step as
+        # they were
+        tensors = [*self.params.values(), *self.model.buffers(), *self.opt.mu, *self.opt.nu]
+        with torch.no_grad():
+            saved = [t.clone() for t in tensors]
+        count, step, rng = self.opt.count, self.step, self._rng.get_state()
+
+        def restore(device: bool) -> None:
+            if device:
+                with torch.no_grad():
+                    torch._foreach_copy_(tensors, saved)
+            self.opt.count, self.step = count, step
+            self._rng.set_state(rng)
+
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(dev)
+        side = self._side_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side):
+                steps()
+        finally:
+            torch.cuda.current_stream(dev).wait_stream(side)
+            restore(device=True)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._rng)
+        cells = _count_cells()
+        before = [counts[key] for counts, key in cells]
+        causes: list = []
+        try:
+            # thread_local: a loader's thread may allocate or copy meanwhile
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                try:
+                    step_terms = steps()
+                    terms = functools.reduce(_add, step_terms, {})
+                except BaseException as e:
+                    causes.append(e)
+                    raise
+        except Exception as e:
+            self._after_failed_capture(dev)
+            cause = causes[0] if causes else e
+            raise RuntimeError(f"scan_steps={k}: capturing {k} training steps as one CUDA "
+                               f"graph failed: {type(cause).__name__}: {cause}") from cause
+        finally:
+            tally = [counts[key] - n for (counts, key), n in zip(cells, before)]
+            for (counts, key), n in zip(cells, before):
+                counts[key] = n  # the capture launched nothing
+            restore(device=False)  # nothing ran on the card
+        return StepGraph(graph, inputs, lr, table, terms, step_terms, tally)
+
+    def _after_failed_capture(self, dev: torch.device) -> None:
+        """A capture that raised never reached its generators' epilogue, so
+        they still take every draw for one made under capture: give the
+        trainer's generator and the card's default one a fresh state of the
+        same seed and offset. The graphs captured before read the old state:
+        they go, and are captured again on their next use."""
+        default = torch.cuda.default_generators[dev.index if dev.index is not None
+                                                else torch.cuda.current_device()]
+        for gen in (self._rng, default):
+            gen.graphsafe_set_state(gen.clone_state())
+        self.graphs.clear()
 
     @torch.no_grad()
     def val_step(self, batch, eps: Optional[Noise] = None) -> Dict[str, Tensor]:
@@ -443,8 +655,8 @@ class Trainer:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         pm.all_reduce_flat_(self.mesh, grads, self._model_dims)
-        with torch.no_grad():
-            torch._foreach_add_(params, opt.update(grads), alpha=-float(lr))
+        lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
+        opt.step(params, grads, lr_t, opt.corrections()[0])
         self.step += 1
         return self._reduce({"loss": loss.detach()})["loss"]
 
@@ -665,6 +877,29 @@ class Trainer:
             finally:
                 self.logger.finish()
 
+    def _resolve_scan_steps(self) -> int:
+        """Steps per dispatch for this epoch: ``cfg.scan_steps`` where it is
+        1 or more; in the auto mode (0) the probe's choice once made, else 1."""
+        k = int(self.cfg.scan_steps or 0)
+        return k if k >= 1 else (self._auto_scan_k or 1)
+
+    def _maybe_autotune_scan(self, train_time: float, n_steps: int) -> None:
+        """The auto mode's one decision, after the first trained epoch: probe
+        one launch's warm round trip (``utils/health.dispatch_latency``) and
+        fuse ``health.AUTO_SCAN_K`` steps a dispatch from the next epoch on
+        where it exceeds ``health.AUTO_SCAN_THRESHOLD`` of the epoch's wall
+        time a step (``health.choose_scan_steps``). On a mesh rank 0's
+        choice is every rank's: the ranks must run the same collectives."""
+        if int(self.cfg.scan_steps or 0) >= 1 or self._auto_scan_k is not None or n_steps <= 0:
+            return
+        latency = health.dispatch_latency(device=self.device)
+        per_step = train_time / n_steps
+        k = pm.broadcast_int(self.mesh, health.choose_scan_steps(per_step, latency))
+        self._auto_scan_k = k
+        if k > 1 and self.is_main:
+            print(f"dispatch-bound: a launch's round trip {latency * 1e3:.3f} ms against "
+                  f"{per_step * 1e3:.1f} ms a step; scan_steps={k} for the remaining epochs")
+
     def _fit_epochs(self, train_loader, val_loader, epochs: int, start_epoch: int,
                     val_metrics_every: int) -> None:
         for epoch in range(start_epoch, epochs + 1):
@@ -690,9 +925,21 @@ class Trainer:
             sums: Dict[str, Tensor] = {}
             n_train = 0
             lr = self.scheduler.lr
+            scan_k = self._resolve_scan_steps()
+            pending: list = []
             for batch in train_loader:
-                sums = _add(sums, self.train_step(batch, lr=lr))
-                n_train += 1
+                if scan_k > 1 and pending and _shapes(batch) != _shapes(pending[0]):
+                    for b in pending:  # a shape change: what was gathered runs unfused
+                        sums = _add(sums, self.train_step(b, lr=lr))
+                    n_train, pending = n_train + len(pending), []
+                pending.append(batch)
+                if len(pending) == scan_k:
+                    sums = _add(sums, self.train_step(batch, lr=lr) if scan_k == 1
+                                else self.train_multi_step(stack_batches(pending), lr))
+                    n_train, pending = n_train + scan_k, []
+            for b in pending:  # the ragged tail
+                sums = _add(sums, self.train_step(b, lr=lr))
+            n_train += len(pending)
             train_terms = {"Loss/" + k: v / n_train for k, v in _host(sums).items()}
             train_loss = train_terms["Loss/loss"]
             train_time = time.perf_counter() - t0
@@ -701,6 +948,7 @@ class Trainer:
                 os.makedirs(self.cfg.profile_dir, exist_ok=True)
                 profiler.export_chrome_trace(
                     os.path.join(self.cfg.profile_dir, f"train_epoch_{epoch}.json"))
+            self._maybe_autotune_scan(train_time, n_train)
             self.logger.log({**train_terms, "Perf/train_epoch_seconds": train_time}, step=epoch)
             if isnan(train_loss):
                 raise ValueError(f"NaN detected in training loss at epoch {epoch}. "

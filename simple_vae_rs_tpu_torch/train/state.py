@@ -7,6 +7,13 @@ eps))`` over a list of tensors, written with PyTorch's multi-tensor
 caller applies ``p <- p - lr * u``, so the learning rate can change per call
 without touching the optimizer state (as the JAX engine does for its plateau
 scheduler). The clip and the step stay on the device: no host sync.
+
+:meth:`ClipAdam.step` takes the learning rate as a 0-dim float32 tensor and
+Adam's bias corrections as a row on the device (:meth:`ClipAdam.corrections`:
+a table the host computes from the count), so it reads nothing from the host
+and writes nothing to it, and can be captured into a CUDA graph
+(``Trainer.train_multi_step``) as it is. ``count`` stays a host integer: the
+caller that replays a captured step advances it.
 """
 
 from __future__ import annotations
@@ -57,6 +64,11 @@ class ClipAdam:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.count = 0
+        device = params[0].device if len(params) else torch.device("cpu")
+        # optax rounds b1 to the moment's dtype for the decay b1 * mu (made
+        # once, by a fill on the device: a step copies nothing from the host)
+        self._b1_mu = torch.full((), b1, dtype=mu_dtype, device=device)
+        self._neg_lr: Optional[Tensor] = None  # -lr per element of the largest leaf
         self.mesh: Optional[pm.Mesh] = None
         self.dims: List[Optional[int]] = [None] * len(self.mu)  # ZeRO-1 dim per leaf
         self.model_mesh: Optional[pm.Mesh] = None
@@ -85,6 +97,13 @@ class ClipAdam:
         if len(dims) != len(self.mu):
             raise ValueError(f"{len(dims)} dims for {len(self.mu)} moments")
         self.model_mesh, self.model_dims = mesh, list(dims)
+        # the leaves the clip's norm sums over the model group, and the rest,
+        # as index tensors on the device (a boolean mask would sync)
+        device = self._b1_mu.device
+        self._sharded = torch.tensor([i for i, d in enumerate(dims) if d is not None],
+                                     dtype=torch.int64, device=device)
+        self._replicated = torch.tensor([i for i, d in enumerate(dims) if d is None],
+                                        dtype=torch.int64, device=device)
 
     def shard(self, mesh: pm.Mesh, dims: Sequence[Optional[int]]) -> None:
         """ZeRO-1 over the process mesh ``mesh``: leaf ``i``'s moments keep
@@ -105,10 +124,9 @@ class ClipAdam:
         if self.model_mesh is None:
             return torch.linalg.vector_norm(norms)
         sq = norms.square()
-        mask = torch.tensor([d is not None for d in self.model_dims], device=sq.device)
-        sharded = sq[mask].sum().reshape(1)
+        sharded = sq.index_select(0, self._sharded).sum().reshape(1)
         torch.distributed.all_reduce(sharded, group=self.model_mesh.model_group)
-        return torch.sqrt(sq[~mask].sum() + sharded[0])
+        return torch.sqrt(sq.index_select(0, self._replicated).sum() + sharded[0])
 
     def clip(self, grads: Sequence[Tensor]) -> List[Tensor]:
         """optax ``clip_by_global_norm``: ``g * max_norm / |g|`` when
@@ -118,30 +136,61 @@ class ClipAdam:
         factor = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
         return torch._foreach_mul(list(grads), factor)
 
-    def _bias_correction(self, decay: float) -> float:
-        # optax computes 1 - decay**count in float32
-        return float(np.float32(1.0) - np.float32(decay) ** np.float32(self.count))
+    def corrections(self, k: int = 1) -> Tensor:
+        """``(k, 4)`` float32 on the moments' device: row ``i`` holds Adam's
+        bias corrections ``1 - b1^n`` and ``1 - b2^n`` at the count ``n`` of
+        the ``i``-th step from here, computed in float32 as optax does
+        (scalar by scalar: numpy's array power may round otherwise), then
+        their float32 reciprocals (what a division by a Python number
+        multiplies with on CUDA). It is what :meth:`step` takes; on CUDA it
+        reaches the device through pinned memory, without a wait."""
+        rows = []
+        for n in range(self.count + 1, self.count + k + 1):
+            bc = [np.float32(1.0) - np.float32(d) ** np.float32(n) for d in (self.b1, self.b2)]
+            rows.append(bc + [np.float32(1.0) / c for c in bc])
+        table = torch.from_numpy(np.array(rows, dtype=np.float32))
+        device = self._b1_mu.device
+        if device.type != "cuda":
+            return table.to(device)
+        return table.pin_memory().to(device, non_blocking=True)
+
+    def _apply(self, params: List[Tensor], updates: List[Tensor], lr: Tensor) -> None:
+        """``p <- p - lr * u`` with ``lr`` read on the device: the bits of
+        ``alpha=-lr``, as one fused multiply-add with -lr from a buffer as
+        large as the largest leaf, so every leaf stays on the multi-tensor
+        kernels' fast path."""
+        if self._neg_lr is None:
+            self._neg_lr = torch.empty(max(u.numel() for u in updates), dtype=torch.float32,
+                                       device=updates[0].device)
+        self._neg_lr.copy_(torch.neg(lr).expand_as(self._neg_lr))
+        scale = [self._neg_lr[:u.numel()].view_as(u) for u in updates]
+        torch._foreach_addcmul_(params, updates, scale)
 
     @torch.no_grad()
-    def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], lr: float) -> None:
-        """``p <- p - lr * update(grads)`` in place; under ZeRO-1 on this
-        rank's block of each sharded leaf, then all-gathered."""
+    def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], lr: Tensor,
+             corrections: Tensor) -> None:
+        """``p <- p - lr * update(grads)`` in place, ``lr`` a 0-dim float32
+        tensor and ``corrections`` the new count's row of :meth:`corrections`,
+        both on the device; under ZeRO-1 on this rank's block of each
+        sharded leaf, then all-gathered."""
         params = list(params)
         if self.mesh is None:
-            torch._foreach_add_(params, self.update(grads), alpha=-float(lr))
+            self._apply(params, self.update(grads, corrections), lr)
             return
         # contiguous blocks: the multi-tensor kernels then take every leaf as
         # they take the replicated layout's, so ZeRO-1 gives the same bits
         blocks = [self._block(p, i).contiguous() for i, p in enumerate(params)]
-        torch._foreach_add_(blocks, self.update(grads), alpha=-float(lr))
+        self._apply(blocks, self.update(grads, corrections), lr)
         for i, (p, d) in enumerate(zip(params, self.dims)):
             if d is not None:
                 p.copy_(pm.gather_shards(self.mesh, blocks[i], d))
 
     @torch.no_grad()
-    def update(self, grads: Sequence[Tensor]) -> List[Tensor]:
-        """Clip, advance the moments, and return ``m_hat / (sqrt(v_hat) + eps)``
-        (under ZeRO-1, for this rank's block of each sharded leaf)."""
+    def update(self, grads: Sequence[Tensor], corrections: Tensor) -> List[Tensor]:
+        """Clip, advance the moments and the count, and return ``m_hat /
+        (sqrt(v_hat) + eps)`` (under ZeRO-1, for this rank's block of each
+        sharded leaf). ``corrections`` is the new count's row of
+        :meth:`corrections` on the device."""
         g = self.clip(grads)
         if self.mesh is not None:
             g = [self._block(t, i).contiguous() for i, t in enumerate(g)]
@@ -153,18 +202,17 @@ class ClipAdam:
             # optax: (1 - b1) * g + b1 * mu, where b1 * mu is bfloat16 math;
             # multi-tensor ops throughout (a loop over the leaves costs a
             # launch per leaf and operation)
-            b1 = torch.tensor(self.b1, dtype=self.mu_dtype, device=g[0].device)
             decayed = [torch.empty_like(m, dtype=torch.float32) for m in self.mu]
-            torch._foreach_copy_(decayed, torch._foreach_mul(self.mu, b1))
+            torch._foreach_copy_(decayed, torch._foreach_mul(self.mu, self._b1_mu))
             mu = torch._foreach_mul(g, 1.0 - self.b1)
             torch._foreach_add_(mu, decayed)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
         self.count += 1
-        denom = torch._foreach_div(self.nu, self._bias_correction(self.b2))
+        denom = _divide(self.nu, corrections, 1)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(mu, self._bias_correction(self.b1))
+        updates = _divide(mu, corrections, 0)
         torch._foreach_div_(updates, denom)
         if self.mu_dtype != torch.float32:
             torch._foreach_copy_(self.mu, mu)  # rounded to bfloat16, to nearest even
@@ -211,6 +259,16 @@ class ClipAdam:
             for m, t in zip(mine, theirs):
                 m.copy_(t)
         self.count = int(state["count"])
+
+
+def _divide(tensors: Sequence[Tensor], row: Tensor, j: int) -> List[Tensor]:
+    """``tensors`` over the bias correction ``row[j]`` (a row of
+    ``ClipAdam.corrections`` on their device) with the bits of
+    ``torch._foreach_div`` by that Python number there: CUDA multiplies by
+    its float32 reciprocal ``row[2 + j]``, the CPU divides."""
+    if tensors[0].device.type == "cuda":
+        return torch._foreach_mul(list(tensors), row[2 + j])
+    return torch._foreach_div(list(tensors), row[j])
 
 
 def make_optimizer(cfg: TrainConfig, params: Sequence[Tensor]) -> ClipAdam:

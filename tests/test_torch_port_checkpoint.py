@@ -59,7 +59,7 @@ def _same_state(a: Trainer, b: Trainer):
 def test_clip_adam_state_dict_round_trip_and_dtype_check():
     params = [torch.randn(3, 2), torch.randn(4)]
     a = ClipAdam(params, mu_dtype=torch.bfloat16)
-    a.update([torch.randn(3, 2), torch.randn(4)])
+    a.update([torch.randn(3, 2), torch.randn(4)], a.corrections()[0])
     b = ClipAdam(params, mu_dtype=torch.bfloat16)
     b.load_state_dict(a.state_dict())
     assert b.count == 1 and b.mu[0].dtype == torch.bfloat16

@@ -60,6 +60,7 @@ from simple_vae_rs_tpu_torch.train.engine import Trainer
 from simple_vae_rs_tpu_torch.utils import tensorboard as ttb
 from simple_vae_rs_tpu_torch.utils.convert import model_variables
 from simple_vae_rs_tpu_torch.utils.jax_weights import load_jax_variables
+from tests.test_torch_port_data import _arm_tree
 
 FLAGS = ("--dataset synthetic --patch_size 16 --batch_size 2 --epochs 2 --pre_epochs 1 "
          "--samples 8 --backend cpu").split()
@@ -342,13 +343,42 @@ def test_test_mode_serves_a_jax_checkpoint_and_refuses_to_resume_it(tmp_path, mo
     (["--mesh_dcn", "2"], "mesh 2x0x1 needs 2 devices, have 1"),
     (["--multihost"], "torchrun"),
     (["--mesh_data", "2", "--backend", "cpu"], "mesh 1x2x1 needs 2 devices, have 1"),
-    (["--scan_steps", "2"], "ROADMAP A.3"),
     (["--train_elbo", "pallas"], "ROADMAP A.3"),
     (["--pallas_conv"], "ROADMAP A.3"),
 ])
 def test_cli_refusals(argv, match):
     with pytest.raises(ValueError, match=match):
         tcli.main(tcli.parse_args(argv))
+
+
+def test_cli_scan_steps_trains_on_the_cpu(tmp_path, monkeypatch):
+    """``--scan_steps 2`` is ported: one epoch trains every batch once, two
+    optimizer steps a ``Trainer.train_multi_step`` dispatch and a ragged
+    tail as single steps, and the checkpoint records the steps."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("SLURM_JOB_ID", "scan")
+    calls = {"multi": 0, "single": 0}
+    multi, single = Trainer.train_multi_step, Trainer.train_step
+
+    def count(kind, fn):
+        def wrapped(self, *a, **k):
+            calls[kind] += 1
+            return fn(self, *a, **k)
+        return wrapped
+
+    monkeypatch.setattr(Trainer, "train_multi_step", count("multi", multi))
+    monkeypatch.setattr(Trainer, "train_step", count("single", single))
+    # 15 train tiles in batches of 4: 3 steps, one dispatch of 2 and a tail of 1
+    tree = _arm_tree(str(tmp_path / "ARM"), 19, lr_px=16, seed=9)
+    out = tcli.main(tcli.parse_args(["--dataset", "s2v", "--data_root", tree, "--crop", "grid",
+                                     "--patch_size", "16", "-cr", "2", "--batch_size", "4",
+                                     "--epochs", "1", "--samples", "2", "--backend", "cpu",
+                                     "--scan_steps", "2"]))
+    tr = out["trainer"]
+    assert tr.cfg.scan_steps == 2 and calls["multi"] == 1
+    # on the CPU a dispatch's 2 steps are train_step calls, and the tail one
+    assert tr.step == tr.opt.count == calls["single"] == 3
+    assert json.loads((tmp_path / "ckpt" / "scan.meta.json").read_text())["epoch"] == 1
 
 
 def test_backend_flag_maps_to_one_device_policy():
@@ -517,6 +547,33 @@ def test_doctor_exits_2_without_a_card(capsys):
     assert tdoctor.main([]) == 2
     out = capsys.readouterr().out
     assert "CUDA card UNREACHABLE" in out and "native LZW codec" in out
+
+
+def test_doctor_budget_gates_a_probe_that_does_not_answer(capsys, monkeypatch):
+    """``--budget``: a device whose first round trip outlasts the deadline
+    fails the gate with exit 2, and ``run_checks`` says the probe is stuck,
+    so ``main`` leaves at once (its thread may sit in the CUDA runtime);
+    ``--backend cpu`` probes the host, which answers."""
+    import threading
+
+    from simple_vae_rs_tpu_torch.utils import health
+
+    release = threading.Event()
+    exits = []
+    monkeypatch.setattr(health, "_round_trip", lambda device: release.wait(30))
+    monkeypatch.setattr(tdoctor.os, "_exit", exits.append)
+    try:
+        assert tdoctor.run_checks(0.2) == (2, True)
+        assert tdoctor.main(["--budget", "0.2"]) == 2
+    finally:
+        release.set()
+    out = capsys.readouterr().out
+    assert exits == [2]
+    assert "no answer within the 0.2 s budget" in out and "UNREACHABLE" in out
+    monkeypatch.undo()
+    assert tdoctor.main(["--backend", "cpu", "--budget", "30"]) == 0
+    out = capsys.readouterr().out
+    assert "host (--backend cpu)" in out and "all checks passed for the host" in out
 
 
 def test_ssim_of_an_image_below_the_window_is_nan_as_in_jax():

@@ -45,7 +45,7 @@ from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
 from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.serve import SuperResolver
 from simple_vae_rs_tpu_torch.tasks import sample_chunked
-from simple_vae_rs_tpu_torch.train.engine import Trainer
+from simple_vae_rs_tpu_torch.train.engine import Trainer, stack_batches
 
 TOL = 1e-4
 
@@ -1344,3 +1344,161 @@ def test_model_axis_head_widths_match_plain_in_both_roles(cuda, width, dtype):
         else:
             assert float((a - b).abs().max()) <= TOL * float(b.abs().max())
 
+
+
+# ------------------------------------------------------------- scan_steps
+def _scan_batches(device, n, b=8, seed=41):
+    rng = np.random.default_rng(seed)
+    return [(torch.tensor(rng.random((b, 8, 8, 4)), dtype=torch.float32, device=device),
+             torch.tensor(rng.random((b, 16, 16, 4)), dtype=torch.float32, device=device))
+            for _ in range(n)]
+
+
+def _scan_trainer(device, dtype=torch.float32, **cfg):
+    model = CondSRVAE(CondSRVAEConfig(cr=2.0, patch_size=16), device=device,
+                      dtype=dtype).init_weights(0)
+    return Trainer(model, TrainConfig(learning_rate=1e-3, **cfg), device=device, seed=7)
+
+
+def _launch_counts():
+    """Every counter a step moves, flat: kernel, role and the kernel that ran."""
+    out = {f"{k} {r}": n for k, roles in fc.role_launches.items() for r, n in roles.items()}
+    out.update({f"{k} {r} {i}": n for k, roles in fc.bf16_impl_launches.items()
+                for r, impls in roles.items() for i, n in impls.items()})
+    out.update({f"bf16 {k} {r}": n for k, roles in fc.bf16_launches.items()
+                for r, n in roles.items()})
+    out.update(fe.launches)
+    return out
+
+
+def _state_of(trainer):
+    return {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_scan_replays_equal_the_eager_steps(cuda, dtype):
+    """Four eager steps against two replays of a k=2 graph, from one seeded
+    state on the same batches (``chip_smoke.py`` phase S's rules): each
+    step's terms within 1e-4 relative (bfloat16 1e-2), the generator state
+    after bit-equal, the parameters and statistics within 8x the spread of
+    two eager runs plus 4 float32 ulps of the leaf's largest value, cuDNN
+    held deterministic (in its default mode its float32 weight gradients are
+    not bit-reproducible, and two eager runs may leave a leaf equal that a
+    third moves)."""
+    batches = _scan_batches(cuda, 4)
+    eager = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            tr = _scan_trainer(cuda, dtype)
+            terms = [tr.train_step(b) for b in batches]
+            eager.append((tr, terms, _state_of(tr)))
+        tr = _scan_trainer(cuda, dtype, scan_steps=2)
+        step_terms = []
+        for i in (0, 2):
+            tr.train_multi_step(stack_batches(batches[i:i + 2]))
+            (g,) = tr.graphs.values()
+            step_terms += [{k: v.clone() for k, v in t.items()} for t in g.step_terms]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (e1, t1, s1), (_, _, s2) = eager
+    assert tr.step == tr.opt.count == e1.step == 4
+    assert torch.equal(tr._rng.get_state(), e1._rng.get_state())
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want in zip(step_terms, t1):
+        for k, v in want.items():
+            assert abs(float(got[k]) - float(v)) <= rel * abs(float(v)), k
+    for name, v in s1.items():
+        if not v.is_floating_point():
+            continue
+        err = float((_state_of(tr)[name] - v).abs().max())
+        spread = float((s2[name] - v).abs().max())
+        floor = 4 * torch.finfo(torch.float32).eps * float(v.abs().max())
+        assert err <= 8 * spread + floor, (name, err, spread)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [{}, {"accum_steps": 2}, {"remat": True}],
+                         ids=["plain", "accum2", "remat"])
+def test_scan_replay_counts_the_captured_launches(cuda, cfg):
+    """The wrappers do not run in a replay: the trainer adds the tally taken
+    at capture, so a replay of k=2 counts the eager step's launches twice, by
+    kernel, role and the kernel that ran; the first call counts its warm-up
+    (two real eager steps) besides."""
+    batches = _scan_batches(cuda, 2)
+    tr = _scan_trainer(cuda, **cfg)
+    tr.train_step(batches[0])  # builds the kernels
+    fc.reset_launches()
+    fe.reset_launches()
+    tr.train_step(batches[0])
+    torch.cuda.synchronize()
+    per_step = _launch_counts()
+    assert per_step["fused_conv3x3_bn_relu forward"] > 0 and per_step["sq_rows"] > 0
+    fused = _scan_trainer(cuda, scan_steps=2, **cfg)
+    stack = stack_batches(batches)
+    for want in (4, 2):  # warm-up + replay, then a replay alone
+        fc.reset_launches()
+        fe.reset_launches()
+        fused.train_multi_step(stack)
+        torch.cuda.synchronize()
+        assert _launch_counts() == {k: want * v for k, v in per_step.items()}
+
+
+@pytest.mark.gpu
+def test_scan_capture_with_a_host_sync_raises(cuda):
+    """A host sync inside the captured step makes the capture fail: the call
+    raises with the cause, captures nothing and runs no eager step in its
+    place; the trainer's state is the one before the call."""
+    batches = _scan_batches(cuda, 2)
+    tr = _scan_trainer(cuda, scan_steps=2)
+    before = _state_of(tr)
+    real = tr._loss_and_terms
+
+    def syncing(*a, **k):
+        loss, terms = real(*a, **k)
+        float(loss)  # a copy to the host and a wait for it
+        return loss, terms
+
+    tr._loss_and_terms = syncing
+    with pytest.raises(RuntimeError, match="capturing 2 training steps as one CUDA graph "
+                                           "failed") as info:
+        tr.train_multi_step(stack_batches(batches))
+    assert info.value.__cause__ is not None
+    assert tr.graphs == {} and tr.step == tr.opt.count == 0
+    for name, v in _state_of(tr).items():
+        assert torch.equal(v, before[name]), name
+    del tr._loss_and_terms
+    assert torch.isfinite(tr.train_step(batches[0])["loss"])  # the card still trains
+
+
+@pytest.mark.gpu
+def test_scan_checkpoint_load_between_replays_is_seen(cuda, tmp_path):
+    """A checkpoint loads in place (parameters, statistics, moments, count,
+    generator): the next replay of the same graph, with no capture, starts
+    from it, to the bit (cuDNN's weight gradients held deterministic)."""
+    from simple_vae_rs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    stack = stack_batches(_scan_batches(cuda, 2))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = _scan_trainer(cuda, scan_steps=2)
+        tr.train_multi_step(stack)
+        save_checkpoint(str(tmp_path / "a"), tr, epoch=1)
+        want = tr.train_multi_step(stack)
+        want_state = _state_of(tr)
+        (graph,) = tr.graphs.values()
+        tr.train_multi_step(stack)  # moves on
+        load_checkpoint(str(tmp_path / "a"), tr)
+        assert tr.step == tr.opt.count == 2
+        got = tr.train_multi_step(stack)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert list(tr.graphs.values()) == [graph]  # replayed, not captured again
+    assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in want.items()}
+    for name, v in _state_of(tr).items():
+        assert torch.equal(v, want_state[name]), name

@@ -366,7 +366,7 @@ def test_clip_adam_matches_optax(bf16_moments):
         norm = float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2) for g in grads)))
         assert (norm > 1.0) == (scale > 1.0)
         want, jstate = tx.update(grads, jstate, params)
-        got = opt.update(_t(*grads))
+        got = opt.update(_t(*grads), opt.corrections()[0])
         _close(opt.global_norm(_t(*grads)), np.float32(norm), 1e-5, 0)
         for g, w in zip(got, want):
             _close(g, w, 1e-5, 1e-8)

@@ -190,6 +190,24 @@ def card_check(inp, mesh):
             "rows": dict(fe.launches)}
 
 
+def scan_check(inp, mesh):
+    """``scan_steps=2``: one ``train_multi_step`` on this rank's halves of two
+    global batches; and the auto mode's decision where rank 1's probe
+    disagrees with rank 0's."""
+    from simple_vae_rs_tpu_torch.train.engine import stack_batches
+    from simple_vae_rs_tpu_torch.utils import health
+
+    tr = Trainer(_model(inp), TrainConfig(learning_rate=inp["lr"], scan_steps=2),
+                 device="cpu", mesh=mesh, seed=inp["seed"])
+    local = stack_batches([pm.shard_batch(mesh, b) for b in inp["scan"]])
+    terms = tr.train_multi_step(local, lr=inp["lr"])
+    auto = Trainer(_model(inp), TrainConfig(learning_rate=inp["lr"]), device="cpu", mesh=mesh)
+    health.dispatch_latency = lambda reps=3, device=None: 1e6 if mesh.rank == 0 else 0.0
+    auto._maybe_autotune_scan(1.0, 4)
+    return {"terms": terms, "step": tr.step, "count": tr.opt.count,
+            "auto_k": auto._auto_scan_k, **_state(tr)}
+
+
 def main() -> None:
     inp_path, out_dir = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
@@ -197,8 +215,9 @@ def main() -> None:
     mesh = make_mesh(MeshConfig(data=-1))
     inp = torch.load(inp_path, weights_only=False)
     out = {"rank": mesh.rank, "shape": dict(mesh.shape)}
-    if inp.get("card"):
-        out["card"] = card_check(inp, mesh)
+    if inp.get("card") or inp.get("scan"):
+        out.update({"card": card_check(inp, mesh)} if inp.get("card")
+                   else {"scan": scan_check(inp, mesh)})
         torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
         torch.distributed.destroy_process_group()
         return
