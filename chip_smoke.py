@@ -403,6 +403,15 @@ S5. In a fresh process: median ms a step over windows of 4 steps (one
     route to the eager step's counts x 4 and to what the wrappers (eager)
     or the capture's tally (replays) counted: the replays' launches in
     ``launches_phase_s`` are these traced counts.
+S7. The default ``fit`` (``scan_steps=0``), 3 epochs of 20 batches (S1's
+    five, cycled), bf16 and f32, cuDNN deterministic, against the same fit at
+    ``scan_steps=1``: the second epoch opens with the card's trial (2
+    windows of 4 eager steps, a capturing dispatch of 2, 2 windows of 4
+    replayed steps), which decides once. Held: every epoch's loss within
+    1e-4 relative (S2's rule), every batch trained once, one decision said
+    once, bf16 chooses k=2, no graph left where the choice is 1. Printed: the
+    trial's ms a step each side, the choice, the memory reserved around the
+    capture and each epoch's peak, each fit's wall time and train epochs.
 
 The kernels line's entries carry ``launches_phase_h``,
 ``launches_phase_j``, ``launches_phase_k`` and ``launches_phase_s``, each H,
@@ -1870,12 +1879,15 @@ def cli_phase(report, card, tmp):
             f"ckpt/g2.pt; tfevents {len(tb)} records read back; task PNGs "
             + (", ".join(pngs) if pngs else "not written (no matplotlib)")
             + f"; LZW strips native {tiffio.CODEC_CALLS['native_decode']}, Python "
-            f"{tiffio.CODEC_CALLS['python_decode']}; card {card}")
+            f"{tiffio.CODEC_CALLS['python_decode']}; scan_steps auto: "
+            + (f"k={res['trainer']._auto_scan_k}" if res["trainer"]._auto_scan_k else
+               "no decision (epochs of 4 steps hold no trial): one step a dispatch")
+            + f"; card {card}")
         if tiffio.CODEC_CALLS["python_decode"]:
             raise AssertionError("G2: a strip took the Python LZW decoder")
         out.update({"g2_launches": got, "g2_task_launches": task_counts,
                     "g2_train_epoch_seconds": epoch_s, "g2_ms": g2_ms, "g2_mmse": mmse,
-                    "task_pngs": pngs})
+                    "task_pngs": pngs, "g2_auto_scan_k": res["trainer"]._auto_scan_k})
         trained = res["trainer"].model
         del res
         torch.cuda.empty_cache()
@@ -6138,6 +6150,112 @@ def s_fit(card, batches):
     return {"logs": logs, "calls": calls, "loss_rel": rel}
 
 
+S7_EPOCHS, S7_BATCHES = 3, 20  # S7's fits: epochs of 20 batches (S1's five, cycled)
+
+
+def s7_fit(dtype, batches, val, scan_steps):
+    """One S7 fit of the canonical Cond_SRVAE from S1's seeded state: its
+    per-epoch train losses, dispatches (single steps and k-step calls),
+    wall ms, per-epoch peak reserved GiB, standard output and trainer."""
+    tr = s_trainer("cond", dtype, scan_steps=scan_steps)
+    records, peaks = [], []
+    tr.logger.log = lambda m, step=None: records.append((step, dict(m)))
+    calls = {"multi": 0, "single": 0}
+    multi, single = tr.train_multi_step, tr.train_step
+
+    def count(kind, fn):
+        def wrapped(*a, **kw):
+            calls[kind] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    class Peaks:
+        """The card's peak reserved memory of each epoch (train, val, eval)."""
+
+        def on_epoch_begin(self, **kw):
+            torch.cuda.reset_peak_memory_stats()
+            return False
+
+        def on_epoch_end(self, **kw):
+            peaks.append(torch.cuda.max_memory_reserved() / 2**30)
+            return False
+
+    tr.train_multi_step, tr.train_step = count("multi", multi), count("single", single)
+    tr.callbacks.append(Peaks())
+    (_, ms), text = main_output(lambda: timed(
+        lambda: tr.fit(batches, val, epochs=S7_EPOCHS, val_metrics_every=S7_EPOCHS)))
+    losses = [m["Loss/loss"] for _, m in records if "Loss/loss" in m]
+    epoch_s = [m["Perf/train_epoch_seconds"] for _, m in records
+               if "Perf/train_epoch_seconds" in m]
+    return {"losses": losses, "calls": calls, "ms": ms, "train_epoch_s": epoch_s,
+            "peak_reserved_gib": peaks, "said": text.count("scan_steps auto:")}, tr
+
+
+def s7_auto_fits(card, batches):
+    """S7: a default ``fit`` (``scan_steps=0``) of 3 epochs of 20 batches,
+    bf16 and f32, against the same fit at ``scan_steps=1`` (cuDNN
+    deterministic): the second epoch opens with the card's trial of eager
+    against replayed steps, which decides once. Held: every epoch's loss
+    within S2's 1e-4 relative, every batch trained once, one decision said
+    once, bf16 chooses k=2, no graph left where the choice is 1."""
+    train = [batches[i % len(batches)] for i in range(S7_BATCHES)]
+    val = [tuple(t[:64] for t in batches[0])]
+    n = S7_EPOCHS * S7_BATCHES
+    out = {}
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        with s_deterministic():
+            eager, tr1 = s7_fit(dtype, train, val, 1)
+            del tr1
+            auto, tr = s7_fit(dtype, train, val, 0)
+        trial = tr.auto_scan_trial
+        k = tr._auto_scan_k
+        rel = max(abs(a - b) / abs(b) for a, b in zip(auto["losses"], eager["losses"]))
+        trained = auto["calls"]["single"] + 2 * auto["calls"]["multi"]  # the trial's k is 2
+        failures = []
+        if len(auto["losses"]) != S7_EPOCHS or not rel <= TERMS_TOL:
+            failures.append(f"epoch losses {auto['losses']} against {eager['losses']} (rel {rel})")
+        if tr.step != n or tr.opt.count != n or trained != n or eager["calls"]["single"] != n:
+            failures.append(f"step {tr.step}, count {tr.opt.count}, calls {auto['calls']}: "
+                            f"{trained} steps, not {n}")
+        if trial is None or k not in (1, 2) or trial["k"] != k or auto["said"] != 1 \
+                or eager["said"]:
+            failures.append(f"decision {k}, trial {trial}, said {auto['said']} times (the "
+                            f"scan_steps=1 fit {eager['said']})")
+        elif label == "bf16" and k != 2:
+            failures.append(f"bf16 chose k={k}: eager {trial['eager_ms']:.3f} ms a step, "
+                            f"replayed {trial['replay_ms']:.3f}")
+        if k == 1 and tr.graphs:
+            failures.append(f"k=1 left {len(tr.graphs)} graph(s)")
+        graphs = len(tr.graphs)
+        del tr
+        torch.cuda.empty_cache()
+        if failures:
+            raise AssertionError(f"S7 {label} auto scan_steps: " + "; ".join(failures))
+        out[label] = {"auto": auto, "scan_steps_1": eager, "trial": trial, "k": k,
+                      "loss_rel": rel, "graphs_left": graphs}
+        mib = (f"reserved {trial['reserved_before_capture'] / 2**30:.2f} GiB before the capture, "
+               f"{trial['reserved_after_capture'] / 2**30:.2f} GiB after it (the capture "
+               "empties the cache)"
+               if trial["reserved_before_capture"] is not None else "no capture in this fit")
+        log(f"S7 {label} fit scan_steps=0, {S7_EPOCHS} epochs of {S7_BATCHES} batches of 512: "
+            f"trial eager {trial['eager_ms']:.3f} ms a step (windows "
+            + ", ".join(f"{1e3 * t / trial['steps_a_window']:.3f}"
+                        for t in trial["eager_windows_s"])
+            + f"), replayed {trial['replay_ms']:.3f} ("
+            + ", ".join(f"{1e3 * t / trial['steps_a_window']:.3f}"
+                        for t in trial["replay_windows_s"])
+            + f"), gain {100 * trial['gain']:.2f}%: k={k}, {graphs} graph(s) left; {mib}; peak "
+            f"reserved by epoch " + ", ".join(f"{g:.2f}" for g in auto["peak_reserved_gib"])
+            + " GiB (scan_steps=1: " + ", ".join(f"{g:.2f}" for g in eager["peak_reserved_gib"])
+            + f"); epoch losses within {rel:.2e} of the scan_steps=1 fit's; {n} steps = "
+            f"{auto['calls']['single']} single + {auto['calls']['multi']} dispatches of 2; fit "
+            f"{auto['ms']:.1f} ms against {eager['ms']:.1f} ms at scan_steps=1, its train "
+            "epochs " + ", ".join(f"{1e3 * t:.1f}" for t in auto["train_epoch_s"])
+            + " ms against " + ", ".join(f"{1e3 * t:.1f}" for t in eager["train_epoch_s"])
+            + f"; card {card}")
+    return out
+
+
 def s_meshes(card, batches):
     """S4: a world of one on NCCL, k=2 replayed against its eager steps (the
     collectives captured), and on gloo, where a replay must raise."""
@@ -6377,6 +6495,11 @@ def scan_phase(report, card):
             torch.cuda.empty_cache()
     # S4: the meshes
     out["meshes"] = s_meshes(card, batches)
+    # S7: the default fit's auto mode, decided by the card's trial
+    t7 = time.perf_counter()
+    out["auto_fit"] = s7_auto_fits(card, batches)
+    out["auto_fit"]["seconds"] = time.perf_counter() - t7
+    log(f"S7 {out['auto_fit']['seconds']:.1f} s; card {card}")
     out["seconds"] = time.perf_counter() - t_phase
     out["launches"] = paths
     log(f"S total {out['seconds']:.1f} s; card {card}")

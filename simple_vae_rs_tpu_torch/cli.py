@@ -37,8 +37,10 @@ the task then runs on the whole model, gathered from the shards on every
 rank.
 
 ``--scan_steps k`` runs k optimizer steps a dispatch (one CUDA graph replay
-on the card, ``Trainer.train_multi_step``); the default 0 decides after the
-first epoch (``utils/health``). Flags that are not ported raise a
+on the card, ``Trainer.train_multi_step``); the default 0 decides once, after
+the first epoch: on the card by a trial of eager against replayed steps at
+the head of the second, on the CPU by JAX's dispatch probe
+(``utils/health``). Flags that are not ported raise a
 ``ValueError`` at any value but their default: ``--train_elbo`` and
 ``--pallas_conv``, left out on purpose (ROADMAP A.3).
 """
@@ -120,9 +122,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--scan_steps", type=int, default=0,
                         help="Full optimizer steps (each its own batch) per dispatch: one "
                         "CUDA graph replay on the card; composes with --accum_steps; an "
-                        "epoch's ragged tail runs as single steps. Default 0 = auto: probe "
-                        "a launch's round trip after epoch 1 and fuse 2 steps only where "
-                        "launching rivals computing.")
+                        "epoch's ragged tail runs as single steps. Default 0 = auto: after "
+                        "epoch 1, fuse 2 steps only where it pays: on the card where a trial "
+                        "at the head of epoch 2 (8 eager steps against 8 replayed) finds the "
+                        "replay at least 3% faster; on the CPU where a launch's probed round "
+                        "trip rivals computing.")
     parser.add_argument("--train_elbo", default="xla", choices=("xla", "pallas"),
                         help="Not ported, on purpose (ROADMAP A.3).")
     parser.add_argument("--bf16_moments", action="store_true",

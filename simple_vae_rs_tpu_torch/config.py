@@ -117,6 +117,11 @@ class CondSRVAEConfig:
         return self.patch_size // 8
 
     @property
+    def z_dim(self) -> int:
+        """Elements of one z: its channels over its grid."""
+        return self.z_channels * self.z_spatial ** 2
+
+    @property
     def u_channels(self) -> int:
         """Channels of u, which lives on a (ps/8, ps/8) grid of the LR encoder."""
         return self.latent_size_y // 64
@@ -124,6 +129,11 @@ class CondSRVAEConfig:
     @property
     def u_spatial(self) -> int:
         return self.patch_size // 8
+
+    @property
+    def u_dim(self) -> int:
+        """Elements of one u: its channels over its grid."""
+        return self.u_channels * self.u_spatial ** 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +170,9 @@ class TrainConfig:
     runs that many full optimizer steps, each on its own batch, as one
     dispatch: one CUDA graph replay on the card, that many eager steps on
     the CPU (``Trainer.train_multi_step``); 0 is the auto mode (one step a
-    dispatch until the first trained epoch's probe, ``utils/health``). The
+    dispatch until the first trained epoch ends, then the card's trial of
+    eager against replayed steps, or on the CPU JAX's probe,
+    ``utils/health``). The
     JAX config's ``train_elbo`` is left out on purpose (ROADMAP A.3).
     """
 

@@ -5,6 +5,7 @@
   ``model`` axis and gathers the output.
 - :class:`DownBlock`: conv3x3 -> conv4x4/s2/p1 -> BatchNorm -> ReLU.
 - :class:`UpBlock`: conv3x3 -> convT4x4/s2/p1 -> BatchNorm -> ReLU.
+- :class:`Residual`: ``x + module(x, ...)`` around any of them.
 
 Either block takes ``with_bn`` and ``with_relu`` (JAX ``conv_blocks.py:388-389``,
 ``:447-448``): without BatchNorm the tail is the conv with its bias, and its
@@ -364,6 +365,18 @@ class UpBlock(_Block):
         self._build(Conv3x3(in_features, in_features, device=device),
                     ConvWeights(4, in_features, features, features * 16, self._int8_kernel,
                                 device=device), features, with_relu, with_bn, device)
+
+
+class Residual(nn.Module):
+    """``x + module(x, ...)`` (JAX ``conv_blocks.Residual``); the wrapped
+    module's weights sit under ``module``, as in the flax tree."""
+
+    def __init__(self, module: nn.Module) -> None:
+        super().__init__()
+        self.module = module
+
+    def forward(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return x + self.module(x, *args, **kwargs)
 
 
 def reset_parameters(model: nn.Module, rng: np.random.Generator) -> None:

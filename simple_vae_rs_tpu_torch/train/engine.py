@@ -55,9 +55,16 @@ fails raises with its cause (a host sync in the step, gloo collectives): no
 eager loop steps in. The launch counters move by the tally of one replay,
 taken at capture (``ops/fused_conv.counters``). On the CPU the k steps run
 eagerly, with the same semantics. ``scan_steps=0`` (auto) trains single steps
-until the first trained epoch ends, then fuses ``utils/health.AUTO_SCAN_K``
-steps where one launch's probed round trip exceeds a quarter of the step's
-wall time (rank 0 decides for a mesh).
+until the first trained epoch of a ``fit`` ends, then decides once whether
+to fuse ``utils/health.AUTO_SCAN_K`` steps a dispatch (rank 0 decides for a
+mesh). On the CPU by JAX's rule: where one launch's probed round trip
+exceeds a quarter of the step's wall time. On the card by a trial at the
+head of the next epoch, on the batches it trains anyway: windows of eager
+steps, one dispatch that captures the graph, as many windows of replays,
+each window timed up to a synchronize; the replay is kept where it saves
+``health.AUTO_SCAN_MIN_GAIN`` of the eager step, else its graph is dropped.
+An epoch too short for the trial retries it in the next; a gloo mesh, which
+cannot capture, takes one step a dispatch without a trial.
 
 On a process mesh (``Trainer(..., mesh=parallel.make_mesh(...))``, one
 process per card) every rank passes its contiguous slice of each global
@@ -103,6 +110,7 @@ import dataclasses
 import functools
 import os
 import signal
+import statistics
 import sys
 import time
 from math import isnan
@@ -229,6 +237,63 @@ class StepGraph:
     tally: List[int]
 
 
+class _ScanTrial:
+    """The card's trial of the auto ``scan_steps`` (:meth:`Trainer._train_epoch`):
+    ``windows`` windows of ``steps`` eager steps, one dispatch of ``k`` steps
+    that captures the graph (untimed), then ``windows`` windows of ``steps``
+    steps as replays of ``k``. A window is timed on the host clock from its
+    first batch to a synchronize after its last step; its batches all have
+    the shape of the trial's first (``shape``). ``graphs`` are the keys of
+    the graphs its capture made, ``reserved`` the card's reserved bytes
+    before and after that capture."""
+
+    def __init__(self, k: int, windows: int, steps: int) -> None:
+        if windows < 1 or steps < k or steps % k:
+            raise ValueError(f"a trial takes windows of a multiple of k={k} steps, "
+                             f"got {windows} windows of {steps}")
+        self.k, self.windows, self.steps = k, windows, steps
+        self.plan = ["eager"] * windows + ["capture"] + ["replay"] * windows
+        self.opened = False  # whether an epoch opened with it
+        self.graphs: set = set()
+        self.reserved: Optional[Tuple[int, int]] = None
+        self.restart()
+
+    def restart(self) -> None:
+        """From the first window, with no timing (a new epoch)."""
+        self.at = 0  # the plan's window
+        self.shape = None
+        self.seconds: Dict[str, List[float]] = {"eager": [], "replay": []}
+        self.restart_window()
+
+    def restart_window(self) -> None:
+        self.done = 0  # steps of the window trained
+        self.t0: Optional[float] = None
+
+    @property
+    def side(self) -> str:
+        return self.plan[self.at]
+
+    @property
+    def dispatch_k(self) -> int:
+        return 1 if self.side == "eager" else self.k
+
+    def advance(self, k: int, clock) -> bool:
+        """``k`` more steps of the window trained; a window that is full is
+        timed. Returns whether the trial is over."""
+        self.done += k
+        if self.done == (self.k if self.side == "capture" else self.steps):
+            if self.side != "capture":
+                self.seconds[self.side].append(clock() - self.t0)
+            self.at += 1
+            self.restart_window()
+        return self.at == len(self.plan)
+
+    def seconds_a_step(self, side: str) -> Optional[float]:
+        """The median over ``side``'s windows of their seconds a step."""
+        times = self.seconds[side]
+        return statistics.median(times) / self.steps if times else None
+
+
 class Trainer:
     """Optimizer state, the steps and the epoch loop of one CondSRVAE, SRVAE
     or VAE (``kind``: "cond", "srvae" or "vae").
@@ -241,6 +306,9 @@ class Trainer:
     to train on: data-parallel over its batch axes, with ``cfg.zero1``
     sharding the large Adam moments over them, and with the wide heads
     channel-sharded over its ``model`` axis (``parallel/mesh.shard_model``).
+    ``auto_scan_trial`` holds the card's ``scan_steps`` trial once it has
+    decided (ms a step eager and replayed, the gain, the choice, the bytes
+    the card reserved before and after the capture); None before.
     """
 
     def __init__(self, model, cfg: Optional[TrainConfig] = None, device="cuda",
@@ -281,6 +349,10 @@ class Trainer:
         self.graphs: Dict[tuple, StepGraph] = {}  # the captured k-step graphs by key
         self._side_stream = None  # the warm-up stream of the captures
         self._auto_scan_k: Optional[int] = None  # the auto mode's choice, once made
+        # the auto mode's rule: the card's trial, else JAX's dispatch probe
+        self._trial_rule = self.device.type == "cuda"
+        self._scan_trial: Optional[_ScanTrial] = None  # due from a fit's second epoch
+        self.auto_scan_trial: Optional[Dict[str, Any]] = None
         if mesh is not None:
             pm.shard_state(mesh, self, zero1=cfg.zero1)
 
@@ -526,7 +598,7 @@ class Trainer:
         Raises on a mesh whose collectives run over gloo (they copy through
         the host), and with the cause where the capture fails."""
         mesh = self.mesh
-        if mesh is not None and mesh.distributed and mesh.backend != "nccl":
+        if self._host_collectives:
             raise ValueError(f"scan_steps on the card needs NCCL collectives; this mesh's "
                              f"run over {mesh.backend}, which copies through the host and "
                              "cannot be captured into a CUDA graph")
@@ -536,6 +608,13 @@ class Trainer:
         if key not in self.graphs:
             self.graphs[key] = self._capture(stacks, k)
         return self.graphs[key]
+
+    @property
+    def _host_collectives(self) -> bool:
+        """Whether the mesh's collectives run over gloo (through the host),
+        which a CUDA graph cannot capture."""
+        mesh = self.mesh
+        return mesh is not None and mesh.distributed and mesh.backend != "nccl"
 
     def _capture(self, stacks: Tuple[Tensor, ...], k: int) -> StepGraph:
         dev = self.device
@@ -866,6 +945,7 @@ class Trainer:
             # writer error must surface, but not replace an exception that
             # is already leaving fit (it is printed instead)
             in_flight = sys.exc_info()[1]
+            self._close_trial(say=in_flight is None)
             try:
                 try:
                     wait_for_saves()
@@ -879,18 +959,32 @@ class Trainer:
 
     def _resolve_scan_steps(self) -> int:
         """Steps per dispatch for this epoch: ``cfg.scan_steps`` where it is
-        1 or more; in the auto mode (0) the probe's choice once made, else 1."""
+        1 or more; in the auto mode (0) the choice once made, else 1."""
         k = int(self.cfg.scan_steps or 0)
         return k if k >= 1 else (self._auto_scan_k or 1)
 
     def _maybe_autotune_scan(self, train_time: float, n_steps: int) -> None:
-        """The auto mode's one decision, after the first trained epoch: probe
-        one launch's warm round trip (``utils/health.dispatch_latency``) and
-        fuse ``health.AUTO_SCAN_K`` steps a dispatch from the next epoch on
-        where it exceeds ``health.AUTO_SCAN_THRESHOLD`` of the epoch's wall
-        time a step (``health.choose_scan_steps``). On a mesh rank 0's
-        choice is every rank's: the ranks must run the same collectives."""
-        if int(self.cfg.scan_steps or 0) >= 1 or self._auto_scan_k is not None or n_steps <= 0:
+        """The auto mode after a trained epoch, until it has decided. On the
+        card the next epoch opens with the trial (:class:`_ScanTrial`), but
+        on a gloo mesh, which cannot capture: one step a dispatch. On the CPU
+        JAX's one decision: probe one launch's warm round trip
+        (``utils/health.dispatch_latency``) and fuse ``health.AUTO_SCAN_K``
+        steps a dispatch from the next epoch on where it exceeds
+        ``health.AUTO_SCAN_THRESHOLD`` of the epoch's wall time a step
+        (``health.choose_scan_steps``). On a mesh rank 0's choice is every
+        rank's: the ranks must run the same collectives."""
+        if (int(self.cfg.scan_steps or 0) >= 1 or self._auto_scan_k is not None or n_steps <= 0
+                or self._scan_trial is not None):
+            return
+        if self._trial_rule:
+            if not self._host_collectives:
+                self._scan_trial = _ScanTrial(health.AUTO_SCAN_K, health.AUTO_SCAN_TRIAL_WINDOWS,
+                                              health.AUTO_SCAN_TRIAL_STEPS)
+                return
+            self._auto_scan_k = 1
+            if self.is_main:
+                print(f"scan_steps auto: this mesh's collectives run over {self.mesh.backend}, "
+                      "which a CUDA graph cannot capture; one step a dispatch")
             return
         latency = health.dispatch_latency(device=self.device)
         per_step = train_time / n_steps
@@ -899,6 +993,129 @@ class Trainer:
         if k > 1 and self.is_main:
             print(f"dispatch-bound: a launch's round trip {latency * 1e3:.3f} ms against "
                   f"{per_step * 1e3:.1f} ms a step; scan_steps={k} for the remaining epochs")
+
+    def _trial_clock(self) -> float:
+        """The host clock after the card has finished what was launched."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _reserved(self) -> Optional[int]:
+        return torch.cuda.memory_reserved(self.device) if self.device.type == "cuda" else None
+
+    def _trial_capture(self, trial: _ScanTrial, stacks, lr: float) -> Dict[str, Tensor]:
+        """The trial's untimed dispatch of k steps, which captures their
+        graph (a retried trial replays the one its first try captured)."""
+        before, reserved = set(self.graphs), self._reserved()
+        terms = self.train_multi_step(stacks, lr)
+        captured = set(self.graphs) - before
+        if captured:
+            trial.graphs |= captured
+            trial.reserved = (reserved, self._reserved())
+        return terms
+
+    def _drop_graphs(self, keys) -> None:
+        """Drop these graphs and give their memory pools back to the card."""
+        for key in keys:
+            self.graphs.pop(key, None)
+        if keys and self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _decide_by_trial(self, trial: _ScanTrial) -> int:
+        """The card's one decision, from the trial's times
+        (``health.choose_scan_steps_by_trial``; rank 0's on a mesh): k for the
+        rest of the fit, and every later one. Where it is 1 the trial's graph
+        goes."""
+        eager, replay = trial.seconds_a_step("eager"), trial.seconds_a_step("replay")
+        k = pm.broadcast_int(self.mesh, health.choose_scan_steps_by_trial(eager, replay))
+        self._auto_scan_k, self._scan_trial = k, None
+        if k == 1:
+            self._drop_graphs(trial.graphs)
+        gain = 1.0 - replay / eager
+        before, after = trial.reserved or (None, None)
+        self.auto_scan_trial = {
+            "k": k, "eager_ms": eager * 1e3, "replay_ms": replay * 1e3, "gain": gain,
+            "eager_windows_s": list(trial.seconds["eager"]),
+            "replay_windows_s": list(trial.seconds["replay"]), "steps_a_window": trial.steps,
+            "reserved_before_capture": before, "reserved_after_capture": after}
+        if self.is_main:
+            n = trial.windows * trial.steps
+            memory = ("" if before is None else
+                      f"; memory reserved {before / 2**30:.2f} GiB before the capture, "
+                      f"{after / 2**30:.2f} GiB after it (the capture empties the cache)")
+            print(f"scan_steps auto: {n} eager steps {eager * 1e3:.3f} ms a step, {n} replayed "
+                  f"(k={trial.k}) {replay * 1e3:.3f} ms, a gain of {100 * gain:.1f}% (kept at "
+                  f"{100 * health.AUTO_SCAN_MIN_GAIN:g}% or more): scan_steps={k}"
+                  + (" from here on" if k > 1 else ", the graph dropped" if trial.graphs else "")
+                  + memory)
+        return k
+
+    def _close_trial(self, say: bool) -> None:
+        """The end of a fit: a trial that no epoch completed leaves one step
+        a dispatch, said once where ``say``, and its graph goes."""
+        trial, self._scan_trial = self._scan_trial, None
+        if trial is None or not trial.opened:
+            return
+        self._drop_graphs(trial.graphs)
+        if say and self.is_main:
+            n = 2 * trial.windows * trial.steps + trial.k
+            print(f"scan_steps auto: no epoch held the trial's {n} steps of one shape; one step "
+                  "a dispatch")
+
+    def _train_epoch(self, train_loader: Iterable, lr: float) -> Tuple[Dict[str, Tensor], int]:
+        """One pass of training over ``train_loader`` at ``lr``: the terms
+        summed over its steps, and their number. Batches of one shape go k a
+        dispatch (:meth:`_resolve_scan_steps`); a batch of another shape
+        first trains the ones gathered as single steps, and so does the
+        ragged tail. Where the card's trial is due the epoch opens with it,
+        and the choice holds from its end; a batch of another shape than the
+        trial's trains alone and restarts the window, and an epoch that ends
+        first drops the trial's timings."""
+        sums: Dict[str, Tensor] = {}
+        n = 0
+        scan_k = self._resolve_scan_steps()
+        trial = self._scan_trial
+        if trial is not None:
+            trial.restart()
+            trial.opened = True
+        pending: list = []
+
+        def singles(batches) -> None:
+            nonlocal sums, n
+            for b in batches:
+                sums = _add(sums, self.train_step(b, lr=lr))
+            n += len(batches)
+
+        for batch in train_loader:
+            if trial is not None:
+                trial.shape = trial.shape or _shapes(batch)
+                if _shapes(batch) != trial.shape:
+                    singles(pending + [batch])
+                    pending = []
+                    trial.restart_window()
+                    continue
+                if not pending and not trial.done and trial.side != "capture":
+                    trial.t0 = self._trial_clock()
+            k = scan_k if trial is None else trial.dispatch_k
+            if k > 1 and pending and _shapes(batch) != _shapes(pending[0]):
+                singles(pending)  # a shape change: what was gathered runs unfused
+                pending = []
+            pending.append(batch)
+            if len(pending) < k:
+                continue
+            if k == 1:
+                singles(pending)
+            elif trial is not None and trial.side == "capture":
+                sums = _add(sums, self._trial_capture(trial, stack_batches(pending), lr))
+                n += k
+            else:
+                sums = _add(sums, self.train_multi_step(stack_batches(pending), lr))
+                n += k
+            pending = []
+            if trial is not None and trial.advance(k, self._trial_clock):
+                scan_k, trial = self._decide_by_trial(trial), None
+        singles(pending)  # the ragged tail
+        return sums, n
 
     def _fit_epochs(self, train_loader, val_loader, epochs: int, start_epoch: int,
                     val_metrics_every: int) -> None:
@@ -922,24 +1139,7 @@ class Trainer:
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.start()
             t0 = time.perf_counter()
-            sums: Dict[str, Tensor] = {}
-            n_train = 0
-            lr = self.scheduler.lr
-            scan_k = self._resolve_scan_steps()
-            pending: list = []
-            for batch in train_loader:
-                if scan_k > 1 and pending and _shapes(batch) != _shapes(pending[0]):
-                    for b in pending:  # a shape change: what was gathered runs unfused
-                        sums = _add(sums, self.train_step(b, lr=lr))
-                    n_train, pending = n_train + len(pending), []
-                pending.append(batch)
-                if len(pending) == scan_k:
-                    sums = _add(sums, self.train_step(batch, lr=lr) if scan_k == 1
-                                else self.train_multi_step(stack_batches(pending), lr))
-                    n_train, pending = n_train + scan_k, []
-            for b in pending:  # the ragged tail
-                sums = _add(sums, self.train_step(b, lr=lr))
-            n_train += len(pending)
+            sums, n_train = self._train_epoch(train_loader, self.scheduler.lr)
             train_terms = {"Loss/" + k: v / n_train for k, v in _host(sums).items()}
             train_loss = train_terms["Loss/loss"]
             train_time = time.perf_counter() - t0

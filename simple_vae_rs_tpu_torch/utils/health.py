@@ -5,11 +5,21 @@ An unattended entry point that touches the card should learn within a
 bounded time whether the card answers, rather than hang in the CUDA runtime's
 initialization: :func:`probe_backend` runs that first contact in a daemon
 thread against a deadline (``python -m simple_vae_rs_tpu_torch.doctor
---budget``). :func:`dispatch_latency` and :func:`choose_scan_steps` are the
-training engine's ``scan_steps`` auto mode: after the first trained epoch
-the engine compares the warm round trip of one trivial launch with the
-measured step time and fuses :data:`AUTO_SCAN_K` optimizer steps into one
-CUDA graph replay where launching rivals computing.
+--budget``).
+
+The training engine's ``scan_steps`` auto mode decides once, after the
+first trained epoch, whether to fuse :data:`AUTO_SCAN_K` optimizer steps
+into one dispatch, by one of two rules:
+
+- JAX's (on the CPU): :func:`dispatch_latency` against the measured step
+  time, :func:`choose_scan_steps`; fuse where one launch's round trip
+  rivals computing;
+- the card's: a trial at the head of the next epoch times
+  :data:`AUTO_SCAN_TRIAL_WINDOWS` windows of :data:`AUTO_SCAN_TRIAL_STEPS`
+  eager steps against as many replayed (``Trainer._train_epoch``), and
+  :func:`choose_scan_steps_by_trial` fuses where the replay is measurably
+  faster. A launch's round trip on the card is microseconds, so JAX's rule
+  never fires there, while a replay takes the host out of a bfloat16 step.
 """
 
 from __future__ import annotations
@@ -21,11 +31,13 @@ from typing import Optional
 
 import torch
 
+from simple_vae_rs_tpu_torch.serve import resolve_device
+
 
 def _device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    """``device``; None is the card (raises where torch sees none: the CPU
+    is probed only when asked for)."""
+    return resolve_device("cuda") if device is None else torch.device(device)
 
 
 def _round_trip(device) -> None:
@@ -37,7 +49,7 @@ def _round_trip(device) -> None:
 def probe_backend(budget_s: float, progress: bool = True, out=None,
                   device=None) -> Optional[float]:
     """Latency (seconds) of the first contact with ``device`` (default: the
-    card where torch sees one, else the CPU): its initialization plus one
+    card): its initialization plus one
     trivial launch and the sync that fetches its result; None when that
     takes longer than ``budget_s`` or fails (the cause is printed to
     ``out``, stderr by default). It runs in a daemon thread while the caller
@@ -75,8 +87,7 @@ def probe_backend(budget_s: float, progress: bool = True, out=None,
 def dispatch_latency(reps: int = 3, device=None) -> Optional[float]:
     """Warm round trip (seconds) of one trivial launch plus the sync that
     fetches its result, best of ``reps`` after a warm-up call, on ``device``
-    (default: the card where torch sees one, else the CPU); None if it
-    fails. This is what a host loop pays per dispatch. Called where the
+    (default: the card); None if it fails. This is what a host loop pays per dispatch. Called where the
     device has just done real work (the end of a trained epoch), so it needs
     no deadline."""
     try:
@@ -108,3 +119,24 @@ def choose_scan_steps(per_step_s: float, latency_s: Optional[float]) -> int:
     if latency_s is None or per_step_s <= 0:
         return 1
     return AUTO_SCAN_K if latency_s > AUTO_SCAN_THRESHOLD * per_step_s else 1
+
+
+#: the card's trial: windows of eager steps, and as many of replayed ones
+AUTO_SCAN_TRIAL_WINDOWS = 2
+#: steps a trial window (a multiple of :data:`AUTO_SCAN_K`)
+AUTO_SCAN_TRIAL_STEPS = 4
+#: the least share of the eager step that a replay must save to be kept: a
+#: replay holds a memory pool of its own beside the eager cache (bfloat16
+#: saves 6-31% of a step on the H100, float32 1.0-1.6%)
+AUTO_SCAN_MIN_GAIN = 0.03
+
+
+def choose_scan_steps_by_trial(eager_s: Optional[float], replay_s: Optional[float]) -> int:
+    """The card's policy: :data:`AUTO_SCAN_K` optimizer steps per dispatch
+    where the trial's median replayed step ``replay_s`` is at most (1 -
+    :data:`AUTO_SCAN_MIN_GAIN`) of its median eager step ``eager_s``
+    (seconds), else 1 (also without both measurements, or without positive
+    times)."""
+    if eager_s is None or replay_s is None or eager_s <= 0 or replay_s <= 0:
+        return 1
+    return AUTO_SCAN_K if replay_s <= (1.0 - AUTO_SCAN_MIN_GAIN) * eager_s else 1

@@ -231,6 +231,22 @@ def test_blocks_eval_match_jax(pallas_on, block, cin, cout, hw):
         np.testing.assert_array_equal(tmod(torch.from_numpy(x)).numpy(), got)
 
 
+@pytest.mark.parametrize("c,hw", [(4, 8), (6, 5)])
+def test_residual_matches_jax(pallas_on, c, hw):
+    """``Residual`` around a conv (``x + module(x)``), its weights carried
+    over from the flax tree's ``module``."""
+    jmod = jblocks.Residual(jblocks.PallasCapableConv3x3(features=c, in_features=c))
+    x = np.random.default_rng(c * hw).standard_normal((2, hw, hw, c)).astype(np.float32)
+    variables = jmod.init(jax.random.PRNGKey(c), jnp.zeros_like(x))
+    want = np.asarray(jmod.apply(variables, x))
+    tmod = tblocks.Residual(tblocks.Conv3x3(c, c)).eval()
+    load_jax_variables(tmod, variables)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_block_training_mode_is_not_ported():
     """Training mode does not take the eval path: a block in ``train()``
     normalises with its batch statistics and updates its running ones, as

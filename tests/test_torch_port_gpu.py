@@ -1502,3 +1502,49 @@ def test_scan_checkpoint_load_between_replays_is_seen(cuda, tmp_path):
     assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in want.items()}
     for name, v in _state_of(tr).items():
         assert torch.equal(v, want_state[name]), name
+
+
+@pytest.mark.gpu
+def test_scan_auto_mode_decides_by_a_trial_on_the_card(cuda, capsys):
+    """The default ``scan_steps=0`` on the card: the second epoch opens with
+    the trial (eager windows, a capturing dispatch, replayed windows, on the
+    real clock), which decides once and says so once; every batch trains
+    once, each epoch's loss within 1e-4 relative of the ``scan_steps=1``
+    fit's (cuDNN deterministic), and where the choice is 1 no graph is
+    left."""
+    from simple_vae_rs_tpu_torch.utils import health
+
+    batches = _scan_batches(cuda, 20)
+    fits = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for scan_steps in (1, 0):
+            tr = _scan_trainer(cuda, scan_steps=scan_steps)
+            records, calls = [], {"multi": 0, "single": 0}
+            tr.logger.log = lambda m, step=None, records=records: records.append(dict(m))
+            for attr, kind in (("train_multi_step", "multi"), ("train_step", "single")):
+                def counted(*a, _fn=getattr(tr, attr), _kind=kind, _calls=calls, **k):
+                    _calls[_kind] += 1
+                    return _fn(*a, **k)
+                setattr(tr, attr, counted)
+            tr.fit(batches, batches[:1], epochs=2, val_metrics_every=100)
+            torch.cuda.synchronize()
+            fits[scan_steps] = (tr, [r["Loss/loss"] for r in records if "Loss/loss" in r],
+                                calls, capsys.readouterr().out.count("scan_steps auto:"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (_, want, eager_calls, eager_said), (tr, got, calls, said) = fits[1], fits[0]
+    k, trial = tr._auto_scan_k, tr.auto_scan_trial
+    assert eager_said == 0 and said == 1
+    assert k in (1, health.AUTO_SCAN_K) and trial["k"] == k
+    windows = health.AUTO_SCAN_TRIAL_WINDOWS
+    assert len(trial["eager_windows_s"]) == len(trial["replay_windows_s"]) == windows
+    assert trial["eager_ms"] > 0 and trial["replay_ms"] > 0
+    assert trial["reserved_before_capture"] > 0 and trial["reserved_after_capture"] > 0
+    assert tr.step == tr.opt.count == eager_calls["single"] == 40
+    assert calls["single"] + health.AUTO_SCAN_K * calls["multi"] == 40  # the trial's too
+    assert len(tr.graphs) == (0 if k == 1 else 1)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-4 * abs(w), (got, want)

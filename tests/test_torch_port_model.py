@@ -155,6 +155,14 @@ def test_load_jax_variables_rejects_mismatched_trees(pair):
         load_jax_variables(fresh, {**variables, "cache": {}})
 
 
+@pytest.mark.parametrize("cr,ps", [(1.2, 64), (2.0, 16)])
+def test_latent_dims_match_jax(cr, ps):
+    """``z_dim`` and ``u_dim``: the elements of one z and one u."""
+    got, want = CondSRVAEConfig(cr=cr, patch_size=ps), JConfig(cr=cr, patch_size=ps)
+    assert (got.z_dim, got.u_dim) == (want.z_dim, want.u_dim)
+    assert got.z_dim == got.z_channels * got.z_spatial ** 2 > got.u_dim > 0
+
+
 def test_canonical_param_count():
     model = CondSRVAE(CondSRVAEConfig(cr=1.2, patch_size=64), device="meta")
     named = dict(model.named_parameters())

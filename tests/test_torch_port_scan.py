@@ -3,7 +3,9 @@
 k full optimizer steps per dispatch (``Trainer.train_multi_step``; one CUDA
 graph replay on the card, k eager steps here), the epoch loop that gathers
 them (a shape change and the ragged tail as single steps), the auto mode's
-probe (``utils/health``), ``ClipAdam`` with its learning rate and bias
+probe (``utils/health``) and the card's trial of it (switched on here
+through the trainer's ``_trial_rule``, its window times handed out by a
+stand-in clock), ``ClipAdam`` with its learning rate and bias
 corrections read from device tensors, and a two-rank gloo mesh
 (``tests/torch_mesh_worker.py``).
 
@@ -175,22 +177,26 @@ class _Log:
         pass
 
 
-def _fit_both(train, val, epochs, jcfg, tcfg, monkeypatch, patch_probe=None):
+def _fit_both(train, val, epochs, jcfg, tcfg, monkeypatch, patch_probe=None, mesh=None,
+              setup=None):
     """One JAX fit and one port fit of the VAE (patch 16, on the LR stream of
     ``_batches(..., ps=32)``) from the same state on the same data and noise
     (every stream's: ``tests/test_torch_port_fit._jax_noise``): (JAX
     trainer, its final state, its log, the port trainer, its log, the epoch
-    of each of the port's multi-step dispatches)."""
+    of each of the port's multi-step dispatches). The port trains on
+    ``mesh``; ``setup`` gets its trainer before the fit."""
     jt = JTrainer(JVAE(JVAEConfig(cr=2.0, patch_size=PS)), jcfg, logger=(jlog := _Log()))
     state0 = jax.device_get(jt.init_state(train[0]))
     tmodel = VAE(VAEConfig(cr=2.0, patch_size=PS))
     load_jax_variables(tmodel, {"params": state0.params, "batch_stats": state0.batch_stats})
-    tt = Trainer(tmodel, tcfg, device="cpu", logger=(tlog := _Log()))
+    tt = Trainer(tmodel, tcfg, device="cpu", logger=(tlog := _Log()), mesh=mesh)
     monkeypatch.setattr(tt, "stream_noise", _fit_noise("vae", tmodel.config, state0.rng, tt))
     fused = []
     orig = tt.train_multi_step
     monkeypatch.setattr(tt, "train_multi_step",
                         lambda *a, **k: (fused.append(tt.current_epoch), orig(*a, **k))[1])
+    if setup is not None:
+        setup(tt)
     if patch_probe is not None:
         monkeypatch.setattr(jhealth, "dispatch_latency", lambda reps=3: patch_probe)
         monkeypatch.setattr(health, "dispatch_latency", lambda reps=3, device=None: patch_probe)
@@ -282,6 +288,129 @@ def test_choose_scan_steps_at_the_thresholds_edges(per_step, latency, want):
                                                                jhealth.AUTO_SCAN_THRESHOLD)
 
 
+@pytest.mark.parametrize("eager, replay, want", [
+    (1.0, 1.0 - health.AUTO_SCAN_MIN_GAIN, health.AUTO_SCAN_K),  # the gain at the margin
+    (1.0, np.nextafter(1.0 - health.AUTO_SCAN_MIN_GAIN, 0.0), health.AUTO_SCAN_K),  # above
+    (1.0, np.nextafter(1.0 - health.AUTO_SCAN_MIN_GAIN, 1.0), 1),  # just below it
+    (0.06960, 0.06544, health.AUTO_SCAN_K),  # the bf16 step on the H100: 6% off
+    (0.19083, 0.18873, 1),  # the f32 step: 1.1% off
+    (1.0, 2.0, 1),  # the replay slower
+    (None, 1.0, 1),  # no measurement of a side
+    (1.0, None, 1),
+    (None, None, 1),
+    (0.0, 0.5, 1),  # non-positive times
+    (1.0, 0.0, 1),
+    (1.0, -0.5, 1),
+    (-1.0, -2.0, 1),
+], ids=lambda v: repr(v))
+def test_choose_scan_steps_by_trial_at_its_edges(eager, replay, want):
+    """The card's rule: ``AUTO_SCAN_K`` steps a dispatch where the trial's
+    replayed step is at most ``1 - AUTO_SCAN_MIN_GAIN`` of its eager step."""
+    assert health.choose_scan_steps_by_trial(eager, replay) == want
+    assert health.AUTO_SCAN_MIN_GAIN == 0.03
+    assert health.AUTO_SCAN_TRIAL_STEPS % health.AUTO_SCAN_K == 0
+
+
+class _Epochs:
+    """A loader whose i-th pass yields the first ``lengths[i]`` batches, the
+    lengths in turn (a JAX fit, then a port fit)."""
+
+    def __init__(self, batches, lengths):
+        self.batches, self.lengths, self.passes = batches, lengths, 0
+
+    def __getitem__(self, i):
+        return self.batches[i]
+
+    def __iter__(self):
+        n = self.lengths[self.passes % len(self.lengths)]
+        self.passes += 1
+        return iter(self.batches[:n])
+
+
+# epoch lengths, the trial clock's readings in order (a window's start, its
+# end), the dispatches of each epoch ("step", "capture", "multi") and k
+_TRIALS = {
+    "replay-wins": ([2, 8], [0.0, 1.0, 10.0, 10.5],
+                    [["step"] * 2, ["step", "step", "capture", "multi", "multi"]], 2),
+    "replay-loses": ([2, 7], [0.0, 1.0, 10.0, 11.0],
+                     [["step"] * 2, ["step", "step", "capture", "multi", "step"]], 1),
+    # epoch 2 ends in the trial's replay window: its times are dropped and
+    # epoch 3 runs the trial again from its head
+    "short-epoch": ([2, 5, 6], [0.0, 1.0, 5.0, 10.0, 11.0, 20.0, 20.5],
+                    [["step"] * 2, ["step", "step", "capture", "step"],
+                     ["step", "step", "capture", "multi"]], 2),
+    "gloo-mesh": ([2, 6], [], [["step"] * 2, ["step"] * 6], 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_TRIALS))
+def test_card_trial_of_the_auto_mode_against_the_jax_fit(case, monkeypatch, capsys):
+    """The card's auto ``scan_steps`` (the trial switched on through the
+    trainer's hook, its window times handed out by a clock, its constants
+    cut to one window of two steps) in a port fit against JAX's unfused
+    fit: the dispatches of each epoch (eager steps, the capturing dispatch,
+    replays, and the choice from the trial's end on), one decision said
+    once, every batch trained once and the epoch means within 1e-4."""
+    import torch.distributed as dist
+
+    from simple_vae_rs_tpu_torch.parallel.mesh import make_mesh
+
+    lengths, ticks, want_log, want_k = _TRIALS[case]
+    monkeypatch.setattr(health, "AUTO_SCAN_TRIAL_WINDOWS", 1)
+    monkeypatch.setattr(health, "AUTO_SCAN_TRIAL_STEPS", 2)
+    clock = iter(ticks)
+    log = []
+
+    def setup(tt):
+        tt._trial_rule = True
+        monkeypatch.setattr(tt, "_trial_clock", lambda: next(clock))
+        inside = []
+
+        def logged(name, fn):
+            def run(*a, **k):
+                if not inside:
+                    log.append((tt.current_epoch, name))
+                inside.append(name)
+                try:
+                    return fn(*a, **k)
+                finally:
+                    inside.pop()
+            return run
+
+        for attr, name in (("train_step", "step"), ("train_multi_step", "multi"),
+                           ("_trial_capture", "capture")):
+            monkeypatch.setattr(tt, attr, logged(name, getattr(tt, attr)))
+
+    train = _Epochs(_batches(max(lengths), 4, 23, 32), lengths)
+    gloo = case == "gloo-mesh"
+    if gloo:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                                world_size=1)
+    try:
+        mesh = make_mesh() if gloo else None
+        jt, jstate, jlog, tt, tlog, fused = _fit_both(
+            train, train[:1], len(lengths), JTrainConfig(learning_rate=LR, scan_steps=1),
+            TrainConfig(learning_rate=LR), monkeypatch, mesh=mesh, setup=setup)
+    finally:
+        if gloo:
+            dist.destroy_process_group()
+    got_log = [[name for epoch, name in log if epoch == e] for e in range(1, len(lengths) + 1)]
+    assert got_log == want_log
+    assert next(clock, None) is None  # every reading taken
+    assert tt._auto_scan_k == want_k and tt._scan_trial is None and tt.graphs == {}
+    assert capsys.readouterr().out.count("scan_steps auto:") == 1
+    if not gloo:
+        trial = tt.auto_scan_trial
+        assert trial["k"] == want_k and trial["steps_a_window"] == 2
+        assert len(trial["eager_windows_s"]) == len(trial["replay_windows_s"]) == 1
+        assert trial["eager_ms"] == 1e3 * trial["eager_windows_s"][0] / 2 == 500.0
+    assert tt.step == tt.opt.count == int(jstate.step) == sum(lengths)
+    want, got = _losses(jlog), _losses(tlog)
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, rtol=1e-4, err_msg=str(key))
+
+
 def test_probes_time_out_and_answer(capsys):
     """``probe_backend`` gives the first round trip's latency, None past its
     budget (a stuck first contact) and None with the cause printed when the
@@ -296,7 +425,7 @@ def test_probes_time_out_and_answer(capsys):
     try:
         health._round_trip = lambda device: release.wait(30)
         out = io.StringIO()
-        assert health.probe_backend(0.2, progress=True, out=out) is None
+        assert health.probe_backend(0.2, progress=True, out=out, device="cpu") is None
     finally:
         release.set()
         health._round_trip = real
