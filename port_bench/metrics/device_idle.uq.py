@@ -1,0 +1,8 @@
+"""device_idle.uq: the share of the traced window of requests in which no
+kernel, copy or set ran on the card, in %."""
+
+
+def read(ctx):
+    if ctx["kind"] != "uq" or ctx["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["window_s"])
