@@ -56,6 +56,7 @@ from simple_vae_rs_tpu_torch.ops.reshape import (
     flatten_map,
     space_to_depth,
 )
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -273,10 +274,12 @@ class CondSRVAE(Routed):
         ``generator`` unless injected: ``eps_u`` shaped like the u grid,
         ``eps_z`` (samples, z grid). ``replicas`` (``parallel/mesh.Replicas``
         of this model) splits each chunk's decode over a device mesh."""
-        mu_u, logvar_u = self.encode_y(y)
-        u = reparameterize(mu_u, logvar_u, eps_u, generator)
-        y_feat = self.y_embedding(y)
-        mu_p, logvar_p = self.z_cond(y_feat, u)
+        with span("svrs.uq.prior"):
+            mu_u, logvar_u = self.encode_y(y)
+            u = reparameterize(mu_u, logvar_u, eps_u, generator)
+            y_feat = self.y_embedding(y)
+            mu_p, logvar_p = self.z_cond(y_feat, u)
+            std_p = torch.exp(0.5 * logvar_p)
 
         def decode_on(m, z: Tensor) -> Tensor:
             yf = y_feat.to(z.device).expand((z.shape[0],) + tuple(y_feat.shape[1:]))
@@ -287,8 +290,7 @@ class CondSRVAE(Routed):
                 return replicas.map(decode_on, z)
             return decode_on(self, z)
 
-        return decode_draws(decode, mu_p, torch.exp(0.5 * logvar_p), samples, chunk, eps_z,
-                            generator)
+        return decode_draws(decode, mu_p, std_p, samples, chunk, eps_z, generator)
 
     @torch.no_grad()
     def generation(self, generator: Optional[torch.Generator] = None

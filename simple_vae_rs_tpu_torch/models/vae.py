@@ -38,6 +38,7 @@ from simple_vae_rs_tpu_torch.ops.conv_blocks import (
     set_dtype,
 )
 from simple_vae_rs_tpu_torch.ops.reshape import flatten_map, unflatten_map
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -68,12 +69,13 @@ def decode_draws(decode: Callable[[torch.Tensor], torch.Tensor], mu: torch.Tenso
     chunk = max(1, min(chunk, samples))
     outs = []
     for lo in range(0, samples, chunk):
-        if eps is None:
-            noise = torch.randn((chunk,) + tuple(mu.shape[1:]), generator=generator,
-                                device=mu.device, dtype=torch.float32)
-        else:
-            noise = eps[lo:lo + chunk]
-        outs.append(decode(mu + noise * std))
+        with span("svrs.uq.decode"):
+            if eps is None:
+                noise = torch.randn((chunk,) + tuple(mu.shape[1:]), generator=generator,
+                                    device=mu.device, dtype=torch.float32)
+            else:
+                noise = eps[lo:lo + chunk]
+            outs.append(decode(mu + noise * std))
     return torch.cat(outs)[:samples]
 
 

@@ -74,6 +74,7 @@ from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
 from simple_vae_rs_tpu_torch.parallel import mesh as pm
 from simple_vae_rs_tpu_torch.parallel.mesh import all_reduce_sum
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 # The reference quantizes an UpBlock's transposed conv only from this many
 # input channels up; below it the tail runs in float32 on the float weights
@@ -155,12 +156,13 @@ class Conv3x3(ConvWeights, Routed):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        if self.kernel_q is not None and not self.training:
-            return f8.int8_conv("int8_conv3x3_bn_relu", x.to(dt), self.kernel_q, self.kernel_s,
-                                self.unit_scale, self.bias, False, self.plain,
-                                packed=self.kernel_p)
-        return fc.fused_conv("fused_conv3x3_bn_relu", x.to(dt), self.kernel.to(dt),
-                             self.unit_scale, self.bias, False, self.plain)
+        with span("svrs.conv"):
+            if self.kernel_q is not None and not self.training:
+                return f8.int8_conv("int8_conv3x3_bn_relu", x.to(dt), self.kernel_q,
+                                    self.kernel_s, self.unit_scale, self.bias, False,
+                                    self.plain, packed=self.kernel_p)
+            return fc.fused_conv("fused_conv3x3_bn_relu", x.to(dt), self.kernel.to(dt),
+                                 self.unit_scale, self.bias, False, self.plain)
 
 
 class ShardedConv3x3(Conv3x3):
@@ -224,10 +226,11 @@ class ShardedConv3x3(Conv3x3):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        x = pm.copy_to_model(x.to(dt), self.group)
-        y = fc.fused_conv("fused_conv3x3_bn_relu", x, self.kernel.to(dt), self.unit_scale,
-                          self.bias, False, self.plain)
-        return pm.gather_channels(y, self.group, self.index, self.shards)
+        with span("svrs.conv"):
+            x = pm.copy_to_model(x.to(dt), self.group)
+            y = fc.fused_conv("fused_conv3x3_bn_relu", x, self.kernel.to(dt), self.unit_scale,
+                              self.bias, False, self.plain)
+            return pm.gather_channels(y, self.group, self.index, self.shards)
 
 
 class BatchNorm(nn.Module):
@@ -315,6 +318,10 @@ class _Block(Routed):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
+        with span("svrs.conv"):  # the tail: the block's own conv span
+            return self._tail(x)
+
+    def _tail(self, x: torch.Tensor) -> torch.Tensor:
         tail = getattr(self, self._tail_name)
         dt = self.dtype
         if self.training:
@@ -472,8 +479,9 @@ def tail_chain(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor
                                     or any(conv.kernel.requires_grad for conv in convs)):
         return None
     dt = owner.dtype
-    return fused_chain.fused_conv3x3_chain(h.to(dt), [conv.kernel.to(dt) for conv in convs],
-                                           [conv.bias for conv in convs], plain=owner.plain)
+    with span("svrs.conv"):
+        return fused_chain.fused_conv3x3_chain(h.to(dt), [conv.kernel.to(dt) for conv in convs],
+                                               [conv.bias for conv in convs], plain=owner.plain)
 
 
 def conv_tail(owner: Routed, convs: Sequence[Conv3x3], h: torch.Tensor) -> torch.Tensor:

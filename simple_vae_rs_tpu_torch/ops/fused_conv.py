@@ -53,6 +53,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from simple_vae_rs_tpu_torch.utils.trace import span
+
 Tensor = torch.Tensor
 
 SOURCE = "fused_conv.cu"
@@ -612,9 +614,9 @@ def weight_grad(name: str, x: Tensor, g_conv: Tensor, kernel: Tensor) -> Tensor:
     """Gradient of conv ``name`` with respect to its HWIO ``kernel``: one
     library call (``aten.convolution_backward``, weight only, TF32 off) in
     ``x``'s dtype, as the JAX package leaves it to XLA's ``linear_transpose``."""
-    xn, gn = _nchw(x), _nchw(g_conv)
-    mask = [False, True, False]
-    with _no_tf32():
+    with span("svrs.step.weight_grad"), _no_tf32():
+        xn, gn = _nchw(x), _nchw(g_conv)
+        mask = [False, True, False]
         if name == "fused_convT4x4s2_bn_relu":
             # y = conv_transpose2d(x, w_t, stride 2, pad 1), w_t[c, o, i, j] = k[3-i, 3-j, c, o]
             w_t = kernel.flip(0, 1).permute(2, 3, 0, 1)
@@ -660,7 +662,8 @@ class _FusedConv(torch.autograd.Function):
         # the kernels take contiguous tensors; autograd may hand back views
         g_conv = (g * scale).to(x.dtype).contiguous()
         if need_x:
-            dx = input_grad(ctx.name, g_conv, kernel, x.shape, ctx.plain)
+            with span("svrs.step.input_grad"):
+                dx = input_grad(ctx.name, g_conv, kernel, x.shape, ctx.plain)
         if need_k:
             dk = weight_grad(ctx.name, x, g_conv, kernel)
         return dx, dk, dscale, dshift, None, None, None

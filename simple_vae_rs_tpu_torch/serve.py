@@ -101,6 +101,7 @@ from simple_vae_rs_tpu_torch.train.checkpoint import (
 )
 from simple_vae_rs_tpu_torch.utils.image import normalize_image
 from simple_vae_rs_tpu_torch.utils.jax_weights import load_jax_variables
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -345,20 +346,23 @@ class SuperResolver(Endpoints):
         over ``samples`` draws, decoded in chunks (``tasks.auto_chunk`` when
         ``chunk`` is None; on a mesh rounded up to the replica count, each
         chunk's decode split over the replicas)."""
-        y = self._input(y, self.normalize)[:1]
-        if chunk is None:
-            chunk = auto_chunk(samples, int(y.shape[1]) * 2)
-        if self._replicas is not None:
-            n = len(self._replicas)
-            chunk = -(-chunk // n) * n
-        with self._serving():
-            draws = sample_chunked(self.model, y, self._generator(seed), samples=samples,
-                                   chunk=chunk, replicas=self._replicas)
-        return {
-            "mean": draws.mean(dim=0),
-            "std": draws.std(dim=0, correction=0),
-            "variance": draws.var(dim=0, correction=0),
-        }
+        with span("svrs.uq.request"):
+            with span("svrs.uq.input"):
+                y = self._input(y, self.normalize)[:1]
+            if chunk is None:
+                chunk = auto_chunk(samples, int(y.shape[1]) * 2)
+            if self._replicas is not None:
+                n = len(self._replicas)
+                chunk = -(-chunk // n) * n
+            with self._serving():
+                draws = sample_chunked(self.model, y, self._generator(seed), samples=samples,
+                                       chunk=chunk, replicas=self._replicas)
+            with span("svrs.uq.moments"):
+                return {
+                    "mean": draws.mean(dim=0),
+                    "std": draws.std(dim=0, correction=0),
+                    "variance": draws.var(dim=0, correction=0),
+                }
 
 
 def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4), tile_batch: Optional[int] = 16,

@@ -26,6 +26,7 @@ from simple_vae_rs_tpu_torch.models.srvae import SRVAE
 from simple_vae_rs_tpu_torch.models.vae import VAE, decode_draws
 from simple_vae_rs_tpu_torch.ops.quantize import unpack_weights
 from simple_vae_rs_tpu_torch.parallel.mesh import first_rows
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -71,13 +72,14 @@ def sample_chunked(model, y: Tensor, generator: Optional[torch.Generator] = None
         if not isinstance(model, VAE):
             raise TypeError(f"sample_chunked takes a CondSRVAE, SRVAE or VAE, not "
                             f"{type(model).__name__}")
-        mu, logvar = model.encode(y)
+        with span("svrs.uq.prior"):
+            mu, logvar = model.encode(y)
+            std = torch.exp(0.5 * logvar)
         decode = model.decode
         if replicas is not None:
             def decode(z: Tensor) -> Tensor:
                 return replicas.map(lambda m, zz: m.decode(zz), z)
-        return decode_draws(decode, mu, torch.exp(0.5 * logvar), samples, chunk, eps_z,
-                            generator)
+        return decode_draws(decode, mu, std, samples, chunk, eps_z, generator)
 
 
 def error_statistics(samples: Tensor, target: Tensor) -> Dict[str, Tensor]:

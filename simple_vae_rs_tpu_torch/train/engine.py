@@ -138,6 +138,7 @@ from simple_vae_rs_tpu_torch.train.schedule import ReduceLROnPlateau
 from simple_vae_rs_tpu_torch.train.state import make_optimizer
 from simple_vae_rs_tpu_torch.utils import health, lpips_optional
 from simple_vae_rs_tpu_torch.utils.logging import Logger, NullLogger
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 Noise = Tuple[Tensor, ...]  # (eps_u, eps_z), or (eps,) for a VAE
@@ -347,6 +348,7 @@ class Trainer:
         self._rng.manual_seed(self.seed)
         self._preempted = False
         self.graphs: Dict[tuple, StepGraph] = {}  # the captured k-step graphs by key
+        self.graph_captures = 0  # captures begun, failed ones and the auto trial's included
         self._side_stream = None  # the warm-up stream of the captures
         self._auto_scan_k: Optional[int] = None  # the auto mode's choice, once made
         # the auto mode's rule: the card's trial, else JAX's dispatch probe
@@ -456,23 +458,27 @@ class Trainer:
         m = self.model
         if self.kind == "vae":
             (x,) = streams
-            x_hat, mu, logvar = m(x, *eps)
-            mse, kld = fused_base_loss(x_hat, x, mu, logvar, m.gamma, plain=m.plain,
-                                       global_rows=global_rows)
-            loss = mse + kld
+            with span("svrs.step.forward"):
+                x_hat, mu, logvar = m(x, *eps)
+            with span("svrs.step.elbo"):
+                mse, kld = fused_base_loss(x_hat, x, mu, logvar, m.gamma, plain=m.plain,
+                                           global_rows=global_rows)
+                loss = mse + kld
             return loss, dict(zip(VAE_TERMS, (loss, mse, kld)))
-        if self.kind == "srvae":
-            (x,) = streams
-            x_hat, y_hat, mu_z, lv_z, mu_u, lv_u, mu_p, lv_p, y = m(x, *eps)
-            core = m.core
-        else:
-            y, x = streams
-            x_hat, y_hat, mu_z, lv_z, mu_u, lv_u, mu_p, lv_p = m(x, y, *eps)
-            core = m
-        mse_x, kld_u, mse_y, kld_z = fused_cond_loss(
-            x_hat, x, y_hat, y, mu_u, lv_u, mu_z, lv_z, mu_p, lv_p, core.gammax, core.gammay,
-            plain=m.plain, global_rows=global_rows)
-        loss = mse_x + kld_u + mse_y + kld_z
+        with span("svrs.step.forward"):
+            if self.kind == "srvae":
+                (x,) = streams
+                x_hat, y_hat, mu_z, lv_z, mu_u, lv_u, mu_p, lv_p, y = m(x, *eps)
+                core = m.core
+            else:
+                y, x = streams
+                x_hat, y_hat, mu_z, lv_z, mu_u, lv_u, mu_p, lv_p = m(x, y, *eps)
+                core = m
+        with span("svrs.step.elbo"):
+            mse_x, kld_u, mse_y, kld_z = fused_cond_loss(
+                x_hat, x, y_hat, y, mu_u, lv_u, mu_z, lv_z, mu_p, lv_p, core.gammax,
+                core.gammay, plain=m.plain, global_rows=global_rows)
+            loss = mse_x + kld_u + mse_y + kld_z
         return loss, dict(zip(TERMS, (loss, mse_x, kld_u, mse_y, kld_z)))
 
     def _remat_contexts(self):
@@ -530,7 +536,8 @@ class Trainer:
                                          context_fn=self._remat_contexts)
             else:
                 loss, terms = self._loss_and_terms(micro, eps[i], global_rows)
-            grads = torch.autograd.grad(loss, params)
+            with span("svrs.step.backward"):
+                grads = torch.autograd.grad(loss, params)
             if gsum is None:
                 gsum, tsum = list(grads), {k: v.detach() for k, v in terms.items()}
             else:
@@ -558,9 +565,10 @@ class Trainer:
                    eps: Optional[Sequence] = None) -> Dict[str, Tensor]:
         """One optimizer step on ``batch`` at learning rate ``lr`` (default
         ``cfg.learning_rate``); returns the loss terms."""
-        grads, terms = self.grads_and_terms(batch, eps)
-        self.apply_grads(grads, self.cfg.learning_rate if lr is None else lr)
-        return terms
+        with span("svrs.step"):
+            grads, terms = self.grads_and_terms(batch, eps)
+            self.apply_grads(grads, self.cfg.learning_rate if lr is None else lr)
+            return terms
 
     def train_multi_step(self, batches, lr: Optional[float] = None) -> Dict[str, Tensor]:
         """``k`` full optimizer steps in one dispatch (JAX ``train_multi_step``):
@@ -579,18 +587,21 @@ class Trainer:
             for i in range(k):
                 sums = _add(sums, self.train_step(tuple(s[i] for s in stacks), lr=lr))
             return sums
-        stacks = tuple(torch.as_tensor(s) for s in stacks)
-        g = self.step_graph(stacks)
-        for dst, src in zip(g.inputs, stacks):
-            dst.copy_(src)
-        g.lr.fill_(lr)
-        g.table.copy_(self.opt.corrections(k))
-        g.graph.replay()
-        self.opt.count += k
-        self.step += k
-        for (counts, key), n in zip(_count_cells(), g.tally):
-            counts[key] += n
-        return {name: t.clone() for name, t in g.terms.items()}
+        with span("svrs.step"):
+            stacks = tuple(torch.as_tensor(s) for s in stacks)
+            g = self.step_graph(stacks)
+            with span("svrs.step.copy_in"):
+                for dst, src in zip(g.inputs, stacks):
+                    dst.copy_(src)
+                g.lr.fill_(lr)
+                g.table.copy_(self.opt.corrections(k))
+            with span("svrs.step.replay"):
+                g.graph.replay()
+            self.opt.count += k
+            self.step += k
+            for (counts, key), n in zip(_count_cells(), g.tally):
+                counts[key] += n
+            return {name: t.clone() for name, t in g.terms.items()}
 
     def step_graph(self, stacks: Tuple[Tensor, ...]) -> StepGraph:
         """The graph of ``len(stacks[0])`` steps on batch stacks of these
@@ -606,7 +617,8 @@ class Trainer:
         key = (k, _shapes(stacks), self.model.dtype, bool(self.model.plain),
                self.cfg.accum_steps, self.cfg.remat, id(mesh))
         if key not in self.graphs:
-            self.graphs[key] = self._capture(stacks, k)
+            with span("svrs.step.capture"):
+                self.graphs[key] = self._capture(stacks, k)
         return self.graphs[key]
 
     @property
@@ -617,6 +629,7 @@ class Trainer:
         return mesh is not None and mesh.distributed and mesh.backend != "nccl"
 
     def _capture(self, stacks: Tuple[Tensor, ...], k: int) -> StepGraph:
+        self.graph_captures += 1
         dev = self.device
         inputs = tuple(torch.empty(s.shape, dtype=torch.float32, device=dev) for s in stacks)
         for dst, src in zip(inputs, stacks):

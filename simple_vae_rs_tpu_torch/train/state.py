@@ -25,6 +25,7 @@ import torch
 
 from simple_vae_rs_tpu_torch.config import TrainConfig
 from simple_vae_rs_tpu_torch.parallel import mesh as pm
+from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -174,16 +175,19 @@ class ClipAdam:
         both on the device; under ZeRO-1 on this rank's block of each
         sharded leaf, then all-gathered."""
         params = list(params)
-        if self.mesh is None:
-            self._apply(params, self.update(grads, corrections), lr)
-            return
-        # contiguous blocks: the multi-tensor kernels then take every leaf as
-        # they take the replicated layout's, so ZeRO-1 gives the same bits
-        blocks = [self._block(p, i).contiguous() for i, p in enumerate(params)]
-        self._apply(blocks, self.update(grads, corrections), lr)
-        for i, (p, d) in enumerate(zip(params, self.dims)):
-            if d is not None:
-                p.copy_(pm.gather_shards(self.mesh, blocks[i], d))
+        with span("svrs.step.clip"):
+            g = self.clip(grads)
+        with span("svrs.step.adam"):
+            if self.mesh is None:
+                self._apply(params, self._adam(g, corrections), lr)
+                return
+            # contiguous blocks: the multi-tensor kernels then take every leaf as
+            # they take the replicated layout's, so ZeRO-1 gives the same bits
+            blocks = [self._block(p, i).contiguous() for i, p in enumerate(params)]
+            self._apply(blocks, self._adam(g, corrections), lr)
+            for i, (p, d) in enumerate(zip(params, self.dims)):
+                if d is not None:
+                    p.copy_(pm.gather_shards(self.mesh, blocks[i], d))
 
     @torch.no_grad()
     def update(self, grads: Sequence[Tensor], corrections: Tensor) -> List[Tensor]:
@@ -191,7 +195,10 @@ class ClipAdam:
         (sqrt(v_hat) + eps)`` (under ZeRO-1, for this rank's block of each
         sharded leaf). ``corrections`` is the new count's row of
         :meth:`corrections` on the device."""
-        g = self.clip(grads)
+        return self._adam(self.clip(grads), corrections)
+
+    def _adam(self, g: List[Tensor], corrections: Tensor) -> List[Tensor]:
+        """:meth:`update` on the clipped gradients ``g``."""
         if self.mesh is not None:
             g = [self._block(t, i).contiguous() for i, t in enumerate(g)]
         if self.mu_dtype == torch.float32:
