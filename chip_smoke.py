@@ -766,11 +766,15 @@ def record_conv_calls(model, calls):
     """Hooks recording every conv launch the model's next passes make, as
     ``(kernel, role, kernel input shape, O, relu, site, site input shape)``:
     a forward call when a conv runs, and a dx call when autograd computes the
-    gradient of a conv's input (a tensor hook, so only inputs that need one)."""
+    gradient of a conv's input (a tensor hook, so only inputs that need one).
+    A pass under CUDA graph capture launches nothing and is not recorded
+    (:func:`record_routed_calls`)."""
     from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
     from simple_vae_rs_tpu_torch.ops import fused_conv as fc
 
     def site(name, x, o, relu):
+        if capturing():
+            return
         shape = tuple(x.shape)
         calls.append((name, "forward", shape, o, relu, name, shape))
         if x.requires_grad:
@@ -2322,16 +2326,29 @@ def check_quantizer(model, report):
     return rows  # phase I4 adds the block path's trees
 
 
+def capturing() -> bool:
+    """Whether this thread's current stream is capturing a CUDA graph (never
+    on a host without a card, where the query raises)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def record_routed_calls(model, calls):
     """Hooks recording ``(kernel, x shape, O, relu)`` of every conv the
-    model's next eval passes launch, float32 or int8 as the module routes it."""
+    model's next eval passes launch, float32 or int8 as the module routes it.
+    A pass under CUDA graph capture (an ``uncertainty`` request's capture,
+    after the eager run that served it) launches nothing and is not
+    recorded, as the launch counters roll it back."""
     from simple_vae_rs_tpu_torch.ops import conv_blocks as blocks
 
     def conv_pre(m, args):
+        if capturing():
+            return
         name = "int8_conv3x3_bn_relu" if m.kernel_q is not None else "fused_conv3x3_bn_relu"
         calls.append((name, tuple(args[0].shape), m.kernel.shape[-1], False))
 
     def block_pre(m, args):
+        if capturing():
+            return
         tail = getattr(m, m._tail_name)
         int8 = tail.kernel_q is not None and args[0].shape[-1] >= m._int8_min_channels
         calls.append((m._int8_kernel if int8 else m._kernel, tuple(args[0].shape),
@@ -2678,7 +2695,8 @@ CHAIN_SHAPES = [
 class ChainCalls:
     """Records ``(x shape, later widths)`` of every chain the models route
     while it is open, by standing in for the wrapper that ``tail_chain``
-    calls; calls routed to the plain version are recorded apart."""
+    calls; calls routed to the plain version are recorded apart, and calls
+    under CUDA graph capture (which launch nothing) not at all."""
 
     def __enter__(self):
         from simple_vae_rs_tpu_torch.ops import fused_chain as fch
@@ -2688,7 +2706,8 @@ class ChainCalls:
 
         def recording(x, kernels, biases, plain=False):
             key = (tuple(x.shape), tuple(k.shape[-1] for k in kernels))
-            (self.plain_calls if plain else self.calls).append(key)
+            if not capturing():
+                (self.plain_calls if plain else self.calls).append(key)
             return self.orig(x, kernels, biases, plain=plain)
 
         fch.fused_conv3x3_chain = recording
@@ -6620,6 +6639,11 @@ def main() -> int:
     kinds = ((blocks.Conv3x3, "fused_conv3x3_bn_relu", "kernel"),
              (blocks.DownBlock, "fused_conv4x4s2_bn_relu", "downsample"),
              (blocks.UpBlock, "fused_convT4x4s2_bn_relu", "upsample"))
+
+    def record(args, name, o, relu):
+        if not capturing():  # a pass under graph capture launches nothing
+            calls.append((name, tuple(args[0].shape), o, relu))
+
     hooks = []
     for mod in model.modules():
         for cls, name, attr in kinds:
@@ -6628,8 +6652,7 @@ def main() -> int:
                 o = (w if attr == "kernel" else w.kernel).shape[-1]
                 relu = cls is not blocks.Conv3x3
                 hooks.append(mod.register_forward_pre_hook(
-                    lambda m, args, name=name, o=o, relu=relu:
-                        calls.append((name, tuple(args[0].shape), o, relu))))
+                    lambda m, args, name=name, o=o, relu=relu: record(args, name, o, relu)))
 
     torch.cuda.reset_peak_memory_stats()
     fc.reset_launches()

@@ -61,6 +61,34 @@ one activation scale per replica's rows, as JAX's ``shard_map`` takes one
 per shard. ``uncertainty`` rounds its chunk up to the replica count (JAX
 ``serve.py:490-507``).
 
+On the card, ``uncertainty`` replays a request as one CUDA graph, in every
+mode but ``int8_weights`` (its weights are unpacked into new tensors per
+request, which a graph would not see) and a mesh; on the CPU it runs
+eagerly. The graphs are keyed by what the request's body branches on: the
+LR shape, ``samples``, the chunk, ``normalize``, the model's dtype and its
+plain, chain and training switches. The first request of a key runs eagerly
+on a side stream, which serves it, then captures the graph
+(``graph_captures``); each later one stages the image through a pinned
+buffer, draws its noise outside the graph from the same generator in the
+same order as the eager path (``eps_u``, then a whole chunk of ``eps_z``
+for each chunk), replays (``graph_replays``; the normalization is in the
+graph) and returns clones of the graph's maps, so the maps are the caller's
+own and a replay adds the capture's tally to the launch counters. A capture
+that raises is warned about and its key served eagerly from then on.
+
+The gain rests on traffic that repeats a key: a capture costs about an
+eager request more, besides the device synchronize, ``gc.collect`` and
+``empty_cache`` that ``torch.cuda.graph`` makes. So a resolver holds at
+most ``MAX_GRAPHS`` graphs, in one memory pool: its requests never overlap,
+so the graphs share their intermediates, a dropped graph's blocks serve the
+next capture, and the pool goes back to the card with the last graph. Once
+it holds that many, a new key is served eagerly until it has been asked for
+more often than the least recently used key held (of the last
+``COUNTED_KEYS`` keys asked for), and then takes its place: one-off keys,
+and a cycle over more keys than the bound, are served eagerly rather than
+captured again and again. ``super_resolve``, ``super_resolve_moments`` and
+the tile endpoints run eagerly.
+
 ``SuperResolver.from_checkpoint(path)`` rebuilds the model a checkpoint was
 trained as, from the config in its meta (``train/checkpoint.read_meta``),
 and serves it: the port's own checkpoints and the JAX package's
@@ -76,10 +104,13 @@ tensors on the resolver's device.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +118,8 @@ import torch
 from simple_vae_rs_tpu_torch.config import CondSRVAEConfig
 from simple_vae_rs_tpu_torch.models.cond_vae import CondSRVAE
 from simple_vae_rs_tpu_torch.models.srvae import SRVAE
+from simple_vae_rs_tpu_torch.ops import fused_conv as fc
+from simple_vae_rs_tpu_torch.ops import fused_int8 as f8
 from simple_vae_rs_tpu_torch.ops import quantize as qz
 from simple_vae_rs_tpu_torch.ops.conv_blocks import use_chain
 from simple_vae_rs_tpu_torch.parallel.mesh import Mesh, replicate
@@ -104,6 +137,9 @@ from simple_vae_rs_tpu_torch.utils.jax_weights import load_jax_variables
 from simple_vae_rs_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
+
+MAX_GRAPHS = 4  # uncertainty's graphs a resolver holds
+COUNTED_KEYS = 64  # the most recent request keys whose counts it keeps
 
 
 def backend_device(backend: str) -> str:
@@ -127,6 +163,92 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _launch_cells() -> List[Tuple[dict, str]]:
+    """Every launch counter a request moves (the float and int8 conv
+    kernels'), as ``(dict, key)`` pairs in a fixed order."""
+    cells: List[Tuple[dict, str]] = []
+
+    def walk(counts: dict) -> None:
+        for key, v in counts.items():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                cells.append((counts, key))
+
+    for counters in (fc.counters(), {"launches": f8.launches, "bf16_launches": f8.bf16_launches}):
+        walk(counters)
+    return cells
+
+
+def _moments(draws: Tensor) -> Dict[str, Tensor]:
+    with span("svrs.uq.moments"):
+        return {
+            "mean": draws.mean(dim=0),
+            "std": draws.std(dim=0, correction=0),
+            "variance": draws.var(dim=0, correction=0),
+        }
+
+
+@dataclasses.dataclass
+class RequestGraph:
+    """One uncertainty request of ``samples`` draws captured as a CUDA
+    graph, and its static tensors: the raw LR image and the noise it reads
+    (``eps_z`` a whole ``chunk`` for each chunk, as ``decode_draws`` decodes
+    them), the maps it writes, and the launches one replay makes (``(counts,
+    key, n)``: ``n`` more in the counter ``counts[key]``). On the card a
+    pinned buffer stages a host image, and an event marks its last copy."""
+
+    graph: Any
+    y: Tensor
+    eps_u: Tensor
+    eps_z: Tensor
+    samples: int
+    chunk: int
+    normalize: bool
+    host: Optional[Tensor] = None
+    copied: Any = None
+    maps: Dict[str, Tensor] = dataclasses.field(default_factory=dict)
+    tally: List[Tuple[dict, str, int]] = dataclasses.field(default_factory=list)
+
+    @classmethod
+    def static(cls, model, shape: Tuple[int, ...], samples: int, chunk: int,
+               normalize: bool, device: torch.device) -> "RequestGraph":
+        """The static tensors of a request of ``model`` on an LR image of
+        ``shape`` (1, h, w, C) on ``device``; no graph yet."""
+        shape_u, shape_z = model.generation_noise_shapes(1, tuple(shape[1:3]))
+        draws = -(-samples // chunk) * chunk
+        g = cls(None, torch.empty(shape, device=device), torch.empty(shape_u, device=device),
+                torch.empty((draws, *shape_z[1:]), device=device), samples, chunk, normalize)
+        if device.type == "cuda":
+            g.host, g.copied = torch.empty(shape, pin_memory=True), torch.cuda.Event()
+        return g
+
+    def load(self, y: Tensor) -> None:
+        """Copy the LR image in; from the host through the pinned buffer,
+        the copy left to run while the host goes on."""
+        if self.host is None or y.device.type != "cpu":
+            self.y.copy_(y)
+            return
+        self.copied.synchronize()  # the buffer's last copy to the card has run
+        self.host.copy_(y)
+        self.y.copy_(self.host, non_blocking=True)
+        self.copied.record()
+
+    def draw(self, gen: torch.Generator) -> None:
+        """The request's noise from ``gen``, as the eager path draws it:
+        ``eps_u``, then one chunk of ``eps_z`` at a time."""
+        self.eps_u.normal_(generator=gen)
+        for lo in range(0, self.eps_z.shape[0], self.chunk):
+            self.eps_z[lo:lo + self.chunk].normal_(generator=gen)
+
+    def generate(self, model) -> Dict[str, Tensor]:
+        """The request's maps from the static tensors: the eager request's
+        body with the noise passed in (what the graph captures)."""
+        y = normalize_image(self.y) if self.normalize else self.y
+        draws = model.sample(y, None, self.eps_z.shape[0], self.chunk, self.eps_u, self.eps_z)
+        return _moments(draws[:self.samples])
 
 
 class Endpoints(TileEndpoints):
@@ -237,6 +359,14 @@ class SuperResolver(Endpoints):
             self._replica_packed = [qz.pack_int8_weights(m)
                                     for m in (self._replicas or [self.model])]
             self._packed = self._replica_packed[0]
+        # uncertainty's graphs by key, least recently used first (None: its
+        # capture failed, served eagerly), and the recent keys' request counts
+        self.graphs: Dict[tuple, Optional[RequestGraph]] = collections.OrderedDict()
+        self._requests: Dict[tuple, int] = collections.OrderedDict()
+        self.graph_captures = 0  # captures begun, failed ones included
+        self.graph_replays = 0  # requests served by a replay
+        self._pool = None  # the graphs' memory pool
+        self._side_stream = None
 
     @classmethod
     def from_checkpoint(cls, path: str, cr: Optional[float] = None,
@@ -298,8 +428,16 @@ class SuperResolver(Endpoints):
                    chain=chain, mesh=mesh)
 
     def _input(self, y, normalize: bool = False) -> Tensor:
+        y = self._checked(y).to(self.device)
+        if normalize:
+            y = normalize_image(y)
+        return y.contiguous()
+
+    def _checked(self, y) -> Tensor:
+        """``y`` as a float32 (B, h, w, C) LR tensor where it lies, its shape
+        checked."""
         y = y if isinstance(y, Tensor) else torch.as_tensor(np.asarray(y))
-        y = y.to(self.device, torch.float32)
+        y = y.to(torch.float32)
         if y.dim() == 3:
             y = y[None]
         if y.dim() != 4 or y.shape[-1] != self.model.config.channels:
@@ -311,9 +449,7 @@ class SuperResolver(Endpoints):
             raise ValueError(
                 f"LR height and width must be multiples of 8, got {tuple(y.shape)}"
             )
-        if normalize:
-            y = normalize_image(y)
-        return y.contiguous()
+        return y
 
     def _noise_shapes(self, batch: int, lr_hw: Tuple[int, int]):
         return self.model.generation_noise_shapes(batch, lr_hw)
@@ -345,24 +481,134 @@ class SuperResolver(Endpoints):
         """Posterior SR statistics of one LR image: mean/std/variance maps
         over ``samples`` draws, decoded in chunks (``tasks.auto_chunk`` when
         ``chunk`` is None; on a mesh rounded up to the replica count, each
-        chunk's decode split over the replicas)."""
+        chunk's decode split over the replicas). On the card one graph
+        replay a request (the module's docstring says when)."""
         with span("svrs.uq.request"):
+            graphs = self.device.type == "cuda" and self.mesh is None and not self.int8_weights
             with span("svrs.uq.input"):
-                y = self._input(y, self.normalize)[:1]
+                y = self._checked(y)[:1] if graphs else self._input(y, self.normalize)[:1]
             if chunk is None:
                 chunk = auto_chunk(samples, int(y.shape[1]) * 2)
             if self._replicas is not None:
                 n = len(self._replicas)
                 chunk = -(-chunk // n) * n
+            if graphs:
+                maps = self._replayed(y, samples, chunk, seed)
+                if maps is not None:
+                    return maps
+                with span("svrs.uq.input"):
+                    y = self._input(y, self.normalize)
             with self._serving():
                 draws = sample_chunked(self.model, y, self._generator(seed), samples=samples,
                                        chunk=chunk, replicas=self._replicas)
-            with span("svrs.uq.moments"):
-                return {
-                    "mean": draws.mean(dim=0),
-                    "std": draws.std(dim=0, correction=0),
-                    "variance": draws.var(dim=0, correction=0),
-                }
+            return _moments(draws)
+
+    def _replayed(self, y: Tensor, samples: int, chunk: int,
+                  seed: Optional[int]) -> Optional[Dict[str, Tensor]]:
+        """The maps of one request of the raw LR image ``y`` from its key's
+        graph, captured on the key's first request it admits (``_admits``);
+        None, before any draw, where the key is served eagerly."""
+        if samples < 1:
+            raise ValueError(f"samples must be >= 1 (got {samples})")
+        chunk = max(1, min(chunk, samples))  # as models/vae.decode_draws
+        m = self.model
+        key = (tuple(y.shape), samples, chunk, self.normalize, m.dtype, bool(m.plain),
+               bool(m.chain), m.training)
+        if not self._admits(key):
+            return None
+        if key not in self.graphs:
+            with span("svrs.uq.capture"):
+                return self._capture(key, y, samples, chunk, self._generator(seed))
+        g = self.graphs[key]
+        if g is None:
+            return None
+        with span("svrs.uq.replay"):
+            g.load(y)
+            g.draw(self._generator(seed))
+            g.graph.replay()  # may overwrite another graph's maps: they share a pool
+            self.graph_replays += 1
+            for counts, name, n in g.tally:
+                counts[name] += n
+            return {name: t.clone() for name, t in g.maps.items()}
+
+    def _admits(self, key: tuple) -> bool:
+        """Count a request of ``key``: whether it is served from a graph, one
+        held or one captured now. Past ``MAX_GRAPHS`` a key takes the least
+        recently used one's place once it has been asked for more often than
+        that one's key (the module's docstring says why)."""
+        n = self._requests.pop(key, 0) + 1
+        self._requests[key] = n
+        if len(self._requests) > COUNTED_KEYS:
+            self._requests.popitem(last=False)
+        if key in self.graphs:
+            self.graphs.move_to_end(key)
+            return True
+        if len(self.graphs) < MAX_GRAPHS:
+            return True
+        oldest = next(iter(self.graphs))
+        if n < 2 or n <= self._requests.get(oldest, 0):
+            return False
+        del self.graphs[oldest]  # its graph and static tensors go
+        return True
+
+    def _capture(self, key: tuple, y: Tensor, samples: int, chunk: int,
+                 gen: torch.Generator) -> Dict[str, Tensor]:
+        """Serve the first request of ``key`` eagerly on a side stream, then
+        capture it into ``self.graphs[key]``; the maps are the eager run's."""
+        self.graph_captures += 1
+        dev = self.device
+        g = RequestGraph.static(self.model, tuple(y.shape), samples, chunk, self.normalize,
+                                dev)
+        g.load(y)
+        g.draw(gen)
+        # the request itself, on a side stream (the kernels built on first use)
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(dev)
+        side, main = self._side_stream, torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            maps = g.generate(self.model)
+        main.wait_stream(side)
+        for t in maps.values():
+            t.record_stream(main)  # made on the side stream, read on the caller's
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        cells = _launch_cells()
+        before = [counts[name] for counts, name in cells]
+        causes: list = []
+        g.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g.graph, pool=self._pool, capture_error_mode="thread_local"):
+                try:
+                    g.maps = g.generate(self.model)
+                except BaseException as e:
+                    causes.append(e)
+                    raise
+        except Exception as e:
+            self._after_failed_capture(key, causes[0] if causes else e)
+        else:
+            g.tally = [(counts, name, counts[name] - n)
+                       for (counts, name), n in zip(cells, before) if counts[name] != n]
+            self.graphs[key] = g
+        finally:
+            for (counts, name), n in zip(cells, before):
+                counts[name] = n  # the capture launched nothing
+        return maps
+
+    def _after_failed_capture(self, key: tuple, cause: BaseException) -> None:
+        """A capture that raised never reached its generators' epilogue: give
+        the resolver's generator and the card's default one a fresh state of
+        the same seed and offset (as ``Trainer._after_failed_capture``), and
+        serve ``key`` eagerly from now on."""
+        dev = self.device
+        default = torch.cuda.default_generators[dev.index if dev.index is not None
+                                                else torch.cuda.current_device()]
+        for gen in (self._rng, default):
+            gen.graphsafe_set_state(gen.clone_state())
+        self.graphs[key] = None
+        warnings.warn(f"uncertainty: capturing the request {key} as a CUDA graph failed "
+                      f"({type(cause).__name__}: {cause}); it is served eagerly",
+                      RuntimeWarning, stacklevel=3)
 
 
 def warmup(resolver: SuperResolver, lr_shape=(1, 32, 32, 4), tile_batch: Optional[int] = 16,
